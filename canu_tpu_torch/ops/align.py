@@ -1,19 +1,23 @@
-"""Anchored banded overlap verification (counterpart of canu_tpu.ops.align,
-Myers engine only).
+"""Anchored banded overlap verification (counterpart of canu_tpu.ops.align).
 
 Per candidate pair, on the device:
   1. anchors: shared syncmers between the oriented pair (from the
      device-resident ReadIndex, gathered by row id), diagonal-filtered and
      monotonized; the strand vote picks the orientation of raw pairs;
   2. seed: the middle anchor;
-  3. extension: forward and backward banded Myers extension from the seed
-     (ops.myers, kernel K1 on CUDA), the band centre following the anchor
-     chain by piecewise-linear interpolation;
+  3. extension: forward and backward banded extension from the seed, the
+     band centre following the anchor chain by piecewise-linear
+     interpolation, on one of two engines:
+       - myers (band 128, the default): the Myers bit-vector extension of
+         ops.myers, kernel K1 on CUDA, with +1 walls outside the band and
+         partial (in-envelope) endpoints;
+       - the INF-walled semi-global DP (any other band, a multiple of
+         128): ``banded_extend`` runs kernel K2 (ops/kernels/extend_cuda.py;
+         K3 above band 512) on CUDA and the plain PyTorch row loop
+         ``banded_extend_plain`` on the CPU.  This engine reports the full
+         extension as the partial one;
   4. post: the two directions fold into hangs + edit count -> erate, with
      the best in-envelope partial overlap as the fallback in partial mode.
-
-The INF-walled banded_extend reference and the x8 engine (ovlBandWidth
-other than 128) are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,6 +36,11 @@ from .kmerjoin import masked_median, pair_matches
 from .minhash import OverlapCandidates
 
 INF = 1 << 28
+SMAX = 4  # band-start slope clamp of the INF-walled engine (columns per row)
+
+# rows the plain INF-walled loop ran on CUDA tensors; the pipeline must
+# leave it 0 (kernel K2 runs there)
+PLAIN_CUDA_ROWS = 0
 
 # Wall breakdown of the LAST verify_overlaps call (seconds + counters):
 # device_wait (blocking result fetch), consume (host filtering) and
@@ -152,6 +161,119 @@ def _interp_centers(sub_xa, sub_xb, n_rows: int) -> torch.Tensor:
     f = torch.where(x > xp[:, -1:], fp[:, -1:], f)
     c = torch.round(f).to(torch.int32)
     return torch.repeat_interleave(c, CENTER_STRIDE, dim=1)[:, : n_rows + 1]
+
+
+# ---- INF-walled banded extension (bands other than 128) -----------------------
+
+
+def _band_starts(centers: torch.Tensor, b_len: torch.Tensor, band: int, n_rows: int):
+    """Band start o(i), rows 0..n_rows: the centre minus band/2 clipped into
+    [0, b_len], made monotonic, then slope-clamped to SMAX columns per row
+    (o'(i) = min(o(i), o'(i-1) + SMAX) = SMAX*i + cummin(o(j) - SMAX*j))."""
+    if centers.shape[1] < n_rows + 1:
+        raise ValueError(f"centers has {centers.shape[1]} columns, need n_rows+1 = {n_rows + 1}")
+    c = centers[:, : n_rows + 1].to(torch.int32)
+    o = torch.minimum(torch.clamp(c - band // 2, min=0), torch.clamp(b_len, min=0)[:, None])
+    o = torch.cummax(o, dim=1).values
+    ramp = SMAX * torch.arange(n_rows + 1, dtype=torch.int32, device=o.device)[None, :]
+    return torch.cummin(o - ramp, dim=1).values + ramp
+
+
+def banded_extend_plain(a, a_len, b, b_len, centers, band: int, n_rows: int):
+    """Semi-global banded extension from (0, 0), plain PyTorch row loop.
+
+    The port of canu_tpu.ops.align.banded_extend, and the reference kernels
+    K2 and K3 are checked against.  a uint8[B, LA] (row i reads
+    a[:, i-1]), a_len int32[B], b uint8[B, LB], b_len int32[B], centers
+    int32[B, >= n_rows+1].  Aligns A[0:a_len] against a prefix of B (A
+    exhausted) or a prefix of A against B[0:b_len] (B exhausted),
+    whichever costs fewer edits; cells outside the band are INF walls.
+    Returns (edits, a_used, b_used) int32[B].
+
+    Cells can hold INF + w (the closure adds w to an INF prefix-min), and
+    those values reach the outputs of failed extensions: int32 as in
+    canu_tpu, nothing saturates.  Rows past every a_len change nothing,
+    so the loop stops at min(n_rows, max a_len).
+    """
+    global PLAIN_CUDA_ROWS
+    B = a.shape[0]
+    dev = a.device
+    a_len = a_len.to(torch.int32)
+    b_len = b_len.to(torch.int32)
+    o_all = _band_starts(centers, b_len, band, n_rows)
+    w = torch.arange(band, dtype=torch.int32, device=dev)[None, :]
+    LA, LB = a.shape[1], b.shape[1]
+
+    o0 = o_all[:, 0]
+    j0 = o0[:, None] + w
+    D = torch.where(j0 <= b_len[:, None], j0, INF)
+    # "B exhausted at row 0" when b_len falls inside the row-0 band
+    w_col0 = b_len - o0
+    in0 = (w_col0 >= 0) & (w_col0 < band)
+    best_bx = torch.where(in0, torch.gather(D, 1, torch.clamp(w_col0, 0, band - 1)[:, None].long())[:, 0], INF)
+    aend_bx = torch.zeros(B, dtype=torch.int32, device=dev)
+    bend_bx = torch.where(in0, b_len, 0)
+    Dfin = torch.where((a_len == 0)[:, None], D, INF)
+    ofin = torch.where(a_len == 0, o0, 0)
+
+    last = min(n_rows, int(a_len.max())) if B else 0
+    if a.is_cuda:
+        PLAIN_CUDA_ROWS += max(0, last)
+    inf_l = torch.full((B, 1), INF, dtype=torch.int32, device=dev)
+    inf_r = torch.full((B, SMAX), INF, dtype=torch.int32, device=dev)
+    for i in range(1, last + 1):
+        o_i = o_all[:, i]
+        s = (o_i - o_all[:, i - 1]).long()[:, None]  # in [0, SMAX]
+        # D_prev at w+s (up) and w+s-1 (diag), INF outside the band
+        Dq = torch.cat([inf_l, D, inf_r], dim=1)
+        idx = w.long() + s
+        up = torch.gather(Dq, 1, idx + 1)
+        dg = torch.gather(Dq, 1, idx)
+        a_chr = a[:, min(i - 1, LA - 1)]
+        j = o_i[:, None] + w
+        b_chr = torch.gather(b, 1, torch.clamp(j - 1, 0, LB - 1).long())
+        sub = (a_chr[:, None] != b_chr).to(torch.int32)
+        valid_dg = (j >= 1) & (j <= b_len[:, None])
+        m = torch.minimum(up + 1, torch.where(valid_dg, dg + sub, INF))
+        # horizontal closure: D[w] = min_{w' <= w} m[w'] + (w - w')
+        r = torch.cummin(torch.clamp(m - w, max=INF), dim=1).values
+        D = torch.where(j <= b_len[:, None], r + w, INF)
+        live = i <= a_len
+        D = torch.where(live[:, None], D, INF)
+
+        w_col = b_len - o_i
+        in_band = (w_col >= 0) & (w_col < band) & live
+        cost = torch.where(in_band, torch.gather(D, 1, torch.clamp(w_col, 0, band - 1)[:, None].long())[:, 0], INF)
+        better = cost < best_bx
+        best_bx = torch.where(better, cost, best_bx)
+        aend_bx = torch.where(better, i, aend_bx)
+        bend_bx = torch.where(better, b_len, bend_bx)
+
+        at_fin = i == a_len
+        Dfin = torch.where(at_fin[:, None], D, Dfin)
+        ofin = torch.where(at_fin, o_i, ofin)
+
+    # A exhausted: the best cell of the captured final row (first on ties)
+    wbest = torch.argmin(Dfin, dim=1, keepdim=True)
+    cost_ax = torch.gather(Dfin, 1, wbest)[:, 0]
+    bend_ax = ofin + wbest[:, 0].to(torch.int32)
+    use_ax = cost_ax <= best_bx
+    edits = torch.where(use_ax, cost_ax, best_bx)
+    a_used = torch.where(use_ax, a_len, aend_bx)
+    b_used = torch.where(use_ax, bend_ax, bend_bx)
+    return edits.to(torch.int32), a_used.to(torch.int32), b_used.to(torch.int32)
+
+
+def banded_extend(a, a_len, b, b_len, centers, band: int, n_rows: int):
+    """banded_extend_plain's function: on CUDA tensors kernel K2, or K3
+    for the bands above the ones K2 holds in registers (an error beyond
+    K3's, no fallback); the plain loop on CPU tensors."""
+    if a.is_cuda:
+        from .kernels import extend_cuda as EX
+
+        kernel = EX.banded_extend_warp if band in EX.WARP_BANDS else EX.banded_extend_block
+        return kernel(a, a_len, b, b_len, centers, band, n_rows)
+    return banded_extend_plain(a, a_len, b, b_len, centers, band, n_rows)
 
 
 # ---- overlap verification ---------------------------------------------------
@@ -321,11 +443,24 @@ def _verify_grouped_myers(index, chunks, k: int, band: int, n_rows: int, orient:
         i += len(grp)
 
 
+def _verify_extend(index, chunks, k: int, band: int, n_rows: int, orient: bool):
+    """_verify_pre, one INF-walled extension (banded_extend) and
+    _verify_post per chunk; this engine has no partial endpoints, so the
+    full extension stands in for them.  Yields (sl, result tile) in order,
+    a generator like _verify_grouped_myers."""
+    for sl, a_idx, b_idx, fl, _rows in chunks:
+        ext_in, n_anchor, flipped, seedA, seedB, n_minor = _verify_pre(
+            index, a_idx, b_idx, fl, k, band, n_rows, orient)
+        e, au, bu = banded_extend(*ext_in, band, n_rows)
+        del ext_in
+        yield sl, _verify_post(n_anchor, flipped, seedA, seedB, n_minor, e, au, bu, e, au, bu)
+
+
 def verify_overlaps(readset: ReadSet, cand, k: int = 16, band: int = 128,
                     max_erate: float = 0.32, min_overlap: int = 500, chunk: int = 512,
                     min_shared: int = 4, partial: bool = False, palindromic_min: int = 0,
                     index=None, device=None) -> OverlapTable:
-    """Verify candidates with the banded Myers extension; returns OverlapTable.
+    """Verify candidates with the banded extension; returns OverlapTable.
 
     cand is OverlapCandidates (orientation given) or a raw int array
     [M, >=2] of (a_id, b_id) pairs from find_candidates — then the anchor
@@ -336,12 +471,9 @@ def verify_overlaps(readset: ReadSet, cand, k: int = 16, band: int = 128,
     gate (overlapInCore -G / forOBT mode).  palindromic_min > 0 (raw
     pairs) verifies pairs with that much minority-orientation support in
     both orientations.  index: a prebuilt ReadIndex to use instead of
-    get_read_index(readset, k).
+    get_read_index(readset, k).  The band picks the engine, as canu_tpu's
+    default does: 128 the Myers engine, any other the INF-walled DP.
     """
-    if band != 128:
-        raise NotImplementedError(
-            f"ovlBandWidth={band}: only the band-128 Myers engine is ported "
-            "(ROADMAP: banded_extend and kernel K2)")
     dev = resolve_device(device)
     orient = isinstance(cand, np.ndarray)
     if orient:
@@ -451,7 +583,11 @@ def verify_overlaps(readset: ReadSet, cand, k: int = 16, band: int = 128,
         prof["device_wait_s"] += t1 - t0
         prof["consume_s"] += time.monotonic() - t1
 
-    for sl, res in _verify_grouped_myers(index, chunk_specs, k, band, n_rows, orient, cap_q):
+    if band == 128:
+        results = _verify_grouped_myers(index, chunk_specs, k, band, n_rows, orient, cap_q)
+    else:
+        results = _verify_extend(index, chunk_specs, k, band, n_rows, orient)
+    for sl, res in results:
         pending.append((sl, res))
         if len(pending) > max_in_flight:
             _drain(fetch_group)

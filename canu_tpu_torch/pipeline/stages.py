@@ -51,8 +51,6 @@ def meryl(ctx: AssemblyCtx, tag: str, rs: ReadSet, device=None):
 
     def fn() -> None:
         _check_single_device(ctx.cfg)
-        if k > 16:
-            raise _not_ported(f"{tag}MerSize={k} (k > 16)", "two-lane k=22 k-mers")
         custom = str(ctx.cfg.get(tag + "OvlFrequentMers")).strip()
         if custom:
             raise _not_ported(f"{tag}OvlFrequentMers", "host k-mer counter")
@@ -106,7 +104,10 @@ def meryl(ctx: AssemblyCtx, tag: str, rs: ReadSet, device=None):
 
 
 def overlap(ctx: AssemblyCtx, tag: str, rs: ReadSet, fk, device=None) -> OverlapStore:
-    """Sketch -> candidates -> anchored banded verify -> OverlapStore."""
+    """Sketch -> candidates -> anchored banded verify -> OverlapStore.
+
+    {tag}OvlBandWidth 128 verifies on the Myers engine (kernel K1 on
+    CUDA); any other band on the INF-walled engine (kernel K2)."""
     from ..ops import align as AL
     from ..ops import minhash as MH
 
@@ -128,8 +129,6 @@ def overlap(ctx: AssemblyCtx, tag: str, rs: ReadSet, fk, device=None) -> Overlap
                 f"mhapMatchEngine={me} with {rs.n_reads} reads (the host hash-join)",
                 "find_candidates_join")
         band = int(cfg.get(tag + "OvlBandWidth"))
-        if band != 128:
-            raise _not_ported(f"{tag}OvlBandWidth={band}", "banded_extend")
 
         sub: dict[str, float] = {}  # sub-stage wall breakdown
         t_mark = time.monotonic()

@@ -17,6 +17,7 @@ from canu_tpu.stores.readset import ReadSet
 from canu_tpu_torch.convert import read_index_from_numpy
 from canu_tpu_torch.ops import align as TA
 from canu_tpu_torch.ops.minhash import OverlapCandidates
+from torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 TABLE_COLS = ("a_id", "b_id", "flipped", "a_bgn", "a_end", "b_bgn", "b_end", "erate_q")
 

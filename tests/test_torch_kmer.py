@@ -13,6 +13,7 @@ from canu_tpu.ops import kmer as JK
 from canu_tpu.sim.simulate import random_genome, simulate_reads
 from canu_tpu_torch.ops import hashing as TH
 from canu_tpu_torch.ops import kmer as TK
+from torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 CPU = torch.device("cpu")
 
@@ -53,8 +54,8 @@ def test_extract_kmers(k):
     np.testing.assert_array_equal(ts2.numpy(), np.asarray(rs2))
     np.testing.assert_array_equal(
         TK.unpack_bases(_t(words)).numpy(), np.asarray(JK.unpack_bases(jnp.asarray(words))))
-    with pytest.raises(NotImplementedError):
-        TK.extract_kmers_any(_t(words), torch.from_numpy(lengths), 22)
+    with pytest.raises(ValueError):  # k > 16 is two-lane (test_torch_kmer22.py) up to 32
+        TK.extract_kmers_any(_t(words), torch.from_numpy(lengths), 33)
 
 
 def test_sort_count_sentinel_sorts_last():

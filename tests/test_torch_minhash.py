@@ -12,6 +12,7 @@ from canu_tpu.ops import minhash as JM
 from canu_tpu.sim.simulate import random_genome, simulate_reads
 from canu_tpu_torch.ops import hashing as TH
 from canu_tpu_torch.ops import minhash as TM
+from torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
 @pytest.fixture(scope="module")

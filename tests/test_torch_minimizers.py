@@ -13,6 +13,7 @@ from canu_tpu.sim.simulate import random_genome, simulate_reads
 from canu_tpu_torch.convert import read_index_from_numpy
 from canu_tpu_torch.ops import hashing as TH
 from canu_tpu_torch.ops import minimizers as TMZ
+from torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 PLANES = ("words", "length", "mker", "mpos", "mstr")
 

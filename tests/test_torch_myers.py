@@ -16,6 +16,7 @@ import torch
 
 from canu_tpu.ops.myers import banded_extend_myers as jax_myers
 from canu_tpu_torch.ops import myers as TM
+from torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 from test_torch_myers_cuda import NAMES, _cases, _mutate
 
 

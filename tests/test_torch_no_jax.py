@@ -31,10 +31,20 @@ ctx = make_ctx(tempfile.mkdtemp(), "t", cfg)
 fk = stages.meryl(ctx, "cor", rs, device="cpu")
 st = stages.overlap(ctx, "cor", rs, fk, device="cpu")
 assert len(st) > 0, "empty store"
+# the corrected-read path: two-lane k=22 meryl, the INF-walled engine at band 256
+rs2, _ = simulate_reads(g, coverage=8, mean_len=800, min_len=600, max_len=1000,
+                        error_rate=0.03, seed=3)
+cfg2 = Config()
+cfg2.set("genomeSize", 6_000)
+cfg2.set("utgOvlBandWidth", 256)
+ctx2 = make_ctx(tempfile.mkdtemp(), "t", cfg2)
+fk2 = stages.meryl(ctx2, "utg", rs2, device="cpu")
+st2 = stages.overlap(ctx2, "utg", rs2, fk2, device="cpu")
+assert fk2.k == 22 and len(st2) > 0, "empty utg store"
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                 if sys.modules[m] is not None)
 assert not loaded, loaded
-print("ROWS", len(st))
+print("ROWS", len(st), len(st2))
 """
 
 
@@ -45,7 +55,7 @@ import sys
 import canu_tpu_torch
 from canu_tpu_torch.pipeline import stages
 from canu_tpu_torch.ops import align, kmer, minhash, minimizers, myers
-from canu_tpu_torch.ops.kernels import myers_cuda
+from canu_tpu_torch.ops.kernels import _nvcc, extend_cuda, myers_cuda
 import canu_tpu_torch.convert
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not loaded, loaded
@@ -59,6 +69,7 @@ def _run(script: str, tmp_path) -> subprocess.CompletedProcess:
     # reaches for jax only when JAX_PLATFORMS is unset
     env.pop("CANU_TPU_NO_COMPILE_CACHE", None)
     env.pop("JAX_PLATFORMS", None)
+    env["OMP_NUM_THREADS"] = "1"  # as one_torch_thread (torch_cases.py)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
     return subprocess.run([sys.executable, "-c", script], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=600)

@@ -17,6 +17,7 @@ from canu_tpu.sim.simulate import random_genome, simulate_reads
 from canu_tpu.stores.overlaps import OverlapStore as JaxOverlapStore
 from canu_tpu_torch.pipeline import stages as TS
 from canu_tpu_torch.stores.overlaps import _COLS, store_digest
+from torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 GENOME = 15_000
 
