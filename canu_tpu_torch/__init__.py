@@ -15,16 +15,11 @@ found at the same path:
   * in-RAM overlap store               -> canu_tpu_torch.stores.overlaps
   * meryl / overlap pipeline stages    -> canu_tpu_torch.pipeline.stages
 
-The numpy-only modules of ``canu_tpu`` (config, ReadSet, the simulator,
-bit packing, the report, the pipeline context, error estimation) are
-imported from there, not copied.  This package never imports jax.
+The numpy-only pieces of ``canu_tpu`` that the port uses (config,
+ReadSet, the simulator, bit packing, FASTA/FASTQ reading, the report,
+the pipeline context, error estimation) are copied here at their
+counterparts' paths.  This package imports nothing of ``canu_tpu`` and
+never imports jax.
 """
-
-import os as _os
-
-# Importing any canu_tpu module runs canu_tpu/__init__.py, which imports
-# jax to configure its compile cache unless this opt-out is set.  Set it
-# before the first canu_tpu import so the port stays jax-free.
-_os.environ.setdefault("CANU_TPU_NO_COMPILE_CACHE", "1")
 
 __version__ = "0.1.0"

@@ -28,9 +28,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from canu_tpu.stores.readset import ReadSet
-
 from ..device import resolve_device
+from ..stores.readset import ReadSet
 from .kmer import INVALID_KMER, unpack_bases
 from .kmerjoin import masked_median, pair_matches
 from .minhash import OverlapCandidates
@@ -384,8 +383,12 @@ def _verify_post(n_anchor, flipped, seedA, seedB, n_minor, e, au, bu, pe, pa, pb
     ], dim=1).to(torch.int32)
 
 
-# chunks fused per Myers launch: B = 2 * chunk * MYERS_GROUP extensions
-MYERS_GROUP = 4
+# chunks fused per Myers launch at most: B = 2 * chunk * group extensions.
+# K1 gives each extension a thread and a launch takes as long as its
+# longest extension, so more chunks a launch fill more of the card (16
+# against 4 cut the cor stage's summed K1 time about 2.6x on an H100;
+# PERF.md).  The memory budget may make a group smaller (_verify_window).
+MYERS_GROUP = 16
 
 # Share of the device memory free at the start of verify that staged but
 # unconsumed chunk inputs may hold; CPU runs use CPU_INFLIGHT_BYTES.  The
@@ -394,38 +397,52 @@ INFLIGHT_FREE_FRACTION = 0.25
 CPU_INFLIGHT_BYTES = 2048e6
 _INFLIGHT_BACKOFF = 1.0
 
+# peak bytes per extension and row of the band schedule's temporaries
+# while a group is extended (ops.myers._schedule's int32 target,
+# envelopes and o with the int64 indices cummax/cummin return, then
+# _shift_bits' int32 shifts; the A/B copies the kernel pads)
+SCHEDULE_BYTES_PER_ROW = 40
+
 
 def _chunk_staging_bytes(chunk: int, n_rows: int, band: int) -> int:
     """Device bytes held per staged chunk: 2*chunk extensions of A plane
-    (uint8), B plane (uint8) and int32 centres."""
-    return 2 * chunk * (n_rows + (n_rows + band) + 4 * (n_rows + 1) + 64)
+    (uint8), B plane (uint8), int32 centres and the band schedule's
+    temporaries."""
+    return 2 * chunk * (n_rows + (n_rows + band) + (4 + SCHEDULE_BYTES_PER_ROW) * (n_rows + 1)
+                        + 64)
 
 
-def _max_in_flight(chunk: int, n_rows: int, band: int, device: torch.device) -> int:
+def _verify_window(chunk: int, n_rows: int, band: int, device: torch.device) -> tuple[int, int]:
+    """(chunks per Myers group, chunks in flight), both within the memory
+    budget: it holds n chunks' staging (1 to 128); a group takes at most
+    half of them, so the next group is staged while one drains, and at
+    most MYERS_GROUP."""
     if device.type == "cuda":
         free, _total = torch.cuda.mem_get_info(device)
         budget = free * INFLIGHT_FREE_FRACTION
     else:
         budget = CPU_INFLIGHT_BYTES
     n = int(budget * _INFLIGHT_BACKOFF // max(1, _chunk_staging_bytes(chunk, n_rows, band)))
-    return max(2 * MYERS_GROUP, min(128, n))
+    n = max(1, min(128, n))
+    return max(1, min(MYERS_GROUP, n // 2)), n
 
 
 def _verify_grouped_myers(index, chunks, k: int, band: int, n_rows: int, orient: bool,
-                          partial_cap_q: int):
-    """_verify_pre per chunk, ONE Myers extension per group of MYERS_GROUP
-    chunks (remainder chunks run singly), then _verify_post per chunk.
-    chunks: list of (sl, a_idx, b_idx, fl, chunk_rows).  Yields (sl,
-    result tile) in order; a generator, so the caller's bounded drain
-    caps how many chunks' inputs are staged at once."""
+                          partial_cap_q: int, group: int):
+    """_verify_pre per chunk, ONE Myers extension per group of `group`
+    chunks (the last group takes the chunks that remain), then
+    _verify_post per chunk.  chunks: list of (sl, a_idx, b_idx, fl,
+    chunk_rows).  Yields (sl, result tile) in order; a generator, so the
+    caller's bounded drain caps how many chunks' inputs are staged at
+    once.  (canu_tpu runs its remainder chunks singly, to reuse one
+    compiled shape; extensions are independent, so a group's results do
+    not depend on its size.)"""
     from .myers import banded_extend_myers
 
     i = 0
     n = len(chunks)
     while i < n:
-        specs = chunks[i : i + MYERS_GROUP]
-        if len(specs) < MYERS_GROUP:
-            specs = [specs[0]]
+        specs = chunks[i : i + group]
         grp = [(sl, _verify_pre(index, a_idx, b_idx, fl, k, band, n_rows, orient), rows)
                for sl, a_idx, b_idx, fl, rows in specs]
         parts = [p[1][0] for p in grp]
@@ -563,7 +580,7 @@ def verify_overlaps(readset: ReadSet, cand, k: int = 16, band: int = 128,
 
     # bounded in-flight window: draining a result waits for the device,
     # which retires every buffer dispatched before it
-    max_in_flight = _max_in_flight(chunk, n_rows, band, dev)
+    group, max_in_flight = _verify_window(chunk, n_rows, band, dev)
     fetch_group = max(4, min(32, max_in_flight // 2))
     t_loop0 = time.monotonic()
     prof = {"device_wait_s": 0.0, "consume_s": 0.0, "n_chunks": len(chunk_specs),
@@ -584,7 +601,8 @@ def verify_overlaps(readset: ReadSet, cand, k: int = 16, band: int = 128,
         prof["consume_s"] += time.monotonic() - t1
 
     if band == 128:
-        results = _verify_grouped_myers(index, chunk_specs, k, band, n_rows, orient, cap_q)
+        results = _verify_grouped_myers(index, chunk_specs, k, band, n_rows, orient, cap_q,
+                                        group)
     else:
         results = _verify_extend(index, chunk_specs, k, band, n_rows, orient)
     for sl, res in results:

@@ -24,10 +24,9 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from canu_tpu.stores.readset import ReadSet
-from canu_tpu.utils.bitpack import n_words
-
 from ..device import resolve_device
+from ..stores.readset import ReadSet
+from ..utils.bitpack import n_words
 from .hashing import MASK32, mix32, u32_numpy, u32_tensor
 
 # Sorts after every valid canonical k-mer: a canonical min(fw, rc) can

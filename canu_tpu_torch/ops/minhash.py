@@ -19,9 +19,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from canu_tpu.stores.readset import ReadSet
-
 from ..device import resolve_device
+from ..stores.readset import ReadSet
 from .hashing import hash_seeds, mix32, u32_numpy, u32_tensor
 from .kmer import INVALID_KMER, FrequentKmers, block_tensors, extract_kmers_any, length_bucketed_blocks
 

@@ -16,10 +16,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from canu_tpu.stores.readset import ReadSet
-from canu_tpu.utils.bitpack import n_words
-
 from ..device import resolve_device
+from ..stores.readset import ReadSet
+from ..utils.bitpack import n_words
 from .hashing import mix32, u32_tensor
 from .kmer import INVALID_KMER, block_tensors, extract_kmers, extract_kmers_any, length_bucketed_blocks
 

@@ -7,13 +7,16 @@ the algorithm family of the reference's vendored edlib) runs one pair per
 lane with the 128-column band held as 4 chained 32-bit words; the band
 follows the anchor chain at a slope of <= 1 column per row.
 
-Split as in canu_tpu: ``_myers_prep`` (band schedule -> per-row shift
-stream and entering-character indices) and ``_myers_init`` (row-0 state)
-in plain torch, then the row loop, then ``_myers_finish``.  The row loop
-is kernel K1: on a CUDA tensor ``banded_extend_myers`` launches the
-hand-written kernel (ops/kernels/myers_cuda.py, csrc/myers_tile.cu); on a
-CPU tensor it runs the plain PyTorch loop ``_myers_segment`` below, which
-is also the reference the kernel is checked against.
+Split as in canu_tpu: the band schedule and ``_myers_init`` (row-0
+state) in plain torch, then the row loop, then ``_myers_finish``.  The
+row loop is kernel K1: on a CUDA tensor ``banded_extend_myers`` launches
+the hand-written kernel (ops/kernels/myers_cuda.py, csrc/myers_tile.cu)
+on the schedule's shifts packed one bit a row (``_shift_bits``); on a CPU
+tensor it runs the plain PyTorch loop ``_myers_segment`` below, on
+``_myers_prep``'s per-row shift and entering-character streams, which is
+also the reference the kernel is checked against.  The schedule moves the
+band 0 or 1 column a row, so the shift is one bit and the entering index
+o(i) + band - 1 follows from the carried o.
 
 Words are uint32 values held in int64 tensors and masked to 32 bits after
 every shift, complement and add, so the wrap-around arithmetic of the
@@ -138,17 +141,40 @@ def _shift_chain(X: torch.Tensor, ins: torch.Tensor) -> torch.Tensor:
     return (X >> 1) | ((hi << 31) & MASK32)
 
 
-def _myers_prep(b_len, centers, band: int, n_rows: int):
-    """Band schedule -> (shift stream uint8[n_rows, B], entering-char
-    index int32[n_rows, B], o0 int32[B]) — row-major, so neighbouring
-    lanes of one row are adjacent in memory."""
+def _schedule(b_len, centers, band: int, n_rows: int) -> torch.Tensor:
+    """o(i) int32[B, n_rows + 1] for rows 0..n_rows, the centres padded
+    with their last value past their end."""
     pad = n_rows + 1 - centers.shape[1]
     if pad > 0:
         centers = torch.cat([centers, centers[:, -1:].expand(-1, pad)], dim=1)
-    o_all = _band_schedule(centers[:, : n_rows + 1].to(torch.int32), b_len, band)
+    return _band_schedule(centers[:, : n_rows + 1].to(torch.int32), b_len, band)
+
+
+def _myers_prep(b_len, centers, band: int, n_rows: int):
+    """Band schedule -> (shift stream uint8[n_rows, B], entering-char
+    index int32[n_rows, B], o0 int32[B]) — row-major, so neighbouring
+    lanes of one row are adjacent in memory.  The plain loop's inputs."""
+    o_all = _schedule(b_len, centers, band, n_rows)
     s_step = ((o_all[:, 1:] - o_all[:, :-1]) & 0xFF).to(torch.uint8).T.contiguous()
     ent_idx = (o_all[:, 1:] + (band - 1)).T.contiguous()
     return s_step, ent_idx, o_all[:, 0].contiguous()
+
+
+def _shift_bits(o_all: torch.Tensor, n_run: int) -> torch.Tensor:
+    """The schedule's shifts of rows 1..n_run, one bit a row: int32[ceil(
+    n_run / 32), B] words (uint32 bit patterns), bit r of word w = the
+    shift of row 32w + r + 1.  Kernel K1's input in place of the plain
+    loop's byte stream.
+
+    The shift o(i) - o(i-1) is 0 or 1 (the schedule is monotonic with
+    slope <= 1), so the bits are disjoint and an int32 sum of them is
+    their OR, bit 31 included."""
+    B = o_all.shape[0]
+    nw = -(-n_run // WORD)
+    d = o_all[:, 1 : n_run + 1] - o_all[:, :n_run]
+    d = torch.nn.functional.pad(d, (0, nw * WORD - n_run)).reshape(B, nw, WORD)
+    sh = torch.arange(WORD, dtype=torch.int32, device=o_all.device)
+    return (d << sh).sum(dim=2, dtype=torch.int32).T.contiguous()
 
 
 def _myers_init(b, b_len, a_len, o0, band: int) -> MyersCarry:
@@ -335,17 +361,16 @@ def _rows_plain(carry, a, b, s_rows, ent_rows, a_len, b_len, cap_q, band, seg, r
     return carry
 
 
-def _rows_kernel(carry, a, b, s_rows, ent_rows, a_len, b_len, cap_q, band, seg, run_segs):
+def _rows_kernel(carry, a, b, s_bits, a_len, b_len, cap_q, n_run):
+    """Rows 1..n_run of every lane in one launch of kernel K1."""
     from .kernels.myers_cuda import myers_rows_cuda
 
-    n = run_segs * seg
-    planes = myers_rows_cuda(
-        _carry_pack(carry), a[:, :n].T.contiguous(), s_rows[:n], ent_rows[:n],
-        b.contiguous(), a_len.contiguous(), b_len.contiguous(), cap_q)
+    planes = myers_rows_cuda(_carry_pack(carry), a, s_bits, b, a_len.contiguous(),
+                             b_len.contiguous(), n_run, cap_q)
     return _carry_unpack(planes)
 
 
-def _extend(rows_fn, a, a_len, b, b_len, centers, band, n_rows, segment, max_rows,
+def _extend(kernel: bool, a, a_len, b, b_len, centers, band, n_rows, segment, max_rows,
             partial_cap_q):
     if band != NW * WORD:
         raise ValueError(f"the Myers engine is specialised to band={NW * WORD}, got {band}")
@@ -362,9 +387,18 @@ def _extend(rows_fn, a, a_len, b, b_len, centers, band, n_rows, segment, max_row
     # partial condition: edits*20000 <= cap_q*(a+b), i.e. edits within
     # cap_q (0.01% fixed point) of the mean span (a+b)/2
     cap_q = 0 if partial_cap_q is None else int(partial_cap_q)
-    s_rows, ent_rows, o0 = _myers_prep(b_len, centers, band, n_seg * seg)
-    carry = _myers_init(b, b_len, a_len, o0, band)
-    carry = rows_fn(carry, a, b, s_rows, ent_rows, a_len, b_len, cap_q, band, seg, run_segs)
+    if kernel:
+        o_all = _schedule(b_len, centers, band, n_seg * seg)
+        carry = _myers_init(b, b_len, a_len, o_all[:, 0].contiguous(), band)
+        s_bits = _shift_bits(o_all, run_segs * seg)
+        del o_all
+        carry = _rows_kernel(carry, a.contiguous(), b.contiguous(), s_bits, a_len, b_len,
+                             cap_q, run_segs * seg)
+    else:
+        s_rows, ent_rows, o0 = _myers_prep(b_len, centers, band, n_seg * seg)
+        carry = _myers_init(b, b_len, a_len, o0, band)
+        carry = _rows_plain(carry, a, b, s_rows, ent_rows, a_len, b_len, cap_q, band, seg,
+                            run_segs)
     out = _myers_finish(carry, a_len, b_len, band)
     return out if partial_cap_q is not None else out[:3]
 
@@ -384,8 +418,7 @@ def banded_extend_myers(a, a_len, b, b_len, centers, band: int = 128, n_rows: in
     CUDA tensors run the row loop in kernel K1; CPU tensors run the plain
     PyTorch loop.
     """
-    rows_fn = _rows_kernel if a.is_cuda else _rows_plain
-    return _extend(rows_fn, a, a_len, b, b_len, centers, band, n_rows, segment,
+    return _extend(a.is_cuda, a, a_len, b, b_len, centers, band, n_rows, segment,
                    max_rows, partial_cap_q)
 
 
@@ -395,5 +428,5 @@ def banded_extend_myers_plain(a, a_len, b, b_len, centers, band: int = 128,
                               partial_cap_q: int | None = None):
     """banded_extend_myers through the plain PyTorch row loop on any
     device: the reference kernel K1 is compared with."""
-    return _extend(_rows_plain, a, a_len, b, b_len, centers, band, n_rows, segment,
+    return _extend(False, a, a_len, b, b_len, centers, band, n_rows, segment,
                    max_rows, partial_cap_q)

@@ -9,7 +9,20 @@ device budgets wait for the correction port.
 
 from __future__ import annotations
 
-from canu_tpu.pipeline.configure import _BYTES_PER_PAIR, Resources
+from dataclasses import dataclass
+
+
+@dataclass
+class Resources:
+    spill_pairs: int
+    sort_mem_bytes: int
+    sort_threads: int
+    decisions: dict
+
+
+# bytes per overlap row across the build path (REC on disk + columnar
+# store copy + mirror), with headroom
+_BYTES_PER_PAIR = 120
 
 
 def configure_resources(cfg, log=None) -> Resources:

@@ -16,11 +16,10 @@ import time
 
 import numpy as np
 
-from canu_tpu.ops.errorest import estimate_error_rates
-from canu_tpu.stores.readset import ReadSet
-
 from ..convert import frequent_from_npz
 from ..device import resolve_device
+from ..ops.errorest import estimate_error_rates
+from ..stores.readset import ReadSet
 from ..stores.overlaps import OverlapStore
 from .driver import AssemblyCtx, run_stage
 

@@ -17,6 +17,7 @@ from canu_tpu.stores.readset import ReadSet
 from canu_tpu_torch.convert import read_index_from_numpy
 from canu_tpu_torch.ops import align as TA
 from canu_tpu_torch.ops.minhash import OverlapCandidates
+from canu_tpu_torch.stores.readset import ReadSet as TorchReadSet
 from torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 TABLE_COLS = ("a_id", "b_id", "flipped", "a_bgn", "a_end", "b_bgn", "b_end", "erate_q")
@@ -34,14 +35,16 @@ def sim():
     c = max(codes, key=len)
     h = len(c) // 2
     codes.append(np.concatenate([c[:h], (3 - c[h:])[::-1]]).astype(np.uint8))
-    rs = ReadSet.from_codes_list(codes, [f"r{i}" for i in range(len(codes))])
+    names = [f"r{i}" for i in range(len(codes))]
+    rs = ReadSet.from_codes_list(codes, names)
+    trs = TorchReadSet.from_codes_list(codes, names)  # the port's own read set
     sk = JM.build_sketches(rs, k=16, n_hashes=128, block_size=64)
     pairs = JM.find_candidates(sk, min_matches=2)
     ji = jax_index(rs, k=16)
     ti = read_index_from_numpy(
         *(np.asarray(getattr(ji, n)) for n in ("words", "length", "mker", "mpos", "mstr")),
         ji.n_reads, ji.k, ji.pm, device="cpu")
-    return rs, pairs, ji, ti
+    return rs, trs, pairs, ji, ti
 
 
 def _eq(ref, got, name=""):
@@ -77,7 +80,7 @@ def test_interp_centers():
 
 @pytest.mark.parametrize("orient", [True, False], ids=["orient", "given"])
 def test_anchor_compact_and_verify_pre(sim, orient):
-    rs, pairs, ji, ti = sim
+    _rs, _trs, pairs, ji, ti = sim
     a_idx = (pairs[:96, 0] - 1).astype(np.int32)
     b_idx = (pairs[:96, 1] - 1).astype(np.int32)
     fl = (np.arange(96) % 3 == 0)
@@ -113,7 +116,7 @@ def _tables_equal(ref, got):
 
 @pytest.mark.parametrize("mode", ["raw", "partial", "palindromic", "candidates"])
 def test_verify_overlaps(sim, mode):
-    rs, pairs, ji, ti = sim
+    rs, trs, pairs, ji, ti = sim
     kw = dict(k=16, band=128, max_erate=0.3, min_overlap=300, chunk=64, min_shared=4,
               partial=mode in ("partial", "palindromic"),
               palindromic_min=4 if mode == "palindromic" else 0)
@@ -127,7 +130,7 @@ def test_verify_overlaps(sim, mode):
                                  b_id=pairs[:, 1].astype(np.int32), flipped=fl, diag=z,
                                  n_shared=z, a_lo=z, a_hi=z, b_lo=z, b_hi=z)
     ref = JA.verify_overlaps(rs, cand, engine="myers", index=ji, **kw)
-    got = TA.verify_overlaps(rs, cand, index=ti, device="cpu", **kw)
+    got = TA.verify_overlaps(trs, cand, index=ti, device="cpu", **kw)
     assert len(got) > 0
     _tables_equal(ref, got)
     n_chunks = -(-len(pairs) // kw["chunk"])
@@ -136,3 +139,43 @@ def test_verify_overlaps(sim, mode):
     else:
         assert TA.LAST_PROFILE["n_chunks"] == n_chunks
     assert TA.LAST_PROFILE["n_candidates"] == len(pairs)
+
+
+def test_tight_budget_shrinks_the_myers_group(sim, monkeypatch):
+    cpu = torch.device("cpu")
+    chunk, n_rows = 64, 1024
+    staging = TA._chunk_staging_bytes(chunk, n_rows, 128)
+    # the schedule's temporaries are counted with the A/B planes and centres
+    assert staging >= 2 * chunk * (4 + TA.SCHEDULE_BYTES_PER_ROW) * n_rows
+    monkeypatch.setattr(TA, "CPU_INFLIGHT_BYTES", 1000 * staging)
+    assert TA._verify_window(chunk, n_rows, 128, cpu) == (TA.MYERS_GROUP, 128)
+    # never more in flight than the budget holds; a group takes half of it
+    monkeypatch.setattr(TA, "CPU_INFLIGHT_BYTES", 6 * staging)
+    assert TA._verify_window(chunk, n_rows, 128, cpu) == (3, 6)
+    monkeypatch.setattr(TA, "_INFLIGHT_BACKOFF", 0.5)  # the driver's OOM retry
+    assert TA._verify_window(chunk, n_rows, 128, cpu) == (1, 3)
+    monkeypatch.setattr(TA, "CPU_INFLIGHT_BYTES", staging / 10)
+    assert TA._verify_window(chunk, n_rows, 128, cpu) == (1, 1)
+
+    # verify runs one extension per (smaller) group, with the same result
+    from canu_tpu_torch.ops import myers as TM
+
+    _rs, trs, pairs, _ji, ti = sim
+    kw = dict(k=16, band=128, max_erate=0.3, min_overlap=300, chunk=chunk, min_shared=4,
+              index=ti, device="cpu")
+    real, calls = TM.banded_extend_myers, []
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].shape[0])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(TM, "banded_extend_myers", counted)
+    tight = TA.verify_overlaps(trs, pairs, **kw)
+    n_chunks = -(-len(pairs) // chunk)
+    assert calls == [2 * chunk] * n_chunks  # group 1: one chunk a launch
+    monkeypatch.setattr(TA, "CPU_INFLIGHT_BYTES", 1000 * staging)
+    monkeypatch.setattr(TA, "_INFLIGHT_BACKOFF", 1.0)
+    calls.clear()
+    roomy = TA.verify_overlaps(trs, pairs, **kw)
+    assert len(calls) == -(-n_chunks // TA.MYERS_GROUP) < n_chunks
+    _tables_equal(roomy, tight)

@@ -13,10 +13,13 @@ import os
 import numpy as np
 import pytest
 
-from canu_tpu.config import Config
+import canu_tpu.config as JC
+import canu_tpu.pipeline.driver as JD
+import canu_tpu.sim.simulate as JSIM
+import canu_tpu_torch.config as TC
+import canu_tpu_torch.pipeline.driver as TD
+import canu_tpu_torch.sim.simulate as TSIM
 from canu_tpu.pipeline import stages as JS
-from canu_tpu.pipeline.driver import make_ctx
-from canu_tpu.sim.simulate import random_genome, simulate_reads
 from canu_tpu_torch.pipeline import stages as TS
 from canu_tpu_torch.stores.overlaps import _COLS, store_digest
 from torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
@@ -29,18 +32,24 @@ DRIVES = {"obt": {}, "utg256": {"utgOvlBandWidth": 256}}
 def runs(tmp_path_factory):
     # planted repeats give the k=22 frequent-mer table entries, so the
     # sketches drop folded two-lane keys; 3% error is the corrected regime
-    g = random_genome(GENOME, seed=61, repeat_spec=[(400, 8)])
-    rs, _ = simulate_reads(g, coverage=8, mean_len=1200, min_len=700, max_len=1600,
-                           error_rate=0.03, seed=62)
+    # each package runs on its own Config, context and read set, simulated
+    # by its own simulator from the same seeds
+    pkgs = (("jax", JS, JC, JD, JSIM, {}), ("torch", TS, TC, TD, TSIM, {"device": "cpu"}))
+    reads = {}
+    for name, _S, _C, _D, SIM, _kw in pkgs:
+        g = SIM.random_genome(GENOME, seed=61, repeat_spec=[(400, 8)])
+        reads[name], _ = SIM.simulate_reads(g, coverage=8, mean_len=1200, min_len=700,
+                                            max_len=1600, error_rate=0.03, seed=62)
     out = {}
     for drive, keys in DRIVES.items():
         tag = drive[:3]
-        for name, S, kw in (("jax", JS, {}), ("torch", TS, {"device": "cpu"})):
-            cfg = Config()
+        for name, S, C, D, _SIM, kw in pkgs:
+            rs = reads[name]
+            cfg = C.Config()
             cfg.set("genomeSize", GENOME)
             for key, v in keys.items():
                 cfg.set(key, v)
-            ctx = make_ctx(str(tmp_path_factory.mktemp(f"{drive}-{name}")), "t", cfg)
+            ctx = D.make_ctx(str(tmp_path_factory.mktemp(f"{drive}-{name}")), "t", cfg)
             fk = S.meryl(ctx, tag, rs, **kw)
             st = S.overlap(ctx, tag, rs, fk, **kw)
             out[drive, name] = (ctx, fk, st)

@@ -19,6 +19,7 @@ from canu_tpu.sim.simulate import random_genome, simulate_reads
 from canu_tpu.stores.readset import ReadSet
 from canu_tpu_torch.convert import read_index_from_numpy
 from canu_tpu_torch.ops import align as TA
+from canu_tpu_torch.stores.readset import ReadSet as TorchReadSet
 from torch_cases import edge_cases, one_torch_thread, x8_cases  # noqa: F401
 
 TABLE_COLS = ("a_id", "b_id", "flipped", "a_bgn", "a_end", "b_bgn", "b_end", "erate_q")
@@ -60,18 +61,20 @@ def sim():
     c = max(codes, key=len)
     h = len(c) // 2
     codes.append(np.concatenate([c[:h], (3 - c[h:])[::-1]]).astype(np.uint8))
-    rs = ReadSet.from_codes_list(codes, [f"r{i}" for i in range(len(codes))])
+    names = [f"r{i}" for i in range(len(codes))]
+    rs = ReadSet.from_codes_list(codes, names)
+    trs = TorchReadSet.from_codes_list(codes, names)  # the port's own read set
     sk = JM.build_sketches(rs, k=K, n_hashes=128, block_size=64)
     pairs = JM.find_candidates(sk, min_matches=2)
     ji = jax_index(rs, k=K)
     ti = read_index_from_numpy(
         *(np.asarray(getattr(ji, n)) for n in ("words", "length", "mker", "mpos", "mstr")),
         ji.n_reads, ji.k, ji.pm, device="cpu")
-    return rs, pairs, ji, ti
+    return rs, trs, pairs, ji, ti
 
 
 def test_verify_overlaps_band256_partial_palindromic(sim, monkeypatch):
-    rs, pairs, ji, ti = sim
+    rs, trs, pairs, ji, ti = sim
     kw = dict(k=K, band=256, max_erate=0.12, min_overlap=300, chunk=64, min_shared=3,
               partial=True, palindromic_min=3)
     # canu_tpu picks its xla engine off the TPU, the port the INF-walled
@@ -80,7 +83,7 @@ def test_verify_overlaps_band256_partial_palindromic(sim, monkeypatch):
     calls = []
     real = TA.banded_extend
     monkeypatch.setattr(TA, "banded_extend", lambda *a: calls.append(a[0].shape) or real(*a))
-    got = TA.verify_overlaps(rs, pairs, index=ti, device="cpu", **kw)
+    got = TA.verify_overlaps(trs, pairs, index=ti, device="cpu", **kw)
     # the band alone picked the INF-walled engine, one call per chunk
     assert len(calls) == TA.LAST_PROFILE["n_chunks"]
     assert len(got) > 0 and len(got) == len(ref)

@@ -13,6 +13,7 @@ from canu_tpu.ops import kmer as JK
 from canu_tpu.sim.simulate import random_genome, simulate_reads
 from canu_tpu_torch.ops import hashing as TH
 from canu_tpu_torch.ops import kmer as TK
+from canu_tpu_torch.sim import simulate as torch_sim
 from torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 CPU = torch.device("cpu")
@@ -78,11 +79,13 @@ def test_sort_count_sentinel_sorts_last():
 
 
 def test_count_readset_histogram_and_frequent():
-    g = random_genome(20_000, seed=5, repeat_spec=[(300, 10)])
-    rs, _ = simulate_reads(g, coverage=8, mean_len=1200, min_len=600, max_len=2000,
-                           error_rate=0.08, seed=6)
+    sim = dict(coverage=8, mean_len=1200, min_len=600, max_len=2000, error_rate=0.08, seed=6)
+    rs, _ = simulate_reads(random_genome(20_000, seed=5, repeat_spec=[(300, 10)]), **sim)
+    # the port's own read set, from the port's simulator with the same seeds
+    trs, _ = torch_sim.simulate_reads(
+        torch_sim.random_genome(20_000, seed=5, repeat_spec=[(300, 10)]), **sim)
     jk = JK.count_readset_device(rs, k=16, block_size=64)
-    tk = TK.count_readset_device(rs, k=16, block_size=64, device="cpu")
+    tk = TK.count_readset_device(trs, k=16, block_size=64, device="cpu")
     # hist[0] counts padding positions, which the port does not pad
     np.testing.assert_array_equal(tk.histogram(1000)[1:], jk.histogram(1000)[1:])
     assert tk.n_distinct() == jk.n_distinct() and tk.n_total() == jk.n_total()
@@ -101,8 +104,8 @@ def test_count_readset_histogram_and_frequent():
             assert a.kmers.dtype == b.kmers.dtype
             np.testing.assert_array_equal(a.fraction, b.fraction)
     with pytest.raises(NotImplementedError):
-        TK.count_readset_device(rs, k=16, max_instances=10, device="cpu")
-    blocks_t = list(TK.length_bucketed_blocks(rs, 17))
+        TK.count_readset_device(trs, k=16, max_instances=10, device="cpu")
+    blocks_t = list(TK.length_bucketed_blocks(trs, 17))
     blocks_j = list(JK.length_bucketed_blocks(rs, 17))
     assert [w for _, w in blocks_t] == [w for _, w in blocks_j]
     for (a, _), (b, _) in zip(blocks_t, blocks_j):

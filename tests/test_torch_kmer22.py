@@ -18,6 +18,7 @@ from canu_tpu_torch.ops import hashing as TH
 from canu_tpu_torch.ops import kmer as TK
 from canu_tpu_torch.ops import minhash as TM
 from canu_tpu_torch.ops.minimizers import build_read_index as torch_build_index
+from canu_tpu_torch.sim import simulate as torch_sim
 from torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 CPU = torch.device("cpu")
@@ -34,10 +35,12 @@ def _u32(t):
 
 @pytest.fixture(scope="module")
 def reads():
-    g = random_genome(12_000, seed=31, repeat_spec=[(300, 10)])
-    rs, _ = simulate_reads(g, coverage=6, mean_len=900, min_len=400, max_len=1500,
-                           error_rate=0.03, seed=32)
-    return rs
+    # each package's own read set, from its own simulator with the same seeds
+    sim = dict(coverage=6, mean_len=900, min_len=400, max_len=1500, error_rate=0.03, seed=32)
+    rs, _ = simulate_reads(random_genome(12_000, seed=31, repeat_spec=[(300, 10)]), **sim)
+    trs, _ = torch_sim.simulate_reads(
+        torch_sim.random_genome(12_000, seed=31, repeat_spec=[(300, 10)]), **sim)
+    return rs, trs
 
 
 def _block(seed, B=12, W=8):
@@ -87,8 +90,8 @@ def test_two_lane_kmers(reads, k):
     assert _u32(th_)[-1] == _u32(tl_)[-1] == 0xFFFFFFFF
 
     # whole-readset counts, histogram, thresholds and frequent tables
-    jk = JK.count_readset_device(reads, k=k, block_size=32)
-    tk2 = TK.count_readset_device(reads, k=k, block_size=32, device="cpu")
+    jk = JK.count_readset_device(reads[0], k=k, block_size=32)
+    tk2 = TK.count_readset_device(reads[1], k=k, block_size=32, device="cpu")
     assert isinstance(tk2, TK.DeviceKmerCounts2)
     # hist[0] counts padding positions, which the port does not pad
     np.testing.assert_array_equal(tk2.histogram(1000)[1:], jk.histogram(1000)[1:])
@@ -115,17 +118,18 @@ def test_two_lane_kmers(reads, k):
 
 def test_k22_sketches_and_read_index(reads):
     k = 22
+    reads, treads = reads
     kc = JK.count_readset_device(reads, k=k, block_size=32)
     fk_j = JK.frequent_kmers(kc, threshold=5)
-    fk_t = TK.frequent_kmers(TK.count_readset_device(reads, k=k, block_size=32, device="cpu"),
+    fk_t = TK.frequent_kmers(TK.count_readset_device(treads, k=k, block_size=32, device="cpu"),
                              threshold=5)
     assert fk_t.n > 0
     np.testing.assert_array_equal(fk_t.kmers, fk_j.kmers)
     sk_j = np.asarray(JM.build_sketches(reads, k=k, n_hashes=64, frequent=fk_j, block_size=32))
-    sk_t = TM.build_sketches(reads, k=k, n_hashes=64, frequent=fk_t, block_size=32, device="cpu")
+    sk_t = TM.build_sketches(treads, k=k, n_hashes=64, frequent=fk_t, block_size=32, device="cpu")
     np.testing.assert_array_equal(sk_t, sk_j)
     ji = jax_build_index(reads, k=k, block_size=32)
-    ti = torch_build_index(reads, k=k, block_size=32, device="cpu")
+    ti = torch_build_index(treads, k=k, block_size=32, device="cpu")
     assert (ti.k, ti.pm) == (ji.k, ji.pm)
     for name in ("words", "mker"):
         np.testing.assert_array_equal(_u32(getattr(ti, name)), np.asarray(getattr(ji, name)))

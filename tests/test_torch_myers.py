@@ -3,8 +3,9 @@ XLA path and its Pallas kernel in interpret mode, all six outputs exact.
 
 Every output is an integer, so every comparison is exact.  The CUDA
 kernel (K1) is compared with the plain version on the card by
-chip_smoke.py and by test_torch_myers_cuda.py, which also holds the case
-generator (it imports no jax, so it runs on a machine without it).
+chip_smoke.py and by test_torch_myers_cuda.py, on the cases of
+torch_cases.py (which imports no jax, so they run on a machine without
+it).
 """
 
 from __future__ import annotations
@@ -16,8 +17,9 @@ import torch
 
 from canu_tpu.ops.myers import banded_extend_myers as jax_myers
 from canu_tpu_torch.ops import myers as TM
-from torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
-from test_torch_myers_cuda import NAMES, _cases, _mutate
+from torch_cases import NAMES, myers_edge_cases, one_torch_thread  # noqa: F401
+from torch_cases import mutate as _mutate
+from torch_cases import myers_cases as _cases
 
 
 def _run_both(args, n_rows, impl="xla", **kw):
@@ -33,6 +35,13 @@ def _run_both(args, n_rows, impl="xla", **kw):
 def test_myers_plain_matches_xla(drift):
     args = _cases(1 + drift, 12, 256, er=0.12, drift=drift)
     _run_both(args, 256, partial_cap_q=1500)
+
+
+@pytest.mark.parametrize("case", list(myers_edge_cases()))
+def test_myers_plain_matches_xla_on_kernel_edge_cases(case):
+    # the cases K1 is held to on the card (window edges of its streams)
+    args, n_rows, kw = myers_edge_cases()[case]
+    _run_both(args, n_rows, **kw)
 
 
 def test_myers_plain_zero_lengths_and_word_boundaries():

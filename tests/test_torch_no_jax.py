@@ -1,5 +1,6 @@
-"""canu_tpu_torch runs without jax: a machine with the port and no jax
-must be able to run its stages."""
+"""canu_tpu_torch stands alone: a machine with the port and neither jax nor
+the JAX package must be able to run its stages, and running them where
+jax is installed must not load it."""
 
 from __future__ import annotations
 
@@ -14,10 +15,11 @@ ROOT = Path(__file__).resolve().parents[1]
 SCRIPT = r"""
 import sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["canu_tpu"] = None  # and so does any import of the JAX package
 import os, tempfile
 import canu_tpu_torch
-from canu_tpu.config import Config
-from canu_tpu.sim.simulate import random_genome, simulate_reads
+from canu_tpu_torch.config import Config
+from canu_tpu_torch.sim.simulate import random_genome, simulate_reads
 from canu_tpu_torch.pipeline import stages
 from canu_tpu_torch.pipeline.driver import make_ctx
 
@@ -41,15 +43,15 @@ ctx2 = make_ctx(tempfile.mkdtemp(), "t", cfg2)
 fk2 = stages.meryl(ctx2, "utg", rs2, device="cpu")
 st2 = stages.overlap(ctx2, "utg", rs2, fk2, device="cpu")
 assert fk2.k == 22 and len(st2) > 0, "empty utg store"
-loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "canu_tpu")
                 if sys.modules[m] is not None)
 assert not loaded, loaded
 print("ROWS", len(st), len(st2))
 """
 
 
-# jax stays importable here: only the package's own guard keeps
-# canu_tpu/__init__.py from importing it
+# jax stays importable here: nothing but the port's own imports keeps it
+# unloaded
 IMPORT_SCRIPT = r"""
 import sys
 import canu_tpu_torch
@@ -62,11 +64,38 @@ assert not loaded, loaded
 print("NO_JAX")
 """
 
+# jax importable: the port's make_ctx writes the invocation audit (which
+# canu_tpu's fills from jax.devices()) and a meryl stage runs
+CTX_SCRIPT = r"""
+import os, sys, tempfile
+from canu_tpu_torch.config import Config
+from canu_tpu_torch.pipeline import stages
+from canu_tpu_torch.pipeline.driver import make_ctx
+from canu_tpu_torch.sim.simulate import random_genome, simulate_reads
+
+g = random_genome(3_000, seed=4)
+rs, _ = simulate_reads(g, coverage=4, mean_len=800, min_len=600, max_len=1000,
+                       error_rate=0.05, seed=5)
+cfg = Config()
+cfg.set("genomeSize", 3_000)
+work = tempfile.mkdtemp()
+ctx = make_ctx(work, "t", cfg)
+fk = stages.meryl(ctx, "cor", rs, device="cpu")
+audit = [n for n in os.listdir(os.path.join(work, "canu-logs")) if n.endswith("_canu_tpu")]
+assert len(audit) == 1, os.listdir(os.path.join(work, "canu-logs"))
+text = open(os.path.join(work, "canu-logs", audit[0])).read()
+assert "torch: " in text and "devices: " in text and "jax" not in text, text
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "canu_tpu"))
+assert not loaded, loaded
+print("NO_JAX", fk.k)
+"""
+
 
 def _run(script: str, tmp_path) -> subprocess.CompletedProcess:
     env = dict(os.environ)
-    # the package must set CANU_TPU_NO_COMPILE_CACHE itself, and canu_tpu
-    # reaches for jax only when JAX_PLATFORMS is unset
+    # canu_tpu/__init__.py honours CANU_TPU_NO_COMPILE_CACHE, and canu_tpu
+    # reaches for jax's devices when JAX_PLATFORMS is unset: neither may be
+    # what keeps the port off jax
     env.pop("CANU_TPU_NO_COMPILE_CACHE", None)
     env.pop("JAX_PLATFORMS", None)
     env["OMP_NUM_THREADS"] = "1"  # as one_torch_thread (torch_cases.py)
@@ -87,9 +116,30 @@ def test_importing_the_port_leaves_jax_unloaded(tmp_path):
     assert "NO_JAX" in r.stdout
 
 
+def test_make_ctx_and_meryl_leave_jax_unloaded(tmp_path):
+    r = _run(CTX_SCRIPT, tmp_path)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "NO_JAX 16" in r.stdout
+
+
+def _port_sources() -> list[Path]:
+    files = sorted((ROOT / "canu_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_cases.py"]
+
+
 def test_package_source_has_no_jax_import():
     pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
-    files = sorted((ROOT / "canu_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = _port_sources()
     assert len(files) > 10
     bad = [str(p) for p in files if pat.search(p.read_text())]
+    assert not bad, bad
+
+
+def test_package_source_has_no_canu_tpu_import():
+    # `canu_tpu\b` does not match `canu_tpu_torch`: `_` is a word character
+    pat = re.compile(r"^\s*(import\s+canu_tpu\b|from\s+canu_tpu\b)", re.M)
+    assert pat.search("from canu_tpu.config import Config")
+    assert pat.search("import canu_tpu")
+    assert not pat.search("from canu_tpu_torch.config import Config")
+    bad = [str(p) for p in _port_sources() if pat.search(p.read_text())]
     assert not bad, bad

@@ -10,10 +10,13 @@ import os
 import numpy as np
 import pytest
 
-from canu_tpu.config import Config
+import canu_tpu.config as JC
+import canu_tpu.pipeline.driver as JD
+import canu_tpu.sim.simulate as JSIM
+import canu_tpu_torch.config as TC
+import canu_tpu_torch.pipeline.driver as TD
+import canu_tpu_torch.sim.simulate as TSIM
 from canu_tpu.pipeline import stages as JS
-from canu_tpu.pipeline.driver import make_ctx
-from canu_tpu.sim.simulate import random_genome, simulate_reads
 from canu_tpu.stores.overlaps import OverlapStore as JaxOverlapStore
 from canu_tpu_torch.pipeline import stages as TS
 from canu_tpu_torch.stores.overlaps import _COLS, store_digest
@@ -26,21 +29,24 @@ GENOME = 15_000
 def both(tmp_path_factory):
     # planted repeats give the frequent-mer filter real work; 9x gives
     # 1,908 candidates: four chunks of 512, i.e. one fused Myers group
-    g = random_genome(GENOME, seed=21, repeat_spec=[(400, 8)])
-    rs, _ = simulate_reads(g, coverage=9, mean_len=1500, min_len=1000, max_len=2000,
-                           error_rate=0.10, seed=22)
+    # each package runs on its own Config, context and read set, simulated
+    # by its own simulator from the same seeds
     out = {}
-    for name, S, kw in (("jax", JS, {}), ("torch", TS, {"device": "cpu"})):
-        cfg = Config()
+    for name, S, C, D, SIM, kw in (("jax", JS, JC, JD, JSIM, {}),
+                                   ("torch", TS, TC, TD, TSIM, {"device": "cpu"})):
+        g = SIM.random_genome(GENOME, seed=21, repeat_spec=[(400, 8)])
+        rs, _ = SIM.simulate_reads(g, coverage=9, mean_len=1500, min_len=1000, max_len=2000,
+                                   error_rate=0.10, seed=22)
+        cfg = C.Config()
         cfg.set("genomeSize", GENOME)
         # 512 hashes, 2 matches: the 'high' preset's min_matches at 2/3
         # of its sketch cost on the CPU
         cfg.set("corMhapSensitivity", "normal")
-        ctx = make_ctx(str(tmp_path_factory.mktemp(name)), "t", cfg)
+        ctx = D.make_ctx(str(tmp_path_factory.mktemp(name)), "t", cfg)
         fk = S.meryl(ctx, "cor", rs, **kw)
         st = S.overlap(ctx, "cor", rs, fk, **kw)
         out[name] = (ctx, fk, st)
-    out["rs"] = rs
+        out[f"rs_{name}"] = rs
     return out
 
 
@@ -85,8 +91,8 @@ def test_resume_is_a_noop(both):
     assert sum('"cor-overlap.sub"' in ln for ln in lines) == 1
     store = os.path.join(ctx.work_dir, "correction", "t.ovlStore")
     mtime = os.path.getmtime(os.path.join(store, "a_id.npy"))
-    fk2 = TS.meryl(ctx, "cor", both["rs"], device="cpu")
-    st2 = TS.overlap(ctx, "cor", both["rs"], fk2, device="cpu")
+    fk2 = TS.meryl(ctx, "cor", both["rs_torch"], device="cpu")
+    st2 = TS.overlap(ctx, "cor", both["rs_torch"], fk2, device="cpu")
     assert open(times).read().splitlines() == lines
     assert os.path.getmtime(os.path.join(store, "a_id.npy")) == mtime
     np.testing.assert_array_equal(fk2.kmers, fk.kmers)

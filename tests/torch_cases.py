@@ -1,4 +1,5 @@
-"""Shared helpers of the port's tests and chip_smoke.py; imports no jax.
+"""Shared helpers of the port's tests and chip_smoke.py; imports nothing of
+jax or canu_tpu.
 
 ``one_torch_thread``: an autouse fixture a test module imports to run its
 torch CPU ops on one thread.  ``pack_pairs``, ``x8_cases`` and
@@ -13,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from canu_tpu.sim.simulate import mutate_read
+from canu_tpu_torch.sim.simulate import mutate_read
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -103,3 +104,110 @@ def edge_cases(band, seed=5):
     ea[:] = rng.integers(0, 4, ea.shape)
     return (np.concatenate([a, ea]), np.concatenate([al, eal]), np.concatenate([b, eb]),
             np.concatenate([bl, ebl]), np.concatenate([c, ec])), n_rows
+
+
+# ---- the Myers engine (kernel K1) ------------------------------------------
+
+NAMES = ("edits", "a_used", "b_used", "p_edits", "p_a", "p_b")
+
+
+def mutate(rng, seq, er):
+    """seq with ~er errors (40% deletions, 30% insertions, 30%
+    substitutions), one base at a time."""
+    out = []
+    for c in seq:
+        r = rng.random()
+        if r < er * 0.4:
+            continue
+        elif r < er * 0.7:
+            out += [int(c), int(rng.integers(0, 4))]
+        elif r < er:
+            out.append(int((c + 1 + rng.integers(0, 3)) % 4))
+        else:
+            out.append(int(c))
+    return np.array(out, np.uint8)
+
+
+def myers_cases(seed, B, n_rows, er=0.1, drift=False, lens=None):
+    """B extensions of random reads with ~er error, as numpy arrays
+    (a, a_len, b, b_len, centers): a uint8[B, n_rows], b uint8[B, n_rows +
+    128]; lens = (a_lens, b_lens) overrides the first lengths."""
+    rng = np.random.default_rng(seed)
+    LB = n_rows + 128
+    A = np.zeros((B, n_rows), np.uint8)
+    Bb = np.zeros((B, LB), np.uint8)
+    a_len = np.zeros(B, np.int32)
+    b_len = np.zeros(B, np.int32)
+    centers = np.zeros((B, n_rows + 1), np.int32)
+    for i in range(B):
+        la = int(rng.integers(n_rows // 2, n_rows + 1))
+        base = rng.integers(0, 4, la).astype(np.uint8)
+        mb = mutate(rng, base, er)[:LB]
+        A[i, :la] = base
+        Bb[i, : len(mb)] = mb
+        a_len[i] = la
+        b_len[i] = len(mb)
+        if drift:
+            step = (rng.random(n_rows) < 0.6).astype(np.int32)
+            centers[i] = np.concatenate([[0], np.cumsum(step)])
+        else:
+            centers[i] = np.arange(n_rows + 1)
+    if lens is not None:
+        a_len[: len(lens[0])] = lens[0]
+        b_len[: len(lens[1])] = lens[1]
+    return A, a_len, Bb, b_len, centers
+
+
+WINDOW_LENS = (1, 15, 16, 17, 31, 32, 33, 47, 48, 49)
+
+
+def myers_edge_cases():
+    """Kernel K1's edge cases: {name: ((a, a_len, b, b_len, centers),
+    n_rows, keyword arguments of banded_extend_myers)}.
+
+    K1 walks each A row and B read through 16-byte windows and the shifts
+    through 32-bit words, so the cases put a_len, b_len and the widths of
+    A and B on and beside every window edge, run the entering index past
+    the end of B, and hold the shift at 1 (and at 0) for longer than a
+    window."""
+    rng = np.random.default_rng(11)
+    cases = {}
+    # empty A / B, b_len on each band word boundary, drifting centres
+    B, n_rows = 64, 256
+    A = rng.integers(0, 4, (B, n_rows)).astype(np.uint8)
+    Bb = np.zeros((B, n_rows + 128), np.uint8)
+    a_len = rng.integers(1, n_rows + 1, B).astype(np.int32)
+    b_len = rng.integers(1, n_rows + 129, B).astype(np.int32)
+    for i in range(B):  # B is A with ~10% substitutions, then random tail
+        Bb[i, :n_rows] = np.where(rng.random(n_rows) < 0.1, rng.integers(0, 4, n_rows), A[i])
+        Bb[i, n_rows:] = rng.integers(0, 4, 128)
+    a_len[:4], b_len[:4] = [0, 0, 5, 0], [0, 9, 0, 300]
+    b_len[4:12] = [32, 64, 96, 128, 127, 129, 255, 384]
+    centers = np.broadcast_to(np.arange(n_rows + 1, dtype=np.int32), (B, n_rows + 1)).copy()
+    for i in range(B // 2, B):
+        centers[i] = np.concatenate([[0], np.cumsum(rng.random(n_rows) < 0.7)])
+    cases["band_edges"] = ((A, a_len, Bb, b_len, centers), n_rows, {"partial_cap_q": 3000})
+    # a_len and b_len on and beside the window edges, ragged rest; A and B
+    # 150 and 251 wide (not multiples of 16)
+    n = len(WINDOW_LENS)
+    lens = (list(WINDOW_LENS) + list(WINDOW_LENS[::-1]), list(WINDOW_LENS[::-1]) + list(WINDOW_LENS))
+    A, al, Bb, bl, c = myers_cases(21, 2 * n + 12, 150, er=0.1, drift=True, lens=lens)
+    cases["window_lens"] = ((A, al, Bb[:, :251], np.minimum(bl, 251), c), 150,
+                            {"partial_cap_q": 2000})
+    # the entering index runs past LB - 1: B is 40 wide, the band moves on
+    A, al, Bb, bl, c = myers_cases(22, 24, 160, er=0.1)
+    c[:] = np.minimum(2 * np.arange(161), 400)[None, :]
+    bl[: len(WINDOW_LENS)] = WINDOW_LENS
+    cases["past_lb"] = ((A, al, Bb[:, :40].copy(), np.minimum(bl + 100, 400), c), 160,
+                        {"partial_cap_q": 2000})
+    # shift runs: slope 1 (a shift every row), slope 0 (none), and runs of
+    # 40 rows of each, longer than an A or B window and than 32 rows
+    A, al, Bb, bl, c = myers_cases(23, 30, 300, er=0.05)
+    ramp = np.arange(301)
+    c[10:20] = 0
+    c[20:30] = (ramp // 80) * 40 + np.minimum(ramp % 80, 40)
+    cases["shift_runs"] = ((A, al, Bb, bl, c), 300, {"partial_cap_q": 2400})
+    # two row segments with max_rows truncation, and the 3-tuple result
+    cases["segments"] = (myers_cases(24, 16, 700, er=0.12, drift=True), 700,
+                         {"segment": 256, "max_rows": 600})
+    return cases
