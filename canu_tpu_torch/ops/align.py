@@ -16,6 +16,8 @@ Per candidate pair, on the device:
          K3 above band 512) on CUDA and the plain PyTorch row loop
          ``banded_extend_plain`` on the CPU.  This engine reports the full
          extension as the partial one;
+     either engine extends up to MYERS_GROUP chunks in one call
+     (``_verify_grouped``);
   4. post: the two directions fold into hangs + edit count -> erate, with
      the best in-envelope partial overlap as the fallback in partial mode.
 """
@@ -383,11 +385,12 @@ def _verify_post(n_anchor, flipped, seedA, seedB, n_minor, e, au, bu, pe, pa, pb
     ], dim=1).to(torch.int32)
 
 
-# chunks fused per Myers launch at most: B = 2 * chunk * group extensions.
-# K1 gives each extension a thread and a launch takes as long as its
-# longest extension, so more chunks a launch fill more of the card (16
-# against 4 cut the cor stage's summed K1 time about 2.6x on an H100;
-# PERF.md).  The memory budget may make a group smaller (_verify_window).
+# chunks fused per extension launch at most, on either engine: B = 2 *
+# chunk * group extensions.  K1 gives each extension a thread, K2/K3 a
+# warp, and a launch takes as long as its longest extension, so more
+# chunks a launch fill more of the card (16 against 4 cut the cor stage's
+# summed K1 time about 2.6x on an H100; PERF.md).  The memory budget may
+# make a group smaller (_verify_window).
 MYERS_GROUP = 16
 
 # Share of the device memory free at the start of verify that staged but
@@ -397,26 +400,28 @@ INFLIGHT_FREE_FRACTION = 0.25
 CPU_INFLIGHT_BYTES = 2048e6
 _INFLIGHT_BACKOFF = 1.0
 
-# peak bytes per extension and row of the band schedule's temporaries
-# while a group is extended (ops.myers._schedule's int32 target,
-# envelopes and o with the int64 indices cummax/cummin return, then
-# _shift_bits' int32 shifts; the A/B copies the kernel pads)
+# peak bytes per extension and row of the Myers band schedule's
+# temporaries while a group is extended (ops.myers._schedule's int32
+# target, envelopes and o with the int64 indices cummax/cummin return,
+# then _shift_bits' int32 shifts; the A/B copies the kernel pads).  The
+# INF-walled engine builds none: its kernels derive the band start from
+# the centres.
 SCHEDULE_BYTES_PER_ROW = 40
 
 
 def _chunk_staging_bytes(chunk: int, n_rows: int, band: int) -> int:
     """Device bytes held per staged chunk: 2*chunk extensions of A plane
-    (uint8), B plane (uint8), int32 centres and the band schedule's
-    temporaries."""
-    return 2 * chunk * (n_rows + (n_rows + band) + (4 + SCHEDULE_BYTES_PER_ROW) * (n_rows + 1)
-                        + 64)
+    (uint8), B plane (uint8), int32 centres, the outputs and, on the
+    Myers engine (band 128), the band schedule's temporaries."""
+    per_row = 4 + (SCHEDULE_BYTES_PER_ROW if band == 128 else 0)
+    return 2 * chunk * (n_rows + (n_rows + band) + per_row * (n_rows + 1) + 64)
 
 
 def _verify_window(chunk: int, n_rows: int, band: int, device: torch.device) -> tuple[int, int]:
-    """(chunks per Myers group, chunks in flight), both within the memory
-    budget: it holds n chunks' staging (1 to 128); a group takes at most
-    half of them, so the next group is staged while one drains, and at
-    most MYERS_GROUP."""
+    """(chunks per extension group, chunks in flight), both within the
+    memory budget: it holds n chunks' staging (1 to 128); a group takes at
+    most half of them, so the next group is staged while one drains, and
+    at most MYERS_GROUP."""
     if device.type == "cuda":
         free, _total = torch.cuda.mem_get_info(device)
         budget = free * INFLIGHT_FREE_FRACTION
@@ -427,16 +432,18 @@ def _verify_window(chunk: int, n_rows: int, band: int, device: torch.device) -> 
     return max(1, min(MYERS_GROUP, n // 2)), n
 
 
-def _verify_grouped_myers(index, chunks, k: int, band: int, n_rows: int, orient: bool,
-                          partial_cap_q: int, group: int):
-    """_verify_pre per chunk, ONE Myers extension per group of `group`
-    chunks (the last group takes the chunks that remain), then
-    _verify_post per chunk.  chunks: list of (sl, a_idx, b_idx, fl,
-    chunk_rows).  Yields (sl, result tile) in order; a generator, so the
-    caller's bounded drain caps how many chunks' inputs are staged at
-    once.  (canu_tpu runs its remainder chunks singly, to reuse one
-    compiled shape; extensions are independent, so a group's results do
-    not depend on its size.)"""
+def _verify_grouped(index, chunks, k: int, band: int, n_rows: int, orient: bool,
+                    partial_cap_q: int, group: int):
+    """_verify_pre per chunk, ONE extension per group of `group` chunks
+    (the last group takes the chunks that remain), then _verify_post per
+    chunk.  The band picks the engine: 128 the Myers extension
+    (banded_extend_myers), any other the INF-walled one (banded_extend),
+    which has no partial endpoints, so its full extension stands in for
+    them.  chunks: list of (sl, a_idx, b_idx, fl, chunk_rows).  Yields (sl,
+    result tile) in order; a generator, so the caller's bounded drain caps
+    how many chunks' inputs are staged at once.  (canu_tpu runs its
+    remainder chunks singly, to reuse one compiled shape; extensions are
+    independent, so a group's results do not depend on its size.)"""
     from .myers import banded_extend_myers
 
     i = 0
@@ -447,30 +454,21 @@ def _verify_grouped_myers(index, chunks, k: int, band: int, n_rows: int, orient:
                for sl, a_idx, b_idx, fl, rows in specs]
         parts = [p[1][0] for p in grp]
         wide = tuple(torch.cat(xs) for xs in zip(*parts)) if len(grp) > 1 else parts[0]
-        rows = max(p[2] for p in grp)
-        e, au, bu, pe, pa, pb = banded_extend_myers(
-            *wide, band, n_rows, max_rows=rows, partial_cap_q=max(1, partial_cap_q))
+        if band == 128:
+            rows = max(p[2] for p in grp)
+            res = banded_extend_myers(*wide, band, n_rows, max_rows=rows,
+                                      partial_cap_q=max(1, partial_cap_q))
+        else:
+            res = banded_extend(*wide, band, n_rows)
+            res = res + res
         B2 = parts[0][0].shape[0]
         del wide, parts
         for gi, (sl, pre, _) in enumerate(grp):
             _, n_anchor, flipped, seedA, seedB, n_minor = pre
             s = slice(gi * B2, (gi + 1) * B2)
             yield sl, _verify_post(n_anchor, flipped, seedA, seedB, n_minor,
-                                   e[s], au[s], bu[s], pe[s], pa[s], pb[s])
+                                   *(x[s] for x in res))
         i += len(grp)
-
-
-def _verify_extend(index, chunks, k: int, band: int, n_rows: int, orient: bool):
-    """_verify_pre, one INF-walled extension (banded_extend) and
-    _verify_post per chunk; this engine has no partial endpoints, so the
-    full extension stands in for them.  Yields (sl, result tile) in order,
-    a generator like _verify_grouped_myers."""
-    for sl, a_idx, b_idx, fl, _rows in chunks:
-        ext_in, n_anchor, flipped, seedA, seedB, n_minor = _verify_pre(
-            index, a_idx, b_idx, fl, k, band, n_rows, orient)
-        e, au, bu = banded_extend(*ext_in, band, n_rows)
-        del ext_in
-        yield sl, _verify_post(n_anchor, flipped, seedA, seedB, n_minor, e, au, bu, e, au, bu)
 
 
 def verify_overlaps(readset: ReadSet, cand, k: int = 16, band: int = 128,
@@ -600,12 +598,7 @@ def verify_overlaps(readset: ReadSet, cand, k: int = 16, band: int = 128,
         prof["device_wait_s"] += t1 - t0
         prof["consume_s"] += time.monotonic() - t1
 
-    if band == 128:
-        results = _verify_grouped_myers(index, chunk_specs, k, band, n_rows, orient, cap_q,
-                                        group)
-    else:
-        results = _verify_extend(index, chunk_specs, k, band, n_rows, orient)
-    for sl, res in results:
+    for sl, res in _verify_grouped(index, chunk_specs, k, band, n_rows, orient, cap_q, group):
         pending.append((sl, res))
         if len(pending) > max_in_flight:
             _drain(fetch_group)

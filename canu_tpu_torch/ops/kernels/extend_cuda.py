@@ -1,14 +1,13 @@
 """Kernels K2 and K3 on Hopper: build, bind and launch csrc/banded_extend.cu.
 
-K2 (``banded_extend_warp``, one warp per extension) is what
-ops.align.banded_extend launches on CUDA tensors at bands up to 512; K3
-(``banded_extend_block``, one block per extension, one thread per cell)
-computes the same function and carries the bands from 640 to 1024, which
-K2 cannot hold in registers.  Both are held against
-ops.align.banded_extend_plain.  The library is built by ops/kernels/
-_nvcc.py and loaded with ctypes; nothing here falls back to the plain
-loop: a failed build, a tensor or band the kernel does not take, or a
-refused launch raises.
+K2 (``banded_extend_warp``, bands 128-512) and K3 (``banded_extend_block``,
+bands 640-1024) run one CUDA template, a warp per extension with band/32
+cells a lane in registers, and stop an extension once its outputs are
+fixed; ops.align.banded_extend launches the one that holds the band on
+CUDA tensors.  Both are held against ops.align.banded_extend_plain.  The
+library is built by ops/kernels/_nvcc.py and loaded with ctypes; nothing
+here falls back to the plain loop: a failed build, a tensor or band the
+kernel does not take, or a refused launch raises.
 """
 
 from __future__ import annotations
@@ -20,8 +19,8 @@ import torch
 from . import _nvcc
 
 SOURCE = _nvcc.CSRC / "banded_extend.cu"
-WARP_BANDS = (128, 256, 384, 512)  # K2 holds band/32 cells per lane in registers
-BLOCK_MAX_BAND = 1024  # K3: one thread per cell
+WARP_BANDS = (128, 256, 384, 512)  # K2
+BLOCK_BANDS = (640, 768, 896, 1024)  # K3
 
 # launches of each kernel since the last reset (read by chip_smoke.py)
 WARP_LAUNCHES = 0
@@ -76,18 +75,18 @@ def banded_extend_warp(a, a_len, b, b_len, centers, band: int, n_rows: int):
     centers int32[B, >= n_rows+1] on the card; band in WARP_BANDS."""
     global WARP_LAUNCHES
     if band not in WARP_BANDS:
-        raise ValueError(f"kernel K2 holds bands {WARP_BANDS} in registers, got {band}")
+        raise ValueError(f"kernel K2 takes bands {WARP_BANDS}, got {band}")
     res = _launch("canu_extend_warp", a, a_len, b, b_len, centers, band, n_rows)
     WARP_LAUNCHES += 1
     return res
 
 
 def banded_extend_block(a, a_len, b, b_len, centers, band: int, n_rows: int):
-    """Kernel K3: the same function as banded_extend_warp, one block per
-    extension; band a multiple of 128 up to BLOCK_MAX_BAND."""
+    """Kernel K3: the same function as banded_extend_warp, for a band in
+    BLOCK_BANDS."""
     global BLOCK_LAUNCHES
-    if band % 128 or not 128 <= band <= BLOCK_MAX_BAND:
-        raise ValueError(f"kernel K3 takes bands 128..{BLOCK_MAX_BAND} in steps of 128, got {band}")
+    if band not in BLOCK_BANDS:
+        raise ValueError(f"kernel K3 takes bands {BLOCK_BANDS}, got {band}")
     res = _launch("canu_extend_block", a, a_len, b, b_len, centers, band, n_rows)
     BLOCK_LAUNCHES += 1
     return res

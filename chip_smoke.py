@@ -11,15 +11,19 @@ Phases (each prints its results; any failure exits non-zero):
               for bit: (a) K1's six outputs on edge cases (every window
               edge of its A, B and shift streams), (b) K1 on 256 real
               extensions sampled from the first verify group of phase 4,
-              (c) K2 and K3's three outputs on edge cases at bands 128 and
-              256 and on 256 real extensions sampled from the first K2
-              call of phase 7
+              (c) K2 and K3's three outputs on edge cases at bands 128,
+              256 (K2), 640 and 1024 (K3) and on 256 real extensions
+              sampled from the first call of each utg drive of phase 7
   4 slice     meryl + overlap ("cor") stages on the bench.py read set
               (1,025 reads, 3.64 Mb) in a temporary directory; K1 must
               have launched and the plain loop must not have run on the
               card; the store must be non-empty, symmetric and equal to
               the JAX package's (cor_overlap_reference.json); every K1
               launch of the stage is captured with its inputs
+  4b cor256   the same stages at corOvlBandWidth=256 (K2, partial
+              overlaps, on reads whose extensions really fail), store
+              equal to the JAX package's (the "cor256" entry) and its
+              rows against the band-128 store's
   5 timing    warm passes of sketch, match and verify as bench.py times
               them, one more pass under torch.profiler (device busy share
               of each sub-stage; tables in chiprun_out/profile.txt); K1
@@ -40,17 +44,28 @@ Phases (each prints its results; any failure exits non-zero):
               have launched, no other kernel and no plain loop on the
               card; frequent table, candidates and store must equal the
               JAX package's (corrected_overlap_reference.json)
-  8 timing    K2 and K3 against the plain loop at the shape of the first
-              K2 call of phase 7 (1,024 extensions), and K3 at its own
-              path's first call, with CUDA events, beside their bounds
+              Every drive of the INF-walled engine keeps every
+              banded_extend call it made (one per group of up to
+              MYERS_GROUP chunks)
+  8 timing    per drive (cor256 and utg256: K2; utg1024: K3): each
+              extension's exit row by the plain recurrence
+              (tests/torch_cases.py extend_exit_rows, the whole drive at
+              once; the outputs at the exit row must be the end's), the
+              kernel bit-equal to it on every call, each call with CUDA
+              events and the drive's sum, beside the bounds of every live
+              row and of the rows up to the exit rows; the first call's
+              first 1,024 extensions (the shape of one call per chunk);
+              the whole first call against banded_extend_plain
 
 Each kernel's bound is the larger of its operations over the card's
 32-bit integer rate and its bytes over the memory rate (INT32_OPS_S,
 HBM_BYTES_S).  The operations are the least the function needs on this
 run's data (K1_*_OPS, INF_*_OPS; k1_work and extend_bound count the live
 rows, shifted rows, rows with b_len in the window and band cells up to
-b_len).  The bytes are each input the kernel needs read once and each
-output written once.  The plain loops' own per-row counts
+b_len; for K2 and K3 the rows up to each extension's exit row, after
+which its outputs are fixed, and the kernels line gives their bound
+under that count).  The bytes are each input the kernel needs read once
+and each output written once.  The plain loops' own per-row counts
 (plain_row_ops) are printed beside, as a second figure.
 
 The line before the last is the JSON kernel record; the last line is
@@ -71,6 +86,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WARM_PASSES = 3
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 OLD_GROUP_LANES = 4 * 2 * 512  # a K1 launch at MYERS_GROUP 4: 4 chunks of 512 pairs, both ways
+OLD_EXTEND_LANES = 2 * 512  # a K2/K3 launch of one chunk of 512 pairs, both ways
 
 # H100 SXM peaks at its 1.98 GHz boost clock and 700 W: 132 SMs x 64 INT32
 # lanes (NVIDIA's Hopper white paper), and HBM3 at 3.35 TB/s
@@ -345,17 +361,22 @@ def time_k1(launches, reps: int = 5):
     return ms, bounds
 
 
-def extend_bound(args, band: int, n_rows: int) -> dict:
+def extend_bound(args, band: int, n_rows: int, exit_rows=None) -> dict:
     """K2/K3's bound on one call: INF_ROW_OPS a live row and INF_CELL_OPS
     a band cell up to b_len of it; bytes = each live row's A char and
     centre, the B chars up to the last live row's band end, a_len, b_len
-    and the three outputs."""
+    and the three outputs.  A live row is one of rows 1..min(a_len,
+    n_rows); with exit_rows (int64[B], -1 for none), only rows up to each
+    extension's exit row, after which its outputs are fixed
+    (torch_cases.extend_exit_rows)."""
     import torch
 
     from canu_tpu_torch.ops import align as AL
 
     a, a_len, b, b_len, centers = args
     live = torch.clamp(a_len.to(torch.int64), 0, n_rows)
+    if exit_rows is not None:
+        live = torch.where(exit_rows >= 0, torch.minimum(live, exit_rows), live)
     o = AL._band_starts(centers, b_len.to(torch.int32), band, n_rows).to(torch.int64)
     b_cols = torch.clamp(torch.gather(o, 1, live[:, None])[:, 0] + band, 0, b.shape[1])
     nbytes = int(live.sum()) * 5 + 4 * a.shape[0] + int(b_cols.sum()) + 20 * a.shape[0]
@@ -477,13 +498,13 @@ def check_store(phase: str, st, prof: dict, fdig: str, ref: dict) -> None:
     log(f"[{phase}] store equals the JAX package's row for row")
 
 
-def drive_corrected(phase: str, tag: str, band: int, rs, dev, ref: dict, kernel: str):
-    """meryl + overlap for `tag` at {tag}OvlBandWidth=band on the corrected
-    read set, in a directory of its own, with the launch counts set to 0
+def drive_stage(phase: str, tag: str, band: int, rs, dev, ref: dict, kernel: str):
+    """meryl + overlap for `tag` at {tag}OvlBandWidth=band on the read set
+    rs, in a directory of its own, with the launch counts set to 0
     just before and read just after.  Only `kernel` may have launched and
     no plain loop may have run on the card; the store must equal `ref`.
-    Returns (stage record, the first banded_extend call's (args, kwargs)
-    or None)."""
+    Returns (stage record, every banded_extend call's (args, kwargs), the
+    store)."""
     import torch
 
     from canu_tpu_torch.config import Config
@@ -497,7 +518,7 @@ def drive_corrected(phase: str, tag: str, band: int, rs, dev, ref: dict, kernel:
     cfg.set(f"{tag}OvlBandWidth", band)
     ctx = make_ctx(work, "bench", cfg)
     k = int(cfg.get(f"{tag}MerSize"))
-    real_extend, calls = capture_calls(AL, "banded_extend", first_only=True)
+    real_extend, calls = capture_calls(AL, "banded_extend")
     try:
         reset_counts()
         t = time.time()
@@ -526,7 +547,7 @@ def drive_corrected(phase: str, tag: str, band: int, rs, dev, ref: dict, kernel:
     check_store(phase, st, prof, fdig, ref)
     rec = {"meryl_s": t_meryl, "stage_s": t_stage, "sub_walls_s": sub, "verify_profile": prof,
            "rows": len(st), "launches": counts}
-    return rec, (calls[0] if calls else None)
+    return rec, calls, st
 
 
 def extend_edge_cases(band: int, dev):
@@ -542,16 +563,104 @@ def extend_edge_cases(band: int, dev):
     return [torch.from_numpy(x).to(dev) for x in args], n_rows
 
 
-def check_extend_kernels(name: str, args, band: int, n_rows: int) -> int:
-    """K2 (where its band fits) and K3 against the plain loop, bit for bit."""
-    from canu_tpu_torch.ops import align as AL
+def extend_kernel(band: int):
+    """(name, wrapper) of the kernel that ops.align.banded_extend launches
+    at this band: K2 up to 512, K3 above."""
     from canu_tpu_torch.ops.kernels import extend_cuda as EX
 
-    ref = AL.banded_extend_plain(*args, band, n_rows)
-    err = compare(f"{name} K3", ref, EX.banded_extend_block(*args, band, n_rows))
     if band in EX.WARP_BANDS:
-        err = max(err, compare(f"{name} K2", ref, EX.banded_extend_warp(*args, band, n_rows)))
-    return err
+        return "K2", EX.banded_extend_warp
+    return "K3", EX.banded_extend_block
+
+
+def check_extend_kernels(name: str, args, band: int, n_rows: int) -> int:
+    """The band's kernel (K2 or K3) against the plain loop, bit for bit."""
+    from canu_tpu_torch.ops import align as AL
+
+    kname, fn = extend_kernel(band)
+    return compare(f"{name} {kname}", AL.banded_extend_plain(*args, band, n_rows),
+                   fn(*args, band, n_rows))
+
+
+def extend_drive(name: str, calls, card: str, reps: int = 3) -> dict:
+    """The band's kernel on every banded_extend call of one drive.
+
+    Runs torch_cases.extend_exit_rows (banded_extend_plain's recurrence,
+    every extension of the drive at once) for each extension's exit row
+    and outputs; checks that no live row's smallest cell fell below the
+    row before's, that the captures at the exit row are the outputs, and
+    that the kernel gives those outputs on every call.  Then times each
+    call with CUDA events beside its bound under both row counts (every
+    live row; rows up to the exit row), the drive's sums, the first
+    call's lanes 0..OLD_EXTEND_LANES (the shape of one call per chunk),
+    and the whole first call against banded_extend_plain."""
+    import torch
+
+    from canu_tpu_torch.ops import align as AL
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_cases import extend_exit_rows
+
+    band, n_rows = calls[0][0][5:7]
+    check(all(c[0][5:7] == (band, n_rows) for c in calls), f"{name}: calls differ in band or rows")
+    kname, fn = extend_kernel(band)
+    sizes = [c[0][0].shape[0] for c in calls]
+    t = time.time()
+    cat = [torch.cat([c[0][k] for c in calls]) for k in range(5)]
+    exit_rows, at_exit, final, fell = extend_exit_rows(*cat, band, n_rows)
+    del cat
+    check(not bool(fell.any()), f"{name}: a live row's smallest cell fell below the row before's")
+    ex = exit_rows >= 0
+    for f, x, y in zip(("edits", "a_used", "b_used"), at_exit, final):
+        check(torch.equal(x[ex], y[ex]), f"{name}: {f} at the exit row differs from the end's")
+    live = torch.clamp(torch.cat([c[0][1] for c in calls]).to(torch.int64), 0, n_rows)
+    after = int((live - exit_rows)[ex].sum())
+    log(f"[8 exit] {name}: {int(ex.sum())} of {len(ex)} extensions have an exit row; the rows "
+        f"after it are {after} of {int(live.sum())} live rows ({100 * after / max(1, int(live.sum())):.1f}%)"
+        f"; outputs at the exit row equal the end's; plain recurrence {time.time() - t:.1f} s")
+    per_call, lo = [], 0
+    for ci, (call, B) in enumerate(zip(calls, sizes)):
+        args = call[0][:5]
+        sl = slice(lo, lo + B)
+        lo += B
+        compare(f"{name} call {ci + 1} {kname}", tuple(f[sl] for f in final),
+                fn(*args, band, n_rows))
+        ms = cuda_ms(lambda: fn(*args, band, n_rows), reps)
+        full, bx = extend_bound(args, band, n_rows), extend_bound(args, band, n_rows, exit_rows[sl])
+        per_call.append({"B": B, "ms": ms, "bound": full, "bound_exit": bx})
+        log(f"[8 timing] {card}: {name} {kname} call {ci + 1}/{len(calls)}: {B} extensions: "
+            f"{ms:.3f} ms; bound {full['bound_ms']:.4f} ms every live row "
+            f"({100 * full['bound_ms'] / ms:.1f}%), {bx['bound_ms']:.4f} ms to the exit rows "
+            f"({100 * bx['bound_ms'] / ms:.1f}%)")
+    tot = sum(c["ms"] for c in per_call)
+    tb = sum(c["bound"]["bound_ms"] for c in per_call)
+    tx = sum(c["bound_exit"]["bound_ms"] for c in per_call)
+    log(f"[8 timing] {card}: {kname} ms per {name} drive ({len(calls)} launches): {tot:.3f} ms; "
+        f"bound {tb:.4f} ms every live row ({100 * tb / tot:.1f}%), {tx:.4f} ms to the exit "
+        f"rows ({100 * tx / tot:.1f}%)")
+    # the first call's lanes at the shape of one call per chunk
+    args0 = calls[0][0][:5]
+    n_old = min(OLD_EXTEND_LANES, sizes[0])
+    old = tuple(x[:n_old] for x in args0)
+    old_ms = cuda_ms(lambda: fn(*old, band, n_rows), 10)
+    ob = extend_bound(old, band, n_rows)
+    obx = extend_bound(old, band, n_rows, exit_rows[:n_old])
+    log(f"[8 timing] {card}: {name} {kname} on the first call's first {n_old} extensions: "
+        f"{old_ms:.3f} ms; bound {ob['bound_ms']:.4f} ms every live row "
+        f"({100 * ob['bound_ms'] / old_ms:.1f}%), {obx['bound_ms']:.4f} ms to the exit rows "
+        f"({100 * obx['bound_ms'] / old_ms:.1f}%)")
+    ref, plain_ms = once_ms(lambda: AL.banded_extend_plain(*args0, band, n_rows))
+    err = compare(f"{name} first call {kname}", ref, fn(*args0, band, n_rows))
+    first = per_call[0]
+    log(f"[8 timing] {card}: {name} first call ({sizes[0]} extensions, band {band}, "
+        f"{min(n_rows, int(args0[1].max()))} rows): {kname} {first['ms']:.3f} ms vs plain loop "
+        f"{plain_ms:.1f} ms, bit-equal")
+    return {"kernel": kname, "band": band, "n_rows": n_rows, "calls": per_call,
+            "ms_per_drive": tot, "bound_ms_per_drive": tb, "bound_exit_ms_per_drive": tx,
+            "exit_rows": int(ex.sum()), "rows_after_exit": after, "live_rows": int(live.sum()),
+            "old_shape": {"B": n_old, "ms": old_ms, "bound": ob, "bound_exit": obx},
+            "first_ms": first["ms"], "plain_ms": plain_ms, "err": err,
+            "first_bound_exit": first["bound_exit"]}
 
 
 def main() -> int:
@@ -618,11 +727,11 @@ def main() -> int:
         log(f"[3a kernel] K1 edge case {name}: {args[0].shape[0]} extensions x {n_rows} rows "
             f"bit-equal")
     err_ext = 0
-    for band in (128, 256):
+    for band in (128, 256, 640, 1024):
         e_args, e_rows = extend_edge_cases(band, dev)
         err_ext = max(err_ext, check_extend_kernels(f"extend edge cases, band {band}",
                                                     e_args, band, e_rows))
-        log(f"[3c kernel] band {band}: K2 and K3 bit-equal to the plain loop on "
+        log(f"[3c kernel] band {band}: {extend_kernel(band)[0]} bit-equal to the plain loop on "
             f"{e_args[0].shape[0]} edge-case extensions x {e_rows} rows")
 
     # ---- 4: the slice ------------------------------------------------------
@@ -764,6 +873,22 @@ def main() -> int:
         f"extensions x {rows} rows (the stage's first verify group), bit-equal")
     record.update(k1_ms=ms, plain_ms=plain_ms, group_B=B, group_rows=rows)
 
+    # ---- 4b: the cor stage at corOvlBandWidth=256 (K2, with partial overlaps,
+    # on reads whose extensions really fail) -----------------------------------
+    cor256, cor256_calls, st256 = drive_stage("4b cor256", "cor", 256, rs, dev,
+                                                  ref["cor256"], "K2")
+
+    def row_set(store):
+        cols = [np.asarray(getattr(store, c)).tolist() for c in
+                ("a_id", "b_id", "flipped", "a_bgn", "a_end", "b_bgn", "b_end", "erate_q")]
+        return set(zip(*cols))
+
+    r128, r256 = row_set(st), row_set(st256)
+    cor256["rows_only_band128"], cor256["rows_only_band256"] = len(r128 - r256), len(r256 - r128)
+    log(f"[4b cor256] against the band-128 cor store: {len(r128 - r256)} rows only at band "
+        f"128, {len(r256 - r128)} only at band 256, {len(r128 & r256)} in both")
+    del r128, r256, st256
+
     # ---- 6, 7: the corrected-read stages -----------------------------------
     with open(os.path.join(ROOT, "canu_tpu_torch", "corrected_overlap_reference.json")) as fh:
         cref = json.load(fh)
@@ -773,52 +898,36 @@ def main() -> int:
         f"(simulated in {time.time() - t:.1f} s)")
     check(crs.n_reads == cref["n_reads"] and crs.total_bases == cref["total_bases"],
           "corrected read set differs from the reference's")
-    drives = {}
-    drives["obt"], _ = drive_corrected("6 obt", "obt", 128, crs, dev, cref["obt"], "K1")
-    drives["utg256"], k2_call = drive_corrected("7 utg256", "utg", 256, crs, dev,
-                                                cref["utg256"], "K2")
-    drives["utg1024"], k3_call = drive_corrected("7 utg1024", "utg", 1024, crs, dev,
-                                                 cref["utg1024"], "K3")
+    drives, calls = {}, {}
+    drives["obt"] = drive_stage("6 obt", "obt", 128, crs, dev, cref["obt"], "K1")[0]
+    for name, band, kname in (("utg256", 256, "K2"), ("utg1024", 1024, "K3")):
+        drives[name], calls[name], _ = drive_stage(f"7 {name}", "utg", band, crs, dev,
+                                                       cref[name], kname)
     record["corrected"] = drives
+    drives["cor256"] = cor256
+    calls["cor256"] = cor256_calls
 
-    # ---- 3c: K2 and K3 vs plain on real extensions of the first K2 call ---
-    check(k2_call is not None and k3_call is not None,
-          "a utg stage never called banded_extend")
-    x_args, (x_band, x_rows) = k2_call[0][:5], k2_call[0][5:7]
-    XB = x_args[0].shape[0]
-    pick = torch.arange(0, XB, max(1, XB // 256), device=dev)
-    err_ext = max(err_ext, check_extend_kernels(
-        "first K2 call sample", tuple(x[pick] for x in x_args), x_band, x_rows))
-    log(f"[3c kernel] {len(pick)} of the {XB} extensions of the utg stage's first K2 call "
-        f"(band {x_band}, {x_rows} rows) bit-equal in K2 and K3")
+    # ---- 3c: K2 and K3 vs plain on real extensions of each drive's first call
+    for name in ("utg256", "utg1024"):
+        check(len(calls[name]) > 0, f"the {name} stage never called banded_extend")
+        x_args, (x_band, x_rows) = calls[name][0][0][:5], calls[name][0][0][5:7]
+        XB = x_args[0].shape[0]
+        pick = torch.arange(0, XB, max(1, XB // 256), device=dev)
+        err_ext = max(err_ext, check_extend_kernels(
+            f"{name} first call sample", tuple(x[pick] for x in x_args), x_band, x_rows))
+        log(f"[3c kernel] {len(pick)} of the {XB} extensions of the {name} stage's first "
+            f"banded_extend call (band {x_band}, {x_rows} rows) bit-equal in "
+            f"{extend_kernel(x_band)[0]}")
 
-    # ---- 8: K2 and K3 against the plain loop at the main path's shape -------
-    ext_ms = {}
-    for name, call in (("utg256", k2_call), ("utg1024", k3_call)):
-        c_args, (c_band, c_rows) = call[0][:5], call[0][5:7]
-        ref_c, p_ms = once_ms(lambda: AL.banded_extend_plain(*c_args, c_band, c_rows))
-        live_rows = min(c_rows, int(c_args[1].max()))
-        bd = extend_bound(c_args, c_band, c_rows)
-        row = {"B": c_args[0].shape[0], "band": c_band, "n_rows": c_rows,
-               "rows_run": live_rows, "plain_ms": p_ms, "bound": bd}
-        kernels = [("K3", EX.banded_extend_block)]
-        if c_band in EX.WARP_BANDS:
-            kernels.insert(0, ("K2", EX.banded_extend_warp))
-        for kname, fn in kernels:
-            err_ext = max(err_ext, compare(f"{name} first call {kname}", ref_c,
-                                           fn(*c_args, c_band, c_rows)))
-            row[f"{kname}_ms"] = cuda_ms(lambda: fn(*c_args, c_band, c_rows), 10)
-        ext_ms[name] = row
-        log(f"[8 timing] {card}: {name} first banded_extend call ({row['B']} extensions, "
-            f"band {c_band}, {live_rows} rows run): "
-            + ", ".join(f"{kn} {row[f'{kn}_ms']:.3f} ms "
-                        f"({100 * bd['bound_ms'] / row[f'{kn}_ms']:.1f}% of the bound)"
-                        for kn, _ in kernels)
-            + f" vs plain loop {p_ms:.1f} ms, bit-equal; bound {bd['bound_ms']:.3f} ms "
-            f"({bd['ops']:.3e} operations, {bd['bytes']:.3e} bytes, bound by {bd['bound_by']})")
+    # ---- 8: K2 and K3 on every call of their drives, and the plain loop -----
+    ext = {}
+    for name in ("cor256", "utg256", "utg1024"):
+        ext[name] = extend_drive(name, calls[name], card)
+        err_ext = max(err_ext, ext[name]["err"])
+    del calls
     log(f"[8 timing] {card}: stage walls (meryl+overlap) "
         + ", ".join(f"{n} {d['stage_s']:.2f} s" for n, d in drives.items()))
-    record["extend_ms"] = ext_ms
+    record["extend"] = ext
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
@@ -827,7 +936,8 @@ def main() -> int:
           "jax or canu_tpu was imported")
 
     src = "canu_tpu_torch/csrc/banded_extend.cu"
-    k2b, k3b = ext_ms["utg256"]["bound"], ext_ms["utg1024"]["bound"]
+    k2, k3 = ext["utg256"], ext["utg1024"]
+    k2b, k3b = k2["first_bound_exit"], k3["first_bound_exit"]
     print(json.dumps({"kernels": [
         {"name": "myers_rows (K1)", "route": "cuda",
          "source": "canu_tpu_torch/csrc/myers_tile.cu",
@@ -838,12 +948,12 @@ def main() -> int:
         {"name": "extend_warp (K2)", "route": "cuda", "source": src,
          "replaces": "canu_tpu/ops/pallas/extend_x8.py:72",
          "launches": drives["utg256"]["launches"]["K2"], "max_abs_err": err_ext,
-         "ms": ext_ms["utg256"]["K2_ms"], "plain_ms": ext_ms["utg256"]["plain_ms"],
+         "ms": k2["first_ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2b["bound_ms"], "bound_by": k2b["bound_by"], "library_ms": None},
         {"name": "extend_block (K3)", "route": "cuda", "source": src,
          "replaces": "canu_tpu/ops/pallas/extend.py:79",
          "launches": drives["utg1024"]["launches"]["K3"], "max_abs_err": err_ext,
-         "ms": ext_ms["utg1024"]["K3_ms"], "plain_ms": ext_ms["utg1024"]["plain_ms"],
+         "ms": k3["first_ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3b["bound_ms"], "bound_by": k3b["bound_by"], "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -41,13 +41,15 @@ def test_cpu_tensors_take_the_plain_loop_and_never_a_kernel():
     # the two failure cases do fail, with edits at or above INF
     assert (ref[0].numpy()[-12:-10] >= TA.INF).all()
     # the kernels' wrappers refuse host tensors and bands they do not hold
-    for fn in (EX.banded_extend_warp, EX.banded_extend_block):
+    for fn, band in ((EX.banded_extend_warp, 256), (EX.banded_extend_block, 1024)):
         with pytest.raises(ValueError, match="CUDA"):
-            fn(*t, 256, n_rows)
+            fn(*t, band, n_rows)
         with pytest.raises(ValueError, match="band"):
             fn(*t, 200, n_rows)
     with pytest.raises(ValueError, match="band"):
         EX.banded_extend_warp(*t, 640, n_rows)
+    with pytest.raises(ValueError, match="band"):
+        EX.banded_extend_block(*t, 512, n_rows)
     with pytest.raises(ValueError, match="band"):
         EX.banded_extend_block(*t, 1152, n_rows)
     with pytest.raises(ValueError, match="centers"):
@@ -56,16 +58,18 @@ def test_cpu_tensors_take_the_plain_loop_and_never_a_kernel():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("band", [128, 256, 512, 768])
+@pytest.mark.parametrize("band", [128, 256, 512, 640, 768, 1024])
 def test_extend_kernels_match_plain_on_card(cuda_device, band):
     args, n_rows = edge_cases(band)
     t = [torch.from_numpy(x).to(cuda_device) for x in args]
-    ref = TA.banded_extend_plain(*t, band, n_rows)
-    warp, block = EX.WARP_LAUNCHES, EX.BLOCK_LAUNCHES
-    got = TA.banded_extend(*t, band, n_rows)  # K2, or K3 above band 512
-    k2 = band in EX.WARP_BANDS
-    assert (EX.WARP_LAUNCHES, EX.BLOCK_LAUNCHES) == (warp + k2, block + (not k2))
-    got_block = EX.banded_extend_block(*t, band, n_rows)
-    for name, r, g, g3 in zip(NAMES, ref, got, got_block):
-        np.testing.assert_array_equal(g.cpu().numpy(), r.cpu().numpy(), err_msg=f"K2 {name}")
-        np.testing.assert_array_equal(g3.cpu().numpy(), r.cpu().numpy(), err_msg=f"K3 {name}")
+    # B as the cases give it (rows of any width: the kernel reads bytes)
+    # and widened to a multiple of 16 bytes (the path's shape: words)
+    wide = t[:2] + [torch.nn.functional.pad(t[2], (0, -t[2].shape[1] % 16 + 16))] + t[3:]
+    for inputs in (t, wide):
+        ref = TA.banded_extend_plain(*inputs, band, n_rows)
+        warp, block = EX.WARP_LAUNCHES, EX.BLOCK_LAUNCHES
+        got = TA.banded_extend(*inputs, band, n_rows)  # K2, or K3 above band 512
+        k2 = band in EX.WARP_BANDS
+        assert (EX.WARP_LAUNCHES, EX.BLOCK_LAUNCHES) == (warp + k2, block + (not k2))
+        for name, r, g in zip(NAMES, ref, got):
+            np.testing.assert_array_equal(g.cpu().numpy(), r.cpu().numpy(), err_msg=name)
