@@ -26,11 +26,11 @@
 // extend.py:_extend_kernel (driven by banded_extend_pallas), the same
 // function one pair a program.  Both run one template, extend_kernel<C>:
 // one warp per extension, each lane holding C = band/32 contiguous cells
-// of the row in registers.  Blocks of WARPS = 4 extensions and
+// of the row in registers.  Blocks of WARPS = 4 extensions,
 // __launch_bounds__ for MIN_BLOCKS = 5 of them an SM (C = 32 then takes
 // 96 registers, 20 warps an SM) and an exit test every EXIT_EVERY = 8
-// rows were the fastest of 2-16 warps, 1-8 blocks and 1-16 rows on the
-// utg drives (scripts/torch_extend_sweep.py, PERF.md).
+// rows were within about 1% of the best of 2-16 warps, 1-8 blocks and
+// 1-16 rows on the utg drives (PERF.md, section 6).
 //
 // What bounds them on an H100: a row is a dependent chain (the previous
 // row's neighbour cells by shuffle, the closure across the lane's cells,
@@ -75,9 +75,9 @@
 // <= b_len and one __all_sync tests them against best_bx.  best_bx == INF never
 // exits (cell 0 is at most INF); b_len < 0 leaves best_bx at INF; with
 // a_len > n_rows the A-exhausted end is INF and the test is the same.
-// tests/torch_cases.py extend_exit_rows runs the plain recurrence with
-// the same test, and the tests hold its outputs at the exit row equal to
-// banded_extend_plain's.
+// tests/torch_cases.py extend_exit_rows applies the same test to each row
+// of banded_extend_plain, and the tests hold the captures at the exit row
+// equal to its outputs.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC; bound through ctypes (plain C interface).

@@ -180,7 +180,7 @@ def _band_starts(centers: torch.Tensor, b_len: torch.Tensor, band: int, n_rows: 
     return torch.cummin(o - ramp, dim=1).values + ramp
 
 
-def banded_extend_plain(a, a_len, b, b_len, centers, band: int, n_rows: int):
+def banded_extend_plain(a, a_len, b, b_len, centers, band: int, n_rows: int, on_row=None):
     """Semi-global banded extension from (0, 0), plain PyTorch row loop.
 
     The port of canu_tpu.ops.align.banded_extend, and the reference kernels
@@ -195,6 +195,12 @@ def banded_extend_plain(a, a_len, b, b_len, centers, band: int, n_rows: int):
     those values reach the outputs of failed extensions: int32 as in
     canu_tpu, nothing saturates.  Rows past every a_len change nothing,
     so the loop stops at min(n_rows, max a_len).
+
+    on_row, if given, is called after row 0 and after each row i >= 1 as
+    on_row(i, D, live, best_bx, aend_bx, bend_bx): the row's cells
+    int32[B, band], bool[B] i <= a_len, and the B-exhausted captures so
+    far.  It observes and changes nothing (torch_cases.extend_exit_rows
+    finds the kernels' exit rows with it).
     """
     global PLAIN_CUDA_ROWS
     B = a.shape[0]
@@ -216,6 +222,8 @@ def banded_extend_plain(a, a_len, b, b_len, centers, band: int, n_rows: int):
     bend_bx = torch.where(in0, b_len, 0)
     Dfin = torch.where((a_len == 0)[:, None], D, INF)
     ofin = torch.where(a_len == 0, o0, 0)
+    if on_row is not None:
+        on_row(0, D, a_len >= 0, best_bx, aend_bx, bend_bx)
 
     last = min(n_rows, int(a_len.max())) if B else 0
     if a.is_cuda:
@@ -253,6 +261,8 @@ def banded_extend_plain(a, a_len, b, b_len, centers, band: int, n_rows: int):
         at_fin = i == a_len
         Dfin = torch.where(at_fin[:, None], D, Dfin)
         ofin = torch.where(at_fin, o_i, ofin)
+        if on_row is not None:
+            on_row(i, D, live, best_bx, aend_bx, bend_bx)
 
     # A exhausted: the best cell of the captured final row (first on ties)
     wbest = torch.argmin(Dfin, dim=1, keepdim=True)

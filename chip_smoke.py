@@ -95,7 +95,8 @@ HBM_BYTES_S = 3.35e12
 
 # The least 32-bit integer operations of the kernels' work, the bound's
 # count: a two-input operation, a not, a funnel shift, a popcount, a byte
-# extract and a conditional move count one each; loads and stores none.
+# extract, a conditional move and a fused add-min (Hopper's DPX
+# __viaddmin_s32, min(x + y, z)) count one each; loads and stores none.
 # K1 (the Myers row of ops.myers._myers_row):
 K1_ROW_OPS = 95  # each live row: A char 1, Eq word select 4, the 4-word
 #   column update 4 x 16 (edlib's block update; the carries between words
@@ -110,8 +111,9 @@ K1_BX_OPS = 21  # each live row with b_len inside the window: the prefix
 #   popcounts, 2 add/sub, the whole words below it 5) and the capture
 #   (compare 1, 3 moves)
 # K2/K3 (the INF-walled row of ops.align.banded_extend_plain):
-INF_CELL_OPS = 6  # each band cell up to b_len of a live row: mismatch 1,
-#   diagonal + it 1, up + 1 1, min 1, the closure D = min(m, left + 1) 2
+INF_CELL_OPS = 4  # each band cell up to b_len of a live row: mismatch 1,
+#   diagonal + it 1, m = min(up + 1, that) 1 add-min, the closure D =
+#   min(left + 1, m) 1 add-min
 INF_ROW_OPS = 8  # each live row: its shift 1, b_len-in-band test 2,
 #   capture compare 1 and 3 moves, the a_len test 1
 

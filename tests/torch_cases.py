@@ -110,8 +110,8 @@ def edge_cases(band, seed=5):
 
 
 def extend_exit_rows(a, a_len, b, b_len, centers, band, n_rows):
-    """The INF-walled extension's exit rows, by banded_extend_plain's
-    recurrence (torch tensors, any device).
+    """The INF-walled extension's exit rows, read off banded_extend_plain's
+    rows through its on_row hook (torch tensors, any device).
 
     Every cell of row i is at least min(smallest cell of row i-1, INF), so
     once a row's smallest cell exceeds the best "B exhausted" cost found so
@@ -119,70 +119,27 @@ def extend_exit_rows(a, a_len, b, b_len, centers, band, n_rows):
     outputs are (best_bx, aend_bx, bend_bx).  Returns (exit, at_exit, final,
     fell): exit int64[B] the first row i >= 1 after which that holds (-1:
     none before min(a_len, n_rows)); at_exit the three captures at that row
-    (those of row 0 where exit is -1); final the outputs of running every
-    row, banded_extend_plain's (edits, a_used, b_used); fell bool[B], set
-    where a live row's smallest cell was below the row before's."""
+    (those of row 0 where exit is -1); final banded_extend_plain's
+    (edits, a_used, b_used); fell bool[B], set where a live row's smallest
+    cell was below the row before's."""
     from canu_tpu_torch.ops import align as AL
 
-    INF = AL.INF
-    B, dev = a.shape[0], a.device
-    a_len, b_len = a_len.to(torch.int32), b_len.to(torch.int32)
-    o_all = AL._band_starts(centers, b_len, band, n_rows)
-    w = torch.arange(band, dtype=torch.int32, device=dev)[None, :]
-    LB = b.shape[1]
-    o0 = o_all[:, 0]
-    j0 = o0[:, None] + w
-    D = torch.where(j0 <= b_len[:, None], j0, INF)
-    w_col0 = b_len - o0
-    in0 = (w_col0 >= 0) & (w_col0 < band)
-    best = torch.where(in0, torch.gather(D, 1, torch.clamp(w_col0, 0, band - 1)[:, None].long())[:, 0], INF)
-    aend = torch.zeros(B, dtype=torch.int32, device=dev)
-    bend = torch.where(in0, b_len, 0)
-    Dfin = torch.where((a_len == 0)[:, None], D, INF)
-    ofin = torch.where(a_len == 0, o0, 0)
-    exit_row = torch.full((B,), -1, dtype=torch.int64, device=dev)
-    at_exit = [best.clone(), aend.clone(), bend.clone()]
-    fell = torch.zeros(B, dtype=torch.bool, device=dev)
-    prev_min = D.min(dim=1).values
-    inf_l = torch.full((B, 1), INF, dtype=torch.int32, device=dev)
-    inf_r = torch.full((B, AL.SMAX), INF, dtype=torch.int32, device=dev)
-    last = min(n_rows, int(a_len.max())) if B else 0
-    for i in range(1, last + 1):
-        o_i = o_all[:, i]
-        s = (o_i - o_all[:, i - 1]).long()[:, None]
-        Dq = torch.cat([inf_l, D, inf_r], dim=1)
-        idx = w.long() + s
-        up, dg = torch.gather(Dq, 1, idx + 1), torch.gather(Dq, 1, idx)
-        j = o_i[:, None] + w
-        b_chr = torch.gather(b, 1, torch.clamp(j - 1, 0, LB - 1).long())
-        sub = (a[:, min(i - 1, a.shape[1] - 1)][:, None] != b_chr).to(torch.int32)
-        m = torch.minimum(up + 1, torch.where((j >= 1) & (j <= b_len[:, None]), dg + sub, INF))
-        r = torch.cummin(torch.clamp(m - w, max=INF), dim=1).values
-        D = torch.where(j <= b_len[:, None], r + w, INF)
-        live = i <= a_len
-        D = torch.where(live[:, None], D, INF)
-        w_col = b_len - o_i
-        in_band = (w_col >= 0) & (w_col < band) & live
-        cost = torch.where(in_band, torch.gather(D, 1, torch.clamp(w_col, 0, band - 1)[:, None].long())[:, 0], INF)
-        better = cost < best
-        best = torch.where(better, cost, best)
-        aend = torch.where(better, i, aend)
-        bend = torch.where(better, b_len, bend)
-        at_fin = i == a_len
-        Dfin = torch.where(at_fin[:, None], D, Dfin)
-        ofin = torch.where(at_fin, o_i, ofin)
+    st = {}
+
+    def on_row(i, D, live, best, aend, bend):
         row_min = D.min(dim=1).values
-        fell |= live & (row_min < prev_min)
-        prev_min = torch.where(live, row_min, prev_min)
-        new = live & (exit_row < 0) & (row_min > best)
-        exit_row = torch.where(new, i, exit_row)
-        at_exit = [torch.where(new, x, y) for x, y in zip((best, aend, bend), at_exit)]
-    wbest = torch.argmin(Dfin, dim=1, keepdim=True)
-    cost_ax = torch.gather(Dfin, 1, wbest)[:, 0]
-    use_ax = cost_ax <= best
-    final = (torch.where(use_ax, cost_ax, best), torch.where(use_ax, a_len, aend),
-             torch.where(use_ax, ofin + wbest[:, 0].to(torch.int32), bend))
-    return exit_row, tuple(at_exit), final, fell
+        if i == 0:
+            st.update(prev=row_min, at=(best, aend, bend), fell=torch.zeros_like(live),
+                      exit=torch.full(live.shape, -1, dtype=torch.int64, device=D.device))
+            return
+        st["fell"] = st["fell"] | (live & (row_min < st["prev"]))
+        st["prev"] = torch.where(live, row_min, st["prev"])
+        new = live & (st["exit"] < 0) & (row_min > best)
+        st["exit"] = torch.where(new, i, st["exit"])
+        st["at"] = tuple(torch.where(new, x, y) for x, y in zip((best, aend, bend), st["at"]))
+
+    final = AL.banded_extend_plain(a, a_len, b, b_len, centers, band, n_rows, on_row=on_row)
+    return st["exit"], st["at"], final, st["fell"]
 
 
 # ---- the Myers engine (kernel K1) ------------------------------------------
