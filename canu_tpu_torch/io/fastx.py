@@ -1,6 +1,6 @@
-"""FASTA/FASTQ reading (gzip-transparent).
+"""FASTA/FASTQ reading (gzip-transparent) and FASTA writing.
 
-The port's own copy of canu_tpu.io.fastx's reader.
+The port's own copy of canu_tpu.io.fastx's reader and of its write_fasta.
 
 Host-side replacement for the reference's FASTA/FASTQ loaders
 (Canu src/stores/gatekeeperCreate.C:182 loadFASTQ,
@@ -14,7 +14,7 @@ import gzip
 import io
 import os
 from dataclasses import dataclass
-from typing import Iterator, Optional
+from typing import Iterable, Iterator, Optional
 
 
 @dataclass
@@ -87,3 +87,22 @@ def _read_fastq(first: str, fh) -> Iterator[SeqRecord]:
             raise ValueError(f"FASTQ qual length mismatch for read {name!r}")
         yield SeqRecord(name, seq, qual)
         header = fh.readline()
+
+
+def write_fasta(path: str | os.PathLike, records: Iterable[tuple[str, str]],
+                width: int = 80) -> int:
+    """Write (name, seq) records as FASTA, gzip-compressed if path ends
+    with .gz, lines wrapped at width (0: no wrap); returns the count."""
+    path = os.fspath(path)
+    opener = gzip.open if path.endswith(".gz") else open
+    n = 0
+    with opener(path, "wt") as fh:
+        for name, seq in records:
+            fh.write(f">{name}\n")
+            if width:
+                for i in range(0, len(seq), width):
+                    fh.write(seq[i : i + width] + "\n")
+            else:
+                fh.write(seq + "\n")
+            n += 1
+    return n

@@ -484,7 +484,7 @@ def _verify_grouped(index, chunks, k: int, band: int, n_rows: int, orient: bool,
 def verify_overlaps(readset: ReadSet, cand, k: int = 16, band: int = 128,
                     max_erate: float = 0.32, min_overlap: int = 500, chunk: int = 512,
                     min_shared: int = 4, partial: bool = False, palindromic_min: int = 0,
-                    index=None, device=None) -> OverlapTable:
+                    sink=None, index=None, device=None) -> OverlapTable:
     """Verify candidates with the banded extension; returns OverlapTable.
 
     cand is OverlapCandidates (orientation given) or a raw int array
@@ -495,7 +495,10 @@ def verify_overlaps(readset: ReadSet, cand, k: int = 16, band: int = 128,
     in-envelope partial overlap where the full extension fails the erate
     gate (overlapInCore -G / forOBT mode).  palindromic_min > 0 (raw
     pairs) verifies pairs with that much minority-orientation support in
-    both orientations.  index: a prebuilt ReadIndex to use instead of
+    both orientations.  sink: a callable that receives each chunk's kept
+    overlaps (an OverlapTable) instead of their being accumulated, the
+    scale path (stores.overlaps.OverlapSpill); the returned table is then
+    empty.  index: a prebuilt ReadIndex to use instead of
     get_read_index(readset, k).  The band picks the engine, as canu_tpu's
     default does: 128 the Myers engine, any other the INF-walled DP.
     """
@@ -577,14 +580,17 @@ def verify_overlaps(readset: ReadSet, cand, k: int = 16, band: int = 128,
             pm = (r[:C, 7] >= palindromic_min) & (n_anchor >= min_shared)
             if pm.any():
                 palin.append(np.stack([a_ids[pm], b_ids[pm], flc[pm].astype(np.int64)], axis=1))
-        cols["a_id"].append(a_ids[keep].astype(np.int32))
-        cols["b_id"].append(b_ids[keep].astype(np.int32))
-        cols["flipped"].append(flc[keep])
-        cols["a_bgn"].append(a_bgn[keep].astype(np.int32))
-        cols["a_end"].append(a_end[keep].astype(np.int32))
-        cols["b_bgn"].append(b_bgn_f[keep].astype(np.int32))
-        cols["b_end"].append(b_end_f[keep].astype(np.int32))
-        cols["erate_q"].append(np.minimum(np.round(erate[keep] * 10000), 65535).astype(np.uint16))
+        chunk_out = OverlapTable(
+            a_id=a_ids[keep].astype(np.int32), b_id=b_ids[keep].astype(np.int32),
+            flipped=flc[keep], a_bgn=a_bgn[keep].astype(np.int32),
+            a_end=a_end[keep].astype(np.int32), b_bgn=b_bgn_f[keep].astype(np.int32),
+            b_end=b_end_f[keep].astype(np.int32),
+            erate_q=np.minimum(np.round(erate[keep] * 10000), 65535).astype(np.uint16))
+        if sink is not None:
+            sink(chunk_out)
+        else:
+            for name in cols:
+                cols[name].append(getattr(chunk_out, name))
 
     # bounded in-flight window: draining a result waits for the device,
     # which retires every buffer dispatched before it
@@ -632,9 +638,10 @@ def verify_overlaps(readset: ReadSet, cand, k: int = 16, band: int = 128,
             b_lo=z, b_hi=z)
         t2 = verify_overlaps(readset, cand2, k=k, band=band, max_erate=max_erate,
                              min_overlap=min_overlap, chunk=chunk, min_shared=min_shared,
-                             partial=partial, device=dev)
-        for name in cols:
-            cols[name].append(getattr(t2, name))
+                             partial=partial, sink=sink, device=dev)
+        if sink is None:
+            for name in cols:
+                cols[name].append(getattr(t2, name))
         for key in ("device_wait_s", "consume_s", "dispatch_s"):
             prof[key] = round(prof[key] + LAST_PROFILE.get(key, 0.0), 2)
         prof["n_chunks"] += LAST_PROFILE.get("n_chunks", 0)

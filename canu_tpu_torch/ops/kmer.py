@@ -6,7 +6,8 @@ syncmer seeds) uses a 32-bit fold of the two lanes as its key.  Packed
 read blocks unpack with shifts and masks, canonical k-mers come from
 branch-free bit twiddling, and counting is one device sort over the whole
 read set plus a run-length reduction.  Only the count histogram and the
-frequent-mer table leave the device.
+frequent-mer table leave the device.  Above the device's instance budget
+(MAX_INSTANCES, MAX_INSTANCES2) the numpy host counter counts instead.
 
 uint32 lanes are held in int64 tensors, so INVALID_KMER (0xFFFFFFFF)
 sorts after every valid k-mer as it does in the unsigned original.  Two
@@ -26,6 +27,7 @@ import torch
 
 from ..device import resolve_device
 from ..stores.readset import ReadSet
+from ..utils import bitpack
 from ..utils.bitpack import n_words
 from .hashing import MASK32, mix32, u32_numpy, u32_tensor
 
@@ -324,9 +326,55 @@ class DeviceKmerCounts2:
                           self.counts[keep].cpu().numpy().astype(np.int64))
 
 
-# instance budgets of the device sort, one lane / two lanes (canu_tpu's)
+# instance budgets of the device sort, one lane / two lanes (canu_tpu's);
+# above them the host counter takes over
 MAX_INSTANCES = 1 << 27
 MAX_INSTANCES2 = 1 << 26
+
+# calls of count_readset_host (chip_smoke.py checks a drive's path by it)
+HOST_COUNTS = 0
+
+
+def count_readset_host(readset: ReadSet, k: int) -> "KmerCounts":
+    """Host canonical k-mer counter (numpy) for read sets whose instance
+    table exceeds the device budget; a host function by design, as in
+    canu_tpu: it keeps the instance table off the device.
+
+    One pass computes forward and reverse-complement k-mers with k shifted
+    adds (uint32 for k <= 16, uint64 otherwise: exact k-mers, not folded)
+    and np.unique sorts and counts them once (the reference's meryl is a
+    host counter too).
+    """
+    global HOST_COUNTS
+    HOST_COUNTS += 1
+    assert 1 < k <= 32
+    dt = np.uint32 if k <= 16 else np.uint64
+    empty = KmerCounts(k, np.zeros(0, dt), np.zeros(0, np.int64))
+    words = np.asarray(readset.words)
+    n = len(words) * bitpack.BASES_PER_WORD
+    if n == 0 or readset.n_reads == 0:
+        return empty
+    allb = bitpack.unpack_words(words, n)
+    base0 = (readset.word_off[:-1] * bitpack.BASES_PER_WORD).astype(np.int64)
+    L = readset.length.astype(np.int64)
+    # valid k-mer start positions: within a read, start + k <= read end
+    delta = np.zeros(n + 1, np.int32)
+    np.add.at(delta, base0, 1)
+    np.add.at(delta, base0 + np.maximum(L - k + 1, 0), -1)
+    vm = np.cumsum(delta[:-1]) > 0
+    m = n - k + 1
+    if m <= 0:
+        return empty
+    fwd = np.zeros(m, dt)
+    rc = np.zeros(m, dt)
+    for j in range(k):
+        bj = allb[j : j + m].astype(dt)
+        fwd = (fwd << dt(2)) | bj
+        rc |= (dt(3) - bj) << dt(2 * j)
+    canon = np.minimum(fwd, rc)[vm[:m]]
+    del fwd, rc
+    u, c = np.unique(canon, return_counts=True)
+    return KmerCounts(k, u, c.astype(np.int64))
 
 
 def count_readset_device(readset: ReadSet, k: int = 16, block_size: int = 512,
@@ -336,8 +384,10 @@ def count_readset_device(readset: ReadSet, k: int = 16, block_size: int = 512,
     k <= 16 counts one lane (DeviceKmerCounts), 16 < k <= 32 the exact
     two-lane k-mers (DeviceKmerCounts2).  Per-block k-mer arrays stay on
     the device and are concatenated; nothing large crosses back to the
-    host.  Above ``max_instances`` k-mer instances canu_tpu hands over to
-    its host counter, which is not ported yet: this raises instead.
+    host.  Above ``max_instances`` k-mer instances (MAX_INSTANCES /
+    MAX_INSTANCES2 by default) the host counter takes over and a host
+    KmerCounts comes back: every consumer (histogram, thresholds,
+    frequent_kmers) takes either.
     """
     dev = resolve_device(device)
     two = k > 16
@@ -345,9 +395,7 @@ def count_readset_device(readset: ReadSet, k: int = 16, block_size: int = 512,
         max_instances = MAX_INSTANCES2 if two else MAX_INSTANCES
     est = int(readset.length.astype(np.int64).sum())
     if est > max_instances:
-        raise NotImplementedError(
-            f"{est} k-mer instances exceed the device budget {max_instances}; "
-            "the host k-mer counter is not ported yet (ROADMAP: host k-mer counter)")
+        return count_readset_host(readset, k)
     parts = []
     for ids, W in length_bucketed_blocks(readset, block_size):
         words, lengths = block_tensors(readset, ids, W, dev)
@@ -477,3 +525,41 @@ def frequent_kmers(kc, threshold: Optional[int] = None,
         threshold=int(threshold),
         total_kmers=kc.n_total,
     )
+
+
+def union_frequent(a: FrequentKmers, b: FrequentKmers) -> FrequentKmers:
+    """Union of two frequent-mer tables of one k: the reference's
+    OvlFrequentMers, user-supplied mers kept out of seeding beside the
+    counted ones.  Duplicate keys keep the larger fraction."""
+    assert a.k == b.k, (a.k, b.k)
+    kmers = np.concatenate([a.kmers, b.kmers])
+    frac = np.concatenate([a.fraction, b.fraction])
+    exact = None
+    if a.kmers_exact is not None or b.kmers_exact is not None:
+        exact = np.concatenate([
+            t.kmers_exact if t.kmers_exact is not None else np.zeros(len(t.kmers), np.uint64)
+            for t in (a, b)])
+    order = np.lexsort((-frac, kmers))
+    kmers, frac = kmers[order], frac[order]
+    keep = np.concatenate([[True], kmers[1:] != kmers[:-1]])
+    return FrequentKmers(
+        k=a.k, kmers=kmers[keep], fraction=frac[keep],
+        threshold=min(a.threshold, b.threshold),
+        total_kmers=max(a.total_kmers, b.total_kmers),
+        kmers_exact=exact[order][keep] if exact is not None else None,
+    )
+
+
+def frequent_from_fasta(path: str, k: int) -> FrequentKmers:
+    """Frequent-mer table of every k-mer of every record of a FASTA (the
+    reference's OvlFrequentMers file), each with fraction 1.0."""
+    from ..io.fastx import read_fastx
+
+    codes = [bitpack.seq_to_codes(r.seq) for r in read_fastx(path) if len(r.seq) >= k]
+    if not codes:
+        return FrequentKmers(k=k, kmers=np.zeros(0, np.uint32),
+                             fraction=np.zeros(0, np.float32), threshold=0, total_kmers=0)
+    rs = ReadSet.from_codes_list(codes, [f"m{i}" for i in range(len(codes))])
+    fk = frequent_kmers(count_readset_host(rs, k), threshold=0)
+    fk.fraction[:] = 1.0
+    return fk

@@ -4,15 +4,18 @@
            canonical k-mers, frequent k-mers dropped (the reference's
            ignore-file contract, OverlapMhap.pm:382-396);
   stage B  match: block x block slot-agreement counting on the device
-           (the all-vs-all job matrix of OverlapMhap.pm:191-296).
+           (the all-vs-all job matrix of OverlapMhap.pm:191-296), or, for
+           large read sets, the hash-join (find_candidates_join): reads
+           that share a (slot, value) bucket are paired, O(N H log(N H))
+           sorting instead of O(N^2) compares.
 
 Placement (stage C) is folded into verification (ops.align), as in the
-pipeline of canu_tpu.  The host hash-join matcher of more than 5,000
-reads (find_candidates_join) is not ported yet.
+pipeline of canu_tpu.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from typing import Optional
 
@@ -156,6 +159,75 @@ def find_candidates(sketches: np.ndarray, min_matches: int = 3, block_size: int 
     flip = out[:, 0] > out[:, 1]
     out[flip, 0], out[flip, 1] = out[flip, 1], out[flip, 0]
     return out[np.lexsort((out[:, 1], out[:, 0]))]
+
+
+# calls of find_candidates_join (chip_smoke.py checks a drive's path by it)
+JOIN_CALLS = 0
+
+
+def find_candidates_join(sketches: np.ndarray, min_matches: int = 3, slot_chunk: int = 64,
+                         bucket_cap: int = 2048, device=None) -> np.ndarray:
+    """All-vs-all candidates by an LSH hash-join on the device.
+
+    A pair matches in slot h iff sketches[i, h] == sketches[j, h] !=
+    UINT32_MAX; pairs with >= min_matches matching slots are kept.  Reads
+    are bucketed by (slot, value) keys, one stable sort per group of
+    slot_chunk slots, and each bucket's pairs expand through one gather
+    and triu per bucket size.  Buckets of more than bucket_cap reads (a
+    repeat family the frequent-mer filter missed) are dropped with a
+    warning, as MHAP's tf-idf down-weighting would (OverlapMhap.pm:
+    382-396); below the cap the result equals find_candidates'.  Each slot
+    group's pairs reduce to (pair key, slots) before the groups merge.
+
+    Returns canu_tpu's int64[M, 3] (a_id, b_id, slot_matches), 1-based,
+    a_id < b_id, sorted.
+    """
+    global JOIN_CALLS
+    N, H = sketches.shape
+    if N < 2:
+        return np.zeros((0, 3), dtype=np.int64)
+    JOIN_CALLS += 1
+    dev = resolve_device(device)
+    S = u32_tensor(np.ascontiguousarray(sketches), dev)
+    reads_all = torch.arange(N, dtype=torch.int64, device=dev)
+    dropped = 0
+    per_group = []  # (pair keys, slot counts) of each slot group
+    for h0 in range(0, H, slot_chunk):
+        h1 = min(h0 + slot_chunk, H)
+        vals = S[:, h0:h1].T.reshape(-1)  # slot-major [hc * N]
+        slots = torch.arange(h0, h1, dtype=torch.int64, device=dev).repeat_interleave(N)
+        reads = reads_all.repeat(h1 - h0)
+        keep = vals != UINT32_MAX
+        keys, order = torch.sort((slots << 32)[keep] | vals[keep], stable=True)
+        reads = reads[keep][order]
+        new = torch.ones_like(keys, dtype=torch.bool)
+        new[1:] = keys[1:] != keys[:-1]
+        starts = torch.nonzero(new)[:, 0]
+        sizes = torch.diff(starts, append=starts.new_tensor([keys.shape[0]]))
+        big = sizes > bucket_cap
+        dropped += int(big.sum())
+        keepb = ~big & (sizes > 1)
+        pair_keys = []
+        for s in torch.unique(sizes[keepb]).tolist():
+            sel = starts[keepb & (sizes == s)]
+            members = reads[sel[:, None] + torch.arange(s, device=dev)[None, :]]
+            members = torch.sort(members, dim=1).values
+            li, lj = torch.triu_indices(s, s, 1, device=dev)
+            pair_keys.append((members[:, li] * (N + 1) + members[:, lj]).reshape(-1))
+        if pair_keys:
+            per_group.append(torch.unique(torch.cat(pair_keys), return_counts=True))
+    if dropped:
+        logging.getLogger("canu_tpu_torch.minhash").warning(
+            "hash-join: dropped %d buckets larger than %d reads "
+            "(unfiltered repeat hash values)", dropped, bucket_cap)
+    if not per_group:
+        return np.zeros((0, 3), dtype=np.int64)
+    uniq, inv = torch.unique(torch.cat([u for u, _ in per_group]), return_inverse=True)
+    cnt = torch.zeros_like(uniq).index_add_(0, inv, torch.cat([c for _, c in per_group]))
+    keep = cnt >= min_matches
+    uniq, cnt = uniq[keep], cnt[keep]
+    # the key a * (N + 1) + b (a < b <= N - 1) orders rows by (a_id, b_id)
+    return torch.stack([uniq // (N + 1) + 1, uniq % (N + 1) + 1, cnt], dim=1).cpu().numpy()
 
 
 @dataclass

@@ -1,8 +1,8 @@
 """Resource solver, the part the overlap stage reads (counterpart of
 canu_tpu.pipeline.configure.configure_resources).
 
-maxMemory (host GB) bounds the in-RAM overlap build — above the derived
-candidate count the store would stream through the spill file — and the
+maxMemory (host GB) bounds the in-RAM overlap build — from the derived
+candidate count on, the store streams through the spill file — and the
 external sort's memory; maxThreads its worker threads.  The vote-engine
 device budgets wait for the correction port.
 """

@@ -3,9 +3,9 @@ canu_tpu.pipeline.stages.meryl / overlap).
 
 Same signatures, outputs, file names, resume contract and
 stage-times.jsonl lines as canu_tpu, so either package's stage output can
-feed the other.  Configurations outside the ported slice raise
-NotImplementedError naming the ROADMAP item that will port them; none of
-them changes behaviour silently.
+feed the other.  The one configuration outside the port, shardedCompute
+(the multi-device path), raises NotImplementedError naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -21,20 +21,17 @@ from ..device import resolve_device
 from ..ops.errorest import estimate_error_rates
 from ..stores.readset import ReadSet
 from ..stores.overlaps import OverlapStore
-from .driver import AssemblyCtx, run_stage
+from .driver import AssemblyCtx, PipelineError, run_stage
 
 TAG_DIR = {"cor": "correction", "obt": "trimming", "utg": "unitigging"}
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to canu_tpu_torch yet (ROADMAP: {item})")
 
 
 def _check_single_device(cfg) -> None:
     """shardedCompute=auto runs on one device (the sharded path gives the
     same counts and candidates); an explicit request for it raises."""
     if str(cfg.get("shardedCompute")).strip().lower() in ("1", "true", "yes", "on"):
-        raise _not_ported("shardedCompute (the multi-device path)", "sharding")
+        raise NotImplementedError("shardedCompute (the multi-device path) is not ported to "
+                                  "canu_tpu_torch yet (ROADMAP: sharding)")
 
 
 def meryl(ctx: AssemblyCtx, tag: str, rs: ReadSet, device=None):
@@ -50,10 +47,8 @@ def meryl(ctx: AssemblyCtx, tag: str, rs: ReadSet, device=None):
 
     def fn() -> None:
         _check_single_device(ctx.cfg)
-        custom = str(ctx.cfg.get(tag + "OvlFrequentMers")).strip()
-        if custom:
-            raise _not_ported(f"{tag}OvlFrequentMers", "host k-mer counter")
-        # merylMemory scales the device instance budget
+        # merylMemory scales the device instance budget before the host
+        # counter takes over
         mm = int(ctx.cfg.get("merylMemory"))
         kc = K.count_readset_device(rs, k=k, block_size=256,
                                     max_instances=mm * (1 << 26) if mm > 0 else None,
@@ -82,12 +77,16 @@ def meryl(ctx: AssemblyCtx, tag: str, rs: ReadSet, device=None):
             how = "estimate(valley/peak)"
         else:
             fk = K.frequent_kmers(kc, distinct_fraction=float(ctx.cfg.get(tag + "MerDistinct")))
+        custom = str(ctx.cfg.get(tag + "OvlFrequentMers")).strip()
+        if custom:
+            # user-supplied always-ignore mers (reference OvlFrequentMers)
+            fk = K.union_frequent(fk, K.frequent_from_fasta(custom, k))
         np.savez(out + ".WORKING.npz", kmers=fk.kmers, fraction=fk.fraction,
                  threshold=np.array([fk.threshold]), total=np.array([fk.total_kmers]),
                  k=np.array([k]))
         os.replace(out + ".WORKING.npz", out)
         if bool(ctx.cfg.get("saveMerCounts")):
-            kh = kc.to_host()
+            kh = kc.to_host() if hasattr(kc, "to_host") else kc  # host counts: a KmerCounts
             cp = os.path.join(d, f"{ctx.prefix}.ms{k}.counts.npz")
             np.savez_compressed(cp + ".WORKING.npz", kmers=kh.unique, counts=kh.counts,
                                 k=np.array([k]))
@@ -102,13 +101,65 @@ def meryl(ctx: AssemblyCtx, tag: str, rs: ReadSet, device=None):
     return frequent_from_npz(out)
 
 
+def _minimap_candidates(ctx: AssemblyCtx, tag: str, rs: ReadSet, d: str) -> np.ndarray:
+    """{tag}Overlapper=minimap: the external minimap2 binary all-vs-all,
+    its PAF hits as candidate pairs for the verification (the reference's
+    OverlapMMap.pm; its ReAlign step is the verify pass).  minimap2 must be
+    on PATH, or minimap2Path must name it."""
+    import shutil
+    import subprocess
+
+    from ..io.fastx import write_fasta
+
+    mm2 = str(ctx.cfg.get("minimap2Path"))
+    if shutil.which(mm2) is None:
+        raise PipelineError(f"{tag}Overlapper=minimap but {mm2!r} is not executable; "
+                            "install minimap2 or set minimap2Path=")
+    fa = os.path.join(d, f"{ctx.prefix}.mmap-reads.fasta")
+    if not os.path.exists(fa):
+        write_fasta(fa + ".WORKING", ((f"{i}", rs.get_seq(i)) for i in range(1, rs.n_reads + 1)))
+        os.replace(fa + ".WORKING", fa)
+    preset = "ava-ont" if str(ctx.cfg.get("readType")) == "nanopore" else "ava-pb"
+    mmap_k = int(ctx.cfg.get(tag + "MMapMerSize"))
+    paf = os.path.join(d, f"{ctx.prefix}.mmap.paf")
+    with open(paf + ".WORKING", "w") as oh:
+        r = subprocess.run([mm2, "-x", preset, "-k", str(mmap_k), fa, fa],
+                           stdout=oh, stderr=subprocess.PIPE, text=True)
+    if r.returncode != 0:
+        raise PipelineError(f"minimap2 failed rc={r.returncode}: {r.stderr[-500:]}")
+    os.replace(paf + ".WORKING", paf)
+    pairs = set()
+    with open(paf) as fh:
+        for line in fh:
+            f = line.split("\t", 6)
+            if len(f) < 6:
+                continue
+            try:
+                a, b = int(f[0]), int(f[5])
+            except ValueError:
+                continue
+            if a != b and 1 <= a <= rs.n_reads and 1 <= b <= rs.n_reads:
+                pairs.add((min(a, b), max(a, b)))
+    ctx.log.info(f"{tag}-overlap: minimap2 produced {len(pairs)} candidate pairs "
+                 f"({preset}, k={mmap_k})")
+    if not pairs:
+        return np.zeros((0, 2), np.int64)
+    return np.array(sorted(pairs), np.int64)
+
+
 def overlap(ctx: AssemblyCtx, tag: str, rs: ReadSet, fk, device=None) -> OverlapStore:
     """Sketch -> candidates -> anchored banded verify -> OverlapStore.
 
-    {tag}OvlBandWidth 128 verifies on the Myers engine (kernel K1 on
-    CUDA); any other band on the INF-walled engine (kernel K2)."""
+    Candidates come from minimap2 ({tag}Overlapper=minimap), the block
+    matcher, or the hash-join (mhapMatchEngine=join, or auto above 5,000
+    reads).  {tag}OvlBandWidth 128 verifies on the Myers engine (kernel K1
+    on CUDA); any other band on the INF-walled engine (K2 or K3).  The
+    store is built in RAM, or through the spill file and the native
+    external sort (ovsMethod=spill, or auto from ovlSpillPairs
+    candidates)."""
     from ..ops import align as AL
     from ..ops import minhash as MH
+    from ..stores.overlaps import OverlapSpill
 
     d = ctx.phase_dir(TAG_DIR[tag])
     store = os.path.join(d, f"{ctx.prefix}.ovlStore")
@@ -120,13 +171,6 @@ def overlap(ctx: AssemblyCtx, tag: str, rs: ReadSet, fk, device=None) -> Overlap
         cfg = ctx.cfg
         dev = resolve_device(device)
         _check_single_device(cfg)
-        if str(cfg.get(tag + "Overlapper")) == "minimap":
-            raise _not_ported(f"{tag}Overlapper=minimap", "minimap overlapper")
-        me = str(cfg.get("mhapMatchEngine")).lower()
-        if me == "join" or (me == "auto" and rs.n_reads > 5_000):
-            raise _not_ported(
-                f"mhapMatchEngine={me} with {rs.n_reads} reads (the host hash-join)",
-                "find_candidates_join")
         band = int(cfg.get(tag + "OvlBandWidth"))
 
         sub: dict[str, float] = {}  # sub-stage wall breakdown
@@ -149,22 +193,35 @@ def overlap(ctx: AssemblyCtx, tag: str, rs: ReadSet, fk, device=None) -> Overlap
             ctx.log.info(f"{tag}-overlap: resuming from checkpointed candidates "
                          f"({len(pairs)} pairs, {pairs_ckpt})")
         else:
-            sk = MH.build_sketches(rs, k=k, n_hashes=n_hashes, frequent=fk,
-                                   block_size=int(cfg.get("mhapBlockSize")), device=dev)
-            _lap("sketch")
-            pairs = MH.find_candidates(sk, min_matches=min_matches, block_size=1024,
-                                       device=dev)
-            del sk
+            if str(cfg.get(tag + "Overlapper")) == "minimap":
+                pairs = _minimap_candidates(ctx, tag, rs, d)
+            else:
+                sk = MH.build_sketches(rs, k=k, n_hashes=n_hashes, frequent=fk,
+                                       block_size=int(cfg.get("mhapBlockSize")), device=dev)
+                _lap("sketch")
+                me = str(cfg.get("mhapMatchEngine")).lower()
+                # the block matrix is O(N^2) in block pairs: above 5,000
+                # reads the hash-join's O(N H) sort wins
+                if me == "join" or (me == "auto" and rs.n_reads > 5_000):
+                    pairs = MH.find_candidates_join(sk, min_matches=min_matches, device=dev)
+                else:
+                    pairs = MH.find_candidates(sk, min_matches=min_matches, block_size=1024,
+                                               device=dev)
+                del sk
             np.save(pairs_ckpt + ".WORKING.npy", pairs)
             os.replace(pairs_ckpt + ".WORKING.npy", pairs_ckpt)
             _lap("match")
         from .configure import configure_resources
 
         res = configure_resources(cfg, ctx.log)
+        # ovsMethod: memory forces the in-RAM build, spill the external
+        # sort; auto spills from res.spill_pairs candidates on
         ovs = str(cfg.get("ovsMethod")).lower()
+        spill = None
         if (len(pairs) >= res.spill_pairs) if ovs == "auto" else ovs == "spill":
-            raise _not_ported(f"ovsMethod={ovs} with {len(pairs)} candidate pairs "
-                              "(the spill store)", "spill store")
+            spill = OverlapSpill(os.path.join(d, f"{ctx.prefix}.ovl.spill"))
+            ctx.log.info(f"{tag}-overlap: store via spill + external sort "
+                         f"(ovsMethod={ovs}, {len(pairs)} candidate pairs)")
         ov = AL.verify_overlaps(
             rs, pairs, k=k, band=band,
             max_erate=float(cfg.get(tag + "OvlErrorRate")),
@@ -176,11 +233,16 @@ def overlap(ctx: AssemblyCtx, tag: str, rs: ReadSet, fk, device=None) -> Overlap
             partial=tag in ("cor", "obt"),
             # obt also verifies palindromic pairs in both orientations
             palindromic_min=int(cfg.get(tag + "MinShared")) if tag == "obt" else 0,
+            sink=spill.append if spill is not None else None,
             device=dev,
         )
         _lap("verify")
         verify_prof = dict(AL.LAST_PROFILE)
-        st = OverlapStore.build(ov, rs.n_reads)
+        if spill is not None:
+            st = OverlapStore.build_spilled(spill, rs.n_reads, mem_budget=res.sort_mem_bytes,
+                                            n_threads=res.sort_threads)
+        else:
+            st = OverlapStore.build(ov, rs.n_reads)
         st.save(store)
         _lap("store")
         try:

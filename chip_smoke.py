@@ -56,6 +56,21 @@ Phases (each prints its results; any failure exits non-zero):
               row and of the rows up to the exit rows; the first call's
               first 1,024 extensions (the shape of one call per chunk);
               the whole first call against banded_extend_plain
+  9 ecoli     meryl + overlap ("obt", band 128) at E. coli scale: the
+              JAX package's config 2, random_genome(4.6 Mb, seed=7) at 25x
+              (32,994 corrected reads, 115.3 Mb), ovsMethod=spill: the
+              host k-mer counter (115 M k=22 instances, above the device
+              budget of 2^26), the hash-join (above 5,000 reads), K1 and
+              the spill store with the native external sort, each counted
+              (once each; K1 launched; no other kernel or plain loop on
+              the card); frequent table and candidates equal to the JAX
+              package's (ecoli_overlap_reference.json); the store's rows
+              for a sample of 2,048 candidates equal to the JAX package's
+              store of that sample; the spilled store equal to the in-RAM
+              build of the tables the spill got; the store symmetric.
+              Prints the stage's sub-walls, K1 on each launch (CUDA
+              events) beside its bound, and the device memory peak over
+              the verify beside _chunk_staging_bytes x the window
 
 Each kernel's bound is the larger of its operations over the card's
 32-bit integer rate and its bytes over the memory rate (INT32_OPS_S,
@@ -87,6 +102,8 @@ WARM_PASSES = 3
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 OLD_GROUP_LANES = 4 * 2 * 512  # a K1 launch at MYERS_GROUP 4: 4 chunks of 512 pairs, both ways
 OLD_EXTEND_LANES = 2 * 512  # a K2/K3 launch of one chunk of 512 pairs, both ways
+ECOLI_GENOME = 4_600_000  # phase 9's genome, the JAX package's config 2
+ECOLI_SAMPLE = 2048  # candidates whose store rows phase 9 holds against the reference
 
 # H100 SXM peaks at its 1.98 GHz boost clock and 700 W: 132 SMs x 64 INT32
 # lanes (NVIDIA's Hopper white paper), and HBM3 at 3.35 TB/s
@@ -459,25 +476,34 @@ def profiled(busy: dict, tables: list):
 
 
 def reset_counts() -> None:
-    """Set every kernel's launch count and the plain loops' CUDA counts to 0."""
+    """Set every kernel's launch count, the plain loops' CUDA counts and the
+    calls of the host k-mer counter, the hash-join and the spill build to 0."""
     from canu_tpu_torch.ops import align as AL
+    from canu_tpu_torch.ops import kmer as KM
+    from canu_tpu_torch.ops import minhash as MH
     from canu_tpu_torch.ops import myers as MY
     from canu_tpu_torch.ops.kernels import extend_cuda as EX
     from canu_tpu_torch.ops.kernels import myers_cuda as K1
+    from canu_tpu_torch.stores import overlaps as OV
 
     K1.LAUNCHES = EX.WARP_LAUNCHES = EX.BLOCK_LAUNCHES = 0
     MY.PLAIN_CUDA_SEGMENTS = AL.PLAIN_CUDA_ROWS = 0
+    KM.HOST_COUNTS = MH.JOIN_CALLS = OV.SPILL_BUILDS = 0
 
 
 def read_counts() -> dict:
     from canu_tpu_torch.ops import align as AL
+    from canu_tpu_torch.ops import kmer as KM
+    from canu_tpu_torch.ops import minhash as MH
     from canu_tpu_torch.ops import myers as MY
     from canu_tpu_torch.ops.kernels import extend_cuda as EX
     from canu_tpu_torch.ops.kernels import myers_cuda as K1
+    from canu_tpu_torch.stores import overlaps as OV
 
     return {"K1": K1.LAUNCHES, "K2": EX.WARP_LAUNCHES, "K3": EX.BLOCK_LAUNCHES,
             "plain_myers_segments": MY.PLAIN_CUDA_SEGMENTS,
-            "plain_extend_rows": AL.PLAIN_CUDA_ROWS}
+            "plain_extend_rows": AL.PLAIN_CUDA_ROWS, "host_kmer_counts": KM.HOST_COUNTS,
+            "join_calls": MH.JOIN_CALLS, "spill_builds": OV.SPILL_BUILDS}
 
 
 def check_store(phase: str, st, prof: dict, fdig: str, ref: dict) -> None:
@@ -663,6 +689,204 @@ def extend_drive(name: str, calls, card: str, reps: int = 3) -> dict:
             "old_shape": {"B": n_old, "ms": old_ms, "bound": ob, "bound_exit": obx},
             "first_ms": first["ms"], "plain_ms": plain_ms, "err": err,
             "first_bound_exit": first["bound_exit"]}
+
+
+def ecoli_reads():
+    """The E. coli-scale corrected read set (the JAX package's config 2,
+    scripts/scale_run.py: 4.6 Mb at 25x)."""
+    from canu_tpu_torch.sim.simulate import random_genome, simulate_reads
+
+    g = random_genome(ECOLI_GENOME, seed=7)
+    rs, _ = simulate_reads(g, coverage=25, mean_len=3500, min_len=1500, max_len=7800,
+                           error_rate=0.03, seed=8)
+    return rs
+
+
+def ecoli_drive(dev, card: str) -> dict:
+    """Phase 9: obt meryl + overlap on the E. coli-scale read set with
+    ovsMethod=spill, in a directory of its own, the counts set to 0 just
+    before and read just after.  The path must run the host k-mer counter,
+    the hash-join and the spill build once each and K1, and no other kernel
+    or plain loop on the card.  Holds the frequent table and candidates
+    against ecoli_overlap_reference.json, the store's rows for a sample of
+    2,048 candidates against the JAX package's store of that sample, the
+    spilled store against the in-RAM build of the tables the spill got, and
+    the store's symmetry.  Times K1 on each launch with CUDA events (its
+    bound computed after the launch, as in phase 5), and reads the device
+    memory peak over the verify beside _chunk_staging_bytes times the
+    window _verify_window chose."""
+    import numpy as np
+    import torch
+
+    from canu_tpu_torch.config import Config
+    from canu_tpu_torch.ops import align as AL
+    from canu_tpu_torch.ops import kmer as KM
+    from canu_tpu_torch.ops import minhash as MH
+    from canu_tpu_torch.ops.kernels import myers_cuda as K1
+    from canu_tpu_torch.pipeline import stages
+    from canu_tpu_torch.pipeline.driver import make_ctx
+    from canu_tpu_torch.stores import overlaps as OV
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_cases import candidate_sample, store_rows_of_pairs
+
+    with open(os.path.join(ROOT, "canu_tpu_torch", "ecoli_overlap_reference.json")) as fh:
+        ref = json.load(fh)
+    t_phase = t = time.time()
+    rs = ecoli_reads()
+    log(f"[9 ecoli] read set: {rs.n_reads} reads, {rs.total_bases} bases "
+        f"(simulated in {time.time() - t:.1f} s)")
+    check(rs.n_reads == ref["n_reads"] and rs.total_bases == ref["total_bases"],
+          "E. coli read set differs from the reference's")
+    work = tempfile.mkdtemp(prefix="chip_smoke_ecoli_")
+    cfg = Config()
+    cfg.set("genomeSize", ECOLI_GENOME)
+    cfg.set("ovsMethod", "spill")
+    ctx = make_ctx(work, "ecoli", cfg)
+
+    # instrumentation, each undone below: K1's events and bounds, the
+    # verify's memory peak and window, the candidates, the spill's tables
+    k1 = {"events": [], "bounds": [], "peak": 0, "bound_s": 0.0}
+    mem: dict = {"windows": []}
+    pairs_seen, spilled, host_s = [], [], []
+    real = {"k1": K1.myers_rows_cuda, "verify": AL.verify_overlaps,
+            "window": AL._verify_window, "join": MH.find_candidates_join,
+            "host": KM.count_readset_host, "append": OV.OverlapSpill.append}
+
+    def k1_timed(*args):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real["k1"](*args)
+        e1.record()
+        k1["events"].append((e0, e1))
+        # the bound's own temporaries stay out of the verify's peak
+        k1["peak"] = max(k1["peak"], torch.cuda.max_memory_allocated(dev))
+        t0 = time.time()
+        k1["bounds"].append(k1_bound(args, torch.clamp(args[4].to(torch.int64), 0, args[6])))
+        k1["bound_s"] += time.time() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        return out
+
+    depth = [0]
+
+    def verify_measured(*args, **kw):
+        if depth[0] == 0:  # the outer call (the palindromic pass recurses)
+            torch.cuda.synchronize()
+            mem["start"] = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            k1["peak"] = 0
+        depth[0] += 1
+        try:
+            return real["verify"](*args, **kw)
+        finally:
+            depth[0] -= 1
+            if depth[0] == 0:
+                mem["peak"] = max(k1["peak"], torch.cuda.max_memory_allocated(dev))
+
+    def window(*args):
+        out = real["window"](*args)
+        mem["windows"].append((args[:3], out))
+        return out
+
+    def host_timed(*args, **kw):
+        t0 = time.time()
+        out = real["host"](*args, **kw)
+        host_s.append(time.time() - t0)
+        return out
+
+    def append(self, table):
+        spilled.append(table)
+        return real["append"](self, table)
+
+    K1.myers_rows_cuda, AL.verify_overlaps, AL._verify_window = k1_timed, verify_measured, window
+    MH.find_candidates_join = lambda *a, **kw: pairs_seen.append(real["join"](*a, **kw)) or \
+        pairs_seen[-1]
+    KM.count_readset_host, OV.OverlapSpill.append = host_timed, append
+    try:
+        reset_counts()
+        t = time.time()
+        fk = stages.meryl(ctx, "obt", rs, device=dev)
+        t_meryl = time.time() - t
+        st = stages.overlap(ctx, "obt", rs, fk, device=dev)
+        torch.cuda.synchronize()
+        t_stage = time.time() - t
+        counts = read_counts()
+    finally:
+        K1.myers_rows_cuda, AL.verify_overlaps = real["k1"], real["verify"]
+        AL._verify_window, MH.find_candidates_join = real["window"], real["join"]
+        KM.count_readset_host, OV.OverlapSpill.append = real["host"], real["append"]
+    prof = dict(AL.LAST_PROFILE)
+    with open(ctx.path("ecoli.stage-times.jsonl")) as fh:
+        sub = [json.loads(ln) for ln in fh if '"obt-overlap.sub"' in ln][-1]["sub_walls_s"]
+    log(f"[9 ecoli] {card}: meryl {t_meryl:.2f} s (host k-mer count {sum(host_s):.2f} s); "
+        f"meryl+overlap {t_stage:.2f} s; overlap sub-walls {sub} (sketch, match = the "
+        f"hash-join, verify, store = spill sort + store write); verify profile {prof}")
+    log(f"[9 ecoli] launch and call counts {counts}")
+    check(counts["K1"] > 0, "9 ecoli: kernel K1 never launched during the stage")
+    check(counts["K2"] == counts["K3"] == 0, "9 ecoli: kernel K2 or K3 launched off its path")
+    check(counts["plain_myers_segments"] == 0 and counts["plain_extend_rows"] == 0,
+          "9 ecoli: a plain loop ran on the card during the stage")
+    for name in ("host_kmer_counts", "join_calls", "spill_builds"):
+        check(counts[name] == 1, f"9 ecoli: {name} is {counts[name]}, expected 1")
+    check(len(k1["events"]) == counts["K1"], "9 ecoli: K1 launches and timed calls differ")
+
+    # the frequent table and the candidates equal the JAX package's
+    fdig = frequent_digest(os.path.join(work, "trimming", "ecoli.ms22.frequent.npz"))
+    (pairs,) = pairs_seen
+    cdig = hashlib.sha256(np.ascontiguousarray(pairs.astype("<i8")).tobytes()).hexdigest()
+    log(f"[9 ecoli] frequent sha256 {fdig}; {len(pairs)} candidates (reference "
+        f"{ref['n_candidates']}), sha256 {cdig}")
+    check(fdig == ref["frequent_sha256"], "9 ecoli: frequent-mer table differs from the JAX package's")
+    check(len(pairs) == ref["n_candidates"] and cdig == ref["candidates_sha256"],
+          "9 ecoli: candidates differ from the JAX package's")
+    # the store: non-empty, symmetric, its rows for the sample the JAX
+    # package's store of that sample, the spilled build the in-RAM one
+    a, b = np.asarray(st.a_id).astype(np.int64), np.asarray(st.b_id).astype(np.int64)
+    check(len(st) > 0, "9 ecoli: empty overlap store")
+    check(np.array_equal(np.unique(a << 32 | b), np.unique(b << 32 | a)),
+          "9 ecoli: overlap store is not symmetric")
+    sample = candidate_sample(pairs, ECOLI_SAMPLE)
+    sdig = hashlib.sha256(np.ascontiguousarray(sample.astype("<i8")).tobytes()).hexdigest()
+    check(sdig == ref["sample"]["candidates_sha256"], "9 ecoli: the candidate sample differs")
+    rows = store_rows_of_pairs(st, sample)
+    rdig = OV.store_digest(rows)
+    log(f"[9 ecoli] store rows {len(st)}; the rows of the {len(sample)} sampled candidates "
+        f"{len(rows.a_id)} (reference {ref['sample']['rows']}), sha256 {rdig}")
+    check(len(rows.a_id) == ref["sample"]["rows"] and rdig == ref["sample"]["store_sha256"],
+          "9 ecoli: the sampled candidates' rows differ from the JAX package's store")
+    cat = AL.OverlapTable(**{c: np.concatenate([getattr(x, c) for x in spilled])
+                             for c in ("a_id", "b_id", "flipped", "a_bgn", "a_end", "b_bgn",
+                                       "b_end", "erate_q")})
+    in_ram = OV.store_digest(OV.OverlapStore.build(cat, rs.n_reads))
+    check(in_ram == OV.store_digest(st), "9 ecoli: the spilled store differs from the in-RAM build")
+    log(f"[9 ecoli] store symmetric; sampled rows equal the JAX package's; the spilled store "
+        f"equals the in-RAM build of the {len(spilled)} tables the spill got ({len(cat)} rows)")
+
+    # K1 on every launch of the drive, by CUDA events, beside its bound
+    k1_ms = [e0.elapsed_time(e1) for e0, e1 in k1["events"]]
+    bd = k1["bounds"]
+    tb = sum(x["bound_ms"] for x in bd)
+    log(f"[9 timing] {card}: K1 per ecoli drive: {len(k1_ms)} launches, {sum(k1_ms):.3f} ms "
+        f"(first {k1_ms[0]:.3f} ms, largest {max(k1_ms):.3f} ms); bound {tb:.3f} ms "
+        f"({100 * tb / sum(k1_ms):.1f}% of it; {sum(x['ops'] for x in bd):.3e} operations, "
+        f"{sum(x['bytes'] for x in bd):.3e} bytes, {sum(x['live_rows'] for x in bd)} live rows; "
+        f"computed after each launch, {k1['bound_s']:.2f} s of the verify wall)")
+    (w_args, (group, n_window)), *rest = mem["windows"]
+    est = AL._chunk_staging_bytes(*w_args) * n_window
+    log(f"[9 memory] {card}: verify device peak {mem['peak'] / 1e9:.3f} GB "
+        f"(torch.cuda.max_memory_allocated; {(mem['peak'] - mem['start']) / 1e9:.3f} GB above "
+        f"the {mem['start'] / 1e9:.3f} GB allocated at its start); _chunk_staging_bytes"
+        f"{tuple(w_args)} x the window of {n_window} chunks = {est / 1e9:.3f} GB (groups of "
+        f"{group}; {len(rest)} more window calls: {[w[1] for w in rest]})")
+    log(f"[9 ecoli] phase wall {time.time() - t_phase:.1f} s")
+    return {"meryl_s": t_meryl, "host_count_s": sum(host_s), "stage_s": t_stage,
+            "sub_walls_s": sub, "verify_profile": prof, "rows": len(st),
+            "n_candidates": len(pairs), "launches": counts, "k1_ms": k1_ms,
+            "k1_ms_per_drive": sum(k1_ms), "k1_bounds": bd, "k1_bound_ms_per_drive": tb,
+            "k1_bound_s": k1["bound_s"], "verify_peak_bytes": mem["peak"],
+            "verify_start_bytes": mem["start"], "window": [list(w_args), group, n_window],
+            "staging_estimate_bytes": est, "phase_s": time.time() - t_phase}
 
 
 def main() -> int:
@@ -931,6 +1155,9 @@ def main() -> int:
         + ", ".join(f"{n} {d['stage_s']:.2f} s" for n, d in drives.items()))
     record["extend"] = ext
 
+    # ---- 9: the E. coli-scale obt path -------------------------------------
+    record["ecoli"] = ecoli = ecoli_drive(dev, card)
+
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(record, fh, indent=1, default=str)
@@ -944,7 +1171,8 @@ def main() -> int:
         {"name": "myers_rows (K1)", "route": "cuda",
          "source": "canu_tpu_torch/csrc/myers_tile.cu",
          "replaces": "canu_tpu/ops/pallas/myers_pallas.py:77",
-         "launches": launches + drives["obt"]["launches"]["K1"], "max_abs_err": err,
+         "launches": launches + drives["obt"]["launches"]["K1"] + ecoli["launches"]["K1"],
+         "max_abs_err": err,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bd1["bound_ms"],
          "bound_by": bd1["bound_by"], "library_ms": None},
         {"name": "extend_warp (K2)", "route": "cuda", "source": src,

@@ -103,8 +103,12 @@ def test_count_readset_histogram_and_frequent():
             np.testing.assert_array_equal(a.kmers, b.kmers)
             assert a.kmers.dtype == b.kmers.dtype
             np.testing.assert_array_equal(a.fraction, b.fraction)
-    with pytest.raises(NotImplementedError):
-        TK.count_readset_device(trs, k=16, max_instances=10, device="cpu")
+    # above max_instances both hand over to their host counters
+    hk, hj = (TK.count_readset_device(trs, k=16, max_instances=10, device="cpu"),
+              JK.count_readset_device(rs, k=16, max_instances=10))
+    assert isinstance(hk, TK.KmerCounts)
+    np.testing.assert_array_equal(hk.unique, hj.unique)
+    np.testing.assert_array_equal(hk.counts, hj.counts)
     blocks_t = list(TK.length_bucketed_blocks(trs, 17))
     blocks_j = list(JK.length_bucketed_blocks(rs, 17))
     assert [w for _, w in blocks_t] == [w for _, w in blocks_j]

@@ -1,6 +1,7 @@
 """canu_tpu_torch stands alone: a machine with the port and neither jax nor
-the JAX package must be able to run its stages, and running them where
-jax is installed must not load it."""
+the JAX package must be able to run its stages (the cor, utg band-256 and
+obt join + spill + host-count routes), and running them where jax is
+installed must not load it."""
 
 from __future__ import annotations
 
@@ -43,10 +44,24 @@ ctx2 = make_ctx(tempfile.mkdtemp(), "t", cfg2)
 fk2 = stages.meryl(ctx2, "utg", rs2, device="cpu")
 st2 = stages.overlap(ctx2, "utg", rs2, fk2, device="cpu")
 assert fk2.k == 22 and len(st2) > 0, "empty utg store"
+# the E. coli-scale route: the host k-mer counter, the hash-join and the
+# spill store with the native external sort
+from canu_tpu_torch.ops import kmer, minhash
+from canu_tpu_torch.stores import overlaps
+kmer.MAX_INSTANCES2 = 1
+cfg3 = Config()
+cfg3.set("genomeSize", 6_000)
+cfg3.set("mhapMatchEngine", "join")
+cfg3.set("ovsMethod", "spill")
+ctx3 = make_ctx(tempfile.mkdtemp(), "t", cfg3)
+fk3 = stages.meryl(ctx3, "obt", rs2, device="cpu")
+st3 = stages.overlap(ctx3, "obt", rs2, fk3, device="cpu")
+assert (kmer.HOST_COUNTS, minhash.JOIN_CALLS, overlaps.SPILL_BUILDS) == (1, 1, 1)
+assert len(st3) > 0, "empty obt store"
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "canu_tpu")
                 if sys.modules[m] is not None)
 assert not loaded, loaded
-print("ROWS", len(st), len(st2))
+print("ROWS", len(st), len(st2), len(st3))
 """
 
 
@@ -58,7 +73,8 @@ import canu_tpu_torch
 from canu_tpu_torch.pipeline import stages
 from canu_tpu_torch.ops import align, kmer, minhash, minimizers, myers
 from canu_tpu_torch.ops.kernels import _nvcc, extend_cuda, myers_cuda
-import canu_tpu_torch.convert
+from canu_tpu_torch.stores import overlaps
+import canu_tpu_torch.convert, canu_tpu_torch.native
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not loaded, loaded
 print("NO_JAX")

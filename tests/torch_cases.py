@@ -8,10 +8,15 @@ against canu_tpu's banded extension on the CPU and against kernels K2
 and K3 on the card; ``extend_exit_rows``: the row after which each
 extension's outputs are fixed, where K2 and K3 stop (the tests check the
 argument; chip_smoke.py counts the kernels' bound up to it).
-``myers_edge_cases``: kernel K1's.
+``myers_edge_cases``: kernel K1's.  ``candidate_sample`` and
+``store_rows_of_pairs``: a sample of a candidate list and a store's rows
+for it, which stand in for a full verify where the reference cannot run
+one (chip_smoke.py's ecoli phase; scripts/torch_ecoli_reference.py).
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -247,3 +252,20 @@ def myers_edge_cases():
     cases["segments"] = (myers_cases(24, 16, 700, er=0.12, drift=True), 700,
                          {"segment": 256, "max_rows": 600})
     return cases
+
+
+def candidate_sample(pairs: np.ndarray, n: int = 2048) -> np.ndarray:
+    """Every floor(M/n)-th row of the sorted candidate rows, n of them
+    (all of them when M <= n)."""
+    return pairs[:: max(1, len(pairs) // n)][:n]
+
+
+def store_rows_of_pairs(st, pairs: np.ndarray) -> SimpleNamespace:
+    """The rows of store st whose read pair, either way round, is an
+    (a_id, b_id) row of pairs: the 8 store columns, for store_digest."""
+    cols = ("a_id", "b_id", "flipped", "a_bgn", "a_end", "b_bgn", "b_end", "erate_q")
+    a, b = np.asarray(st.a_id).astype(np.int64), np.asarray(st.b_id).astype(np.int64)
+    key = np.minimum(a, b) << 32 | np.maximum(a, b)
+    want = np.asarray(pairs[:, 0], np.int64) << 32 | np.asarray(pairs[:, 1], np.int64)
+    m = np.isin(key, want)
+    return SimpleNamespace(**{c: np.asarray(getattr(st, c))[m] for c in cols})
