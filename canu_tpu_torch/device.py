@@ -1,7 +1,9 @@
 """Explicit torch device resolution.
 
-A requested CUDA device that is not present is an error: nothing moves to
-the CPU behind the caller's back.
+The port runs on the card.  A missing card is an error, whether the
+caller named a CUDA device or left the device to the default: nothing
+moves to the CPU behind the caller's back, and the CPU is used only when
+the caller asks for it (``device="cpu"``, as the tests do).
 """
 
 from __future__ import annotations
@@ -12,12 +14,10 @@ import torch
 def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
     """torch.device for ``device``.
 
-    None picks ``cuda`` when a card is visible and ``cpu`` otherwise;
-    ``"cuda"`` (or ``"cuda:N"``) raises when no card is present.
+    None means ``cuda``; ``None``, ``"cuda"`` or ``"cuda:N"`` raise when no
+    card is present.  ``"cpu"`` is the CPU.
     """
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    dev = torch.device(device)
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {dev} requested but no CUDA device is present")

@@ -1,15 +1,21 @@
-"""Resource solver, the part the overlap stage reads (counterpart of
-canu_tpu.pipeline.configure.configure_resources).
+"""Resource solver (counterpart of canu_tpu.pipeline.configure.
+configure_resources).
 
 maxMemory (host GB) bounds the in-RAM overlap build — from the derived
 candidate count on, the store streams through the spill file — and the
-external sort's memory; maxThreads its worker threads.  The vote-engine
-device budgets wait for the correction port.
+external sort's memory; maxThreads its worker threads.  The vote
+engine's DP cells per chunk (votepile.CHUNK_CELL_BUDGET) are sized from
+the card's memory (torch.cuda.mem_get_info), not from maxMemory.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import torch
+
+from ..ops import votepile as VP
+from ..ops.trace import SMAX, SROW
 
 
 @dataclass
@@ -41,6 +47,16 @@ def configure_resources(cfg, log=None) -> Resources:
     sort_threads = max(0, threads)  # 0 = native default (hw concurrency)
     if threads > 0:
         decisions["sortThreads"] = threads
+    # the vote engine's DP state is its peak ([n_rows, B, window] bytes,
+    # window = band + SMAX*SROW): keep it under ~1/6 of the card.  Votes
+    # are exact float32 sums, so the chunk size changes no corrected base
+    card = int(torch.cuda.mem_get_info()[1]) if torch.cuda.is_available() else 0
+    if card > 0:
+        cells = max(1 << 19, min(1 << 23, (card // 6) // (256 + SMAX * SROW)))
+        if cells != VP.CHUNK_CELL_BUDGET:
+            VP.CHUNK_CELL_BUDGET = cells
+            decisions["chunkCellBudget"] = cells
     if log is not None and decisions:
         log.info("configure: %s", decisions)
     return Resources(spill_pairs, sort_mem, sort_threads, decisions)
+

@@ -1,17 +1,22 @@
-"""meryl and overlap pipeline stages (counterpart of
-canu_tpu.pipeline.stages.meryl / overlap).
+"""gatekeeper, meryl and overlap pipeline stages and the correction phase
+(counterpart of canu_tpu.pipeline.stages.gatekeeper / meryl / overlap /
+correction_phase).
 
 Same signatures, outputs, file names, resume contract and
 stage-times.jsonl lines as canu_tpu, so either package's stage output can
-feed the other.  The one configuration outside the port, shardedCompute
-(the multi-device path), raises NotImplementedError naming its ROADMAP
-item.
+feed the other; the device stages and the phase take ``device=``.  The
+configurations outside the port raise NotImplementedError naming their
+ROADMAP item: shardedCompute (the multi-device path) and
+corConsensus=dag.  The correction phase runs as one process.
 """
 
 from __future__ import annotations
 
+import glob
+import gzip
 import json
 import os
+import shutil
 import time
 
 import numpy as np
@@ -24,6 +29,64 @@ from ..stores.overlaps import OverlapStore
 from .driver import AssemblyCtx, PipelineError, run_stage
 
 TAG_DIR = {"cor": "correction", "obt": "trimming", "utg": "unitigging"}
+
+
+def gatekeeper(ctx: AssemblyCtx, tag: str, inputs: list[str]) -> ReadSet:
+    """Load reads into the phase store (gatekeeperCreate equivalent)."""
+    d = ctx.phase_dir(TAG_DIR[tag])
+    store = os.path.join(d, f"{ctx.prefix}.gkpStore")
+
+    def done() -> bool:
+        return os.path.isdir(store)
+
+    def fn() -> None:
+        min_len = int(ctx.cfg.get("minReadLength"))
+        rs, stats = ReadSet.from_fastx(inputs, min_read_length=min_len)
+        if rs.n_reads == 0:
+            raise RuntimeError(f"gatekeeper[{tag}]: no reads loaded from {inputs}")
+        if (bool(ctx.cfg.get("stopOnReadQuality")) and stats.n_input > 0
+                and stats.n_skipped_short > stats.n_loaded):
+            # Gatekeeper.pm:302-312 stopOnReadQuality: most of the input
+            # was discarded — almost always wrong minReadLength/wrong file
+            raise RuntimeError(
+                f"gatekeeper[{tag}]: {stats.n_skipped_short} of "
+                f"{stats.n_input} input reads discarded as shorter than "
+                f"minReadLength={min_len}; fix the input or set "
+                f"stopOnReadQuality=false to continue anyway"
+            )
+        qv_line = ""
+        if rs.has_quals:
+            from ..utils.quality import quality_clear_ranges, read_quality_histogram
+
+            qhist = read_quality_histogram(rs.mean_quals())
+            qv_line = f"\nmean-QV histogram (bin 2): {qhist.tolist()}"
+            if bool(ctx.cfg.get("qvTrim")):
+                # initial QV clear ranges (trimReads-quality role), applied
+                # before any overlap work
+                b, e = quality_clear_ranges(
+                    rs.length, rs.quals, rs.qual_off,
+                    min_qv=float(ctx.cfg.get("qvTrimMinQuality")),
+                    window=int(ctx.cfg.get("qvTrimWindow")),
+                )
+                n_trim = int(np.sum((b > 0) | (e < rs.length)))
+                if n_trim:
+                    before = rs.n_reads
+                    keep = (e - b) >= min_len
+                    rs = rs.sliced(np.where(keep, b, 0), np.where(keep, e, 0))
+                    qv_line += (f"\nQV trim: {n_trim} reads trimmed, "
+                                f"{before - rs.n_reads} dropped below minReadLength")
+        rs.save(store)
+        hist = rs.length_histogram(1000)
+        ctx.report.add(
+            f"{tag}.gatekeeper",
+            f"reads loaded {stats.n_loaded} / input {stats.n_input}; "
+            f"bases {stats.bases_loaded}; split-at-N {stats.n_split_at_n}; "
+            f"short discards {stats.n_skipped_short}\n"
+            f"length histogram (kb): {hist.tolist()}" + qv_line,
+        )
+
+    run_stage(ctx, f"{tag}-gatekeeper", done, fn)
+    return ReadSet.load(store)
 
 
 def _check_single_device(cfg) -> None:
@@ -268,3 +331,110 @@ def overlap(ctx: AssemblyCtx, tag: str, rs: ReadSet, fk, device=None) -> Overlap
 
     run_stage(ctx, f"{tag}-overlap", done, fn)
     return OverlapStore.load(store)
+
+
+# ---- correction phase -------------------------------------------------------
+
+
+def _cor_evidence_budget(ctx: AssemblyCtx, rs: ReadSet) -> int:
+    """Effective per-template evidence coverage: corMaxEvidenceCoverage
+    capped by the corMaxEvidenceCoverageLocal '<N.N>x' coverage multiple
+    (CorrectReads.pm:83-117)."""
+    base = int(ctx.cfg.get("corMaxEvidenceCoverage"))
+    est = rs.total_bases / max(1.0, float(ctx.cfg.get("genomeSize")))
+    lo = ctx.cfg.coverage_multiple("corMaxEvidenceCoverageLocal", est)
+    return max(1, min(base, int(round(lo))))
+
+
+def correction_phase(ctx: AssemblyCtx, raw_inputs: list[str], device=None) -> None:
+    """Raw reads -> corrected reads (CorrectReads.pm + falconsense).
+
+    Correction runs as resumable template blocks: each block's corrected
+    reads land in ``correction/blocks/block_NNNNN.fasta.gz`` (atomic
+    ``.WORKING`` rename), and a re-run skips completed blocks — the
+    reference's per-jobid batch arrays with only-failed-indices retry
+    (CorrectReads.pm:122-141).  One process runs every block.
+    """
+    from ..ops.falcon import correct_reads_blocks
+
+    d = ctx.phase_dir("correction")
+    out = os.path.join(d, f"{ctx.prefix}.correctedReads.fasta.gz")
+    blocks_dir = os.path.join(d, "blocks")
+    if os.path.exists(out):
+        # phase-level short-circuit: with saveOverlaps=false the
+        # intermediate stores are gone, so the sub-stages must not be
+        # consulted (they would rebuild them)
+        ctx.log.info("correction phase complete, skipping")
+        _cleanup_phase_stores(ctx, d)
+        return
+    if str(ctx.cfg.get("corConsensus")).lower() == "dag":
+        raise NotImplementedError(
+            "corConsensus=dag (the tag-chain consensus) is not ported to canu_tpu_torch yet "
+            "(ROADMAP item 8(e))")
+    dev = resolve_device(device)
+    rs = gatekeeper(ctx, "cor", raw_inputs)
+    fk = meryl(ctx, "cor", rs, device=dev)
+    st = overlap(ctx, "cor", rs, fk, device=dev)
+
+    def done() -> bool:
+        return os.path.exists(out)
+
+    def fn() -> None:
+        from ..io.fastx import write_fasta
+
+        os.makedirs(blocks_dir, exist_ok=True)
+        done_blocks = {int(f[6:11]) for f in os.listdir(blocks_dir)
+                       if f.startswith("block_") and f.endswith(".fasta.gz")}
+        n_blocks = len(done_blocks)
+        for bi, items in correct_reads_blocks(
+            rs, st,
+            genome_size=float(ctx.cfg.get("genomeSize")),
+            out_coverage=int(ctx.cfg.get("corOutCoverage")),
+            max_evidence_coverage=_cor_evidence_budget(ctx, rs),
+            min_evidence_length=int(ctx.cfg.get("corMinEvidenceLength")),
+            band=int(ctx.cfg.get("corBandWidth")),
+            min_cov=int(ctx.cfg.get("corMinCoverage")),
+            qv_weight=bool(ctx.cfg.get("qvEvidenceWeight")),
+            done_blocks=done_blocks,
+            max_evidence_erate=float(ctx.cfg.get("corMaxEvidenceErate")),
+            template_filter=str(ctx.cfg.get("corFilter")),
+            device=dev,
+        ):
+            p = os.path.join(blocks_dir, f"block_{bi:05d}.fasta.gz")
+            write_fasta(p + ".WORKING.gz", items)
+            os.replace(p + ".WORKING.gz", p)
+            n_blocks += 1
+            ctx.log.info("correction block %d done (%d reads, %d blocks total)",
+                         bi, len(items), n_blocks)
+        # concatenate block gzips (gzip members concatenate legally)
+        with open(out + ".WORKING.gz", "wb") as oh:
+            for f in sorted(os.listdir(blocks_dir)):
+                if f.startswith("block_") and f.endswith(".fasta.gz"):
+                    with open(os.path.join(blocks_dir, f), "rb") as ih:
+                        oh.write(ih.read())
+        with gzip.open(out + ".WORKING.gz", "rt") as fh:
+            n = sum(1 for line in fh if line.startswith(">"))
+        os.replace(out + ".WORKING.gz", out)
+        if not bool(ctx.cfg.get("saveReadCorrections")):
+            shutil.rmtree(blocks_dir, ignore_errors=True)  # concatenated
+        ctx.report.add("cor.correct", f"corrected {n} reads in {n_blocks} blocks -> {out}")
+
+    run_stage(ctx, "correction", done, fn)
+    _cleanup_phase_stores(ctx, d)
+
+
+def _cleanup_phase_stores(ctx: AssemblyCtx, phase_dir: str) -> None:
+    """saveOverlaps=false: drop the phase's overlap store and spill once
+    the phase output exists (Defaults.pm saveOverlaps)."""
+    if bool(ctx.cfg.get("saveOverlaps")):
+        return
+    for p in (glob.glob(os.path.join(phase_dir, f"{ctx.prefix}.ovlStore*"))
+              + glob.glob(os.path.join(phase_dir, f"{ctx.prefix}.ovl.spill*"))):
+        if os.path.isdir(p):
+            shutil.rmtree(p, ignore_errors=True)
+        else:
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
+        ctx.log.info("saveOverlaps=false: removed %s", p)

@@ -1,4 +1,5 @@
-"""Run canu_tpu_torch's overlap paths once on one NVIDIA GPU and check them.
+"""Run canu_tpu_torch's overlap and correction paths once on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
@@ -71,6 +72,22 @@ Phases (each prints its results; any failure exits non-zero):
               Prints the stage's sub-walls, K1 on each launch (CUDA
               events) beside its bound, and the device memory peak over
               the verify beside _chunk_staging_bytes x the window
+  10 correct  correction_phase (gatekeeper, meryl, overlap "cor", the
+              falcon-sense vote engine) from a FASTA of the raw bench
+              reads, Config() + genomeSize=300k, in a directory of its own:
+              K1 must have launched and no other kernel or plain loop run
+              on the card; the gatekeeper store's reads and bases, the cor
+              store (cor_overlap_reference.json) and the corrected reads of
+              every block that correction_reference.json covers (by
+              digest) must equal the JAX package's; every corrected record
+              is <read>_corrN.  Prints the stage walls, the correction's
+              parts (selection, DP, windows + vote fold, finalize, fetch,
+              decode), chunks and jobs, one chunk's launches and device
+              busy share (torch.profiler; table in
+              chiprun_out/profile_correct.txt) and the device memory peak
+              over the correction.  The vote engine is PyTorch ops (the
+              JAX package's is XLA, with no Pallas kernel): no kernel of
+              its own, so no line in the kernel record
 
 Each kernel's bound is the larger of its operations over the card's
 32-bit integer rate and its bytes over the memory rate (INT32_OPS_S,
@@ -102,6 +119,7 @@ WARM_PASSES = 3
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 OLD_GROUP_LANES = 4 * 2 * 512  # a K1 launch at MYERS_GROUP 4: 4 chunks of 512 pairs, both ways
 OLD_EXTEND_LANES = 2 * 512  # a K2/K3 launch of one chunk of 512 pairs, both ways
+BENCH_GENOME = 300_000  # bench.py's genome (phases 4-8 and 10)
 ECOLI_GENOME = 4_600_000  # phase 9's genome, the JAX package's config 2
 ECOLI_SAMPLE = 2048  # candidates whose store rows phase 9 holds against the reference
 
@@ -164,7 +182,7 @@ def bench_reads(error_rate: float = 0.10, seed: int = 43):
     read set of the obt/utg drives."""
     from canu_tpu_torch.sim.simulate import random_genome, simulate_reads
 
-    g = random_genome(300_000, seed=42)
+    g = random_genome(BENCH_GENOME, seed=42)
     rs, _ = simulate_reads(g, coverage=12, mean_len=3500, min_len=1500, max_len=7800,
                            error_rate=error_rate, seed=seed)
     return rs
@@ -889,6 +907,191 @@ def ecoli_drive(dev, card: str) -> dict:
             "staging_estimate_bytes": est, "phase_s": time.time() - t_phase}
 
 
+def correct_drive(dev, card: str) -> dict:
+    """Phase 10: the port's correction_phase from a FASTA of the raw bench
+    reads, Config() + genomeSize=300k, in a directory of its own, the
+    counts set to 0 just before and read just after.  K1 must have launched
+    (the cor overlap stage) and no other kernel and no plain loop on the
+    card.  Holds the gatekeeper store, the cor store and each block of
+    corrected reads that correction_reference.json covers against the JAX
+    package's; the FASTA must be non-empty with every record
+    <read>_corrN.  Prints the stage walls and the correction's parts:
+    selection and decode on the host clock, the DP, the rest of each vote
+    chunk (windows and fold) and the finalize by CUDA events, the fetch of
+    the packed rows (host clock; it waits for the device); the chunks and
+    jobs; one chunk under torch.profiler (its launches and the device busy
+    share); the device memory peak over the correction."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from canu_tpu_torch.config import Config
+    from canu_tpu_torch.io.fastx import read_fastx, write_fasta
+    from canu_tpu_torch.ops import falcon as F
+    from canu_tpu_torch.ops import votepile as VP
+    from canu_tpu_torch.pipeline import stages
+    from canu_tpu_torch.pipeline.driver import make_ctx
+    from canu_tpu_torch.stores.overlaps import OverlapStore, store_digest
+    from canu_tpu_torch.stores.readset import ReadSet
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_cases import corrected_digest
+
+    with open(os.path.join(ROOT, "canu_tpu_torch", "correction_reference.json")) as fh:
+        ref = json.load(fh)
+    with open(os.path.join(ROOT, "canu_tpu_torch", "cor_overlap_reference.json")) as fh:
+        cor_ref = json.load(fh)
+    t_phase = time.time()
+    raw = bench_reads()
+    work = tempfile.mkdtemp(prefix="chip_smoke_correct_")
+    fasta = os.path.join(work, "reads.fasta")
+    write_fasta(fasta, ((raw.name(i), raw.get_seq(i)) for i in range(1, raw.n_reads + 1)))
+    cfg = Config()
+    cfg.set("genomeSize", BENCH_GENOME)
+    ctx = make_ctx(work, "bench", cfg)
+
+    # instrumentation, each undone below: every block's reads as the phase
+    # gets them, CUDA events around the DP, each vote chunk and each
+    # finalize, the first chunk's inputs, the memory peak from the first
+    # block on
+    blocks: dict = {}
+    ev: dict = {"dp": [], "chunk": [], "finalize": []}
+    first_chunk: list = []
+    mem: dict = {}
+    real = {"blocks": F.correct_reads_blocks, "dp": VP.align_positions_lean,
+            "chunk": VP._vote_many, "finalize": F._finalize_plurality}
+
+    def timed(name):
+        def call(*args, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = real[name](*args, **kw)
+            e1.record()
+            ev[name].append((e0, e1))
+            return out
+        return call
+
+    def chunk(*args, **kw):
+        if not first_chunk:
+            first_chunk.append((args, kw))
+        return chunk_timed(*args, **kw)
+
+    def capture(*args, **kw):
+        torch.cuda.synchronize()
+        mem["start"] = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for bi, items in real["blocks"](*args, **kw):
+            blocks[bi] = items
+            yield bi, items
+        torch.cuda.synchronize()
+        mem["peak"] = torch.cuda.max_memory_allocated(dev)
+
+    chunk_timed = timed("chunk")
+    F.correct_reads_blocks, VP.align_positions_lean = capture, timed("dp")
+    VP._vote_many, F._finalize_plurality = chunk, timed("finalize")
+    try:
+        reset_counts()
+        F.PROFILE.clear()
+        VP.CHUNKS = VP.JOBS = 0
+        t = time.time()
+        stages.correction_phase(ctx, [fasta], device=dev)
+        torch.cuda.synchronize()
+        t_run = time.time() - t
+        counts = read_counts()
+    finally:
+        F.correct_reads_blocks, VP.align_positions_lean = real["blocks"], real["dp"]
+        VP._vote_many, F._finalize_plurality = real["chunk"], real["finalize"]
+    log(f"[10 correct] {card}: correction_phase from a FASTA of {raw.n_reads} reads: "
+        f"{t_run:.2f} s; launch counts {counts}")
+    check(counts["K1"] > 0, "10 correct: kernel K1 never launched during the phase")
+    check(counts["K2"] == counts["K3"] == 0, "10 correct: kernel K2 or K3 launched off its path")
+    check(counts["plain_myers_segments"] == 0 and counts["plain_extend_rows"] == 0,
+          "10 correct: a plain loop ran on the card during the phase")
+
+    # the gatekeeper store and the cor store equal the JAX package's
+    d = os.path.join(work, "correction")
+    rs = ReadSet.load(os.path.join(d, "bench.gkpStore"))
+    st = OverlapStore.load(os.path.join(d, "bench.ovlStore"))
+    sdig = store_digest(st)
+    log(f"[10 correct] gatekeeper store {rs.n_reads} reads, {rs.total_bases} bases (reference "
+        f"{ref['gatekeeper_reads']}, {ref['gatekeeper_bases']}); cor store {len(st)} rows, "
+        f"sha256 {sdig}")
+    check(rs.n_reads == ref["gatekeeper_reads"] and rs.total_bases == ref["gatekeeper_bases"],
+          "10 correct: the gatekeeper store differs from the JAX package's")
+    check(len(st) == cor_ref["rows"] and sdig == cor_ref["store_sha256"] == ref["cor_store_sha256"],
+          "10 correct: the cor store differs from the JAX package's")
+    # every reference block's corrected reads equal the JAX package's
+    check(sorted(blocks) == list(range(ref["n_blocks"])),
+          f"10 correct: blocks {sorted(blocks)}, the reference has {ref['n_blocks']}")
+    for rb in ref["blocks"]:
+        items = blocks[rb["index"]]
+        dig = corrected_digest(items)
+        log(f"[10 correct] block {rb['index']}: {len(items)} reads, "
+            f"{sum(len(s) for _, s in items)} bases, sha256 {dig} (reference {rb['reads']}, "
+            f"{rb['bases']}, {rb['sha256']})")
+        check(dig == rb["sha256"], f"10 correct: block {rb['index']}'s corrected reads differ "
+              "from the JAX package's")
+    recs = list(read_fastx(os.path.join(d, "bench.correctedReads.fasta.gz")))
+    names = {rs.name(i) for i in range(1, rs.n_reads + 1)}
+    check(len(recs) > 0 and len(recs) == sum(len(v) for v in blocks.values()),
+          "10 correct: the corrected FASTA is empty or misses reads")
+    check(all(r.name.rsplit("_corr", 1)[0] in names and r.name.rsplit("_corr", 1)[1].isdigit()
+              for r in recs), "10 correct: a corrected read is not named <read>_corrN")
+    log(f"[10 correct] {len(recs)} corrected reads, {sum(len(r.seq) for r in recs)} bases in "
+        f"{len(blocks)} blocks; blocks {ref['blocks_covered']} equal the JAX package's")
+
+    # where the time went
+    with open(ctx.path("bench.stage-times.jsonl")) as fh:
+        walls = {r["stage"]: r["wall_s"] for r in map(json.loads, fh) if "wall_s" in r}
+    dev_s = {k: sum(a.elapsed_time(b) for a, b in v) / 1e3 for k, v in ev.items()}
+    prof = dict(F.PROFILE)
+    n_chunks, n_jobs = VP.CHUNKS, VP.JOBS
+    parts = {"select_s": prof.get("select", 0.0), "dp_s": dev_s["dp"],
+             "windows_and_fold_s": dev_s["chunk"] - dev_s["dp"],
+             "finalize_s": dev_s["finalize"], "fetch_s": prof.get("fetch", 0.0),
+             "decode_s": prof.get("decode", 0.0), "enqueue_votes_s": prof.get("votes", 0.0)}
+    log(f"[10 timing] {card}: stage walls {walls}; correction parts " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts.items()) + f" (DP, windows+fold and finalize: CUDA "
+        f"events; the rest host clock); {n_jobs} vote jobs in {n_chunks} chunks of "
+        f"{VP.chunk_jobs(F.VOTE_SEG)}")
+
+    # one chunk: its launches and the device's busy share
+    args, kw = first_chunk[0]
+    torch.cuda.synchronize()
+    t = time.time()
+    real["chunk"](*args, **kw)
+    torch.cuda.synchronize()
+    wall1 = time.time() - t
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        t = time.time()
+        real["chunk"](*args, **kw)
+        torch.cuda.synchronize()
+        wall_p = time.time() - t
+    cuda_ev = [e for e in p.key_averages()
+               if getattr(getattr(e, "device_type", None), "name", "") == "CUDA"]
+    launches = sum(e.count for e in cuda_ev)
+    busy = sum(e.self_device_time_total for e in cuda_ev) / 1e6
+    with open(os.path.join(OUT_DIR, "profile_correct.txt"), "w") as fh:
+        fh.write(f"{card}\none vote chunk: wall {wall_p:.3f} s under the profiler, device busy "
+                 f"{busy:.3f} s\n" + p.key_averages().table(sort_by="self_device_time_total",
+                                                           row_limit=25) + "\n")
+    log(f"[10 profile] {card}: one vote chunk: wall {wall1:.3f} s ({wall_p:.3f} s under the "
+        f"profiler); {launches} device launches (kernels, copies and fills); device busy "
+        f"{busy:.3f} s = {100 * busy / wall1:.1f}% of the chunk's wall "
+        f"({100 * busy / wall_p:.1f}% under the profiler); table in "
+        "chiprun_out/profile_correct.txt")
+    log(f"[10 memory] {card}: device peak over the correction "
+        f"{mem['peak'] / 1e9:.3f} GB ({(mem['peak'] - mem['start']) / 1e9:.3f} GB above the "
+        f"{mem['start'] / 1e9:.3f} GB allocated at its start)")
+    log(f"[10 correct] phase wall {time.time() - t_phase:.1f} s")
+    return {"run_s": t_run, "stage_walls_s": walls, "parts_s": parts, "chunks": n_chunks,
+            "jobs": n_jobs,
+            "launches": counts, "chunk_wall_s": wall1, "chunk_wall_profiled_s": wall_p,
+            "chunk_launches": launches, "chunk_busy_s": busy, "peak_bytes": mem["peak"],
+            "start_bytes": mem["start"], "corrected_reads": len(recs),
+            "phase_s": time.time() - t_phase}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "canu_tpu_torch")):
         print("chip_smoke: canu_tpu_torch/ is not beside this script; run it from a "
@@ -1158,6 +1361,9 @@ def main() -> int:
     # ---- 9: the E. coli-scale obt path -------------------------------------
     record["ecoli"] = ecoli = ecoli_drive(dev, card)
 
+    # ---- 10: read correction from a FASTA ----------------------------------
+    record["correct"] = correct = correct_drive(dev, card)
+
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(record, fh, indent=1, default=str)
@@ -1171,7 +1377,8 @@ def main() -> int:
         {"name": "myers_rows (K1)", "route": "cuda",
          "source": "canu_tpu_torch/csrc/myers_tile.cu",
          "replaces": "canu_tpu/ops/pallas/myers_pallas.py:77",
-         "launches": launches + drives["obt"]["launches"]["K1"] + ecoli["launches"]["K1"],
+         "launches": launches + drives["obt"]["launches"]["K1"] + ecoli["launches"]["K1"]
+         + correct["launches"]["K1"],
          "max_abs_err": err,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bd1["bound_ms"],
          "bound_by": bd1["bound_by"], "library_ms": None},

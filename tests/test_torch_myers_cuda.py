@@ -109,7 +109,9 @@ def test_resolve_device_never_moves_quietly():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             resolve_device("cuda")
-        assert resolve_device(None) == torch.device("cpu")
+        # the default is the card too: without one it raises, naming it
+        with pytest.raises(RuntimeError, match="device cuda requested but no CUDA device"):
+            resolve_device(None)
     with pytest.raises(ValueError):
         resolve_device("meta")
 

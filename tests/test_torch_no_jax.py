@@ -1,7 +1,7 @@
 """canu_tpu_torch stands alone: a machine with the port and neither jax nor
 the JAX package must be able to run its stages (the cor, utg band-256 and
-obt join + spill + host-count routes), and running them where jax is
-installed must not load it."""
+obt join + spill + host-count routes, and the correction phase from a
+FASTA), and running them where jax is installed must not load it."""
 
 from __future__ import annotations
 
@@ -58,6 +58,22 @@ fk3 = stages.meryl(ctx3, "obt", rs2, device="cpu")
 st3 = stages.overlap(ctx3, "obt", rs2, fk3, device="cpu")
 assert (kmer.HOST_COUNTS, minhash.JOIN_CALLS, overlaps.SPILL_BUILDS) == (1, 1, 1)
 assert len(st3) > 0, "empty obt store"
+# the correction route: gatekeeper from a FASTA, the cor stages, the vote
+# engine (at 256-base segments, to keep the CPU run short)
+from canu_tpu_torch.io.fastx import write_fasta
+from canu_tpu_torch.ops import falcon
+falcon.VOTE_SEG = 256
+work4 = tempfile.mkdtemp()
+fa = os.path.join(work4, "reads.fasta")
+rs4, _ = simulate_reads(g, coverage=6, mean_len=1100, min_len=1000, max_len=1200,
+                        error_rate=0.08, seed=4)
+write_fasta(fa, ((rs4.name(i), rs4.get_seq(i)) for i in range(1, rs4.n_reads + 1)))
+cfg4 = Config()
+cfg4.set("genomeSize", 6_000)
+cfg4.set("corMhapSensitivity", "low")
+cfg4.set("corOutCoverage", 1)
+stages.correction_phase(make_ctx(work4, "t", cfg4), [fa], device="cpu")
+assert os.path.getsize(os.path.join(work4, "correction", "t.correctedReads.fasta.gz")) > 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "canu_tpu")
                 if sys.modules[m] is not None)
 assert not loaded, loaded
@@ -71,8 +87,9 @@ IMPORT_SCRIPT = r"""
 import sys
 import canu_tpu_torch
 from canu_tpu_torch.pipeline import stages
-from canu_tpu_torch.ops import align, kmer, minhash, minimizers, myers
+from canu_tpu_torch.ops import align, falcon, kmer, minhash, minimizers, myers, trace, votepile
 from canu_tpu_torch.ops.kernels import _nvcc, extend_cuda, myers_cuda
+from canu_tpu_torch.utils import intervals, quality
 from canu_tpu_torch.stores import overlaps
 import canu_tpu_torch.convert, canu_tpu_torch.native
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))

@@ -1,8 +1,8 @@
 """The port's own copies of canu_tpu's numpy-only pieces give what canu_tpu's
 give: the simulator (same seeds, same reads), bit packing, ReadSet (packed
 words, blocks, slices, FASTA/FASTQ loading, the on-disk store), the
-config registry, error estimation, the report and the resource solver.
-Exact."""
+config registry, error estimation, the report, the resource solver, and
+the quality and interval math.  Exact."""
 
 from __future__ import annotations
 
@@ -20,6 +20,8 @@ import canu_tpu.pipeline.report as JR
 import canu_tpu.sim.simulate as JSIM
 import canu_tpu.stores.readset as JRS
 import canu_tpu.utils.bitpack as JB
+import canu_tpu.utils.intervals as JI
+import canu_tpu.utils.quality as JQ
 import canu_tpu_torch.config as TC
 import canu_tpu_torch.ops.errorest as TE
 import canu_tpu_torch.pipeline.configure as TCF
@@ -27,6 +29,8 @@ import canu_tpu_torch.pipeline.report as TR
 import canu_tpu_torch.sim.simulate as TSIM
 import canu_tpu_torch.stores.readset as TRS
 import canu_tpu_torch.utils.bitpack as TB
+import canu_tpu_torch.utils.intervals as TI
+import canu_tpu_torch.utils.quality as TQ
 
 READ_ARRAYS = ("words", "word_off", "length", "source_id", "source_bgn")
 
@@ -195,3 +199,75 @@ def test_report_and_resources_equal(tmp_path):
         assert (got.spill_pairs, got.sort_mem_bytes, got.sort_threads) == \
             (ref.spill_pairs, ref.sort_mem_bytes, ref.sort_threads)
     assert os.path.exists(tmp_path / f"{TR.Report.__module__}.report")
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_quality_math_equal(seed):
+    rng = np.random.default_rng(seed)
+    length = rng.integers(0, 900, 40).astype(np.int32)
+    quals = rng.integers(0, 41, int(length.sum())).astype(np.uint8)
+    qual_off = np.concatenate([[0], np.cumsum(length)]).astype(np.int64)
+    # low-quality stretches, and a read of unknown (0) quality throughout
+    for r in range(0, 40, 4):
+        lo = qual_off[r] + length[r] // 3
+        quals[lo : lo + 120] = rng.integers(0, 6, len(quals[lo : lo + 120]))
+    quals[qual_off[5] : qual_off[6]] = 0
+    np.testing.assert_array_equal(TQ.phred_to_error(quals), JQ.phred_to_error(quals))
+    for min_qv, window, chunk in ((7.0, 100, 4096), (12.0, 30, 7)):
+        got = TQ.quality_clear_ranges(length, quals, qual_off, min_qv, window, chunk)
+        ref = JQ.quality_clear_ranges(length, quals, qual_off, min_qv, window, chunk)
+        for a, b in zip(got, ref):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+    mean = rng.uniform(0, 40, 50).astype(np.float32)
+    for bin_size in (1, 2, 5):
+        np.testing.assert_array_equal(TQ.read_quality_histogram(mean, bin_size),
+                                      JQ.read_quality_histogram(mean, bin_size))
+    np.testing.assert_array_equal(TQ.read_quality_histogram(mean[:0]),
+                                  JQ.read_quality_histogram(mean[:0]))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_interval_math_equal(seed):
+    rng = np.random.default_rng(seed)
+    bgn = rng.integers(0, 5000, 300)
+    spans = np.stack([bgn, bgn + rng.integers(1, 800, 300)], axis=1)
+    spans[:20, 1] = spans[20:40, 0]  # touching spans
+    owner = rng.integers(1, 12, 300)
+    for min_cov in (1, 2, 4):
+        for a, b in zip(TI.coverage_depth_events(spans), JI.coverage_depth_events(spans)):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(TI.covered_intervals(spans, min_cov),
+                                      JI.covered_intervals(spans, min_cov))
+        for a, b in zip(TI.covered_intervals_all(owner, spans[:, 0], spans[:, 1], min_cov),
+                        JI.covered_intervals_all(owner, spans[:, 0], spans[:, 1], min_cov)):
+            np.testing.assert_array_equal(a, b)
+        assert TI.largest_covered(spans, min_cov) == JI.largest_covered(spans, min_cov)
+    empty = np.zeros((0, 2), np.int64)
+    assert TI.largest_covered(empty) == JI.largest_covered(empty) == (0, 0)
+    for a, b in zip(TI.covered_intervals_all(empty[:, 0], empty[:, 0], empty[:, 1]),
+                    JI.covered_intervals_all(empty[:, 0], empty[:, 0], empty[:, 1])):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_vote_budget_equal(monkeypatch):
+    """The vote engine's DP cells a chunk, from the card's memory: the
+    port's (torch.cuda.mem_get_info) and canu_tpu's (jax memory_stats)
+    make the same decision."""
+    import jax
+
+    import canu_tpu.ops.votepile as JV
+    import canu_tpu_torch.ops.votepile as TV
+    import torch
+
+    for card in (16 << 30, 80 << 30, 1 << 30):
+        for mod in (JV, TV):
+            monkeypatch.setattr(mod, "CHUNK_CELL_BUDGET", 1 << 21)
+        dev = type("Dev", (), {"memory_stats": lambda self: {"bytes_limit": card}})()
+        monkeypatch.setattr(jax, "local_devices", lambda: [dev])
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "mem_get_info", lambda *a: (card // 2, card))
+        cj, ct = _configs([])
+        ref, got = JCF.configure_resources(cj), TCF.configure_resources(ct)
+        assert got.decisions == ref.decisions and TV.CHUNK_CELL_BUDGET == JV.CHUNK_CELL_BUDGET
+        assert "chunkCellBudget" in got.decisions

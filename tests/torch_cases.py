@@ -12,10 +12,14 @@ argument; chip_smoke.py counts the kernels' bound up to it).
 ``store_rows_of_pairs``: a sample of a candidate list and a store's rows
 for it, which stand in for a full verify where the reference cannot run
 one (chip_smoke.py's ecoli phase; scripts/torch_ecoli_reference.py).
+``corrected_digest``: the digest of a block of corrected reads that
+chip_smoke.py's correct phase holds against
+scripts/torch_correction_reference.py's.
 """
 
 from __future__ import annotations
 
+import hashlib
 from types import SimpleNamespace
 
 import numpy as np
@@ -269,3 +273,12 @@ def store_rows_of_pairs(st, pairs: np.ndarray) -> SimpleNamespace:
     want = np.asarray(pairs[:, 0], np.int64) << 32 | np.asarray(pairs[:, 1], np.int64)
     m = np.isin(key, want)
     return SimpleNamespace(**{c: np.asarray(getattr(st, c))[m] for c in cols})
+
+
+def corrected_digest(records) -> str:
+    """sha256 over the sorted (name, seq) records of a block of corrected
+    reads, each as the bytes of "name<TAB>seq<LF>"."""
+    h = hashlib.sha256()
+    for name, seq in sorted(records):
+        h.update(f"{name}\t{seq}\n".encode())
+    return h.hexdigest()
