@@ -12,12 +12,20 @@ found at the same path:
   * anchored overlap verification      -> canu_tpu_torch.ops.align
   * banded Myers extension (kernel K1) -> canu_tpu_torch.ops.myers,
                                           canu_tpu_torch.csrc/myers_tile.cu
-  * in-RAM overlap store               -> canu_tpu_torch.stores.overlaps
-  * meryl / overlap pipeline stages    -> canu_tpu_torch.pipeline.stages
+  * overlap store (in RAM or spilled)  -> canu_tpu_torch.stores.overlaps
+  * read correction (vote engine)      -> canu_tpu_torch.ops.falcon,
+                                          canu_tpu_torch.ops.votepile
+  * RED + OEA                          -> canu_tpu_torch.ops.oea
+  * plurality polish                   -> canu_tpu_torch.ops.consensus
+  * GFA with re-aligned links          -> canu_tpu_torch.io.gfa
+  * stages, phases, run_pipeline, CLI  -> canu_tpu_torch.pipeline,
+                                          python -m canu_tpu_torch
 
 The numpy-only pieces of ``canu_tpu`` that the port uses (config,
 ReadSet, the simulator, bit packing, FASTA/FASTQ reading, the report,
-the pipeline context, error estimation) are copied here at their
+the pipeline context, error estimation, subread splitting, the tig
+store, the best-overlap graph with its repeat and orphan passes, the
+object store and the HTML report) are copied here at their
 counterparts' paths.  This package imports nothing of ``canu_tpu`` and
 never imports jax.
 """

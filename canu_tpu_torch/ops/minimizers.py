@@ -7,6 +7,8 @@ read into fixed-width planes that stay on the device.  The verifier
 gathers rows of those planes by read id.  Selection depends only on the
 k-mer's own content, so a k-mer shared by two noisy reads is selected in
 both or neither, and it is strand-symmetric.
+
+The index is cached on its ReadSet (stores.readset.device_cache).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..stores.readset import ReadSet
+from ..stores.readset import ReadSet, device_cache
 from ..utils.bitpack import n_words
 from .hashing import mix32, u32_tensor
 from .kmer import INVALID_KMER, block_tensors, extract_kmers, extract_kmers_any, length_bucketed_blocks
@@ -161,8 +163,25 @@ def build_read_index(readset: ReadSet, k: int = 16, pm: int | None = None,
 def get_read_index(readset: ReadSet, k: int, device=None) -> ReadIndex:
     """Cached index per (readset, k, device) — ReadSets are immutable."""
     dev = resolve_device(device)
-    cache = readset.__dict__.setdefault("_torch_read_index_cache", {})
+    cache = device_cache(readset, "read_index")
     key = (k, str(dev))
     if key not in cache:
         cache[key] = build_read_index(readset, k=k, device=dev)
     return cache[key]
+
+
+def corrected_read_index(base: ReadIndex, readset: ReadSet) -> ReadIndex:
+    """Index of a substitution-corrected copy of base's read set
+    (ops.oea.apply_corrections): lengths and syncmer geometry are
+    unchanged, so only the word plane is uploaded again.  The seed k-mer
+    values at corrected positions go stale, but seeds only vote the
+    orientation and centre the band, and a few stale anchors among
+    hundreds do not move either."""
+    W = base.words.shape[1]
+    ids_all = np.arange(1, readset.n_reads + 1, dtype=np.int64)
+    host_words, _ = readset.block_words(ids_all, W)
+    host_words = np.vstack([host_words, np.zeros((1, W), np.uint32)])
+    return ReadIndex(words=u32_tensor(host_words, base.words.device), length=base.length,
+                     mker=base.mker, mpos=base.mpos, mstr=base.mstr, n_reads=base.n_reads,
+                     k=base.k, pm=base.pm)
+

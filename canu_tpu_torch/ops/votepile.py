@@ -440,7 +440,9 @@ def device_words(rs, device) -> tuple[torch.Tensor, torch.Tensor]:
     ``device``, both dimensions padded to powers of two with trailing
     all-zero rows (canu_tpu's canonical planes; cached per ReadSet and
     device)."""
-    cache = rs.__dict__.setdefault("_device_words_cache", {})
+    from ..stores.readset import device_cache
+
+    cache = device_cache(rs, "words")
     dev = torch.device(device)
     if dev in cache:
         return cache[dev]

@@ -1,14 +1,17 @@
-"""Assembly context and stage runner (counterpart of
-canu_tpu.pipeline.driver: AssemblyCtx, make_ctx and the single-process
-branch of run_stage).
+"""Assembly context, stage runner and pipeline (counterpart of
+canu_tpu.pipeline.driver: AssemblyCtx, make_ctx, the single-process
+branch of run_stage, and run_pipeline).
 
 The same contract as canu_tpu: make_ctx writes the invocation audit and
 installs the crash catcher in <work_dir>/canu-logs/ and logs there; a
 stage is done when its output files exist, runs up to canuIterationMax
 times, honours stopBefore/stopAfter/showNext, and appends one line per
 completed attempt to <prefix>.stage-times.jsonl.  A CUDA out-of-memory
-attempt releases the allocator's cache and halves the verify in-flight
-budget before the retry.
+attempt drops the device tensors cached on read sets, releases the
+allocator's cache and halves the verify in-flight budget before the
+retry.  run_pipeline runs the phases correction -> trimming -> assembly
+from whichever input it is given, on the card unless ``device`` says
+otherwise.
 """
 
 from __future__ import annotations
@@ -19,12 +22,14 @@ import os
 import time
 import traceback
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
-from ..config import Config
+from ..config import Config, ConfigError
+from ..device import resolve_device
 from ..ops import align as _align
+from ..stores.readset import drop_device_caches
 from .report import Report
 
 
@@ -105,9 +110,13 @@ def run_stage(ctx: AssemblyCtx, name: str, done: Callable[[], bool],
                 if attempt == max_iter:
                     raise PipelineError(f"{name} failed after {max_iter} attempts") from e
                 if isinstance(e, torch.cuda.OutOfMemoryError):
+                    # free what the failed attempt left cached on the card
+                    # (canu_tpu deletes every live device array here)
+                    n_sets = drop_device_caches()
                     torch.cuda.empty_cache()
                     _align._INFLIGHT_BACKOFF = max(0.05, _align._INFLIGHT_BACKOFF * 0.5)
-                    ctx.log.info(f"{name}: CUDA OOM; verify in-flight budget "
+                    ctx.log.info(f"{name}: CUDA OOM; dropped the device caches of {n_sets} "
+                                 f"read sets; verify in-flight budget "
                                  f"x{_align._INFLIGHT_BACKOFF:g}")
                 continue
             wall = time.time() - t0
@@ -123,3 +132,121 @@ def run_stage(ctx: AssemblyCtx, name: str, done: Callable[[], bool],
     if ctx.cfg.get("stopAfter").lower() == name.lower():
         ctx.log.info(f"stopAfter={name}: halting")
         raise StopPipeline(name)
+
+
+# ---- pipeline --------------------------------------------------------------
+
+
+def _check_pipeline_config(cfg: Config, raw: bool) -> None:
+    """The configurations the port does not run, refused before any stage."""
+    from . import stages
+
+    if bool(cfg.get("useGrid")):
+        raise NotImplementedError(
+            "useGrid (the multi-host launcher) is not ported to canu_tpu_torch yet: it has no "
+            "torch.distributed launcher (ROADMAP item 13)")
+    stages._check_assembly_config(cfg)
+    if raw:
+        stages._check_correction_config(cfg)
+
+
+def run_pipeline(
+    work_dir: str,
+    prefix: str,
+    cfg: Config,
+    raw_reads: Optional[list[str]] = None,
+    corrected_reads: Optional[list[str]] = None,
+    trimmed_reads: Optional[list[str]] = None,
+    device=None,
+) -> AssemblyCtx:
+    """Full pipeline: correct -> trim -> assemble, from the reference's
+    -pacbio-raw / -pacbio-corrected / -trimmed entry points (canu.pl
+    mode detection, canu.pl:341-525), on ``device`` (the card unless the
+    caller says "cpu").  objectStore fetches finished phase outputs first
+    and stashes each one as it lands; onSuccess/onFailure run after."""
+    from . import stages
+
+    cfg.apply_read_type_profile()
+    cfg.validate()
+    _check_pipeline_config(cfg, raw_reads is not None)
+    dev = resolve_device(device)
+    ctx = make_ctx(work_dir, prefix, cfg)
+    with open(ctx.path(f"{prefix}.spec.used"), "w") as fh:
+        json.dump(cfg.to_dict(), fh, indent=1, default=str)
+    # resource solver (Configure.pm role): host memory and threads and the
+    # card's memory set spill thresholds, sort budgets and the vote
+    # engine's chunk geometry
+    from .configure import configure_resources
+
+    configure_resources(cfg, ctx.log)
+
+    obstore = None
+    spec = str(cfg.get("objectStore")).strip()
+    if spec:
+        from .objectstore import make_object_store
+
+        obstore = make_object_store(spec)
+
+    def _stage_outputs() -> list[tuple[str, str]]:
+        # (local path, object key) of the durable phase outputs
+        outs = [f"correction/{prefix}.correctedReads.fasta.gz",
+                f"trimming/{prefix}.trimmedReads.fasta.gz",
+                f"{prefix}.contigs.fasta", f"{prefix}.unitigs.fasta", f"{prefix}.report"]
+        return [(ctx.path(p), f"{prefix}/{p}") for p in outs]
+
+    if obstore is not None:
+        # fetch finished outputs first: a fresh machine resumes from the
+        # bucket as Grid_Cloud fetches stores before a stage
+        for local, key in _stage_outputs():
+            if not os.path.exists(local) and obstore.exists(key):
+                os.makedirs(os.path.dirname(local), exist_ok=True)
+                obstore.fetch_file(key, local)
+                ctx.log.info("objectStore: fetched %s", key)
+
+    def _hook(name: str) -> None:
+        # onSuccess/onFailure user hooks (Defaults.pm:764-765)
+        cmd = str(cfg.get(name)).strip()
+        if cmd:
+            import subprocess
+
+            subprocess.run([cmd, prefix], cwd=work_dir, check=False)
+
+    stashed: set[str] = set()
+
+    def _stash_ready() -> None:
+        # stash every durable output that exists now, so a fresh machine
+        # can resume mid-pipeline from the bucket
+        if obstore is None:
+            return
+        for local, key in _stage_outputs():
+            if key not in stashed and os.path.exists(local):
+                obstore.stash_file(local, key)
+                stashed.add(key)
+                ctx.log.info("objectStore: stashed %s", key)
+
+    try:
+        if raw_reads is not None:
+            stages.correction_phase(ctx, raw_reads, device=dev)
+            corrected_reads = [ctx.path("correction", f"{prefix}.correctedReads.fasta.gz")]
+            _stash_ready()
+        if corrected_reads is not None:
+            stages.trimming_phase(ctx, corrected_reads, device=dev)
+            trimmed_reads = [ctx.path("trimming", f"{prefix}.trimmedReads.fasta.gz")]
+            _stash_ready()
+        if trimmed_reads is None:
+            raise ConfigError("no input reads given")
+        stages.assembly_phase(ctx, trimmed_reads, device=dev)
+    except StopPipeline:
+        _stash_ready()
+    except Exception:
+        _stash_ready()
+        _hook("onFailure")
+        raise
+    _stash_ready()
+    from ..utils.runtime import rusage
+
+    ru = rusage()
+    ctx.log.info(f"pipeline finished: cpu {ru['utime_s']:.1f}s user / "
+                 f"{ru['stime_s']:.1f}s sys, peak rss {ru['max_rss_mb']:.0f} MB")
+    _hook("onSuccess")
+    return ctx

@@ -1,13 +1,13 @@
-"""gatekeeper, meryl and overlap pipeline stages and the correction phase
-(counterpart of canu_tpu.pipeline.stages.gatekeeper / meryl / overlap /
-correction_phase).
+"""Pipeline stages and phases (counterpart of canu_tpu.pipeline.stages):
+gatekeeper, meryl and overlap, and the correction, trimming and
+assembly phases.
 
 Same signatures, outputs, file names, resume contract and
 stage-times.jsonl lines as canu_tpu, so either package's stage output can
-feed the other; the device stages and the phase take ``device=``.  The
+feed the other; the device stages and the phases take ``device=``.  The
 configurations outside the port raise NotImplementedError naming their
-ROADMAP item: shardedCompute (the multi-device path) and
-corConsensus=dag.  The correction phase runs as one process.
+ROADMAP item: shardedCompute (the multi-device path), corConsensus=dag
+and cnsConsensus=dag.  Every phase runs as one process.
 """
 
 from __future__ import annotations
@@ -24,8 +24,10 @@ import numpy as np
 from ..convert import frequent_from_npz
 from ..device import resolve_device
 from ..ops.errorest import estimate_error_rates
-from ..stores.readset import ReadSet
 from ..stores.overlaps import OverlapStore
+from ..stores.readset import ReadSet
+from ..stores.tigs import CLASS_CONTIG, CLASS_UNASSEMBLED, TigStore
+from ..utils import bitpack
 from .driver import AssemblyCtx, PipelineError, run_stage
 
 TAG_DIR = {"cor": "correction", "obt": "trimming", "utg": "unitigging"}
@@ -346,6 +348,13 @@ def _cor_evidence_budget(ctx: AssemblyCtx, rs: ReadSet) -> int:
     return max(1, min(base, int(round(lo))))
 
 
+def _check_correction_config(cfg) -> None:
+    if str(cfg.get("corConsensus")).lower() == "dag":
+        raise NotImplementedError(
+            "corConsensus=dag (the tag-chain consensus) is not ported to canu_tpu_torch yet "
+            "(ROADMAP item 8(e))")
+
+
 def correction_phase(ctx: AssemblyCtx, raw_inputs: list[str], device=None) -> None:
     """Raw reads -> corrected reads (CorrectReads.pm + falconsense).
 
@@ -367,10 +376,7 @@ def correction_phase(ctx: AssemblyCtx, raw_inputs: list[str], device=None) -> No
         ctx.log.info("correction phase complete, skipping")
         _cleanup_phase_stores(ctx, d)
         return
-    if str(ctx.cfg.get("corConsensus")).lower() == "dag":
-        raise NotImplementedError(
-            "corConsensus=dag (the tag-chain consensus) is not ported to canu_tpu_torch yet "
-            "(ROADMAP item 8(e))")
+    _check_correction_config(ctx.cfg)
     dev = resolve_device(device)
     rs = gatekeeper(ctx, "cor", raw_inputs)
     fk = meryl(ctx, "cor", rs, device=dev)
@@ -438,3 +444,380 @@ def _cleanup_phase_stores(ctx: AssemblyCtx, phase_dir: str) -> None:
             except OSError:
                 pass
         ctx.log.info("saveOverlaps=false: removed %s", p)
+
+
+def _auto_erate_feedback(ctx: AssemblyCtx, st: OverlapStore, target_tag: str,
+                         phase_dir: str) -> None:
+    """Feed the measured corrected-read error distribution into the next
+    phase's overlap gate (the reference's auto error-rate loop:
+    ErrorEstimate.pm + Meryl.pm auto thresholds), unless the user set the
+    gate.  The decision is saved so a resumed run (whose store may be
+    gone) applies the same gate."""
+    key = f"{target_tag}ovlerrorrate"
+    if key in ctx.cfg.explicit or len(st) == 0:
+        return
+    est = estimate_error_rates(st.erate)
+    gate = float(np.clip(est.suggested_ovl_erate, 0.03, 0.30))
+    with open(os.path.join(phase_dir, "autoerate.json"), "w") as fh:
+        json.dump({"key": key, "gate": gate}, fh)
+    before = float(ctx.cfg.get(key))
+    if abs(gate - before) < 1e-9:
+        return
+    ctx.cfg.values[key] = gate
+    ctx.report.add(
+        f"{target_tag}.autoerate",
+        f"{target_tag}OvlErrorRate auto-set {before:.3f} -> {gate:.3f} "
+        f"(median obt erate {est.median_erate:.4f}, est read error "
+        f"{est.read_error:.4f})",
+    )
+
+
+def _apply_saved_autoerate(ctx: AssemblyCtx, phase_dir: str) -> None:
+    p = os.path.join(phase_dir, "autoerate.json")
+    if not os.path.exists(p):
+        return
+    with open(p) as fh:
+        saved = json.load(fh)
+    if saved["key"] not in ctx.cfg.explicit:
+        ctx.cfg.values[saved["key"]] = float(saved["gate"])
+
+
+# ---- trimming phase ---------------------------------------------------------
+
+
+def trimming_phase(ctx: AssemblyCtx, corrected_inputs: list[str], device=None) -> None:
+    """Corrected reads -> trimmed reads (OverlapBasedTrimming.pm: every
+    well-covered interval of a read becomes a read, cut at confirmed
+    subread junctions)."""
+    d = ctx.phase_dir("trimming")
+    out = os.path.join(d, f"{ctx.prefix}.trimmedReads.fasta.gz")
+    if os.path.exists(out):
+        ctx.log.info("trimming phase complete, skipping")
+        _apply_saved_autoerate(ctx, d)
+        _cleanup_phase_stores(ctx, d)
+        return
+    dev = resolve_device(device)
+    rs = gatekeeper(ctx, "obt", corrected_inputs)
+    fk = meryl(ctx, "obt", rs, device=dev)
+    st = overlap(ctx, "obt", rs, fk, device=dev)
+    _auto_erate_feedback(ctx, st, "utg", d)
+
+    def done() -> bool:
+        return os.path.exists(out)
+
+    def fn() -> None:
+        from ..io.fastx import write_fasta
+        from ..utils.intervals import covered_intervals_all
+        from .splitreads import detect_bad_regions, subtract_regions
+
+        # Defaults.pm:881-882: coverage 1 keeps any read a single good
+        # overlap covers
+        min_cov = int(ctx.cfg.get("trimReadsCoverage"))
+        min_len = int(ctx.cfg.get("minReadLength"))
+        min_ovl = max(int(ctx.cfg.get("minOverlapLength")),
+                      int(ctx.cfg.get("trimReadsOverlap")))
+        # subread-loop junctions from opposite-orientation duplicate
+        # overlap pairs (splitReads-subReads.C semantics)
+        bad_regions = detect_bad_regions(st)
+        # every well-covered interval becomes a read: coverage gaps inside
+        # a read mark chimeric junctions or unsplit subreads (splitReads.H:50)
+        long_enough = (st.a_end - st.a_bgn) >= min_ovl
+        iv_rid, iv_bgn, iv_end = covered_intervals_all(
+            st.a_id[long_enough], st.a_bgn[long_enough], st.a_end[long_enough], min_cov)
+        if bad_regions:
+            # junction subtraction touches only the flagged reads
+            touched = np.isin(iv_rid, np.fromiter(bad_regions, np.int64))
+            keep_rows = [(iv_rid[~touched], iv_bgn[~touched], iv_end[~touched])]
+            for rid in sorted(bad_regions):
+                m = iv_rid == rid
+                iv = subtract_regions(list(zip(iv_bgn[m].tolist(), iv_end[m].tolist())),
+                                      bad_regions[rid])
+                if iv:
+                    b = np.array([x[0] for x in iv], np.int64)
+                    e = np.array([x[1] for x in iv], np.int64)
+                    keep_rows.append((np.full(len(iv), rid, np.int64), b, e))
+            iv_rid = np.concatenate([r[0] for r in keep_rows])
+            iv_bgn = np.concatenate([r[1] for r in keep_rows])
+            iv_end = np.concatenate([r[2] for r in keep_rows])
+            order = np.lexsort((iv_bgn, iv_rid))
+            iv_rid, iv_bgn, iv_end = iv_rid[order], iv_bgn[order], iv_end[order]
+        ok = (iv_end - iv_bgn) >= min_len
+        iv_rid, iv_bgn, iv_end = iv_rid[ok], iv_bgn[ok], iv_end[ok]
+
+        pieces_of = np.bincount(iv_rid, minlength=rs.n_reads + 1)
+        n_dropped = int(np.sum(pieces_of[1:] == 0))
+        n_split = int(np.sum(pieces_of[1:] > 1))
+        n_trimmed = int(np.sum((iv_end - iv_bgn) < rs.length[iv_rid - 1]))
+
+        def records():
+            last_rid, codes, pi = 0, None, 0
+            for i in range(len(iv_rid)):
+                rid = int(iv_rid[i])
+                if rid != last_rid:
+                    codes = rs.get_codes(rid)
+                    last_rid, pi = rid, 0
+                bgn, end = int(iv_bgn[i]), int(iv_end[i])
+                suffix = f"_s{pi}" if pieces_of[rid] > 1 else ""
+                pi += 1
+                yield (f"{rs.name(rid)}_trim_{bgn}_{end}{suffix}",
+                       bitpack.codes_to_seq(codes[bgn:end]))
+
+        n_kept = write_fasta(out + ".WORKING.gz", records())
+        os.replace(out + ".WORKING.gz", out)
+        ctx.report.add(
+            "obt.trim",
+            f"kept {n_kept} reads ({n_trimmed} trimmed, {n_split} split, "
+            f"{len(bad_regions)} subread junctions), dropped {n_dropped}",
+        )
+
+    run_stage(ctx, "trimming", done, fn)
+    _cleanup_phase_stores(ctx, d)
+
+
+# ---- assembly phase ---------------------------------------------------------
+
+
+def _check_assembly_config(cfg) -> None:
+    if str(cfg.get("cnsConsensus")).lower() == "dag":
+        raise NotImplementedError(
+            "cnsConsensus=dag (the tag-chain consensus, canu_tpu.ops.dagcon) is not ported to "
+            "canu_tpu_torch yet (ROADMAP items 8(e) and 11)")
+
+
+def _append_stage_times(ctx: AssemblyCtx, rec: dict) -> None:
+    try:
+        with open(ctx.path(f"{ctx.prefix}.stage-times.jsonl"), "a") as fh:
+            json.dump(rec, fh)
+            fh.write("\n")
+    except OSError:
+        pass
+
+
+def _contig_filter(ctx: AssemblyCtx, tigs: TigStore) -> None:
+    """contigFilter's length and low-coverage classification (the
+    reference's 5-tuple "minReads minLength singleReadSpan lowCovFraction
+    lowCovDepth" beyond minReads, which build_unitigs applies)."""
+    min_len_f = int(ctx.cfg.get("contigFilterMinLength"))
+    srs = float(ctx.cfg.get("contigFilterSingleReadSpan"))
+    lc_frac = float(ctx.cfg.get("contigFilterLowCovFraction"))
+    lc_depth = int(ctx.cfg.get("contigFilterLowCovDepth"))
+    for t in tigs:
+        if t.tig_class != CLASS_CONTIG:
+            continue
+        L = max(t.length, 1)
+        if min_len_f and L < min_len_f:
+            t.tig_class = CLASS_UNASSEMBLED
+            continue
+        # a tig mostly spanned by one read is that read, not assembly
+        if 0 < srs <= 1.0 and t.n_reads >= 1:
+            if int((t.end - t.bgn).max()) >= srs * L and t.n_reads <= 2:
+                t.tig_class = CLASS_UNASSEMBLED
+                continue
+        if lc_depth > 0 and 0 < lc_frac < 1:
+            depth = np.zeros(L + 1, np.int32)
+            np.add.at(depth, t.bgn, 1)
+            np.add.at(depth, t.end, -1)
+            if float((np.cumsum(depth[:L]) < lc_depth).mean()) > lc_frac:
+                t.tig_class = CLASS_UNASSEMBLED
+
+
+def assembly_phase(ctx: AssemblyCtx, trimmed_inputs: list[str], device=None) -> None:
+    """Trimmed reads -> contigs: utg gatekeeper, meryl and overlap, then
+    oea (RED + OEA), unitig (best-overlap graph, repeat breaking,
+    contigFilter), consensus (plurality polish or quick mosaic) and the
+    outputs (contigs, unassembled and unitigs FASTA, layout.tsv, GFA with
+    re-aligned links, HTML)."""
+    from ..graph import build_unitigs
+    from ..ops.consensus import quick_mosaic
+
+    _check_assembly_config(ctx.cfg)
+    dev = resolve_device(device)
+    d = ctx.phase_dir("unitigging")
+    rs = gatekeeper(ctx, "utg", trimmed_inputs)
+    fk = meryl(ctx, "utg", rs, device=dev)
+    st = overlap(ctx, "utg", rs, fk, device=dev)
+
+    # overlap error adjustment (OverlapErrorAdjustment.pm): vote read
+    # errors from the overlap pile, verify the overlaps again between
+    # the corrected reads, install the adjusted erates
+    if bool(ctx.cfg.get("enableOEA")):
+        oea_store = os.path.join(d, f"{ctx.prefix}.ovlStore.adjusted")
+
+        def oea_done() -> bool:
+            return os.path.isdir(oea_store)
+
+        def oea_fn() -> None:
+            from ..ops.oea import adjust_overlap_erates, detect_read_errors
+
+            t0 = time.monotonic()
+            corr = detect_read_errors(
+                rs, st,
+                min_alt_votes=int(ctx.cfg.get("oeaMinAltVotes")),
+                max_own_votes=int(ctx.cfg.get("oeaMaxOwnVotes")),
+                band=int(ctx.cfg.get("utgBandWidth")) * 2,
+                device=dev,
+            )
+            t_red = time.monotonic() - t0
+            t0 = time.monotonic()
+            new_q = adjust_overlap_erates(
+                rs, st, corr, band=int(ctx.cfg.get("utgBandWidth")),
+                chunk=int(ctx.cfg.get("oeaBatchSize")),
+                only_changed=bool(ctx.cfg.get("oeaOnlyChanged")),
+                device=dev,
+            )
+            t_adj = time.monotonic() - t0
+            _append_stage_times(ctx, {"stage": "oea.sub", "sub_walls_s": {
+                "red": round(t_red, 1), "adjust": round(t_adj, 1)},
+                "changed_reads": len(corr), "t_end": round(time.time(), 1)})
+            ctx.log.info(f"oea sub-walls: red={t_red:.1f}s adjust={t_adj:.1f}s "
+                         f"changed={len(corr)}")
+            n_fix = sum(len(v) for v in corr.values())
+            before = float(np.median(st.erate)) if len(st) else 0.0
+            st.update_erates(new_q)
+            st.save(oea_store)
+            ctx.report.add(
+                "utg.oea",
+                f"RED corrected {n_fix} bases in {len(corr)} reads; "
+                f"median erate {before:.4f} -> {float(np.median(st.erate)):.4f}",
+            )
+
+        run_stage(ctx, "oea", oea_done, oea_fn)
+        st = OverlapStore.load(oea_store)
+
+    ctg_dir = os.path.join(d, f"{ctx.prefix}.ctgStore")
+    utg_dir = os.path.join(d, f"{ctx.prefix}.utgStore")
+
+    def tigs_done() -> bool:
+        return TigStore.latest_version(ctg_dir) >= 1
+
+    def tigs_fn() -> None:
+        bat_gb = int(ctx.cfg.get("batMemory"))
+        # flag-gated per-phase graph logs (bogart logFileFlags)
+        lf = frozenset(s.strip().lower()
+                       for s in str(ctx.cfg.get("logFileFlags")).split(",") if s.strip())
+        log_dir = os.path.join(d, "unitigger-logs") if lf else None
+        tigs = build_unitigs(
+            st, rs.length,
+            max_erate=float(ctx.cfg.get("utgOvlErrorRate")),
+            min_span=int(ctx.cfg.get("minOverlapLength")),
+            min_reads_per_contig=int(ctx.cfg.get("contigFilterMinReads")),
+            deviation=float(ctx.cfg.get("utgGraphDeviation")),
+            # ~48 B per overlap row across the graph phase's columns
+            max_rows=(bat_gb << 30) // 48 if bat_gb > 0 else 0,
+            log_dir=log_dir, log_flags=lf,
+        )
+        # unitigs = the graph's tigs before repeat breaking (the
+        # reference's separate utgStore/ctgStore, bogart.C:562-598)
+        tigs.save(utg_dir, version=1)
+        n_regions = n_broken = 0
+        if bool(ctx.cfg.get("repeatDetect")):
+            # bogart markRepeatReads + splitDiscontinuous (bogart.C:498-560)
+            from ..graph import mark_repeats
+
+            tigs, regions = mark_repeats(
+                tigs, st, rs.length,
+                min_evidence=int(ctx.cfg.get("repeatMinEvidence")),
+                confused_absolute=float(ctx.cfg.get("repeatConfusedAbsolute")),
+                confused_percent=float(ctx.cfg.get("repeatConfusedPercent")),
+                min_reads_per_contig=int(ctx.cfg.get("contigFilterMinReads")),
+            )
+            n_regions = len(regions)
+            n_broken = sum(1 for r in regions if r.broke)
+            if log_dir and "repeats" in lf:
+                os.makedirs(log_dir, exist_ok=True)
+                with open(os.path.join(log_dir, "repeats.log"), "w") as fh:
+                    fh.write("#tig\tbgn\tend\tbroke\n")
+                    for r in regions:
+                        fh.write(f"{r.tig_id}\t{r.bgn}\t{r.end}\t{int(r.broke)}\n")
+        _contig_filter(ctx, tigs)
+        tigs.save(ctg_dir, version=1)
+        n_contig = sum(1 for t in tigs if t.tig_class == CLASS_CONTIG)
+        ctx.report.add(
+            "utg.unitig",
+            f"{len(tigs)} tigs ({n_contig} contigs), N50 {tigs.n50()}; "
+            f"repeat regions {n_regions} ({n_broken} broke a contig)",
+        )
+
+    run_stage(ctx, "unitig", tigs_done, tigs_fn)
+
+    def cns_done() -> bool:
+        return TigStore.latest_version(ctg_dir) >= 2
+
+    def cns_fn() -> None:
+        from ..ops.consensus import polish_tig
+
+        tigs = TigStore.load(ctg_dir, version=1)
+        # cnsConsensus: plurality (the vote engine) | quick (mosaic only,
+        # utgcns -quick)
+        polish = bool(ctx.cfg.get("cnsPolish")) and \
+            str(ctx.cfg.get("cnsConsensus")).lower() != "quick"
+        for t in tigs:
+            backbone = quick_mosaic(rs, t)
+            if polish and t.tig_class == CLASS_CONTIG and t.n_reads >= 2:
+                t.consensus = polish_tig(
+                    rs, t, backbone,
+                    band=int(ctx.cfg.get("utgBandWidth")) * 2,
+                    min_cov=int(ctx.cfg.get("cnsMinCoverage")),
+                    rounds=int(ctx.cfg.get("cnsPolishRounds")),
+                    max_coverage=int(ctx.cfg.get("cnsMaxCoverage")),
+                    device=dev,
+                )
+            else:
+                t.consensus = backbone
+        tigs.save(ctg_dir, version=2)
+
+    run_stage(ctx, "consensus", cns_done, cns_fn)
+
+    # outputs (Output.pm:56-160: contigs/unassembled FASTA and layouts)
+    fasta_out = ctx.path(f"{ctx.prefix}.contigs.fasta")
+
+    def out_done() -> bool:
+        return os.path.exists(fasta_out)
+
+    def out_fn() -> None:
+        from ..io.fastx import write_fasta
+        from ..io.gfa import write_gfa
+        from .html import build_html
+
+        tigs = TigStore.load(ctg_dir, version=2)
+        contigs, unassembled = [], []
+        layout_lines = []
+        for t in tigs:
+            seq = bitpack.codes_to_seq(t.consensus) if t.consensus is not None else ""
+            name = f"tig{t.tig_id:08d}"
+            rec = (f"{name} len={len(seq)} reads={t.n_reads}", seq)
+            (contigs if t.tig_class == CLASS_CONTIG else unassembled).append(rec)
+            for i in range(t.n_reads):
+                layout_lines.append(f"{name}\t{int(t.read_id[i])}\t{int(t.bgn[i])}\t"
+                                    f"{int(t.end[i])}\t{'-' if t.rev[i] else '+'}")
+        write_fasta(fasta_out + ".WORKING", contigs)
+        os.replace(fasta_out + ".WORKING", fasta_out)
+        un = ctx.path(f"{ctx.prefix}.unassembled.fasta")
+        write_fasta(un + ".WORKING", unassembled)
+        os.replace(un + ".WORKING", un)
+        # .unitigs.fasta: the graph's tigs before repeat breaking at mosaic
+        # (draft) quality; the polish goes to the contigs
+        ut = ctx.path(f"{ctx.prefix}.unitigs.fasta")
+        if os.path.isdir(utg_dir):
+            urecs = []
+            for t in TigStore.load(utg_dir, version=1):
+                if t.tig_class != CLASS_CONTIG:
+                    continue
+                seq = bitpack.codes_to_seq(quick_mosaic(rs, t))
+                urecs.append((f"utg{t.tig_id:08d} len={len(seq)} reads={t.n_reads}", seq))
+        else:
+            urecs = contigs
+        write_fasta(ut + ".WORKING", urecs)
+        os.replace(ut + ".WORKING", ut)
+        lay = ctx.path(f"{ctx.prefix}.layout.tsv")
+        with open(lay + ".WORKING", "w") as fh:
+            fh.write("\n".join(layout_lines) + ("\n" if layout_lines else ""))
+        os.replace(lay + ".WORKING", lay)
+        write_gfa(ctx.path(f"{ctx.prefix}.contigs.gfa"), tigs, rs, st, verify_edges=True,
+                  device=dev)
+        lens = sorted((len(s) for _, s in contigs), reverse=True)
+        ctx.report.add("utg.output", f"{len(contigs)} contigs, {len(unassembled)} unassembled; "
+                                     f"sizes {lens[:10]}")
+        build_html(ctx.work_dir, ctx.prefix)
+
+    run_stage(ctx, "outputs", out_done, out_fn)

@@ -46,7 +46,10 @@ class OverlapStore:
         self.n_reads = n_reads
         for c in _COLS:
             setattr(self, c, cols[c])
-        # index[r] = first row with a_id == r
+        self._build_index()
+
+    def _build_index(self) -> None:
+        # index[r] = first row with a_id == r; rows sorted by (a_id, b_id)
         self.index = np.zeros(self.n_reads + 2, dtype=np.int64)
         counts = np.bincount(self.a_id, minlength=self.n_reads + 1)
         np.cumsum(counts, out=self.index[1 : len(counts) + 1])
@@ -113,8 +116,27 @@ class OverlapStore:
     def erate(self) -> np.ndarray:
         return self.erate_q.astype(np.float32) / 10000.0
 
+    def row_range(self, read_id: int) -> tuple[int, int]:
+        return int(self.index[read_id]), int(self.index[read_id + 1])
+
+    def overlaps_for(self, read_id: int) -> dict[str, np.ndarray]:
+        s, e = self.row_range(read_id)
+        return {c: getattr(self, c)[s:e] for c in _COLS}
+
     def n_overlaps_per_read(self) -> np.ndarray:
         return np.diff(self.index[1 : self.n_reads + 2]).astype(np.int64)
+
+    def erate_histogram(self, bins: int = 100, max_erate: float = 0.5) -> np.ndarray:
+        """ovStoreHistogram equivalent."""
+        h, _ = np.histogram(self.erate, bins=bins, range=(0, max_erate))
+        return h
+
+    def update_erates(self, new_erate_q: np.ndarray) -> None:
+        """Install adjusted erates (the reference's evalues sidecar, which
+        correctOverlaps writes); save() then writes them as the erate_q
+        column."""
+        assert len(new_erate_q) == len(self.erate_q)
+        self.erate_q = new_erate_q.astype(np.uint16)
 
     def save(self, path: str | os.PathLike) -> None:
         """One raw .npy per column (v2), written to path.WORKING and renamed."""

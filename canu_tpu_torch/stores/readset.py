@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import json
 import os
+import weakref
 from dataclasses import dataclass, field
 from typing import Iterable, Iterator, Optional, Sequence
 
@@ -404,6 +405,29 @@ class ReadSet:
         if self.n_reads == 0:
             return np.zeros(0, dtype=np.int64)
         return np.bincount(self.length // bin_size)
+
+
+# the ReadSets that hold device tensors (weak: a cache lives no longer
+# than its read set)
+_DEVICE_CACHE_HOLDERS: "weakref.WeakSet[ReadSet]" = weakref.WeakSet()
+
+
+def device_cache(readset: ReadSet, key: str) -> dict:
+    """The dict in which ``key``'s owner caches device tensors of
+    ``readset`` (immutable, so a cache never goes stale); made empty on
+    first use.  drop_device_caches frees every one."""
+    _DEVICE_CACHE_HOLDERS.add(readset)
+    return readset.__dict__.setdefault("_device_caches", {}).setdefault(key, {})
+
+
+def drop_device_caches() -> int:
+    """Drop every device cache held on a live ReadSet (the stage runner's
+    recovery from a CUDA out-of-memory attempt); returns how many read
+    sets held one.  The next device_cache starts empty."""
+    n = sum(rs.__dict__.pop("_device_caches", None) is not None
+            for rs in list(_DEVICE_CACHE_HOLDERS))
+    _DEVICE_CACHE_HOLDERS.clear()
+    return n
 
 
 def _split_at_invalid(codes: np.ndarray) -> list[tuple[int, np.ndarray]]:

@@ -83,3 +83,11 @@ def install_crash_catcher(log_dir: str) -> str:
         except (AttributeError, ValueError, OSError, RuntimeError):
             pass
     return path
+
+
+def rusage() -> dict:
+    """CPU seconds and peak RSS of this process (timeAndSize equivalent)."""
+    import resource
+
+    ru = resource.getrusage(resource.RUSAGE_SELF)
+    return {"utime_s": ru.ru_utime, "stime_s": ru.ru_stime, "max_rss_mb": ru.ru_maxrss / 1024.0}

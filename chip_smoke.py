@@ -1,5 +1,5 @@
-"""Run canu_tpu_torch's overlap and correction paths once on one NVIDIA GPU
-and check them.
+"""Run canu_tpu_torch's overlap, correction, trimming and assembly paths
+once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -88,6 +88,42 @@ Phases (each prints its results; any failure exits non-zero):
               over the correction.  The vote engine is PyTorch ops (the
               JAX package's is XLA, with no Pallas kernel): no kernel of
               its own, so no line in the kernel record
+  11 assemble run_pipeline from a FASTA of simulated corrected reads (the
+              bench shapes at 1.5% error), Config() + genomeSize, twice,
+              each in a directory of its own with the counts set to 0
+              first: trimming (obt gatekeeper, meryl, overlap, trimming),
+              then assembly (utg gatekeeper, meryl, overlap, oea: RED on
+              the vote engine and OEA's verify, unitig, consensus: the
+              plurality polish, outputs: FASTA, layout.tsv, GFA with
+              links re-aligned, HTML).  K1 must have launched in the obt
+              overlap, the utg overlap, the OEA adjust and, where the GFA
+              keeps a link, align_links; no other kernel and no plain loop
+              on the card.  11a: random_genome(100 kb, seed=71) with three
+              copies of a 9 kb repeat (cut from the bench's 300 kb so the
+              JAX package's CPU reference finishes); the trimmed reads,
+              utg store, RED corrections, adjusted erates, unitig and
+              contig layouts, contigs/unassembled/unitigs FASTA,
+              layout.tsv and the GFA's S and L lines must equal
+              assembly_reference.json (scripts/torch_assembly_reference.py),
+              with >= 2 contigs and their links re-aligned on K1 (none
+              survives the polished ends' clipping, in canu_tpu too, so
+              write_gfa then keeps test_gfa.py's surviving link on the
+              card, K1 in align_links, its page equal to the CPU's).
+              11b: the bench genome, nothing cut: >= 1 contig, every GFA
+              L-line naming two S-lines, every layout.tsv read in the utg
+              store.  In both, the largest contig's length, identity to
+              the simulated genome and misjoins (tests/torch_cases.py
+              identity_vs_genome: banded extensions at band 512 between
+              exact 32-mer anchors every 5 kb, kernel K2) must equal the
+              reference's; whether the identity reaches TRUTH_IDENTITY
+              is printed, not gated.  Prints the stage walls, RED's and
+              the adjust's walls, the vote chunks and DP time (CUDA
+              events) of RED and the polish, K1 on each launch of the
+              adjust beside its bound, the device memory peak over the
+              assembly phase, the contigs, NG50 and identity.  Then
+              python -m canu_tpu_torch on 11b's directory must skip every
+              stage by resume and exit 0, and -options must list
+              genomeSize
 
 Each kernel's bound is the larger of its operations over the card's
 32-bit integer rate and its bytes over the memory rate (INT32_OPS_S,
@@ -122,6 +158,11 @@ OLD_EXTEND_LANES = 2 * 512  # a K2/K3 launch of one chunk of 512 pairs, both way
 BENCH_GENOME = 300_000  # bench.py's genome (phases 4-8 and 10)
 ECOLI_GENOME = 4_600_000  # phase 9's genome, the JAX package's config 2
 ECOLI_SAMPLE = 2048  # candidates whose store rows phase 9 holds against the reference
+# phase 11: the largest contig's identity to the simulated genome is held
+# equal to the JAX package's (assembly_reference.json); the bar that
+# tests/test_pipeline.py sets for the raw path is printed beside it, met
+# or not (canu_tpu's own 11b contig misses it, ROADMAP §3(f))
+TRUTH_IDENTITY = 0.999
 
 # H100 SXM peaks at its 1.98 GHz boost clock and 700 W: 132 SMs x 64 INT32
 # lanes (NVIDIA's Hopper white paper), and HBM3 at 3.35 TB/s
@@ -1092,6 +1133,333 @@ def correct_drive(dev, card: str) -> dict:
             "phase_s": time.time() - t_phase}
 
 
+def ng50(lengths, genome_size: int) -> int:
+    """The contig length at which the longest contigs first reach half the
+    genome size (0 when they never do)."""
+    acc = 0
+    for n in sorted(lengths, reverse=True):
+        acc += n
+        if acc >= genome_size / 2:
+            return n
+    return 0
+
+
+def assemble_run(name: str, dev, card: str, genome_len: int, genome_seed: int, repeats,
+                 ref: dict | None) -> dict:
+    """One run of phase 11: run_pipeline from a FASTA of simulated corrected
+    reads, Config() + genomeSize, in a directory of its own, the counts set
+    to 0 just before and read just after.  K1 must have launched in the obt
+    overlap, the utg overlap and the OEA adjust (and in align_links where
+    the GFA keeps a link); no other kernel and no plain loop on the card.
+    With ``ref`` every gate of assembly_digests must equal the JAX
+    package's.  Returns the run's record (walls, launches, K1 in the
+    adjust with its bound, memory peak, contigs, identity)."""
+    import torch
+
+    from canu_tpu_torch.config import Config
+    from canu_tpu_torch.io import gfa as GFA
+    from canu_tpu_torch.io.fastx import read_fastx
+    from canu_tpu_torch.ops import consensus as CNS
+    from canu_tpu_torch.ops import myers as MY
+    from canu_tpu_torch.ops import oea as OEA
+    from canu_tpu_torch.ops import votepile as VP
+    from canu_tpu_torch.ops.kernels import myers_cuda as K1
+    from canu_tpu_torch.pipeline import stages
+    from canu_tpu_torch.pipeline.driver import run_pipeline
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_cases import assembly_digests, largest_contig_identity, write_assembly_reads
+
+    tag = f"11{name}"
+    t_phase = time.time()
+    work = tempfile.mkdtemp(prefix=f"chip_smoke_assemble_{name}_")
+    fasta = os.path.join(work, "reads.fasta")
+    genome, n_reads, n_bases, fasta_sha = write_assembly_reads(fasta, genome_len, genome_seed,
+                                                               repeats)
+    log(f"[{tag} assemble] read set: random_genome({genome_len}, seed={genome_seed}, "
+        f"repeat_spec={repeats}): {n_reads} corrected reads, {n_bases} bases, FASTA sha256 "
+        f"{fasta_sha}")
+    if ref is not None:
+        check(fasta_sha == ref["input_fasta_sha256"],
+              f"{tag}: the read set differs from the reference's")
+    wd = os.path.join(work, "asm")
+    cfg = Config()
+    cfg.set("genomeSize", genome_len)
+
+    # instrumentation, each undone below: K1 launches within each overlap
+    # stage, RED, the OEA adjust and align_links; RED's corrections; the
+    # vote chunks and the DP (CUDA events) of RED and the polish; every K1
+    # launch of the adjust with its inputs; the memory peak over assembly
+    k1_in: dict = {}
+    chunks_in: dict = {}
+    step_peak: dict = {}  # device bytes above each step's start, its peak
+    dp_ev: dict = {"red": [], "polish": []}
+    where = [None]
+    mem: dict = {}
+    n_links = [0]
+    corr: dict = {}
+    real = {"overlap": stages.overlap, "red": OEA.detect_read_errors,
+            "adjust": OEA.adjust_overlap_erates, "polish": CNS.polish_tig,
+            "links": GFA.align_links, "dp": VP.align_positions_lean,
+            "assembly": stages.assembly_phase, "rows": MY._rows_kernel}
+    adjust_calls: list = []
+
+    def counted(key, fn):
+        def call(*args, **kw):
+            k0, c0, prev = K1.LAUNCHES, VP.CHUNKS, where[0]
+            where[0] = key
+            torch.cuda.synchronize()
+            m0 = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                step_peak[key] = max(step_peak.get(key, 0),
+                                     torch.cuda.max_memory_allocated(dev) - m0)
+                where[0] = prev
+                k1_in[key] = k1_in.get(key, 0) + K1.LAUNCHES - k0
+                chunks_in[key] = chunks_in.get(key, 0) + VP.CHUNKS - c0
+        return call
+
+    def overlap(ctx, tg, *args, **kw):
+        return counted(f"{tg}-overlap", real["overlap"])(ctx, tg, *args, **kw)
+
+    def red(*args, **kw):
+        out = counted("red", real["red"])(*args, **kw)
+        corr.update(out)
+        return out
+
+    def links(tigs, lk, *args, **kw):
+        n_links[0] += len(lk)
+        return counted("align_links", real["links"])(tigs, lk, *args, **kw)
+
+    def dp(*args, **kw):
+        if where[0] not in dp_ev:
+            return real["dp"](*args, **kw)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real["dp"](*args, **kw)
+        e1.record()
+        dp_ev[where[0]].append((e0, e1))
+        return out
+
+    def rows(*args, **kw):
+        if where[0] == "adjust":
+            adjust_calls.append((args, kw))
+        return real["rows"](*args, **kw)
+
+    def assembly(*args, **kw):
+        # the steps' peaks (each step resets the peak) and the phase's own
+        torch.cuda.synchronize()
+        mem["start"] = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_peak.clear()
+        real["assembly"](*args, **kw)
+        torch.cuda.synchronize()
+        mem["peak"] = max([torch.cuda.max_memory_allocated(dev)]
+                          + [mem["start"] + v for v in step_peak.values()])
+
+    stages.overlap, stages.assembly_phase = overlap, assembly
+    OEA.detect_read_errors, OEA.adjust_overlap_erates = red, counted("adjust", real["adjust"])
+    CNS.polish_tig, GFA.align_links = counted("polish", real["polish"]), links
+    VP.align_positions_lean, MY._rows_kernel = dp, rows
+    try:
+        reset_counts()
+        t = time.time()
+        run_pipeline(wd, "asm", cfg, corrected_reads=[fasta], device=dev)
+        torch.cuda.synchronize()
+        t_run = time.time() - t
+        counts = read_counts()
+    finally:
+        stages.overlap, stages.assembly_phase = real["overlap"], real["assembly"]
+        OEA.detect_read_errors, OEA.adjust_overlap_erates = real["red"], real["adjust"]
+        CNS.polish_tig, GFA.align_links = real["polish"], real["links"]
+        VP.align_positions_lean, MY._rows_kernel = real["dp"], real["rows"]
+    log(f"[{tag} assemble] {card}: run_pipeline from corrected reads: {t_run:.2f} s; launch "
+        f"counts {counts}; K1 launches by step {k1_in}")
+    check(counts["K2"] == counts["K3"] == 0, f"{tag}: kernel K2 or K3 launched off its path")
+    check(counts["plain_myers_segments"] == 0 and counts["plain_extend_rows"] == 0,
+          f"{tag}: a plain loop ran on the card during the run")
+    for step in ("obt-overlap", "utg-overlap", "adjust"):
+        check(k1_in.get(step, 0) > 0, f"{tag}: kernel K1 never launched in {step}")
+    if n_links[0]:
+        check(k1_in.get("align_links", 0) > 0, f"{tag}: align_links never launched K1")
+    check(os.path.exists(os.path.join(wd, "asm.contigs.fasta")), f"{tag}: no contigs FASTA")
+
+    # where the time went
+    with open(os.path.join(wd, "asm.stage-times.jsonl")) as fh:
+        lines = [json.loads(ln) for ln in fh]
+    walls = {r["stage"]: r["wall_s"] for r in lines if "wall_s" in r}
+    oea_sub = [r for r in lines if r["stage"] == "oea.sub"][-1]
+    dp_s = {k: sum(a.elapsed_time(b) for a, b in v) / 1e3 for k, v in dp_ev.items()}
+    log(f"[{tag} timing] {card}: stage walls {walls}")
+    log(f"[{tag} timing] {card}: oea.sub {oea_sub['sub_walls_s']} ({oea_sub['changed_reads']} "
+        f"reads changed); RED {chunks_in.get('red', 0)} vote chunks, DP {dp_s['red']:.3f} s; "
+        f"polish {chunks_in.get('polish', 0)} vote chunks, DP {dp_s['polish']:.3f} s (DP by "
+        f"CUDA events)")
+    # K1 in the OEA adjust: every launch with CUDA events beside its bound
+    k1_launches = [k1_call(c) for c in adjust_calls]
+    del adjust_calls
+    k1_ms, k1_bounds = time_k1(k1_launches)
+    del k1_launches
+    for i, (ms, bd) in enumerate(zip(k1_ms, k1_bounds)):
+        log(f"[{tag} timing] {card}: OEA adjust K1 launch {i + 1}/{len(k1_ms)}: {ms:.3f} ms; "
+            f"bound {bd['bound_ms']:.3f} ms ({bd['ops']:.3e} operations, {bd['bytes']:.3e} "
+            f"bytes; bound by {bd['bound_by']}; {100 * bd['bound_ms'] / ms:.1f}% of it)")
+    log(f"[{tag} timing] {card}: OEA adjust K1 {len(k1_ms)} launches, {sum(k1_ms):.3f} ms; "
+        f"bound {sum(b['bound_ms'] for b in k1_bounds):.3f} ms")
+    log(f"[{tag} memory] {card}: device peak over the assembly phase "
+        f"{mem['peak'] / 1e9:.3f} GB ({(mem['peak'] - mem['start']) / 1e9:.3f} GB above the "
+        f"{mem['start'] / 1e9:.3f} GB allocated at its start); by step, above its start: "
+        + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in step_peak.items()))
+
+    # what came out
+    contigs = list(read_fastx(os.path.join(wd, "asm.contigs.fasta")))
+    lens = sorted((len(r.seq) for r in contigs), reverse=True)
+    check(len(contigs) >= 1, f"{tag}: no contig")
+    lc = largest_contig_identity(wd, "asm", genome, dev)
+    ident, breaks = lc["identity"], lc["misjoins"]
+    digests = assembly_digests(wd, "asm", corr)
+    n_l = digests["gfa"]["l_lines"]
+    log(f"[{tag} assemble] {len(contigs)} contigs, largest {lens[0]}, NG50 "
+        f"{ng50(lens, genome_len)} (genome {genome_len}); largest contig's identity to the "
+        f"simulated genome {ident:.6f} ({breaks} misjoins between its 5 kb anchors); "
+        f"{digests['unassembled']['n']} unassembled; GFA "
+        f"{digests['gfa']['n'] - n_l} S-lines, {n_l} L-lines ({n_links[0]} links re-aligned); "
+        f"RED corrected {digests['red']['n']} bases in {len(corr)} reads")
+    log(f"[{tag} assemble] truth: the largest contig's identity {ident:.6f} is "
+        + ("at or above" if ident >= TRUTH_IDENTITY else "BELOW")
+        + f" tests/test_pipeline.py's {TRUTH_IDENTITY} (reported, not gated)")
+    if ref is not None:
+        want = ref["largest_contig"]
+        log(f"[{tag} assemble] largest contig {lc} (reference {want})")
+        check(lc == want, f"{tag}: the largest contig's length, identity or misjoins differ "
+                          "from the JAX package's")
+        for key, want in ref["gates"].items():
+            got = digests.get(key)
+            log(f"[{tag} assemble] {key}: {got} (reference {want})")
+            check(got == want, f"{tag}: {key} differs from the JAX package's")
+        log(f"[{tag} assemble] every gate equals the JAX package's: "
+            + ", ".join(ref["gates"]))
+    log(f"[{tag} assemble] phase wall {time.time() - t_phase:.1f} s")
+    return {"run_s": t_run, "stage_walls_s": walls, "oea_sub": oea_sub, "launches": counts,
+            "k1_by_step": k1_in, "vote_chunks": chunks_in, "dp_s": dp_s,
+            "adjust_k1_ms": k1_ms, "adjust_k1_bounds": k1_bounds, "peak_bytes": mem["peak"],
+            "start_bytes": mem["start"], "step_peak_bytes": dict(step_peak), "contigs": lens,
+            "ng50": ng50(lens, genome_len), "identity": ident, "misjoins": breaks,
+            "truth_met": ident >= TRUTH_IDENTITY,
+            "digests": digests, "links_aligned": n_links[0], "work": wd, "fasta": fasta,
+            "genome_len": genome_len, "phase_s": time.time() - t_phase}
+
+
+def gfa_link_check(dev) -> dict:
+    """write_gfa with verify_edges on the card, on test_gfa.py's case where
+    a link between tig end reads survives align_links (the assemble runs
+    keep no L-line, in canu_tpu too: ROADMAP §3(g)): K1 must launch in
+    align_links, at least one L-line must survive, and the page must equal
+    the port's on the CPU (the plain loop; tests/test_torch_gfa.py holds
+    that to canu_tpu's)."""
+    import torch
+
+    import canu_tpu_torch.io.gfa as GFA
+    import canu_tpu_torch.ops.align as AL
+    import canu_tpu_torch.stores.overlaps as OV
+    import canu_tpu_torch.stores.tigs as TG
+    from canu_tpu_torch.ops.kernels import myers_cuda as K1
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_cases import GFA_STORE_ROWS, gfa_cases, gfa_store, gfa_tigs
+
+    seqs, _ = gfa_cases()[0]
+    pages, launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gfa_") as tmp:
+        for d in (dev, torch.device("cpu")):
+            k0 = K1.LAUNCHES
+            path = os.path.join(tmp, f"{d.type}.gfa")
+            GFA.write_gfa(path, gfa_tigs(TG, seqs), None, store=gfa_store(AL, OV, GFA_STORE_ROWS, 40),
+                          verify_edges=True, device=d)
+            launches[d.type] = K1.LAUNCHES - k0
+            with open(path) as fh:
+                pages[d.type] = fh.read()
+    n_l = pages["cuda"].count("\nL\t")
+    log(f"[11 gfa] write_gfa(verify_edges=True) on the card: {n_l} L-lines kept, "
+        f"{launches['cuda']} K1 launches in align_links; page equals the CPU's: "
+        f"{pages['cuda'] == pages['cpu']}")
+    check(launches["cuda"] > 0, "11 gfa: align_links launched no K1 on the card")
+    check(n_l >= 1, "11 gfa: no L-line survived the re-alignment")
+    check(pages["cuda"] == pages["cpu"], "11 gfa: the card's GFA differs from the CPU's")
+    return {"l_lines": n_l, "k1_launches": launches["cuda"]}
+
+
+def assemble_drive(dev, card: str) -> dict:
+    """Phase 11: run_pipeline from corrected reads to contigs, twice, each
+    run's every gate held against its entry of assembly_reference.json.
+    11a: the reduced genome with planted repeats, at
+    least 2 contigs, and links between them re-aligned by align_links on
+    K1; then gfa_link_check.  11b: the bench genome at full size, held
+    also by well-formed outputs.  Then python -m canu_tpu_torch on 11b's
+    directory, where every stage must skip by resume, and -options."""
+    import numpy as np
+
+    from canu_tpu_torch.stores.overlaps import OverlapStore
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_cases import ASSEMBLY_RUNS
+
+    with open(os.path.join(ROOT, "canu_tpu_torch", "assembly_reference.json")) as fh:
+        ref = json.load(fh)
+    check(all(ref[r]["genome"] == ASSEMBLY_RUNS[r][0] for r in ASSEMBLY_RUNS),
+          "11: the references are of other genome sizes")
+    check(ASSEMBLY_RUNS["b"][:2] == (BENCH_GENOME, 42), "11b is not the bench genome")
+    a = assemble_run("a", dev, card, *ASSEMBLY_RUNS["a"], ref["a"])
+    check(len(a["contigs"]) >= 2, "11a: the repeats did not break the assembly into contigs")
+    # the links between contig ends go through align_links and K1; none
+    # re-aligns on the polished contigs (PERF.md §6), in canu_tpu too:
+    # the GFA gate above holds the L-lines to the reference's
+    check(a["links_aligned"] >= 1 and a["k1_by_step"].get("align_links", 0) > 0,
+          "11a: the GFA found no link between contigs, or align_links never launched K1")
+    gfa = gfa_link_check(dev)
+
+    b = assemble_run("b", dev, card, *ASSEMBLY_RUNS["b"], ref["b"])
+    wd = b["work"]
+    with open(os.path.join(wd, "asm.contigs.gfa")) as fh:
+        gl = [ln.split("\t") for ln in fh.read().splitlines()]
+    s_names = {f[1] for f in gl if f[0] == "S"}
+    check(all(f[1] in s_names and f[3] in s_names for f in gl if f[0] == "L"),
+          "11b: a GFA L-line names a segment that is not an S-line")
+    st = OverlapStore.load(os.path.join(wd, "unitigging", "asm.ovlStore"))
+    with open(os.path.join(wd, "asm.layout.tsv")) as fh:
+        ids = np.array([int(ln.split("\t")[1]) for ln in fh.read().splitlines()], np.int64)
+    check(len(ids) > 0 and ids.min() >= 1 and ids.max() <= st.n_reads,
+          "11b: a layout.tsv read id is not in the utg store")
+    log(f"[11b assemble] GFA: {len(s_names)} S-lines, every L-line names two of them; "
+        f"layout.tsv: {len(ids)} placements of reads 1..{st.n_reads} of the utg store")
+
+    # the CLI on 11b's directory: every stage skips by resume
+    with open(os.path.join(wd, "asm.stage-times.jsonl")) as fh:
+        n_lines = len(fh.readlines())
+    t = time.time()
+    r = subprocess.run([sys.executable, "-m", "canu_tpu_torch", "-p", "asm", "-d", wd,
+                        f"genomeSize={BENCH_GENOME}", "-corrected", b["fasta"]],
+                       cwd=ROOT, capture_output=True, text=True, timeout=600)
+    t_cli = time.time() - t
+    out = r.stdout + r.stderr
+    skipped = out.count("already done, skipping") + out.count("phase complete, skipping")
+    with open(os.path.join(wd, "asm.stage-times.jsonl")) as fh:
+        n_after = len(fh.readlines())
+    log(f"[11 cli] python -m canu_tpu_torch on 11b's directory: rc {r.returncode} in "
+        f"{t_cli:.1f} s; {skipped} skips; stage starts {out.count(': start (attempt')}")
+    check(r.returncode == 0, f"11 cli: exit {r.returncode}: {out[-2000:]}")
+    check(": start (attempt" not in out and n_after == n_lines and skipped > 0,
+          "11 cli: a stage ran again on a finished directory")
+    r = subprocess.run([sys.executable, "-m", "canu_tpu_torch", "-options"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    check(r.returncode == 0 and "genomeSize" in r.stdout, "11 cli: -options lacks genomeSize")
+    log("[11 cli] -options lists genomeSize")
+    return {"a": a, "b": b, "gfa": gfa, "cli_s": t_cli}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "canu_tpu_torch")):
         print("chip_smoke: canu_tpu_torch/ is not beside this script; run it from a "
@@ -1364,6 +1732,9 @@ def main() -> int:
     # ---- 10: read correction from a FASTA ----------------------------------
     record["correct"] = correct = correct_drive(dev, card)
 
+    # ---- 11: trimming and assembly, corrected reads to contigs ---------------
+    record["assemble"] = assemble = assemble_drive(dev, card)
+
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(record, fh, indent=1, default=str)
@@ -1378,7 +1749,8 @@ def main() -> int:
          "source": "canu_tpu_torch/csrc/myers_tile.cu",
          "replaces": "canu_tpu/ops/pallas/myers_pallas.py:77",
          "launches": launches + drives["obt"]["launches"]["K1"] + ecoli["launches"]["K1"]
-         + correct["launches"]["K1"],
+         + correct["launches"]["K1"] + assemble["a"]["launches"]["K1"]
+         + assemble["b"]["launches"]["K1"],
          "max_abs_err": err,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bd1["bound_ms"],
          "bound_by": bd1["bound_by"], "library_ms": None},

@@ -1,7 +1,8 @@
 """canu_tpu_torch stands alone: a machine with the port and neither jax nor
 the JAX package must be able to run its stages (the cor, utg band-256 and
-obt join + spill + host-count routes, and the correction phase from a
-FASTA), and running them where jax is installed must not load it."""
+obt join + spill + host-count routes, the correction phase from a FASTA,
+and trimming + assembly from corrected reads through run_pipeline), and
+running them where jax is installed must not load it."""
 
 from __future__ import annotations
 
@@ -74,6 +75,23 @@ cfg4.set("corMhapSensitivity", "low")
 cfg4.set("corOutCoverage", 1)
 stages.correction_phase(make_ctx(work4, "t", cfg4), [fa], device="cpu")
 assert os.path.getsize(os.path.join(work4, "correction", "t.correctedReads.fasta.gz")) > 0
+# trimming and assembly from corrected reads: RED + OEA, the graph, the
+# plurality polish (at 256-base segments) and the outputs
+from canu_tpu_torch.ops import consensus
+from canu_tpu_torch.pipeline.driver import run_pipeline
+consensus._POLISH_SEG = 256
+work5 = tempfile.mkdtemp()
+fa5 = os.path.join(work5, "reads.fasta")
+rs5, _ = simulate_reads(g, coverage=10, mean_len=1300, min_len=1100, max_len=1600,
+                        error_rate=0.015, seed=5, circular=False)
+write_fasta(fa5, ((rs5.name(i), rs5.get_seq(i)) for i in range(1, rs5.n_reads + 1)))
+cfg5 = Config()
+cfg5.set("genomeSize", 6_000)
+cfg5.set("obtMhapSensitivity", "low")
+cfg5.set("utgMhapSensitivity", "low")
+run_pipeline(os.path.join(work5, "asm"), "t", cfg5, corrected_reads=[fa5], device="cpu")
+assert os.path.getsize(os.path.join(work5, "asm", "t.contigs.fasta")) > 0
+assert os.path.isdir(os.path.join(work5, "asm", "unitigging", "t.ovlStore.adjusted"))
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "canu_tpu")
                 if sys.modules[m] is not None)
 assert not loaded, loaded
@@ -88,6 +106,11 @@ import sys
 import canu_tpu_torch
 from canu_tpu_torch.pipeline import stages
 from canu_tpu_torch.ops import align, falcon, kmer, minhash, minimizers, myers, trace, votepile
+from canu_tpu_torch.ops import consensus, oea
+from canu_tpu_torch import graph, __main__
+from canu_tpu_torch.io import gfa
+from canu_tpu_torch.pipeline import driver, html, objectstore, splitreads
+from canu_tpu_torch.stores import tigs
 from canu_tpu_torch.ops.kernels import _nvcc, extend_cuda, myers_cuda
 from canu_tpu_torch.utils import intervals, quality
 from canu_tpu_torch.stores import overlaps

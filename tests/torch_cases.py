@@ -14,12 +14,25 @@ for it, which stand in for a full verify where the reference cannot run
 one (chip_smoke.py's ecoli phase; scripts/torch_ecoli_reference.py).
 ``corrected_digest``: the digest of a block of corrected reads that
 chip_smoke.py's correct phase holds against
-scripts/torch_correction_reference.py's.
+scripts/torch_correction_reference.py's.  ``assembly_digests``: the
+gates of a trimming + assembly run (trimmed reads, utg and adjusted
+stores, RED corrections, unitig and contig layouts, the output FASTA
+files, layout.tsv and the GFA), which chip_smoke.py's assemble phase
+holds against scripts/torch_assembly_reference.py's, and
+``write_assembly_reads``: the read sets of ASSEMBLY_RUNS both of them
+assemble; ``identity_vs_genome`` and ``largest_contig_identity``: a
+contig's identity to the simulated genome, which both hold against the
+same measure of the reference's contig.  ``gfa_cases``, ``gfa_tigs``,
+``gfa_store``, ``GFA_STORE_ROWS``: test_gfa.py's links, which the GFA
+parity tests and chip_smoke.py's card check of write_gfa share.
 """
 
 from __future__ import annotations
 
+import gzip
 import hashlib
+import json
+import os
 from types import SimpleNamespace
 
 import numpy as np
@@ -282,3 +295,239 @@ def corrected_digest(records) -> str:
     for name, seq in sorted(records):
         h.update(f"{name}\t{seq}\n".encode())
     return h.hexdigest()
+
+
+def _sha_of(items) -> str:
+    """sha256 over the sorted records, each as its fields joined by TAB
+    and ended by LF."""
+    h = hashlib.sha256()
+    for rec in sorted(items):
+        h.update(("\t".join(str(x) for x in rec) + "\n").encode())
+    return h.hexdigest()
+
+
+def fasta_records(path: str) -> list[tuple[str, str]]:
+    """(name, seq) records of a FASTA file, gzipped or not."""
+    opener = gzip.open if path.endswith(".gz") else open
+    recs: list[list[str]] = []
+    with opener(path, "rt") as fh:
+        for line in fh:
+            line = line.rstrip("\n")
+            if line.startswith(">"):
+                recs.append([line[1:], ""])
+            elif recs:
+                recs[-1][1] += line
+    return [(n, s) for n, s in recs]
+
+
+def tig_records(store_dir: str, version: int = 1) -> list[tuple]:
+    """(tig_id, class, read_id, bgn, end, rev) per placement of a tig store
+    version (the format both packages write: v###.npz + v###.meta.json)."""
+    with open(os.path.join(store_dir, f"v{version:03d}.meta.json")) as fh:
+        meta = json.load(fh)
+    out = []
+    with np.load(os.path.join(store_dir, f"v{version:03d}.npz")) as z:
+        for i, m in enumerate(meta):
+            for r, b, e, v in zip(z[f"t{i}_read_id"].tolist(), z[f"t{i}_bgn"].tolist(),
+                                  z[f"t{i}_end"].tolist(), z[f"t{i}_rev"].tolist()):
+                out.append((int(m["tig_id"]), int(m["class"]), r, b, e, int(v)))
+    return out
+
+
+def corrections_records(corr: dict) -> list[tuple[int, int, int]]:
+    """(read, position, base) of RED's corrections {read: int32[M, 2]}."""
+    return [(int(rid), int(p), int(b)) for rid, v in corr.items() for p, b in np.asarray(v)]
+
+
+def assembly_digests(work_dir: str, prefix: str, corrections: dict | None = None) -> dict:
+    """Each gate of a trimming + assembly run in work_dir as {"n": records,
+    "sha256": digest of the sorted records}: the trimmed reads, the utg
+    store and the store with OEA's adjusted erates (store_digest), RED's
+    corrections (when given), the unitig and contig layouts (utgStore and
+    ctgStore v1), the contigs, unassembled and unitigs FASTA files,
+    layout.tsv, and the GFA's S and L lines."""
+    from canu_tpu_torch.stores.overlaps import OverlapStore, store_digest
+
+    def path(*p):
+        return os.path.join(work_dir, *p)
+
+    def recs(items) -> dict:
+        items = list(items)
+        return {"n": len(items), "sha256": _sha_of(items)}
+
+    out = {"trimmed": recs(fasta_records(path("trimming", f"{prefix}.trimmedReads.fasta.gz")))}
+    for key, name in (("utg_store", "ovlStore"), ("adjusted_store", "ovlStore.adjusted")):
+        d = path("unitigging", f"{prefix}.{name}")
+        if os.path.isdir(d):
+            st = OverlapStore.load(d)
+            out[key] = {"n": len(st), "sha256": store_digest(st)}
+    if corrections is not None:
+        out["red"] = recs(corrections_records(corrections))
+    out["utg_layouts"] = recs(tig_records(path("unitigging", f"{prefix}.utgStore")))
+    out["ctg_layouts"] = recs(tig_records(path("unitigging", f"{prefix}.ctgStore")))
+    for kind in ("contigs", "unassembled", "unitigs"):
+        out[kind] = recs(fasta_records(path(f"{prefix}.{kind}.fasta")))
+    with open(path(f"{prefix}.layout.tsv")) as fh:
+        out["layout_tsv"] = recs(tuple(ln.split("\t")) for ln in fh.read().splitlines())
+    with open(path(f"{prefix}.contigs.gfa")) as fh:
+        lines = fh.read().splitlines()
+    out["gfa"] = recs(tuple(ln.split("\t")) for ln in lines if ln[:2] in ("S\t", "L\t"))
+    out["gfa"]["l_lines"] = sum(1 for ln in lines if ln.startswith("L\t"))
+    return out
+
+
+# the read sets of chip_smoke.py's assemble phase: corrected reads at the
+# bench's shapes (coverage 12, mean 3,500, 1,500-7,800) at 1.5% error;
+# 11a's genome carries three copies of a 9 kb repeat, longer than any read
+ASSEMBLY_READ_SEED = 72
+ASSEMBLY_ERROR_RATE = 0.015
+ASSEMBLY_REPEATS = [(9000, 3)]
+# run -> (genome length, random_genome seed, planted repeats): 11a is cut
+# from the bench's 300 kb so the CPU reference finishes; 11b is the bench
+# genome
+ASSEMBLY_RUNS = {"a": (100_000, 71, ASSEMBLY_REPEATS), "b": (300_000, 42, None)}
+
+
+def write_assembly_reads(path: str, genome: int, genome_seed: int, repeats=None):
+    """Simulate an assemble-phase read set and write it to a FASTA file;
+    returns (genome codes, reads, bases, sha256 of the file)."""
+    from canu_tpu_torch.io.fastx import write_fasta
+    from canu_tpu_torch.sim.simulate import random_genome, simulate_reads
+
+    g = random_genome(genome, seed=genome_seed, repeat_spec=repeats)
+    rs, _ = simulate_reads(g, coverage=12, mean_len=3500, min_len=1500, max_len=7800,
+                           error_rate=ASSEMBLY_ERROR_RATE, seed=ASSEMBLY_READ_SEED)
+    write_fasta(path, ((rs.name(i), rs.get_seq(i)) for i in range(1, rs.n_reads + 1)))
+    with open(path, "rb") as fh:
+        return g, rs.n_reads, int(rs.total_bases), hashlib.sha256(fh.read()).hexdigest()
+
+
+IDENTITY_WINDOW = 5000  # contig bases between the anchors of identity_vs_genome
+
+
+def identity_vs_genome(codes, genome, dev) -> tuple[float, int]:
+    """A contig's identity to the simulated genome, measured as
+    test_assembly_slice.py identity_vs_genome does (an exact 32-mer
+    of the contig found in the genome anchors a banded extension at band
+    512, 1 - edits / contig bases), once every IDENTITY_WINDOW bases, so
+    that indel drift along a contig of hundreds of kb never leaves the
+    band: the contig, in the orientation that anchors more windows, is
+    cut at each window's first anchor, and each piece is extended from
+    its anchor to the next (ops.align.banded_extend, one batch: kernel K2
+    on the card).  Bases before the first anchor, and bases a piece's
+    extension leaves unused, count as edits.  The genome is circular (the
+    simulator's default), so it is searched and aligned as two copies
+    back to back.  Returns (identity, misjoins): consecutive anchors
+    that are not collinear in the genome."""
+    from canu_tpu_torch.ops.align import banded_extend
+    from canu_tpu_torch.utils import bitpack
+
+    genome = np.concatenate([genome, genome])
+    g_str = bitpack.codes_to_seq(genome)
+    band = 512
+    best = None
+    for cand in (codes, bitpack.revcomp_codes(codes)):
+        c_str = bitpack.codes_to_seq(cand)
+        anchors = []
+        for w0 in range(0, len(cand), IDENTITY_WINDOW):
+            for p in range(w0, min(len(cand) - 32, w0 + IDENTITY_WINDOW), 50):
+                off = -1
+                if anchors:  # the collinear copy first (the genome is doubled)
+                    want = anchors[-1][1] + p - anchors[-1][0]
+                    off = g_str.find(c_str[p : p + 32], max(0, want - 2000), want + 2032)
+                if off < 0:
+                    off = g_str.find(c_str[p : p + 32])
+                if off >= 0:
+                    anchors.append((p, off))
+                    break
+        if best is None or len(anchors) > len(best[1]):
+            best = (cand, anchors)
+    cand, anchors = best
+    if not anchors:
+        return 0.0, 0
+    ends = [p for p, _ in anchors[1:]] + [len(cand)]
+    la = np.array([e - p for (p, _), e in zip(anchors, ends)], np.int32)
+    lb = np.array([min(len(genome) - off, n + band) for (_, off), n in zip(anchors, la)], np.int32)
+    n_rows = int(la.max())
+    L = n_rows + band
+    aa = np.zeros((len(anchors), L), np.uint8)
+    bb = np.zeros((len(anchors), L), np.uint8)
+    cc = np.zeros((len(anchors), n_rows + 1), np.int32)
+    for i, ((p, off), n) in enumerate(zip(anchors, la)):
+        aa[i, :n] = cand[p : p + n]
+        bb[i, : lb[i]] = genome[off : off + lb[i]]
+        cc[i, : n + 1] = np.round(np.linspace(0, min(lb[i], n), n + 1)).astype(np.int32)
+        cc[i, n + 1 :] = cc[i, n]
+    e, au, _bu = (x.cpu().numpy().astype(np.int64) for x in banded_extend(
+        *(torch.from_numpy(x).to(dev) for x in (aa, la, bb, lb, cc)), band, n_rows))
+    edits = int(e.sum()) + int((la - au).sum()) + anchors[0][0]
+    # a misjoin: the next anchor is not where this piece's alignment ends
+    breaks = sum(1 for (p0, o0), (p1, o1) in zip(anchors, anchors[1:])
+                 if abs((o1 - o0) - (p1 - p0)) > band // 2)
+    return 1.0 - edits / max(1, len(cand)), breaks
+
+
+def largest_contig_identity(work_dir: str, prefix: str, genome, dev) -> dict:
+    """identity_vs_genome of a run's largest contig (the first of the
+    longest in ``<prefix>.contigs.fasta``): its length, identity and
+    misjoins, which chip_smoke.py's assemble phase holds against
+    scripts/torch_assembly_reference.py's."""
+    from canu_tpu_torch.utils import bitpack
+
+    contigs = fasta_records(os.path.join(work_dir, f"{prefix}.contigs.fasta"))
+    if not contigs:
+        return {"length": 0, "identity": 0.0, "misjoins": 0}
+    seq = max(contigs, key=lambda r: len(r[1]))[1]
+    ident, breaks = identity_vs_genome(bitpack.seq_to_codes(seq), genome, dev)
+    return {"length": len(seq), "identity": ident, "misjoins": breaks}
+
+
+# the GFA cases: write_gfa's links from an overlap store between tig end
+# reads; tig t holds reads 10t+1..10t+3, the last at its sequence's end.
+# The end reads of tigs 1 and 2 dovetail (a true link, which survives
+# align_links), tig 3's end read overlaps tig 1's (a link it drops)
+GFA_STORE_ROWS = [(13, 21, False, 0, 600, 0, 600, 100), (31, 13, False, 0, 500, 0, 500, 900),
+                  (22, 12, False, 0, 300, 0, 300, 50)]
+
+
+def gfa_tigs(T, seqs, first_read=1):
+    """test_gfa.py's tigs (of the tigs module ``T``, either package's):
+    three reads placed along each sequence."""
+    out = []
+    for i, cns in enumerate(seqs):
+        tid = i + 1
+        bgn = np.linspace(0, len(cns) - 100, 3).astype(np.int32)
+        out.append(T.Tig(tid, (np.arange(first_read, first_read + 3) + 10 * tid).astype(np.int32),
+                         bgn, bgn + 100, np.zeros(3, bool), consensus=cns))
+    return T.TigStore(out)
+
+
+def gfa_cases():
+    """test_gfa.py's cases: (tig sequences, links) three times."""
+    from canu_tpu_torch.utils import bitpack
+
+    rng = np.random.default_rng(5)
+    whole = rng.integers(0, 4, size=3000).astype(np.uint8)
+    rng6 = np.random.default_rng(6)
+    w6 = rng6.integers(0, 4, size=2400).astype(np.uint8)
+    return [
+        # a true 600-base suffix/prefix overlap and an unrelated tig
+        ([whole[:1800], whole[1200:], rng.integers(0, 4, size=1500).astype(np.uint8)],
+         [(1, "+", 2, "+", 600), (1, "+", 3, "+", 600)]),
+        # the second tig holds the reverse complement of the tail
+        ([w6[:1500], bitpack.revcomp_codes(w6[900:])], [(1, "+", 2, "-", 600)]),
+        # estimates off by tens of bases, both orientations, a zero length
+        ([whole[:2000], whole[1500:], bitpack.revcomp_codes(whole[:1000])],
+         [(1, "+", 2, "+", 540), (2, "-", 1, "-", 470), (3, "-", 2, "+", 0),
+          (1, "-", 3, "+", 1000)]),
+    ]
+
+
+def gfa_store(AL, OV, rows, n_reads):
+    """An overlap store (of the align and overlaps modules ``AL``, ``OV``)
+    from rows (a_id, b_id, flipped, a_bgn, a_end, b_bgn, b_end, erate_q)."""
+    cols = list(zip(*rows))
+    names = ("a_id", "b_id", "flipped", "a_bgn", "a_end", "b_bgn", "b_end", "erate_q")
+    dt = (np.int32, np.int32, bool, np.int32, np.int32, np.int32, np.int32, np.uint16)
+    return OV.OverlapStore.build(AL.OverlapTable(**{c: np.array(v, d) for c, v, d in
+                                                    zip(names, cols, dt)}), n_reads)
