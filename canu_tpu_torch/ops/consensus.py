@@ -7,8 +7,8 @@ read's end.  polish_tig is the plurality polish on the vote engine
 (ops.votepile, PyTorch ops on the device of the read planes): the
 backbone is cut into VOTE_SEG-base segments, every placed read votes
 into each segment it overlaps, and the called edits are applied, for up
-to ``rounds`` rounds.  mode="dag" (cnsConsensus=dag, the tag-chain
-consensus) is not ported.
+to ``rounds`` rounds.  mode="dag" (cnsConsensus=dag) calls each segment
+with the tag-chain consensus of ops.dagcon instead of the plurality.
 """
 
 from __future__ import annotations
@@ -75,11 +75,8 @@ def polish_tig(
     evidence windows carry ``slack`` that is aligned ends-free; after each
     round the placements are remapped through the segments' length
     changes, until the edit count dies out or ``rounds`` is reached.
+    mode: "plurality" (the vote engine) or "dag" (the tag-chain consensus).
     """
-    if mode == "dag":
-        raise NotImplementedError(
-            "cnsConsensus=dag (the tag-chain consensus, canu_tpu.ops.dagcon) is not ported to "
-            "canu_tpu_torch yet (ROADMAP items 8(e) and 11)")
     from .votepile import device_words
 
     dev = resolve_device(device)
@@ -89,7 +86,7 @@ def polish_tig(
     for _ in range(max(1, rounds)):
         backbone, bgn, end, n_edits = _polish_round(
             readset, e_words, e_len_d, tig, backbone, bgn, end,
-            band=band, min_cov=min_cov, slack=slack, max_coverage=max_coverage,
+            band=band, min_cov=min_cov, slack=slack, max_coverage=max_coverage, mode=mode,
         )
         if n_edits <= max(0, len(backbone) // 100_000):
             break
@@ -119,6 +116,7 @@ def _polish_round(
     min_cov: int,
     slack: int,
     max_coverage: int,
+    mode: str = "plurality",
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
     """One repileup: segment the backbone, vote, apply edits, remap."""
     from .votepile import (
@@ -192,6 +190,25 @@ def _polish_round(
     seg_codes = [backbone[j * S : min((j + 1) * S, B_len)] for j in range(n_seg)]
     t_words, t_len_d, pad_row = segment_codes_plane(seg_codes, S, dev)
     Lt = _pow2_at_least(S)
+
+    if mode == "dag":
+        # tag-chain consensus: each read's alignment path on the device,
+        # the heaviest consistent chain on the host
+        from .dagcon import dag_segments
+
+        jobs = VoteJobs(
+            t_idx=js.astype(np.int32),
+            e_idx=(rid[job_read] - 1).astype(np.int32),
+            t_bgn=(t_ab - js * S).astype(np.int32),
+            t_span=t_span.astype(np.int32),
+            e_lo=e_b.astype(np.int32),
+            e_span=e_span.astype(np.int32),
+            flipped=rev[job_read],
+            slot=np.zeros(len(js), np.int32),
+        )
+        new_segs, n_edits = dag_segments(seg_codes, t_words, t_len_d, e_words, e_len_d, jobs,
+                                         Lt=Lt, band=band, min_cov=min_cov)
+        return _stitch_and_remap(new_segs, bgn, end, S, B_len, n_seg) + (n_edits,)
 
     G = max(8, min(256, BLOCK_POS_BUDGET // Lt))
     new_segs: list[np.ndarray] = [None] * n_seg  # type: ignore[list-item]

@@ -18,7 +18,8 @@ engine (ops.votepile):
 
 Block indices are deterministic for a given store and configuration, so
 a caller persists each block's output and resumes with ``done_blocks``.
-``mode="dag"`` (corConsensus=dag, the tag-chain consensus) is not ported.
+``mode="dag"`` (corConsensus=dag) runs the same blocks through the
+tag-chain consensus of ops.dagcon instead of the plurality.
 """
 
 from __future__ import annotations
@@ -400,13 +401,10 @@ def correct_reads_blocks(
     on ``device``.  Block indices are deterministic for a given
     store + config; ``done_blocks`` skips blocks a caller already holds.
 
-    mode: 'falcon' (device vote piles + per-column plurality); 'dag'
-    raises NotImplementedError.  template_filter: 'quick' (raw length) or
-    'expensive' (evidence-covered length)."""
-    if mode == "dag":
-        raise NotImplementedError(
-            "corConsensus=dag (the tag-chain consensus, canu_tpu.ops.dagcon) is not ported to "
-            "canu_tpu_torch yet (ROADMAP item 8(e))")
+    mode: 'falcon' (device vote piles + per-column plurality) or 'dag' (the
+    tag-chain consensus, the reference's corConsensus selection).
+    template_filter: 'quick' (raw length) or 'expensive' (evidence-covered
+    length)."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     if template_filter == "expensive":
@@ -424,6 +422,10 @@ def correct_reads_blocks(
     template_ids = template_ids[has_ev[template_ids]]
     _lap("select", t0)
     if len(template_ids) == 0:
+        return
+    if mode == "dag":
+        yield from _dag_correct_blocks(rs, jobs, template_ids, band, min_cov, min_piece,
+                                       done_blocks, dev)
         return
 
     def finalize(words_d, len_d, t_idx, votes, Lt):
@@ -444,4 +446,82 @@ def correct_reads_blocks(
                 items.append((f"{rs.name(int(tid))}_corr{out_idx}", bitpack.codes_to_seq(seq)))
                 out_idx += 1
         _lap("decode", t0)
+        yield bi, items
+
+
+def _dag_correct_blocks(rs: ReadSet, jobs: VoteJobs, template_ids: np.ndarray, band: int,
+                        min_cov: int, min_piece: int, done_blocks, device
+                        ) -> Iterator[tuple[int, list[tuple[str, str]]]]:
+    """Tag-chain correction (corConsensus=dag) on ``device``: the template
+    blocks and segment geometry of the vote path, each template's
+    consensus the heaviest consistent tag chain of ops.dagcon instead of
+    the per-column plurality, pieces split where the chain's evidence
+    coverage drops below min_cov."""
+    from .dagcon import paths_for_jobs, segment_consensus
+
+    S, slack = VOTE_SEG, VOTE_SEG_SLACK
+    G = max(8, min(256, votepile.BLOCK_POS_BUDGET // S))
+    words_d, len_d = device_words(rs, device)
+    tl, nseg, row0 = _segment_table(rs.length, template_ids, S)
+    tpos = np.zeros(rs.n_reads + 1, np.int64)
+    tpos[template_ids] = np.arange(len(template_ids))
+    t_words, t_len_d, seg_len, _pad_row = _segment_plane(rs, template_ids, nseg, row0, S,
+                                                         device)
+    sjobs = _segment_jobs(jobs, row0, tpos, S, slack)
+    blocks = _pack_template_blocks(template_ids, tl, nseg, G)
+    order = np.argsort(sjobs.t_idx, kind="stable")
+    bounds = np.searchsorted(sjobs.t_idx[order], np.arange(int(row0[-1]) + 1))
+
+    for bi, tsel in enumerate(blocks):
+        if bi in done_blocks:
+            continue
+        # one batch of paths for the whole block's evidence jobs
+        parts: list[np.ndarray] = []
+        seg_slice: dict[int, tuple[int, int]] = {}
+        off = 0
+        for i in tsel:
+            for k in range(int(nseg[i])):
+                srow = int(row0[i]) + k
+                t = order[bounds[srow] : bounds[srow + 1]]
+                seg_slice[srow] = (off, off + len(t))
+                parts.append(t)
+                off += len(t)
+        btake = np.concatenate(parts) if parts else np.zeros(0, np.int64)
+        bjobs = VoteJobs(
+            t_idx=sjobs.t_idx[btake], e_idx=sjobs.e_idx[btake],
+            t_bgn=sjobs.t_bgn[btake], t_span=sjobs.t_span[btake],
+            e_lo=sjobs.e_lo[btake], e_span=sjobs.e_span[btake],
+            flipped=sjobs.flipped[btake], slot=np.zeros(len(btake), np.int32),
+        )
+        js, e_sub = paths_for_jobs(t_words, t_len_d, words_d, len_d, bjobs, S, band)
+        items: list[tuple[str, str]] = []
+        for i in tsel:
+            tid = int(template_ids[i])
+            pieces_codes: list[np.ndarray] = []
+            pieces_cov: list[np.ndarray] = []
+            for k in range(int(nseg[i])):
+                srow = int(row0[i]) + k
+                take = np.arange(*seg_slice[srow])
+                tmpl = rs.get_codes(tid)[k * S : k * S + int(seg_len[srow])]
+                if len(take) == 0:
+                    pieces_codes.append(tmpl)
+                    pieces_cov.append(np.zeros(len(tmpl), np.int64))
+                    continue
+                seg, cov, _ed = segment_consensus(tmpl, bjobs, take, js, e_sub, min_cov)
+                pieces_codes.append(seg)
+                pieces_cov.append(cov)
+            full = np.concatenate(pieces_codes) if pieces_codes else np.zeros(0, np.uint8)
+            cov = np.concatenate(pieces_cov) if pieces_cov else np.zeros(0, np.int64)
+            # split at unsupported columns (the falcon path's decode_pieces
+            # low-coverage splitting)
+            sup = (cov >= min_cov).astype(np.int8)
+            padded = np.concatenate([[0], sup, [0]])
+            starts = np.flatnonzero((padded[:-1] == 0) & (padded[1:] == 1))
+            ends = np.flatnonzero((padded[:-1] == 1) & (padded[1:] == 0))
+            out_idx = 0
+            for b, e in zip(starts, ends):
+                if e - b < min_piece:
+                    continue
+                items.append((f"{rs.name(tid)}_corr{out_idx}", bitpack.codes_to_seq(full[b:e])))
+                out_idx += 1
         yield bi, items

@@ -18,6 +18,7 @@ starting with G or T) first.
 
 from __future__ import annotations
 
+import os
 import warnings
 from dataclasses import dataclass
 from typing import Iterator, Optional
@@ -441,6 +442,112 @@ class KmerCounts:
     def histogram(self, max_count: Optional[int] = None) -> np.ndarray:
         """hist[c] = number of distinct k-mers occurring exactly c times."""
         return np.bincount(np.minimum(self.counts, max_count) if max_count else self.counts)
+
+    def merge(self, other: "KmerCounts") -> "KmerCounts":
+        assert self.k == other.k
+        u = np.concatenate([self.unique, other.unique])
+        c = np.concatenate([self.counts, other.counts])
+        order = np.argsort(u, kind="stable")
+        u, c = u[order], c[order]
+        if len(u) == 0:
+            return KmerCounts(self.k, u, c)
+        starts = np.concatenate([[True], u[1:] != u[:-1]])
+        out_c = np.zeros(int(starts.sum()), dtype=np.int64)
+        np.add.at(out_c, np.cumsum(starts) - 1, c)
+        return KmerCounts(self.k, u[starts], out_c)
+
+    # ---- database algebra (the reference meryl's binary and unary ops,
+    # meryl-binaryOp.C, meryl-unaryOp.C: add/sub/min/max/and/or + count
+    # filters) ------------------------------------------------------------
+
+    def _aligned(self, other: "KmerCounts"):
+        """Counts of both DBs over the union key set (0 where absent)."""
+        assert self.k == other.k
+        u = np.union1d(self.unique, other.unique)
+        ca = np.zeros(len(u), np.int64)
+        cb = np.zeros(len(u), np.int64)
+        ca[np.searchsorted(u, self.unique)] = self.counts
+        cb[np.searchsorted(u, other.unique)] = other.counts
+        return u, ca, cb
+
+    def _from_aligned(self, u: np.ndarray, c: np.ndarray) -> "KmerCounts":
+        keep = c > 0
+        return KmerCounts(self.k, u[keep], c[keep])
+
+    def union_sum(self, other: "KmerCounts") -> "KmerCounts":
+        """meryl add: union of keys, counts summed."""
+        return self.merge(other)
+
+    def union_min(self, other: "KmerCounts") -> "KmerCounts":
+        """meryl or+min: union of keys, the least of the present counts."""
+        u, ca, cb = self._aligned(other)
+        both = (ca > 0) & (cb > 0)
+        return self._from_aligned(u, np.where(both, np.minimum(ca, cb), ca + cb))
+
+    def union_max(self, other: "KmerCounts") -> "KmerCounts":
+        """meryl or+max: union of keys, the larger count."""
+        u, ca, cb = self._aligned(other)
+        return self._from_aligned(u, np.maximum(ca, cb))
+
+    def intersect_min(self, other: "KmerCounts") -> "KmerCounts":
+        """meryl and (min): keys in both, the lesser count."""
+        u, ca, cb = self._aligned(other)
+        return self._from_aligned(u, np.where((ca > 0) & (cb > 0), np.minimum(ca, cb), 0))
+
+    def intersect_max(self, other: "KmerCounts") -> "KmerCounts":
+        u, ca, cb = self._aligned(other)
+        return self._from_aligned(u, np.where((ca > 0) & (cb > 0), np.maximum(ca, cb), 0))
+
+    def intersect_sum(self, other: "KmerCounts") -> "KmerCounts":
+        u, ca, cb = self._aligned(other)
+        return self._from_aligned(u, np.where((ca > 0) & (cb > 0), ca + cb, 0))
+
+    def subtract(self, other: "KmerCounts") -> "KmerCounts":
+        """meryl sub: counts subtracted, clipped at 0 (keys vanish at 0)."""
+        u, ca, cb = self._aligned(other)
+        return self._from_aligned(u, np.maximum(ca - cb, 0))
+
+    def difference(self, other: "KmerCounts") -> "KmerCounts":
+        """Keys of self that other lacks."""
+        u, ca, cb = self._aligned(other)
+        return self._from_aligned(u, np.where(cb == 0, ca, 0))
+
+    def at_least(self, threshold: int) -> "KmerCounts":
+        """Count filter: keep count >= threshold."""
+        m = self.counts >= threshold
+        return KmerCounts(self.k, self.unique[m], self.counts[m])
+
+    def at_most(self, threshold: int) -> "KmerCounts":
+        m = self.counts <= threshold
+        return KmerCounts(self.k, self.unique[m], self.counts[m])
+
+    # ---- persistence (the reference meryl's .mcidx/.mcdat database) ------
+
+    def save(self, path: str) -> None:
+        """Write the counted database to one compressed .npz file."""
+        np.savez_compressed(path if str(path).endswith(".npz") else f"{path}.npz",
+                            k=np.int64(self.k), unique=self.unique, counts=self.counts)
+
+    @staticmethod
+    def load(path: str) -> "KmerCounts":
+        """Read a database ``save`` wrote.  The k-mers keep the saved dtype:
+        uint32 for k <= 16, the exact uint64 k-mers above (canu_tpu casts
+        them to uint32, which keeps about 0.1% of a k=22 DB)."""
+        p = str(path)
+        if not p.endswith(".npz") and os.path.exists(p + ".npz"):
+            p = p + ".npz"
+        with np.load(p) as z:
+            return KmerCounts(int(z["k"]), z["unique"], z["counts"].astype(np.int64))
+
+
+def count_reads(readset: ReadSet, k: int = 16, block_size: int = 512,
+                device=None) -> KmerCounts:
+    """Canonical k-mer counts of a read set as the host table (tools and
+    tests); counted on ``device`` (the card unless the caller asks for the
+    CPU).  The pipeline keeps count_readset_device's tables on the device
+    instead."""
+    kc = count_readset_device(readset, k, block_size, device=device)
+    return kc.to_host() if hasattr(kc, "to_host") else kc
 
 
 @dataclass

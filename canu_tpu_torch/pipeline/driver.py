@@ -137,17 +137,12 @@ def run_stage(ctx: AssemblyCtx, name: str, done: Callable[[], bool],
 # ---- pipeline --------------------------------------------------------------
 
 
-def _check_pipeline_config(cfg: Config, raw: bool) -> None:
-    """The configurations the port does not run, refused before any stage."""
-    from . import stages
-
+def _check_pipeline_config(cfg: Config) -> None:
+    """The configuration the port does not run, refused before any stage."""
     if bool(cfg.get("useGrid")):
         raise NotImplementedError(
             "useGrid (the multi-host launcher) is not ported to canu_tpu_torch yet: it has no "
             "torch.distributed launcher (ROADMAP item 13)")
-    stages._check_assembly_config(cfg)
-    if raw:
-        stages._check_correction_config(cfg)
 
 
 def run_pipeline(
@@ -168,7 +163,7 @@ def run_pipeline(
 
     cfg.apply_read_type_profile()
     cfg.validate()
-    _check_pipeline_config(cfg, raw_reads is not None)
+    _check_pipeline_config(cfg)
     dev = resolve_device(device)
     ctx = make_ctx(work_dir, prefix, cfg)
     with open(ctx.path(f"{prefix}.spec.used"), "w") as fh:

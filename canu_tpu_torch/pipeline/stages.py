@@ -4,10 +4,9 @@ assembly phases.
 
 Same signatures, outputs, file names, resume contract and
 stage-times.jsonl lines as canu_tpu, so either package's stage output can
-feed the other; the device stages and the phases take ``device=``.  The
-configurations outside the port raise NotImplementedError naming their
-ROADMAP item: shardedCompute (the multi-device path), corConsensus=dag
-and cnsConsensus=dag.  Every phase runs as one process.
+feed the other; the device stages and the phases take ``device=``.
+shardedCompute=true (the multi-device path) raises NotImplementedError
+naming its ROADMAP item.  Every phase runs as one process.
 """
 
 from __future__ import annotations
@@ -96,7 +95,7 @@ def _check_single_device(cfg) -> None:
     same counts and candidates); an explicit request for it raises."""
     if str(cfg.get("shardedCompute")).strip().lower() in ("1", "true", "yes", "on"):
         raise NotImplementedError("shardedCompute (the multi-device path) is not ported to "
-                                  "canu_tpu_torch yet (ROADMAP: sharding)")
+                                  "canu_tpu_torch yet (ROADMAP item 13)")
 
 
 def meryl(ctx: AssemblyCtx, tag: str, rs: ReadSet, device=None):
@@ -348,13 +347,6 @@ def _cor_evidence_budget(ctx: AssemblyCtx, rs: ReadSet) -> int:
     return max(1, min(base, int(round(lo))))
 
 
-def _check_correction_config(cfg) -> None:
-    if str(cfg.get("corConsensus")).lower() == "dag":
-        raise NotImplementedError(
-            "corConsensus=dag (the tag-chain consensus) is not ported to canu_tpu_torch yet "
-            "(ROADMAP item 8(e))")
-
-
 def correction_phase(ctx: AssemblyCtx, raw_inputs: list[str], device=None) -> None:
     """Raw reads -> corrected reads (CorrectReads.pm + falconsense).
 
@@ -376,7 +368,6 @@ def correction_phase(ctx: AssemblyCtx, raw_inputs: list[str], device=None) -> No
         ctx.log.info("correction phase complete, skipping")
         _cleanup_phase_stores(ctx, d)
         return
-    _check_correction_config(ctx.cfg)
     dev = resolve_device(device)
     rs = gatekeeper(ctx, "cor", raw_inputs)
     fk = meryl(ctx, "cor", rs, device=dev)
@@ -403,6 +394,7 @@ def correction_phase(ctx: AssemblyCtx, raw_inputs: list[str], device=None) -> No
             qv_weight=bool(ctx.cfg.get("qvEvidenceWeight")),
             done_blocks=done_blocks,
             max_evidence_erate=float(ctx.cfg.get("corMaxEvidenceErate")),
+            mode="dag" if str(ctx.cfg.get("corConsensus")).lower() == "dag" else "falcon",
             template_filter=str(ctx.cfg.get("corFilter")),
             device=dev,
         ):
@@ -577,13 +569,6 @@ def trimming_phase(ctx: AssemblyCtx, corrected_inputs: list[str], device=None) -
 # ---- assembly phase ---------------------------------------------------------
 
 
-def _check_assembly_config(cfg) -> None:
-    if str(cfg.get("cnsConsensus")).lower() == "dag":
-        raise NotImplementedError(
-            "cnsConsensus=dag (the tag-chain consensus, canu_tpu.ops.dagcon) is not ported to "
-            "canu_tpu_torch yet (ROADMAP items 8(e) and 11)")
-
-
 def _append_stage_times(ctx: AssemblyCtx, rec: dict) -> None:
     try:
         with open(ctx.path(f"{ctx.prefix}.stage-times.jsonl"), "a") as fh:
@@ -630,7 +615,6 @@ def assembly_phase(ctx: AssemblyCtx, trimmed_inputs: list[str], device=None) -> 
     from ..graph import build_unitigs
     from ..ops.consensus import quick_mosaic
 
-    _check_assembly_config(ctx.cfg)
     dev = resolve_device(device)
     d = ctx.phase_dir("unitigging")
     rs = gatekeeper(ctx, "utg", trimmed_inputs)
@@ -747,10 +731,10 @@ def assembly_phase(ctx: AssemblyCtx, trimmed_inputs: list[str], device=None) -> 
         from ..ops.consensus import polish_tig
 
         tigs = TigStore.load(ctg_dir, version=1)
-        # cnsConsensus: plurality (the vote engine) | quick (mosaic only,
-        # utgcns -quick)
-        polish = bool(ctx.cfg.get("cnsPolish")) and \
-            str(ctx.cfg.get("cnsConsensus")).lower() != "quick"
+        # cnsConsensus: plurality (the vote engine) | dag (the tag-chain
+        # consensus, ops.dagcon) | quick (mosaic only, utgcns -quick)
+        algo = str(ctx.cfg.get("cnsConsensus")).lower()
+        polish = bool(ctx.cfg.get("cnsPolish")) and algo != "quick"
         for t in tigs:
             backbone = quick_mosaic(rs, t)
             if polish and t.tig_class == CLASS_CONTIG and t.n_reads >= 2:
@@ -760,6 +744,7 @@ def assembly_phase(ctx: AssemblyCtx, trimmed_inputs: list[str], device=None) -> 
                     min_cov=int(ctx.cfg.get("cnsMinCoverage")),
                     rounds=int(ctx.cfg.get("cnsPolishRounds")),
                     max_coverage=int(ctx.cfg.get("cnsMaxCoverage")),
+                    mode="dag" if algo == "dag" else "plurality",
                     device=dev,
                 )
             else:

@@ -1,5 +1,5 @@
-"""Run canu_tpu_torch's overlap, correction, trimming and assembly paths
-once on one NVIDIA GPU and check them.
+"""Run canu_tpu_torch's overlap, correction, trimming and assembly paths,
+the dag consensus and the tools once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -124,6 +124,41 @@ Phases (each prints its results; any failure exits non-zero):
               python -m canu_tpu_torch on 11b's directory must skip every
               stage by resume and exit 0, and -options must list
               genomeSize
+  12 dag      the tag-chain consensus (ops/dagcon.py: the paths on the
+              vote engine's DP, PyTorch ops; the chain DP host numpy).
+              12a: correction_phase with corConsensus=dag on a copy of
+              phase 10's directory without its corrected reads (the
+              gatekeeper, meryl and cor overlap stages resume), every
+              block; the blocks dag_reference.json covers must equal the
+              JAX package's by digest, every record <read>_corrN.  12b:
+              run_pipeline with cnsConsensus=dag resumed on a copy of
+              11a's directory without the consensus and output stages'
+              products: only those two stages may run, and the layouts,
+              the contigs/unassembled/unitigs FASTA, layout.tsv and the
+              GFA must equal the JAX package's run of 11a with
+              cnsConsensus=dag (scripts/torch_dag_reference.py).  No
+              kernel and no plain loop on the card, but K1 in 12b's
+              align_links.  Prints the walls, the path chunks, the DP by
+              CUDA events, the host time of the tag chains and the device
+              memory peak
+  13 tools    canu_tpu_torch.tools.main in this process on the scripted
+              session of tests/torch_cases.py tools_session (simulate at
+              the bench shapes, analyze, sample, kmer-count at k=16 and
+              k=22, kmer-op's ten ops, map-mers, mask-mers, mer-trim,
+              mercy, ov-import of random overlaps, a PAF and a text
+              dump, ov-stats, ov-dump, best-edges, dump-reads,
+              dump-meta, options, bogus on the genome with 1% point
+              errors, a misjoin and a 700-base collapse): every step's
+              exit code, stdout, stderr and files must equal
+              tools_reference.json (scripts/torch_tools_reference.py;
+              the k=22 DB steps against canu_tpu's result on the DB as
+              counted).  K1 must launch in bogus (the identity ruler) and
+              nowhere else; each launch by CUDA events beside its bound,
+              and held bit for bit to the plain loop on every one of its
+              rows (k1_held_to_plain: K1's carry at every 4,096th row, the
+              plain rows of all segments at once from those carries).
+              tig-dump, tig-display and tig-coverage on 11b's tig store,
+              and bogus on 11b's contigs, are printed, not gated
 
 Each kernel's bound is the larger of its operations over the card's
 32-bit integer rate and its bytes over the memory rate (INT32_OPS_S,
@@ -425,6 +460,42 @@ def k1_bound(args, live) -> dict:
     ops = (K1_ROW_OPS * wk["live_rows"] + K1_SHIFT_OPS * wk["shift_rows"]
            + K1_BX_OPS * wk["bx_rows"])
     return {**bound(ops, nbytes), **wk}
+
+
+def k1_held_to_plain(name: str, args, seg: int = 4096):
+    """One K1 launch held to the plain rows, every one of them: K1 run on
+    the launch's inputs to each seg-th row gives its carry there, the
+    plain rows of every segment run at once from K1's carry at its start
+    (torch_cases.k1_rows_plain), and each segment's end must equal K1's
+    carry at the next start, the last the launch's own output; then the
+    two finishes (edits, a_used, b_used, the partial captures).  Returns
+    (max |diff| (0), the plain rows' ms by CUDA events, the segments)."""
+    import torch
+
+    from canu_tpu_torch.ops import myers as MY
+    from canu_tpu_torch.ops.kernels import myers_cuda as K1
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_cases import k1_rows_plain
+
+    planes, a, s_bits, b, a_len, b_len, n_run, cap_q = args
+    T = -(-n_run // seg)
+    starts = [planes] + [K1.myers_rows_cuda(planes, a, s_bits[: t * seg // MY.WORD].contiguous(),
+                                            b, a_len, b_len, t * seg, cap_q) for t in range(1, T)]
+    ends = starts[1:] + [K1.myers_rows_cuda(*args)]
+    got, plain_ms = once_ms(lambda: k1_rows_plain(starts, a, s_bits, b, a_len, b_len, n_run,
+                                                  cap_q, seg))
+    err = 0
+    for t in range(T):
+        d = int((got[:, t].to(torch.int64) - ends[t].to(torch.int64)).abs().max())
+        check(d == 0, f"{name}: K1's carry after row {min((t + 1) * seg, n_run)} differs from "
+              f"the plain rows' (max |diff| {d})")
+        err = max(err, d)
+
+    def finish(p):
+        return MY._myers_finish(MY._carry_unpack(p), a_len, b_len, MY.NW * MY.WORD)
+
+    return max(err, compare(name, finish(got[:, -1]), finish(ends[-1]))), plain_ms, T
 
 
 def time_k1(launches, reps: int = 5):
@@ -1129,8 +1200,8 @@ def correct_drive(dev, card: str) -> dict:
             "jobs": n_jobs,
             "launches": counts, "chunk_wall_s": wall1, "chunk_wall_profiled_s": wall_p,
             "chunk_launches": launches, "chunk_busy_s": busy, "peak_bytes": mem["peak"],
-            "start_bytes": mem["start"], "corrected_reads": len(recs),
-            "phase_s": time.time() - t_phase}
+            "start_bytes": mem["start"], "corrected_reads": len(recs), "work": work,
+            "fasta": fasta, "phase_s": time.time() - t_phase}
 
 
 def ng50(lengths, genome_size: int) -> int:
@@ -1460,6 +1531,354 @@ def assemble_drive(dev, card: str) -> dict:
     return {"a": a, "b": b, "gfa": gfa, "cli_s": t_cli}
 
 
+def dag_correct(dev, card: str, correct: dict, ref: dict) -> dict:
+    """Phase 12a: correction_phase with corConsensus=dag on a copy of phase
+    10's directory without its corrected reads, so the gatekeeper, meryl
+    and cor overlap stages resume as done and every block runs through
+    the tag-chain consensus; the counts set to 0 just before and read
+    just after.  No kernel and no plain loop may run on the card (the
+    paths are the vote engine's DP, PyTorch ops, counted by
+    dagcon.CHUNKS).  The blocks dag_reference.json covers must equal the
+    JAX package's by digest; every record is <read>_corrN."""
+    import shutil
+
+    import torch
+
+    from canu_tpu_torch.config import Config
+    from canu_tpu_torch.io.fastx import read_fastx
+    from canu_tpu_torch.ops import dagcon as DG
+    from canu_tpu_torch.ops import falcon as F
+    from canu_tpu_torch.pipeline import stages
+    from canu_tpu_torch.pipeline.driver import make_ctx
+    from canu_tpu_torch.stores.readset import ReadSet
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_cases import corrected_digest
+
+    t_phase = time.time()
+    work = tempfile.mkdtemp(prefix="chip_smoke_dag_correct_")
+    shutil.copytree(os.path.join(correct["work"], "correction"), os.path.join(work, "correction"))
+    d = os.path.join(work, "correction")
+    out = os.path.join(d, "bench.correctedReads.fasta.gz")
+    os.remove(out)
+    shutil.rmtree(os.path.join(d, "blocks"), ignore_errors=True)
+    cfg = Config()
+    cfg.set("genomeSize", BENCH_GENOME)
+    cfg.set("corConsensus", "dag")
+    ctx = make_ctx(work, "bench", cfg)
+
+    blocks: dict = {}
+    dp_ev: list = []
+    mem: dict = {}
+    real = {"blocks": F.correct_reads_blocks, "dp": DG.align_positions_lean}
+
+    def capture(*args, **kw):
+        torch.cuda.synchronize()
+        mem["start"] = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for bi, items in real["blocks"](*args, **kw):
+            blocks[bi] = items
+            yield bi, items
+        torch.cuda.synchronize()
+        mem["peak"] = torch.cuda.max_memory_allocated(dev)
+
+    def dp(*args, **kw):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = real["dp"](*args, **kw)
+        e1.record()
+        dp_ev.append((e0, e1))
+        return res
+
+    F.correct_reads_blocks, DG.align_positions_lean = capture, dp
+    try:
+        reset_counts()
+        DG.PROFILE.clear()
+        DG.CHUNKS = DG.JOBS = 0
+        t = time.time()
+        stages.correction_phase(ctx, [correct["fasta"]], device=dev)
+        torch.cuda.synchronize()
+        t_run = time.time() - t
+        counts = read_counts()
+    finally:
+        F.correct_reads_blocks, DG.align_positions_lean = real["blocks"], real["dp"]
+    n_chunks, n_jobs = DG.CHUNKS, DG.JOBS
+    log(f"[12a dag correct] {card}: correction_phase with corConsensus=dag on phase 10's "
+        f"stores: {t_run:.2f} s; launch counts {counts}")
+    check(all(v == 0 for k, v in counts.items() if k in ("K1", "K2", "K3")),
+          "12a: a kernel launched during the dag correction (the stages before it resume)")
+    check(counts["plain_myers_segments"] == 0 and counts["plain_extend_rows"] == 0,
+          "12a: a plain loop ran on the card during the dag correction")
+    check(n_chunks > 0, "12a: the dag consensus ran no path chunk")
+    check(sorted(blocks) == list(range(ref["n_blocks"])),
+          f"12a: blocks {sorted(blocks)}, the reference's phase has {ref['n_blocks']}")
+    for rb in ref["blocks"]:
+        items = blocks[rb["index"]]
+        dig = corrected_digest(items)
+        log(f"[12a dag correct] block {rb['index']}: {len(items)} reads, "
+            f"{sum(len(x) for _, x in items)} bases, sha256 {dig} (reference {rb['reads']}, "
+            f"{rb['bases']}, {rb['sha256']})")
+        check(dig == rb["sha256"], f"12a: block {rb['index']}'s dag-corrected reads differ from "
+              "the JAX package's")
+    rs = ReadSet.load(os.path.join(d, "bench.gkpStore"))
+    names = {rs.name(i) for i in range(1, rs.n_reads + 1)}
+    recs = list(read_fastx(out))
+    check(len(recs) > 0 and len(recs) == sum(len(v) for v in blocks.values()),
+          "12a: the corrected FASTA is empty or misses reads")
+    check(all(r.name.rsplit("_corr", 1)[0] in names and r.name.rsplit("_corr", 1)[1].isdigit()
+              for r in recs), "12a: a corrected read is not named <read>_corrN")
+    with open(ctx.path("bench.stage-times.jsonl")) as fh:
+        walls = {r["stage"]: r["wall_s"] for r in map(json.loads, fh) if "wall_s" in r}
+    dp_s = sum(a.elapsed_time(b) for a, b in dp_ev) / 1e3
+    prof = {k: round(v, 3) for k, v in DG.PROFILE.items()}
+    log(f"[12a timing] {card}: stage walls {walls}; {n_jobs} path jobs in {n_chunks} chunks of "
+        f"{DG.votepile.chunk_jobs(F.VOTE_SEG)}; DP {dp_s:.3f} s (CUDA events); host parts "
+        f"{prof} (dagcon.PROFILE: paths, enqueue and fetch, waiting for the device; tags and "
+        f"chain, the tags and the tag-chain DP of every segment); {len(recs)} reads, "
+        f"{sum(len(r.seq) for r in recs)} bases in {len(blocks)} blocks; blocks "
+        f"{ref['blocks_covered']} equal the JAX package's")
+    log(f"[12a memory] {card}: device peak over the dag correction {mem['peak'] / 1e9:.3f} GB "
+        f"({(mem['peak'] - mem['start']) / 1e9:.3f} GB above its start)")
+    return {"run_s": t_run, "stage_walls_s": walls, "launches": counts, "chunks": n_chunks,
+            "jobs": n_jobs, "dp_s": dp_s, "host_s": prof, "peak_bytes": mem["peak"],
+            "start_bytes": mem["start"], "corrected_reads": len(recs),
+            "phase_s": time.time() - t_phase}
+
+
+def dag_polish(dev, card: str, run_a: dict, ref: dict) -> dict:
+    """Phase 12b: run_pipeline with cnsConsensus=dag resumed on a copy of
+    11a's directory without the consensus and output stages' products:
+    only those two stages may run (the stage-times lines and the log say
+    which ran).  K1 may launch only in the GFA's align_links; no other
+    kernel and no plain loop on the card.  Every gate of
+    dag_reference.json's polish entry (the JAX package's run of 11a with
+    cnsConsensus=dag) must be equal."""
+    import shutil
+
+    import torch
+
+    from canu_tpu_torch.config import Config
+    from canu_tpu_torch.io import gfa as GFA
+    from canu_tpu_torch.ops import dagcon as DG
+    from canu_tpu_torch.ops.kernels import myers_cuda as K1
+    from canu_tpu_torch.pipeline.driver import run_pipeline
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_cases import assembly_digests
+
+    t_phase = time.time()
+    wd = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_dag_polish_"), "asm")
+    shutil.copytree(run_a["work"], wd)
+    ctg = os.path.join(wd, "unitigging", "asm.ctgStore")
+    removed = [f for f in os.listdir(ctg) if f.startswith("v002")]
+    removed += [f for f in ("asm.contigs.fasta", "asm.unassembled.fasta", "asm.unitigs.fasta",
+                            "asm.layout.tsv", "asm.contigs.gfa") if os.path.exists(
+                                os.path.join(wd, f))]
+    for f in removed:
+        os.remove(os.path.join(ctg if f.startswith("v002") else wd, f))
+    check(len(removed) == 7, f"12b: 11a's directory lacks a consensus or output product: "
+          f"{removed}")
+    with open(os.path.join(wd, "asm.stage-times.jsonl")) as fh:
+        n_lines = len(fh.readlines())
+    cfg = Config()
+    cfg.set("genomeSize", run_a["genome_len"])
+    cfg.set("cnsConsensus", "dag")
+
+    dp_ev: list = []
+    mem: dict = {}
+    k1_links = [0]
+    real = {"dp": DG.align_positions_lean, "links": GFA.align_links}
+
+    def dp(*args, **kw):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = real["dp"](*args, **kw)
+        e1.record()
+        dp_ev.append((e0, e1))
+        return res
+
+    def links(*args, **kw):
+        k0 = K1.LAUNCHES
+        try:
+            return real["links"](*args, **kw)
+        finally:
+            k1_links[0] += K1.LAUNCHES - k0
+
+    DG.align_positions_lean, GFA.align_links = dp, links
+    try:
+        reset_counts()
+        DG.CHUNKS = DG.JOBS = 0
+        DG.PROFILE.clear()
+        torch.cuda.synchronize()
+        mem["start"] = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.time()
+        run_pipeline(wd, "asm", cfg, corrected_reads=[run_a["fasta"]], device=dev)
+        torch.cuda.synchronize()
+        t_run = time.time() - t
+        mem["peak"] = torch.cuda.max_memory_allocated(dev)
+        counts = read_counts()
+    finally:
+        DG.align_positions_lean, GFA.align_links = real["dp"], real["links"]
+    with open(os.path.join(wd, "asm.stage-times.jsonl")) as fh:
+        new = [json.loads(ln) for ln in fh.readlines()[n_lines:]]
+    ran = [r["stage"] for r in new if "wall_s" in r]
+    log(f"[12b dag polish] {card}: run_pipeline with cnsConsensus=dag resumed on 11a's "
+        f"directory: {t_run:.2f} s; stages run {ran}; launch counts {counts}, K1 in "
+        f"align_links {k1_links[0]}")
+    check(ran == ["consensus", "outputs"], f"12b: the resume ran {ran}, not the consensus and "
+          "the outputs alone")
+    check(counts["K1"] == k1_links[0] and counts["K2"] == counts["K3"] == 0,
+          "12b: a kernel launched off align_links during the dag polish")
+    check(counts["plain_myers_segments"] == 0 and counts["plain_extend_rows"] == 0,
+          "12b: a plain loop ran on the card during the dag polish")
+    check(DG.CHUNKS > 0, "12b: the dag consensus ran no path chunk")
+    digests = assembly_digests(wd, "asm")
+    for key, want in ref["gates"].items():
+        got = digests.get(key)
+        log(f"[12b dag polish] {key}: {got} (reference {want})")
+        check(got == want, f"12b: {key} differs from the JAX package's dag run of 11a")
+    walls = {r["stage"]: r["wall_s"] for r in new if "wall_s" in r}
+    dp_s = sum(a.elapsed_time(b) for a, b in dp_ev) / 1e3
+    prof = {k: round(v, 3) for k, v in DG.PROFILE.items()}
+    log(f"[12b timing] {card}: stage walls {walls}; {DG.JOBS} path jobs in {DG.CHUNKS} chunks; "
+        f"DP {dp_s:.3f} s (CUDA events); host {prof} (dagcon.PROFILE, as in 12a); every gate "
+        f"equals the JAX package's: " + ", ".join(ref["gates"]))
+    log(f"[12b memory] {card}: device peak over the resumed run {mem['peak'] / 1e9:.3f} GB "
+        f"({(mem['peak'] - mem['start']) / 1e9:.3f} GB above its start)")
+    return {"run_s": t_run, "stages_run": ran, "stage_walls_s": walls, "launches": counts,
+            "k1_align_links": k1_links[0], "chunks": DG.CHUNKS, "jobs": DG.JOBS, "dp_s": dp_s,
+            "host_s": prof, "peak_bytes": mem["peak"], "start_bytes": mem["start"],
+            "digests": digests, "phase_s": time.time() - t_phase}
+
+
+def dag_drive(dev, card: str, correct: dict, assemble: dict) -> dict:
+    """Phase 12: the tag-chain consensus, for correction (12a) and for the
+    polish (12b), held against dag_reference.json."""
+    with open(os.path.join(ROOT, "canu_tpu_torch", "dag_reference.json")) as fh:
+        ref = json.load(fh)
+    return {"correct": dag_correct(dev, card, correct, ref["correction"]),
+            "polish": dag_polish(dev, card, assemble["a"], ref["polish"])}
+
+
+def tools_drive(dev, card: str, run_b: dict) -> dict:
+    """Phase 13: canu_tpu_torch.tools.main in this process on the scripted
+    session of tests/torch_cases.py tools_session (the bench genome's
+    size), the counts set to 0 just before and read just after each step:
+    every step's exit code, stdout, stderr and files must equal
+    tools_reference.json; K1 must launch in bogus and nowhere else, no
+    other kernel and no plain loop on the card.  Prints bogus's verdict,
+    each K1 launch of it by CUDA events beside its bound (k1_bound), then
+    tig-dump, tig-display and tig-coverage on 11b's tig store and bogus
+    on 11b's contigs against its genome (printed, not gated)."""
+    import contextlib
+
+    import torch
+
+    from canu_tpu_torch.io.fastx import write_fasta
+    from canu_tpu_torch.ops import myers as MY
+    from canu_tpu_torch.ops.kernels import myers_cuda as K1
+    from canu_tpu_torch.sim.simulate import random_genome
+    from canu_tpu_torch.stores.readset import ReadSet
+    from canu_tpu_torch.tools.__main__ import main as tools_main
+    from canu_tpu_torch.utils.bitpack import codes_to_seq
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_cases import TOOLS_DB22_STEPS, TOOLS_GENOME, run_tools_session, tools_run
+
+    with open(os.path.join(ROOT, "canu_tpu_torch", "tools_reference.json")) as fh:
+        ref = json.load(fh)
+    check(ref["genome"] == TOOLS_GENOME, "13: the reference is of another genome size")
+    t_phase = time.time()
+    work = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    per_step: dict = {}
+    bogus_calls: list = []
+    real_rows = MY._rows_kernel
+
+    def rows(*args, **kw):
+        bogus_calls.append((args, kw))
+        return real_rows(*args, **kw)
+
+    @contextlib.contextmanager
+    def counted(name):
+        reset_counts()
+        MY._rows_kernel = rows if name == "bogus" else real_rows
+        try:
+            yield
+        finally:
+            torch.cuda.synchronize()
+            MY._rows_kernel = real_rows
+            per_step[name] = read_counts()
+
+    t = time.time()
+    recs, secs, outs = run_tools_session(work, TOOLS_GENOME, tools_main, ReadSet, counted,
+                                         device=dev)
+    t_run = time.time() - t
+    n_bad = 0
+    for name, rec in recs.items():
+        want = ref["steps"][name]
+        same = rec == want
+        n_bad += not same
+        log(f"[13 tools] {name}: rc {rec['rc']}, {secs[name]:.2f} s, "
+            f"{len(rec['files'])} files; " + ("equal to the JAX package's" if same else
+                                             f"DIFFERS: {rec} against {want}")
+            + (" (its k=22 DB as saved: canu_tpu's in-memory result)"
+               if name in TOOLS_DB22_STEPS else ""))
+    check(n_bad == 0, f"13: {n_bad} tools steps differ from the JAX package's")
+    k1_steps = {n: c["K1"] for n, c in per_step.items() if c["K1"]}
+    others = {n: c for n, c in per_step.items()
+              if c["K2"] or c["K3"] or c["plain_myers_segments"] or c["plain_extend_rows"]}
+    log(f"[13 tools] {card}: {len(recs)} steps in {t_run:.1f} s, every one equal to the JAX "
+        f"package's; K1 launches by step {k1_steps}")
+    check(k1_steps.get("bogus", 0) > 0 and set(k1_steps) == {"bogus"},
+          "13: K1 did not launch in bogus, or launched in another step")
+    check(not others, f"13: another kernel or a plain loop ran on the card: {others}")
+    log("[13 tools] bogus: " + outs["bogus"].splitlines()[0])
+    k1_launches = [k1_call(c) for c in bogus_calls]
+    del bogus_calls
+    k1_ms, k1_bounds = time_k1(k1_launches)
+    k1_err, k1_plain_ms = 0, []
+    for i, ((args, live), ms, bd) in enumerate(zip(k1_launches, k1_ms, k1_bounds)):
+        log(f"[13 timing] {card}: bogus K1 launch {i + 1}/{len(k1_ms)}: {args[1].shape[0]} "
+            f"pieces x {args[6]} rows: {ms:.3f} ms; bound {bd['bound_ms']:.3f} ms "
+            f"({bd['ops']:.3e} operations: {bd['live_rows']} live rows, {bd['shift_rows']} "
+            f"shifted, {bd['bx_rows']} with b_len in the window; {bd['bytes']:.3e} bytes; "
+            f"bound by {bd['bound_by']}; {100 * bd['bound_ms'] / ms:.1f}% of it)")
+        t = time.time()
+        err, plain_ms, n_seg = k1_held_to_plain(f"13 bogus K1 launch {i + 1}", args)
+        k1_err = max(k1_err, err)
+        k1_plain_ms.append(plain_ms)
+        log(f"[13 kernel] {card}: bogus K1 launch {i + 1}: every one of its {args[6]} rows held "
+            f"to the plain loop, in {n_seg} segments of 4,096 rows run at once from K1's carry "
+            f"at each segment start: every carry, edits, a_used and b_used bit-equal (max |diff| "
+            f"{err}); plain rows {plain_ms:.1f} ms (CUDA events) vs K1 {ms:.3f} ms; "
+            f"{time.time() - t:.1f} s with K1's {n_seg} launches to the segment starts")
+    del k1_launches
+
+    # 11b's tig store and contigs: printed, not gated
+    ctg = os.path.join(run_b["work"], "unitigging", "asm.ctgStore")
+    for argv in (["tig-dump", ctg, "sizes"], ["tig-display", ctg, "1"],
+                 ["tig-coverage", ctg]):
+        rc, out, err = tools_run(tools_main, argv, device=dev)
+        log(f"[13 tools] {' '.join(argv[:1] + argv[2:])} on 11b's tig store: rc {rc}; "
+            f"{(out + err).strip()[:600]}")
+    genome = os.path.join(work, "bench_genome.fasta")
+    write_fasta(genome, [("genome", codes_to_seq(random_genome(BENCH_GENOME, seed=42)))])
+    k0 = K1.LAUNCHES
+    t = time.time()
+    rc, out, err = tools_run(tools_main, ["bogus", "-genome", genome, "-assembly",
+                                          os.path.join(run_b["work"], "asm.contigs.fasta"),
+                                          "-circular", "-verbose"], device=dev)
+    torch.cuda.synchronize()
+    k1_11b = K1.LAUNCHES - k0
+    log(f"[13 tools] bogus on 11b's contigs against the bench genome (not gated): rc {rc} in "
+        f"{time.time() - t:.1f} s, K1 {k1_11b} launches; {out.strip()[:800]}")
+    return {"run_s": t_run, "step_s": secs, "k1_by_step": k1_steps, "k1_ms": k1_ms,
+            "k1_bounds": k1_bounds, "k1_err": k1_err, "k1_plain_ms": k1_plain_ms,
+            "bogus": outs["bogus"], "bogus_11b": out,
+            "k1_launches": sum(k1_steps.values()) + k1_11b, "phase_s": time.time() - t_phase}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "canu_tpu_torch")):
         print("chip_smoke: canu_tpu_torch/ is not beside this script; run it from a "
@@ -1735,6 +2154,12 @@ def main() -> int:
     # ---- 11: trimming and assembly, corrected reads to contigs ---------------
     record["assemble"] = assemble = assemble_drive(dev, card)
 
+    # ---- 12: the tag-chain (dag) consensus, correction and polish ----------
+    record["dag"] = dag_drive(dev, card, correct, assemble)
+
+    # ---- 13: the tools CLI ---------------------------------------------------
+    record["tools"] = tools = tools_drive(dev, card, assemble["b"])
+
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(record, fh, indent=1, default=str)
@@ -1750,8 +2175,9 @@ def main() -> int:
          "replaces": "canu_tpu/ops/pallas/myers_pallas.py:77",
          "launches": launches + drives["obt"]["launches"]["K1"] + ecoli["launches"]["K1"]
          + correct["launches"]["K1"] + assemble["a"]["launches"]["K1"]
-         + assemble["b"]["launches"]["K1"],
-         "max_abs_err": err,
+         + assemble["b"]["launches"]["K1"] + record["dag"]["polish"]["launches"]["K1"]
+         + tools["k1_launches"],
+         "max_abs_err": max(err, tools["k1_err"]),
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bd1["bound_ms"],
          "bound_by": bd1["bound_by"], "library_ms": None},
         {"name": "extend_warp (K2)", "route": "cuda", "source": src,

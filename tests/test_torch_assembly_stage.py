@@ -8,7 +8,7 @@ OEA and the polish are held in tests/test_torch_oea_polish.py) must write
 the same files byte for byte: the trimmed reads, the utg store, the
 unitig and contig layouts, the contigs, unitigs and unassembled FASTA,
 layout.tsv and the GFA.  Then: a second run resumes with every stage
-skipped; cnsConsensus=dag and useGrid=true raise before any stage runs;
+skipped; useGrid=true raises before any stage runs;
 no card means an error, not the CPU; a CUDA out-of-memory attempt drops
 the read indexes cached on read sets; the CLI prints the registry and
 exits 2 without genomeSize.  The same parity with OEA and the plurality
@@ -111,8 +111,7 @@ def test_resume_skips_every_stage(runs):
     assert Path(times).read_text() == before
 
 
-@pytest.mark.parametrize("key,value,item", [("cnsConsensus", "dag", "8\\(e\\)"),
-                                            ("useGrid", "true", "item 13")])
+@pytest.mark.parametrize("key,value,item", [("useGrid", "true", "item 13")])
 def test_unported_configurations_raise_before_any_stage(runs, tmp_path, key, value, item):
     (_, fa) = runs
     with pytest.raises(NotImplementedError, match=item):

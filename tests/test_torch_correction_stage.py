@@ -1,8 +1,8 @@
 """The port's gatekeeper stage and correction phase against canu_tpu's on the
 CPU: the same saved ReadSet from FASTA and from FASTQ with qvTrim, the
 same corrected reads from a FASTA, the resume contract (a re-run is a
-no-op, a deleted block file re-runs only that block), and corConsensus=dag
-raising.  Exact.
+no-op, a deleted block file re-runs only that block).  Exact.
+corConsensus=dag is held in tests/test_torch_dagcon.py.
 
 Both packages run their vote engine at VOTE_SEG 512 with 16 segments a
 block and 64 jobs a chunk (set by the test) to keep the CPU run short."""
@@ -161,12 +161,6 @@ def test_correction_phase_equal_and_resumes(tmp_path, small_geometry, monkeypatc
     assert calls == [{int(n[6:11]) for n in kept}] and seen == [int(names[1][6:11])]
     assert _fasta_text(tmp_path / "torch" / out) == ref
     assert {n: (blocks / n).read_bytes() for n in kept} == kept
-
-
-def test_dag_consensus_raises(tmp_path):
-    _, tctx = _ctxs(tmp_path, [("corConsensus", "dag")])
-    with pytest.raises(NotImplementedError, match=r"8\(e\)"):
-        TS.correction_phase(tctx, [str(tmp_path / "reads.fasta")], device="cpu")
 
 
 def test_correction_runs_on_the_card_unless_asked(tmp_path, monkeypatch):

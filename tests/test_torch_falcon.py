@@ -134,8 +134,3 @@ def test_correct_reads_blocks_equal(reads_and_store, small_geometry, monkeypatch
     part = _blocks(TF, trs, tst, device="cpu", done_blocks=skip)
     assert part == [b for b in ref if b[0] not in skip]
 
-
-def test_dag_mode_raises(reads_and_store):
-    (_, _), (trs, tst) = reads_and_store
-    with pytest.raises(NotImplementedError, match=r"8\(e\)"):
-        next(TF.correct_reads_blocks(trs, tst, GENOME, mode="dag", device="cpu"))

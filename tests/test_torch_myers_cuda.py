@@ -19,7 +19,7 @@ import torch
 from canu_tpu_torch.device import resolve_device
 from canu_tpu_torch.ops import myers as TM
 from canu_tpu_torch.ops.kernels import myers_cuda as K1
-from torch_cases import NAMES, myers_cases, myers_edge_cases
+from torch_cases import NAMES, k1_rows_plain, myers_cases, myers_edge_cases
 
 EDGE_CASES = tuple(myers_edge_cases())
 
@@ -86,6 +86,35 @@ def test_entering_index_follows_from_o(case):
     np.testing.assert_array_equal((o + 127).numpy(), ent_rows.T.numpy())
     np.testing.assert_array_equal(torch.clamp(o + 127, 0, LB - 1).numpy(),
                                   torch.clamp(ent_rows.T, 0, LB - 1).numpy())
+
+
+@pytest.mark.parametrize("seg", [256, 320])
+def test_segmented_plain_rows_equal_the_plain_loop(seg):
+    """k1_rows_plain, from the plain loop's own carries at every seg-th
+    row, gives the plain loop's carry at the next one and at the end (320:
+    a last segment past n_run, where no lane is live); chip_smoke.py runs
+    it from K1's carries to hold a long K1 launch to every plain row."""
+    n_rows, band, cap_q = 1024, 128, 2400
+    a, a_len, b, b_len, centers = (torch.from_numpy(x)
+                                   for x in myers_cases(11, 5, n_rows, er=0.1, drift=True))
+    o_all = TM._schedule(b_len, centers, band, n_rows)
+    carry0 = TM._myers_init(b, b_len, a_len, o_all[:, 0].contiguous(), band)
+    s_bits = TM._shift_bits(o_all, n_rows)
+    s_rows, ent_rows, _o0 = TM._myers_prep(b_len, centers, band, n_rows)
+    T = -(-n_rows // seg)
+    ends = [TM._carry_pack(TM._rows_plain(carry0, a, b, s_rows, ent_rows, a_len, b_len, cap_q,
+                                          band, seg, t)) for t in range(1, T)]
+    ends.append(TM._carry_pack(TM._rows_plain(carry0, a, b, s_rows, ent_rows, a_len, b_len,
+                                              cap_q, band, n_rows, 1)))
+    got = k1_rows_plain([TM._carry_pack(carry0)] + ends[:-1], a, s_bits, b, a_len, b_len,
+                        n_rows, cap_q, seg)
+    for t in range(T):
+        np.testing.assert_array_equal(got[:, t].numpy(), ends[t].numpy(), err_msg=str(t))
+    fin = TM._myers_finish(TM._carry_unpack(got[:, -1]), a_len, b_len, band)
+    ref = TM.banded_extend_myers_plain(a, a_len, b, b_len, centers, band, n_rows,
+                                       partial_cap_q=cap_q)
+    for name, r, g in zip(NAMES, ref, fin):
+        np.testing.assert_array_equal(r.numpy(), g.numpy(), err_msg=name)
 
 
 def test_row_stride_padding_and_alignment():

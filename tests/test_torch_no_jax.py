@@ -1,7 +1,8 @@
 """canu_tpu_torch stands alone: a machine with the port and neither jax nor
 the JAX package must be able to run its stages (the cor, utg band-256 and
 obt join + spill + host-count routes, the correction phase from a FASTA,
-and trimming + assembly from corrected reads through run_pipeline), and
+with the falcon and the dag consensus, trimming + assembly from corrected
+reads through run_pipeline, and the tools' kmer-count and bogus), and
 running them where jax is installed must not load it."""
 
 from __future__ import annotations
@@ -75,6 +76,22 @@ cfg4.set("corMhapSensitivity", "low")
 cfg4.set("corOutCoverage", 1)
 stages.correction_phase(make_ctx(work4, "t", cfg4), [fa], device="cpu")
 assert os.path.getsize(os.path.join(work4, "correction", "t.correctedReads.fasta.gz")) > 0
+# the dag consensus on the same stores: the phase resumes from its stages
+import shutil
+work4d = tempfile.mkdtemp()
+shutil.copytree(os.path.join(work4, "correction"), os.path.join(work4d, "correction"))
+os.remove(os.path.join(work4d, "correction", "t.correctedReads.fasta.gz"))
+cfg4.set("corConsensus", "dag")
+stages.correction_phase(make_ctx(work4d, "t", cfg4), [fa], device="cpu")
+assert os.path.getsize(os.path.join(work4d, "correction", "t.correctedReads.fasta.gz")) > 0
+# the tools: kmer-count and the judge ruler
+from canu_tpu_torch.tools.__main__ import main as tools_main
+from canu_tpu_torch.utils.bitpack import codes_to_seq
+assert tools_main(["kmer-count", fa, "-k", "16"], device="cpu") == 0
+write_fasta(os.path.join(work4, "genome.fasta"), [("g", codes_to_seq(g))])
+write_fasta(os.path.join(work4, "contigs.fasta"), [("c", codes_to_seq(g[500:4500]))])
+assert tools_main(["bogus", "-genome", os.path.join(work4, "genome.fasta"), "-assembly",
+                   os.path.join(work4, "contigs.fasta")], device="cpu") == 0
 # trimming and assembly from corrected reads: RED + OEA, the graph, the
 # plurality polish (at 256-base segments) and the outputs
 from canu_tpu_torch.ops import consensus
@@ -106,7 +123,10 @@ import sys
 import canu_tpu_torch
 from canu_tpu_torch.pipeline import stages
 from canu_tpu_torch.ops import align, falcon, kmer, minhash, minimizers, myers, trace, votepile
-from canu_tpu_torch.ops import consensus, oea
+from canu_tpu_torch.ops import consensus, dagcon, mermap, oea
+from canu_tpu_torch.io import overlaps_io
+from canu_tpu_torch.sim import bogus
+from canu_tpu_torch.tools import __main__ as tools_main
 from canu_tpu_torch import graph, __main__
 from canu_tpu_torch.io import gfa
 from canu_tpu_torch.pipeline import driver, html, objectstore, splitreads

@@ -159,5 +159,3 @@ def test_polish_tig_equal():
     got = TC.polish_tig(rs, tt, tb, band=256, min_cov=2, rounds=1, device="cpu")
     np.testing.assert_array_equal(got, np.asarray(want))
     assert len(got) > 4000 and not np.array_equal(got, tb)
-    with pytest.raises(NotImplementedError, match="8\\(e\\)"):
-        TC.polish_tig(rs, tt, tb, mode="dag", device="cpu")

@@ -8,7 +8,10 @@ against canu_tpu's banded extension on the CPU and against kernels K2
 and K3 on the card; ``extend_exit_rows``: the row after which each
 extension's outputs are fixed, where K2 and K3 stop (the tests check the
 argument; chip_smoke.py counts the kernels' bound up to it).
-``myers_edge_cases``: kernel K1's.  ``candidate_sample`` and
+``myers_edge_cases``: kernel K1's; ``k1_rows_plain``: the plain rows of
+one K1 launch, cut into segments that run at once from given carries (a
+long launch held to the plain loop at the cost of one segment of it).
+``candidate_sample`` and
 ``store_rows_of_pairs``: a sample of a candidate list and a store's rows
 for it, which stand in for a full verify where the reference cannot run
 one (chip_smoke.py's ecoli phase; scripts/torch_ecoli_reference.py).
@@ -25,6 +28,12 @@ contig's identity to the simulated genome, which both hold against the
 same measure of the reference's contig.  ``gfa_cases``, ``gfa_tigs``,
 ``gfa_store``, ``GFA_STORE_ROWS``: test_gfa.py's links, which the GFA
 parity tests and chip_smoke.py's card check of write_gfa share.
+``tools_session``, ``tools_setup`` and ``run_tools_session``: the tools
+CLI's scripted session, whose step records (``tools_record``:
+exit code, stdout, stderr, ``file_digest`` of each file made) chip_smoke.py's
+tools phase holds against scripts/torch_tools_reference.py's and
+test_torch_tools.py holds against canu_tpu's; ``db22_loaded_as_saved``:
+the k=22 DB steps' load for canu_tpu's side.
 """
 
 from __future__ import annotations
@@ -214,6 +223,48 @@ def myers_cases(seed, B, n_rows, er=0.1, drift=False, lens=None):
         a_len[: len(lens[0])] = lens[0]
         b_len[: len(lens[1])] = lens[1]
     return A, a_len, Bb, b_len, centers
+
+
+def k1_rows_plain(starts, a, s_bits, b, a_len, b_len, n_run: int, cap_q: int, seg: int):
+    """The plain rows (ops.myers._myers_row) of one kernel K1 launch
+    (myers_rows_cuda's arguments; ``starts`` in place of its carry), cut
+    into segments of ``seg`` rows that run at once, stacked as lanes:
+    segment t starts from starts[t], the carry planes int32[NC, B] after
+    rows 1..t*seg, and runs rows t*seg+1 .. (t+1)*seg.  Returns int32[NC,
+    len(starts), B], each segment's carry at its end.  With K1's carries
+    at the segment starts, every row of a long launch is held to the
+    plain loop at the cost of seg rows of it.  Rows past n_run change
+    nothing, since no lane is live there; that needs every a_len <=
+    n_run, as the engine's own launches have it."""
+    import torch
+
+    from canu_tpu_torch.ops import myers as MY
+
+    T, B = len(starts), a.shape[0]
+    rows = T * seg
+    if rows < n_run or (rows > n_run and int(a_len.max()) > n_run):
+        raise ValueError(f"{T} segments of {seg} rows do not cover the {n_run} rows exactly")
+    dev = a.device
+    sh = torch.arange(MY.WORD, dtype=torch.int64, device=dev)
+    s = ((s_bits.T.to(torch.int64)[:, :, None] >> sh) & 1).reshape(B, -1)[:, :n_run]
+    s = torch.nn.functional.pad(s, (0, rows - n_run))
+    # the schedule's window start o(i) of rows 1..rows, and the B char a
+    # shifted row lets in
+    o = MY._carry_unpack(starts[0]).o.to(torch.int64)[:, None] + torch.cumsum(s, dim=1)
+    bch = torch.gather(b, 1, torch.clamp(o + MY.NW * MY.WORD - 1, 0, b.shape[1] - 1))
+    a = torch.nn.functional.pad(a[:, :rows], (0, max(0, rows - a.shape[1])))
+
+    def lanes(x):  # [B, rows] -> [T * B, seg], segment-major
+        return x.reshape(B, T, seg).transpose(0, 1).reshape(T * B, seg)
+
+    a_l, s_l, b_l = lanes(a), lanes(s), lanes(bch)
+    i0 = (torch.arange(T, dtype=torch.int32, device=dev) * seg).repeat_interleave(B)
+    al, bl = a_len.to(torch.int32).repeat(T), b_len.to(torch.int32).repeat(T)
+    carry = MY._carry_unpack(torch.cat(starts, dim=1))
+    for r in range(seg):
+        carry = MY._myers_row(carry, s_l[:, r], a_l[:, r], b_l[:, r], i0 + (r + 1), al, bl,
+                              cap_q, MY.NW * MY.WORD)
+    return MY._carry_pack(carry).reshape(MY.NC, T, B)
 
 
 WINDOW_LENS = (1, 15, 16, 17, 31, 32, 33, 47, 48, 49)
@@ -531,3 +582,229 @@ def gfa_store(AL, OV, rows, n_reads):
     dt = (np.int32, np.int32, bool, np.int32, np.int32, np.int32, np.int32, np.uint16)
     return OV.OverlapStore.build(AL.OverlapTable(**{c: np.array(v, d) for c, v, d in
                                                     zip(names, cols, dt)}), n_reads)
+
+
+# ---- the tools CLI's scripted session (chip_smoke.py phase 13,
+# scripts/torch_tools_reference.py, tests/test_torch_tools.py) ---------------
+
+TOOLS_GENOME = 300_000  # the bench genome's length
+TOOLS_SIM_SEED = 81  # simulate -seed (the reads draw from seed + 1)
+TOOLS_SETUP_SEED = 82  # the PAF lines and the judged contigs
+TOOLS_MISJOIN = 40_000  # where the misjoined contig jumps (test_bogus.py's case)
+TOOLS_COLLAPSE = 700  # bases a collapsed contig drops (bogus.py _merge_placements)
+# the steps whose DB is the k=22 one saved by kmer-count: canu_tpu's
+# KmerCounts.load casts it to uint32 (a fault the port does not copy), so
+# their reference is canu_tpu's result on the DB as saved
+TOOLS_DB22_STEPS = ("map-mers stats", "map-mers regions", "mask-mers", "mer-trim db")
+
+
+def tools_session(work: str, genome: int = TOOLS_GENOME) -> list[tuple[str, list | None]]:
+    """The steps of the tools session in ``work``: (name, argv) in order; a
+    None argv is the setup (tools_setup), which makes the read store, the
+    PAF file and the contigs that later steps read."""
+    def w(name):
+        return os.path.join(work, name)
+
+    reads, db16, db22 = w("reads.fasta"), w("reads16.npz"), w("reads22.npz")
+    steps = [
+        ("simulate", ["simulate", "-genomesize", str(genome), "-coverage", "12", "-meanlen",
+                      "3500", "-minlen", "1500", "-error", "0.1", "-seed", str(TOOLS_SIM_SEED),
+                      "-o", reads, "-genome-out", w("genome.fasta"),
+                      "-truth-out", w("truth.tsv")]),
+        ("setup", None),
+        ("analyze", ["analyze", reads]),
+        ("sample fraction", ["sample", reads, "-o", w("sample.fasta"), "-fraction", "0.3",
+                             "-seed", "5"]),
+        ("sample longest", ["sample", reads, "-o", w("longest.fasta"), "-coverage", "2",
+                            "-genomesize", str(genome), "-longest"]),
+        ("kmer-count 16", ["kmer-count", reads, "-k", "16", "-threshold-fraction", "0.9995",
+                           "-o", w("reads16")]),
+        ("kmer-count 16 sample", ["kmer-count", w("sample.fasta"), "-k", "16",
+                                  "-o", w("sample16")]),
+        ("kmer-count 22", ["kmer-count", reads, "-k", "22", "-maxcount", "200",
+                           "-o", w("reads22")]),
+    ]
+    for op in ("add", "union-min", "union-max", "intersect-min", "intersect-max",
+               "intersect-sum", "subtract", "difference"):
+        steps.append((f"kmer-op {op}", ["kmer-op", op, db16, w("sample16.npz"),
+                                        "-o", w(f"op_{op}")]))
+    steps += [
+        ("kmer-op at-least", ["kmer-op", "at-least", db16, "-n", "3", "-o", w("op_at-least")]),
+        ("kmer-op at-most", ["kmer-op", "at-most", db16, "-n", "2", "-o", w("op_at-most")]),
+        ("map-mers stats", ["map-mers", "--db", db22, "--fasta", w("longest.fasta")]),
+        ("map-mers regions", ["map-mers", "--db", db22, "--fasta", w("longest.fasta"),
+                              "--mode", "regions", "--lo", "2"]),
+        ("mask-mers", ["mask-mers", "--db", db22, "--fasta", w("longest.fasta"),
+                       "--out", w("masked.fasta"), "--lo", "3"]),
+        ("mer-trim db", ["mer-trim", "--fasta", w("longest.fasta"), "--db", db22,
+                         "--threshold", "3"]),
+        ("mer-trim", ["mer-trim", "--fasta", w("longest.fasta"), "-k", "22"]),
+        ("mercy", ["mercy", "--reads", reads, "--assembly", w("contigs.fasta"), "-k", "22"]),
+        ("ov-import random", ["ov-import", "-random", "5000", "-nreads", "400", "-seed", "3",
+                              "-o", w("ovl_random")]),
+        ("ov-stats random", ["ov-stats", w("ovl_random")]),
+        ("ov-import paf", ["ov-import", "-paf", w("reads.paf"), "-readstore", w("gkp"),
+                           "-o", w("ovl_paf")]),
+        ("ov-stats paf", ["ov-stats", w("ovl_paf")]),
+        ("ov-dump", ["ov-dump", w("ovl_paf"), "-o", w("ovl_paf.tsv")]),
+        ("ov-import text", ["ov-import", "-i", w("ovl_paf.tsv"), "-o", w("ovl_text")]),
+        ("best-edges", ["best-edges", w("ovl_paf"), w("gkp"), "-o", w("edges.tsv")]),
+        ("dump-reads", ["dump-reads", w("gkp"), "-o", w("dump.fasta"), "-b", "10", "-e", "60"]),
+        ("dump-meta", ["dump-meta", w("gkp"), "-bin", "500"]),
+        ("options", ["options"]),
+        ("options markdown", ["options", "-markdown"]),
+        ("bogus", ["bogus", "-genome", w("genome.fasta"), "-assembly", w("contigs.fasta"),
+                   "-intervals", "-verbose"]),
+    ]
+    return steps
+
+
+def _revcomp_str(s: str) -> str:
+    return s.translate(str.maketrans("ACGT", "TGCA"))[::-1]
+
+
+def tools_setup(work: str, ReadSet) -> None:
+    """The session's inputs beside the simulated reads, made by numpy from
+    TOOLS_SETUP_SEED: the read store ``gkp`` (of the package's ReadSet),
+    ``reads.paf`` (3,000 random PAF lines between the reads) and
+    ``contigs.fasta``, the contigs the bogus step judges: the whole genome
+    with 1% point errors, a misjoin (two genome pieces glued at
+    TOOLS_MISJOIN, or a seventh of a smaller genome) and, reverse-complemented, a piece that drops
+    TOOLS_COLLAPSE bases (a collapsed repeat copy)."""
+    rng = np.random.default_rng(TOOLS_SETUP_SEED)
+    rs, _ = ReadSet.from_fastx([os.path.join(work, "reads.fasta")])
+    rs.save(os.path.join(work, "gkp"))
+    names = [rs.name(i) for i in range(1, rs.n_reads + 1)]
+    lens = np.asarray(rs.length, np.int64)
+    with open(os.path.join(work, "reads.paf"), "w") as fh:
+        for _ in range(3000):
+            q, t = rng.choice(rs.n_reads, size=2, replace=False)
+            span = int(rng.integers(200, max(201, min(lens[q], lens[t]))))
+            qs = int(rng.integers(0, lens[q] - span + 1))
+            ts = int(rng.integers(0, lens[t] - span + 1))
+            alen = span + int(rng.integers(0, 50))
+            nm = int(alen * rng.uniform(0.8, 1.0))
+            fh.write(f"{names[q]}\t{lens[q]}\t{qs}\t{qs + span}\t{'+-'[rng.integers(2)]}\t"
+                     f"{names[t]}\t{lens[t]}\t{ts}\t{ts + span}\t{nm}\t{alen}\t60\n")
+    g = fasta_records(os.path.join(work, "genome.fasta"))[0][1]
+    G = len(g)
+    noisy = np.frombuffer(g.encode(), np.uint8).copy()
+    pos = rng.choice(G, size=G // 100, replace=False)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    code = np.searchsorted(acgt, noisy[pos])
+    noisy[pos] = acgt[(code + rng.integers(1, 4, size=len(pos))) % 4]
+    # the misjoin's second piece starts a jump of at least 6 kb on, past
+    # the 5 kb that evaluate_assembly still merges as a structural indel
+    m = min(TOOLS_MISJOIN, G // 7)
+    s0, jump = G // 4, max(m, 6000)
+    c0 = G // 2
+    contigs = [("noisy_copy", noisy.tobytes().decode()),
+               ("misjoin", g[s0 : s0 + m] + g[s0 + m + jump : s0 + 2 * m + jump]),
+               ("collapse", _revcomp_str(g[c0 : c0 + 2 * m]
+                                         + g[c0 + 2 * m + TOOLS_COLLAPSE : G - G // 8]))]
+    with open(os.path.join(work, "contigs.fasta"), "w") as fh:
+        for name, seq in contigs:
+            fh.write(f">{name}\n{seq}\n")
+
+
+def tools_run(main, argv: list[str], **kw) -> tuple[int, str, str]:
+    """One tools step in this process: (exit code, stdout, stderr)."""
+    import contextlib
+    import io
+    import warnings
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err), \
+            warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        rc = main(argv, **kw)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def file_digest(path: str) -> str:
+    """sha256 of an output: a file's bytes; an .npz archive's arrays (name,
+    dtype, shape, bytes; its zip members carry timestamps); a directory's
+    files in name order, each as its name and digest."""
+    h = hashlib.sha256()
+    if os.path.isdir(path):
+        for f in sorted(os.listdir(path)):
+            h.update(f"{f}\t{file_digest(os.path.join(path, f))}\n".encode())
+    elif path.endswith(".npz"):
+        with np.load(path) as z:
+            for n in sorted(z.files):
+                a = np.ascontiguousarray(z[n])
+                h.update(f"{n}\t{a.dtype.str}\t{a.shape}\n".encode())
+                h.update(a.tobytes())
+    else:
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()
+
+
+def tools_outputs(work: str, before: set) -> dict:
+    """{name: file_digest} of the entries a step added to ``work``."""
+    return {f: file_digest(os.path.join(work, f)) for f in sorted(set(os.listdir(work)) - before)}
+
+
+def tools_record(work: str, rc: int, out: str, err: str, files: dict) -> dict:
+    """A step's result as the references hold it: the exit code, the sha256
+    of its stdout and stderr with the work directory written <work>, and
+    its output files' digests."""
+    def sha(s):
+        return hashlib.sha256(s.replace(work, "<work>").encode()).hexdigest()
+
+    return {"rc": rc, "stdout": sha(out), "stderr": sha(err), "files": files}
+
+
+def db22_loaded_as_saved(kmer_module):
+    """``around`` for run_tools_session: during the TOOLS_DB22_STEPS,
+    ``kmer_module.KmerCounts.load`` keeps the saved k-mer dtype.
+    canu_tpu's load casts a k > 16 DB's exact uint64 k-mers to uint32, so
+    its reference of those steps is its result on the DB as counted and
+    saved."""
+    import contextlib
+
+    KC = kmer_module.KmerCounts
+
+    def load(path: str):
+        p = str(path)
+        if not p.endswith(".npz") and os.path.exists(p + ".npz"):
+            p = p + ".npz"
+        with np.load(p) as z:
+            return KC(int(z["k"]), z["unique"], z["counts"].astype(np.int64))
+
+    @contextlib.contextmanager
+    def around(name: str):
+        real = KC.load
+        if name in TOOLS_DB22_STEPS:
+            KC.load = staticmethod(load)
+        try:
+            yield
+        finally:
+            KC.load = real
+
+    return around
+
+
+def run_tools_session(work: str, genome: int, main, ReadSet, around=None, **kw):
+    """Run tools_session in ``work`` with a package's tools ``main`` and
+    ``ReadSet``; ``around(name)``, if given, is a context manager entered
+    around each step; ``kw`` goes to main.  Returns ({name: tools_record},
+    {name: wall seconds}, {name: stdout})."""
+    import contextlib
+    import time
+
+    recs, secs, outs = {}, {}, {}
+    for name, argv in tools_session(work, genome):
+        before = set(os.listdir(work))
+        t = time.time()
+        with (around(name) if around else contextlib.nullcontext()):
+            if argv is None:
+                tools_setup(work, ReadSet)
+                rc, out, err = 0, "", ""
+            else:
+                rc, out, err = tools_run(main, argv, **kw)
+        secs[name] = time.time() - t
+        recs[name] = tools_record(work, rc, out, err, tools_outputs(work, before))
+        outs[name] = out.replace(work, "<work>")
+    return recs, secs, outs
