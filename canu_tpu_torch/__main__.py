@@ -19,7 +19,9 @@ from .config import Config, ConfigError
 from .pipeline.driver import run_pipeline
 
 
-def main(argv: list[str]) -> int:
+def main(argv: list[str], device=None) -> int:
+    """Run the command line ``argv``; the pipeline runs on ``device`` (the
+    card unless the caller asks for "cpu")."""
     cfg = Config()
     prefix = "asm"
     work_dir = "."
@@ -68,7 +70,8 @@ def main(argv: list[str]) -> int:
 
     try:
         run_pipeline(work_dir, prefix, cfg, raw_reads=raw or None,
-                     corrected_reads=corrected or None, trimmed_reads=trimmed or None)
+                     corrected_reads=corrected or None, trimmed_reads=trimmed or None,
+                     device=device)
     except ConfigError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

@@ -1,6 +1,6 @@
 """Assembly context, stage runner and pipeline (counterpart of
-canu_tpu.pipeline.driver: AssemblyCtx, make_ctx, the single-process
-branch of run_stage, and run_pipeline).
+canu_tpu.pipeline.driver: AssemblyCtx, make_ctx, run_stage and
+run_pipeline).
 
 The same contract as canu_tpu: make_ctx writes the invocation audit and
 installs the crash catcher in <work_dir>/canu-logs/ and logs there; a
@@ -9,9 +9,11 @@ times, honours stopBefore/stopAfter/showNext, and appends one line per
 completed attempt to <prefix>.stage-times.jsonl.  A CUDA out-of-memory
 attempt drops the device tensors cached on read sets, releases the
 allocator's cache and halves the verify in-flight budget before the
-retry.  run_pipeline runs the phases correction -> trimming -> assembly
-from whichever input it is given, on the card unless ``device`` says
-otherwise.
+retry.  In a world of several ranks (useGrid=true, or a caller's
+parallel.launch.init_distributed) the stages synchronise at barriers and
+only rank 0 writes shared files (run_stage).  run_pipeline runs the
+phases correction -> trimming -> assembly from whichever input it is
+given, on the card unless ``device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -83,17 +85,46 @@ def make_ctx(work_dir: str, prefix: str, cfg: Config) -> AssemblyCtx:
 
 
 def run_stage(ctx: AssemblyCtx, name: str, done: Callable[[], bool],
-              fn: Callable[[], None]) -> None:
-    """Idempotent stage execution with bounded retries + stop points."""
-    if ctx.cfg.get("stopBefore").lower() == name.lower() and not done():
+              fn: Callable[[], None], collective: bool = False) -> None:
+    """Idempotent stage execution with bounded retries + stop points.
+
+    In a world of several ranks (parallel.launch) a barrier before the
+    done() check makes file-existence resume coherent (no rank consults
+    done() until every rank has passed the previous stage's writes), every
+    rank acts on rank 0's reading of done() (a rank that read it later
+    could see a fast writer's outputs and skip the stage the others run),
+    and a barrier after fn() holds readers until the writer's outputs are
+    renamed.  ``collective=True`` marks a stage whose fn holds collectives:
+    every rank enters fn in lockstep; otherwise only the writer (rank 0)
+    runs it.  Such a stage gets one attempt and no stage-times line: a
+    retry on one rank would put the ranks' collectives out of step (the
+    reference recovers by relaunching the whole executive,
+    Execution.pm:610-712)."""
+    from ..parallel.launch import barrier, is_distributed, is_writer, writer_value
+
+    dist = is_distributed()
+    if dist:
+        barrier(f"pre-{name}")
+    finished = writer_value(done())
+    if ctx.cfg.get("stopBefore").lower() == name.lower() and not finished:
         ctx.log.info(f"stopBefore={name}: halting")
         raise StopPipeline(name)
-    if bool(ctx.cfg.get("showNext")) and not done():
+    if bool(ctx.cfg.get("showNext")) and not finished:
         ctx.log.info(f"showNext: next stage is '{name}'")
         print(f"next stage: {name}", flush=True)
         raise StopPipeline(name)
-    if done():
+    if finished:
         ctx.log.info(f"{name}: already done, skipping")
+    elif dist:
+        t0 = time.time()
+        ctx.log.info(f"{name}: start (distributed, "
+                     f"{'collective' if collective else 'writer-only'})")
+        if collective or is_writer():
+            fn()
+        barrier(f"fn-{name}")
+        if not done():
+            raise PipelineError(f"{name}: ran but outputs missing")
+        ctx.log.info(f"{name}: done in {time.time() - t0:.1f}s")
     else:
         max_iter = int(ctx.cfg.get("canuIterationMax"))
         for attempt in range(1, max_iter + 1):
@@ -103,7 +134,7 @@ def run_stage(ctx: AssemblyCtx, name: str, done: Callable[[], bool],
                 fn()
                 if not done():
                     raise PipelineError(f"{name}: ran but outputs missing")
-            except (StopPipeline, KeyboardInterrupt, NotImplementedError):
+            except (StopPipeline, KeyboardInterrupt):
                 raise
             except Exception as e:
                 ctx.log.error(f"{name}: attempt {attempt} failed: {e}\n{traceback.format_exc()}")
@@ -129,20 +160,14 @@ def run_stage(ctx: AssemblyCtx, name: str, done: Callable[[], bool],
             except OSError:
                 pass
             break
+    if dist:
+        barrier(f"post-{name}")
     if ctx.cfg.get("stopAfter").lower() == name.lower():
         ctx.log.info(f"stopAfter={name}: halting")
         raise StopPipeline(name)
 
 
 # ---- pipeline --------------------------------------------------------------
-
-
-def _check_pipeline_config(cfg: Config) -> None:
-    """The configuration the port does not run, refused before any stage."""
-    if bool(cfg.get("useGrid")):
-        raise NotImplementedError(
-            "useGrid (the multi-host launcher) is not ported to canu_tpu_torch yet: it has no "
-            "torch.distributed launcher (ROADMAP item 13)")
 
 
 def run_pipeline(
@@ -159,15 +184,23 @@ def run_pipeline(
     mode detection, canu.pl:341-525), on ``device`` (the card unless the
     caller says "cpu").  objectStore fetches finished phase outputs first
     and stashes each one as it lands; onSuccess/onFailure run after."""
+    from ..parallel.launch import init_distributed, is_writer
     from . import stages
 
     cfg.apply_read_type_profile()
     cfg.validate()
-    _check_pipeline_config(cfg)
+    if bool(cfg.get("useGrid")):
+        # join the world of ranks (the Grid_*.pm role) from the launcher's
+        # environment: shardedCompute=auto then runs the meryl and overlap
+        # stages across the ranks, one card each
+        rank, world = init_distributed(device=device)
     dev = resolve_device(device)
     ctx = make_ctx(work_dir, prefix, cfg)
-    with open(ctx.path(f"{prefix}.spec.used"), "w") as fh:
-        json.dump(cfg.to_dict(), fh, indent=1, default=str)
+    if bool(cfg.get("useGrid")):
+        ctx.log.info("useGrid: process %d/%d joined, %d global devices", rank, world, world)
+    if is_writer():
+        with open(ctx.path(f"{prefix}.spec.used"), "w") as fh:
+            json.dump(cfg.to_dict(), fh, indent=1, default=str)
     # resource solver (Configure.pm role): host memory and threads and the
     # card's memory set spill thresholds, sort budgets and the vote
     # engine's chunk geometry

@@ -5,8 +5,11 @@ assembly phases.
 Same signatures, outputs, file names, resume contract and
 stage-times.jsonl lines as canu_tpu, so either package's stage output can
 feed the other; the device stages and the phases take ``device=``.
-shardedCompute=true (the multi-device path) raises NotImplementedError
-naming its ROADMAP item.  Every phase runs as one process.
+With shardedCompute on (auto: in a world of more than one rank) meryl
+counts by hash range across the ranks, the overlap stage finds
+candidates on the ring and verifies a strided slice on each rank, and
+the correction strides its blocks over the ranks (canu_tpu.parallel's
+roles, in canu_tpu_torch.parallel); only rank 0 writes shared files.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import numpy as np
 from ..convert import frequent_from_npz
 from ..device import resolve_device
 from ..ops.errorest import estimate_error_rates
+from ..parallel.launch import barrier, is_distributed, is_writer, rank_world
 from ..stores.overlaps import OverlapStore
 from ..stores.readset import ReadSet
 from ..stores.tigs import CLASS_CONTIG, CLASS_UNASSEMBLED, TigStore
@@ -30,6 +34,17 @@ from ..utils import bitpack
 from .driver import AssemblyCtx, PipelineError, run_stage
 
 TAG_DIR = {"cor": "correction", "obt": "trimming", "utg": "unitigging"}
+
+
+def sharded_enabled(cfg) -> bool:
+    """True when the meryl and candidate stages run across the ranks
+    (shardedCompute: auto = in a world of more than one rank, one card
+    each; true runs the sharded path in a world of any size, one rank
+    included)."""
+    v = str(cfg.get("shardedCompute")).strip().lower()
+    if v == "auto":
+        return is_distributed()
+    return v in ("1", "true", "yes", "on")
 
 
 def gatekeeper(ctx: AssemblyCtx, tag: str, inputs: list[str]) -> ReadSet:
@@ -90,14 +105,6 @@ def gatekeeper(ctx: AssemblyCtx, tag: str, inputs: list[str]) -> ReadSet:
     return ReadSet.load(store)
 
 
-def _check_single_device(cfg) -> None:
-    """shardedCompute=auto runs on one device (the sharded path gives the
-    same counts and candidates); an explicit request for it raises."""
-    if str(cfg.get("shardedCompute")).strip().lower() in ("1", "true", "yes", "on"):
-        raise NotImplementedError("shardedCompute (the multi-device path) is not ported to "
-                                  "canu_tpu_torch yet (ROADMAP item 13)")
-
-
 def meryl(ctx: AssemblyCtx, tag: str, rs: ReadSet, device=None):
     """k-mer counting + frequent-mer table (Meryl.pm equivalent)."""
     from ..ops import kmer as K
@@ -110,13 +117,20 @@ def meryl(ctx: AssemblyCtx, tag: str, rs: ReadSet, device=None):
         return os.path.exists(out)
 
     def fn() -> None:
-        _check_single_device(ctx.cfg)
-        # merylMemory scales the device instance budget before the host
-        # counter takes over
-        mm = int(ctx.cfg.get("merylMemory"))
-        kc = K.count_readset_device(rs, k=k, block_size=256,
-                                    max_instances=mm * (1 << 26) if mm > 0 else None,
-                                    device=device)
+        if sharded_enabled(ctx.cfg):
+            # distributed meryl: the hash-range all_to_all across the ranks
+            # (the same counts: every k-mer lands on one owner); k <= 16
+            # routes one lane, k <= 32 two
+            from ..parallel.shard_overlap import sharded_count_readset
+
+            kc = sharded_count_readset(rs, k=k, device=device)
+        else:
+            # merylMemory scales the device instance budget before the
+            # host counter takes over
+            mm = int(ctx.cfg.get("merylMemory"))
+            kc = K.count_readset_device(rs, k=k, block_size=256,
+                                        max_instances=mm * (1 << 26) if mm > 0 else None,
+                                        device=device)
         hist = kc.histogram(1000)
         n_distinct = int(hist[1:].sum())
         mode = str(ctx.cfg.get(tag + "MerThreshold"))
@@ -145,6 +159,8 @@ def meryl(ctx: AssemblyCtx, tag: str, rs: ReadSet, device=None):
         if custom:
             # user-supplied always-ignore mers (reference OvlFrequentMers)
             fk = K.union_frequent(fk, K.frequent_from_fasta(custom, k))
+        if not is_writer():
+            return  # every rank counted (collectives); rank 0 writes
         np.savez(out + ".WORKING.npz", kmers=fk.kmers, fraction=fk.fraction,
                  threshold=np.array([fk.threshold]), total=np.array([fk.total_kmers]),
                  k=np.array([k]))
@@ -161,7 +177,7 @@ def meryl(ctx: AssemblyCtx, tag: str, rs: ReadSet, device=None):
             f"{fk.n} frequent mers of {n_distinct} distinct",
         )
 
-    run_stage(ctx, f"{tag}-meryl", done, fn)
+    run_stage(ctx, f"{tag}-meryl", done, fn, collective=sharded_enabled(ctx.cfg))
     return frequent_from_npz(out)
 
 
@@ -220,7 +236,11 @@ def overlap(ctx: AssemblyCtx, tag: str, rs: ReadSet, fk, device=None) -> Overlap
     on CUDA); any other band on the INF-walled engine (K2 or K3).  The
     store is built in RAM, or through the spill file and the native
     external sort (ovsMethod=spill, or auto from ovlSpillPairs
-    candidates)."""
+    candidates).  Sharded (shardedCompute), the candidates come from the
+    ring across the ranks, and in a world of several ranks each verifies a
+    strided slice: ovsShardExchange=range exchanges the rows by a_id range
+    into per-rank shards that rank 0 merges, allgather gives every rank
+    the whole table."""
     from ..ops import align as AL
     from ..ops import minhash as MH
     from ..stores.overlaps import OverlapSpill
@@ -234,7 +254,6 @@ def overlap(ctx: AssemblyCtx, tag: str, rs: ReadSet, fk, device=None) -> Overlap
     def fn() -> None:
         cfg = ctx.cfg
         dev = resolve_device(device)
-        _check_single_device(cfg)
         band = int(cfg.get(tag + "OvlBandWidth"))
 
         sub: dict[str, float] = {}  # sub-stage wall breakdown
@@ -264,16 +283,23 @@ def overlap(ctx: AssemblyCtx, tag: str, rs: ReadSet, fk, device=None) -> Overlap
                                        block_size=int(cfg.get("mhapBlockSize")), device=dev)
                 _lap("sketch")
                 me = str(cfg.get("mhapMatchEngine")).lower()
+                if sharded_enabled(cfg):
+                    # the ring all-vs-all across the ranks: the block
+                    # matcher's pair set, O(N/n) memory a rank
+                    from ..parallel.shard_overlap import sharded_find_candidates
+
+                    pairs = sharded_find_candidates(sk, min_matches=min_matches, device=dev)
                 # the block matrix is O(N^2) in block pairs: above 5,000
                 # reads the hash-join's O(N H) sort wins
-                if me == "join" or (me == "auto" and rs.n_reads > 5_000):
+                elif me == "join" or (me == "auto" and rs.n_reads > 5_000):
                     pairs = MH.find_candidates_join(sk, min_matches=min_matches, device=dev)
                 else:
                     pairs = MH.find_candidates(sk, min_matches=min_matches, block_size=1024,
                                                device=dev)
                 del sk
-            np.save(pairs_ckpt + ".WORKING.npy", pairs)
-            os.replace(pairs_ckpt + ".WORKING.npy", pairs_ckpt)
+            if is_writer():
+                np.save(pairs_ckpt + ".WORKING.npy", pairs)
+                os.replace(pairs_ckpt + ".WORKING.npy", pairs_ckpt)
             _lap("match")
         from .configure import configure_resources
 
@@ -281,13 +307,22 @@ def overlap(ctx: AssemblyCtx, tag: str, rs: ReadSet, fk, device=None) -> Overlap
         # ovsMethod: memory forces the in-RAM build, spill the external
         # sort; auto spills from res.spill_pairs candidates on
         ovs = str(cfg.get("ovsMethod")).lower()
+        want_spill = (len(pairs) >= res.spill_pairs) if ovs == "auto" else ovs == "spill"
+        split = sharded_enabled(cfg) and is_distributed()  # each rank verifies a slice
+        by_range = split and str(cfg.get("ovsShardExchange")).lower() == "range"
+        if by_range:
+            # the range exchange streams per-rank shards and merges them
+            # through memmaps: a spill would be a second copy on disk
+            want_spill = False
         spill = None
-        if (len(pairs) >= res.spill_pairs) if ovs == "auto" else ovs == "spill":
+        if want_spill and is_writer():
+            # rank 0 alone: in a collective run every rank gets here, and a
+            # second open('wb') would truncate its spill file
             spill = OverlapSpill(os.path.join(d, f"{ctx.prefix}.ovl.spill"))
             ctx.log.info(f"{tag}-overlap: store via spill + external sort "
                          f"(ovsMethod={ovs}, {len(pairs)} candidate pairs)")
-        ov = AL.verify_overlaps(
-            rs, pairs, k=k, band=band,
+        verify_kwargs = dict(
+            k=k, band=band,
             max_erate=float(cfg.get(tag + "OvlErrorRate")),
             min_overlap=int(cfg.get("minOverlapLength")),
             chunk=512,
@@ -297,17 +332,53 @@ def overlap(ctx: AssemblyCtx, tag: str, rs: ReadSet, fk, device=None) -> Overlap
             partial=tag in ("cor", "obt"),
             # obt also verifies palindromic pairs in both orientations
             palindromic_min=int(cfg.get(tag + "MinShared")) if tag == "obt" else 0,
-            sink=spill.append if spill is not None else None,
             device=dev,
         )
+        ov = None
+        if by_range:
+            # each rank verifies its slice and keeps the rows of its a_id
+            # range (no rank holds the whole table: the reference's
+            # bucketize/sort/index build, SURVEY.md §3.3); the shards go to
+            # disk and rank 0 merges them column by column
+            from ..parallel.shard_overlap import process_sharded_store_rows
+
+            rank = rank_world()[0]
+            rows = process_sharded_store_rows(rs, pairs, **verify_kwargs)
+            shard = store + f".shard{rank:04d}.npy"
+            np.save(shard + ".WORKING.npy", rows)
+            os.replace(shard + ".WORKING.npy", shard)
+            ctx.log.info(f"{tag}-overlap: range exchange -> {len(rows)} rows held on rank "
+                         f"{rank} (no whole-table gather)")
+            del rows
+            barrier(f"{tag}-ovl-shards")
+            if is_writer():
+                shards = sorted(glob.glob(store + ".shard*.npy"))
+                OverlapStore.save_from_row_shards(shards, rs.n_reads, store)
+                for sp in shards:
+                    os.remove(sp)
+        elif split:  # allgather: every rank gets the whole table
+            from ..parallel.shard_overlap import process_sharded_verify
+
+            ov = process_sharded_verify(rs, pairs, **verify_kwargs)
+            if spill is not None:
+                spill.append(ov)
+        else:
+            ov = AL.verify_overlaps(rs, pairs, sink=spill.append if spill is not None else None,
+                                    **verify_kwargs)
         _lap("verify")
         verify_prof = dict(AL.LAST_PROFILE)
-        if spill is not None:
-            st = OverlapStore.build_spilled(spill, rs.n_reads, mem_budget=res.sort_mem_bytes,
-                                            n_threads=res.sort_threads)
+        if not is_writer():
+            return  # the other ranks load rank 0's store after the barrier
+        if by_range:
+            st = OverlapStore.load(store)
         else:
-            st = OverlapStore.build(ov, rs.n_reads)
-        st.save(store)
+            if spill is not None:
+                st = OverlapStore.build_spilled(spill, rs.n_reads,
+                                                mem_budget=res.sort_mem_bytes,
+                                                n_threads=res.sort_threads)
+            else:
+                st = OverlapStore.build(ov, rs.n_reads)
+            st.save(store)
         _lap("store")
         try:
             with open(ctx.path(f"{ctx.prefix}.stage-times.jsonl"), "a") as fh:
@@ -330,7 +401,7 @@ def overlap(ctx: AssemblyCtx, tag: str, rs: ReadSet, fk, device=None) -> Overlap
             f"{est.read_error:.4f}; suggested gate {est.suggested_ovl_erate:.3f}",
         )
 
-    run_stage(ctx, f"{tag}-overlap", done, fn)
+    run_stage(ctx, f"{tag}-overlap", done, fn, collective=sharded_enabled(ctx.cfg))
     return OverlapStore.load(store)
 
 
@@ -354,7 +425,9 @@ def correction_phase(ctx: AssemblyCtx, raw_inputs: list[str], device=None) -> No
     reads land in ``correction/blocks/block_NNNNN.fasta.gz`` (atomic
     ``.WORKING`` rename), and a re-run skips completed blocks — the
     reference's per-jobid batch arrays with only-failed-indices retry
-    (CorrectReads.pm:122-141).  One process runs every block.
+    (CorrectReads.pm:122-141).  In a world of several ranks the blocks are
+    strided over the ranks (block b on rank b % n, each writing only its
+    own block files) and rank 0 concatenates them after a barrier.
     """
     from ..ops.falcon import correct_reads_blocks
 
@@ -382,6 +455,16 @@ def correction_phase(ctx: AssemblyCtx, raw_inputs: list[str], device=None) -> No
         os.makedirs(blocks_dir, exist_ok=True)
         done_blocks = {int(f[6:11]) for f in os.listdir(blocks_dir)
                        if f.startswith("block_") and f.endswith(".fasta.gz")}
+        rank, n_ranks = rank_world()
+
+        class _SkipSet:
+            """Done blocks and blocks of other ranks: correction blocks are
+            independent jobs, strided over the ranks (the reference's
+            job-array partitioning, CorrectReads.pm:122-141)."""
+
+            def __contains__(self, bi: int) -> bool:
+                return bi in done_blocks or bi % n_ranks != rank
+
         n_blocks = len(done_blocks)
         for bi, items in correct_reads_blocks(
             rs, st,
@@ -392,7 +475,7 @@ def correction_phase(ctx: AssemblyCtx, raw_inputs: list[str], device=None) -> No
             band=int(ctx.cfg.get("corBandWidth")),
             min_cov=int(ctx.cfg.get("corMinCoverage")),
             qv_weight=bool(ctx.cfg.get("qvEvidenceWeight")),
-            done_blocks=done_blocks,
+            done_blocks=_SkipSet() if n_ranks > 1 else done_blocks,
             max_evidence_erate=float(ctx.cfg.get("corMaxEvidenceErate")),
             mode="dag" if str(ctx.cfg.get("corConsensus")).lower() == "dag" else "falcon",
             template_filter=str(ctx.cfg.get("corFilter")),
@@ -404,12 +487,17 @@ def correction_phase(ctx: AssemblyCtx, raw_inputs: list[str], device=None) -> No
             n_blocks += 1
             ctx.log.info("correction block %d done (%d reads, %d blocks total)",
                          bi, len(items), n_blocks)
+        barrier("correction-blocks")  # every rank's block files landed
+        if not is_writer():
+            return  # rank 0 concatenates; the others re-check done()
         # concatenate block gzips (gzip members concatenate legally)
+        n_blocks = 0
         with open(out + ".WORKING.gz", "wb") as oh:
             for f in sorted(os.listdir(blocks_dir)):
                 if f.startswith("block_") and f.endswith(".fasta.gz"):
                     with open(os.path.join(blocks_dir, f), "rb") as ih:
                         oh.write(ih.read())
+                    n_blocks += 1
         with gzip.open(out + ".WORKING.gz", "rt") as fh:
             n = sum(1 for line in fh if line.startswith(">"))
         os.replace(out + ".WORKING.gz", out)
@@ -417,14 +505,15 @@ def correction_phase(ctx: AssemblyCtx, raw_inputs: list[str], device=None) -> No
             shutil.rmtree(blocks_dir, ignore_errors=True)  # concatenated
         ctx.report.add("cor.correct", f"corrected {n} reads in {n_blocks} blocks -> {out}")
 
-    run_stage(ctx, "correction", done, fn)
+    run_stage(ctx, "correction", done, fn, collective=is_distributed())
     _cleanup_phase_stores(ctx, d)
 
 
 def _cleanup_phase_stores(ctx: AssemblyCtx, phase_dir: str) -> None:
     """saveOverlaps=false: drop the phase's overlap store and spill once
-    the phase output exists (Defaults.pm saveOverlaps)."""
-    if bool(ctx.cfg.get("saveOverlaps")):
+    the phase output exists (Defaults.pm saveOverlaps); rank 0 deletes,
+    the other ranks leave the shared directory alone."""
+    if bool(ctx.cfg.get("saveOverlaps")) or not is_writer():
         return
     for p in (glob.glob(os.path.join(phase_dir, f"{ctx.prefix}.ovlStore*"))
               + glob.glob(os.path.join(phase_dir, f"{ctx.prefix}.ovl.spill*"))):

@@ -6,10 +6,11 @@ b_id), ``index[r]:index[r+1]`` slicing read r's overlaps.  On disk a
 store is a directory of one raw .npy per column plus meta.json (v2),
 byte-compatible with canu_tpu's: either package loads the other's store.
 
-Two builds: ``build`` symmetrizes and sorts a table in RAM; at scale the
+Three builds: ``build`` symmetrizes and sorts a table in RAM; at scale the
 overlap stage streams each verified chunk into an ``OverlapSpill`` file
 of packed records and ``build_spilled`` sorts it with the native
-external merge sort (canu_tpu_torch.native).  std::sort is not stable,
+external merge sort (canu_tpu_torch.native); across ranks
+``save_from_row_shards`` merges the range exchange's sorted shards.  std::sort is not stable,
 so rows with equal (a_id, b_id) (obt's palindromic pairs) may come out
 in either order: compare stores by store_digest.
 """
@@ -103,6 +104,45 @@ class OverlapStore:
         os.remove(spill.path)
         os.remove(out)
         return st
+
+    @staticmethod
+    def save_from_row_shards(shard_paths: list[str], n_reads: int,
+                             path: str | os.PathLike) -> None:
+        """Write a v2 store straight from row shards: int32[m, 8] .npy files
+        in _COLS order, globally sorted when concatenated in list order (the
+        range exchange's contract, parallel.storesort.process_range_exchange).
+        The columns are copied shard by shard into pre-sized memmaps, so the
+        writer never holds the whole table (the reference's ovStoreIndexer
+        merge, SURVEY.md §3.3); written to path.WORKING and renamed."""
+        from numpy.lib.format import open_memmap
+
+        path = os.fspath(path)
+        tmp = path + ".WORKING"
+        os.makedirs(tmp, exist_ok=True)
+        sizes = []
+        for sp in shard_paths:
+            arr = np.load(sp, mmap_mode="r")
+            if arr.ndim != 2 or arr.shape[1] != 8:
+                raise ValueError(f"{sp}: store rows must be [m, 8], got {arr.shape}")
+            sizes.append(len(arr))
+            del arr
+        total = int(sum(sizes))
+        for ci, (c, dt) in enumerate(zip(_COLS, _DTYPES)):
+            dst = open_memmap(os.path.join(tmp, c + ".npy"), mode="w+", dtype=np.dtype(dt),
+                              shape=(total,))
+            off = 0
+            for sp, sz in zip(shard_paths, sizes):
+                arr = np.load(sp, mmap_mode="r")
+                dst[off : off + sz] = arr[:, ci].astype(dt)
+                off += sz
+                del arr
+            dst.flush()
+            del dst
+        with open(os.path.join(tmp, "meta.json"), "w") as fh:
+            json.dump({"version": 2, "n_reads": n_reads, "rows": total}, fh)
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.rename(tmp, path)
 
     def __len__(self) -> int:
         return len(self.a_id)

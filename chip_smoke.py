@@ -1,5 +1,6 @@
 """Run canu_tpu_torch's overlap, correction, trimming and assembly paths,
-the dag consensus and the tools once on one NVIDIA GPU and check them.
+the dag consensus, the tools and the sharded path once on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
@@ -159,6 +160,38 @@ Phases (each prints its results; any failure exits non-zero):
               plain rows of all segments at once from those carries).
               tig-dump, tig-display and tig-coverage on 11b's tig store,
               and bogus on 11b's contigs, are printed, not gated
+  14 grid     the sharded path (canu_tpu_torch.parallel) on the bench read
+              set, nothing cut.  14a: a world of one rank over NCCL in
+              this process (init_distributed with a FileStore): the cor
+              gatekeeper, meryl and overlap stages with
+              shardedCompute=true; the hash-range meryl's all_to_all must
+              run on NCCL, K1 launch, no other kernel and no plain loop
+              run on the card, and the frequent table, candidates and
+              store equal cor_overlap_reference.json; the k=22 sharded
+              count must equal the single-device counter;
+              sharded_verify_candidates (K2, band 128) on every third
+              candidate gives the rows 14b holds, held bit for bit to the
+              same call with the plain loop in K2's place.  14b: two
+              ranks on this one card over gloo (NCCL refuses two ranks on
+              one card; one rank a card over NCCL on a machine of several),
+              each a process of its own, started after phase 2 built the
+              kernels, with jax and canu_tpu blocked as here:
+              correction_phase from phase 10's FASTA (gatekeeper on rank 0,
+              the hash-range meryl, the ring, a strided half of the verify
+              on each rank, the a_id-range exchange into store shards that
+              rank 0 merges, correction blocks strided over the ranks):
+              the cor frequent table, candidates and store equal the
+              reference, rank 0 corrects blocks 0, 2, 4, 6, 8 and rank 1
+              blocks 1, 3, 5, 7, blocks 0, 3, 6, 8 equal
+              correction_reference.json, every record <read>_corrN, K1
+              on each rank, no plain loop on the card; the cor stages again
+              under ovsShardExchange=allgather give the same store;
+              sharded_verify_candidates' rows on two ranks equal the
+              world of one's, K2 launched.  Each rank prints its stage
+              walls, the collectives (calls, bytes, seconds), the DP by
+              CUDA events, its launches and its device peak; the card's
+              memory in use is sampled by nvidia-smi meanwhile; the
+              ranks' logs are in chiprun_out/phase14_rank*.log
 
 Each kernel's bound is the larger of its operations over the card's
 32-bit integer rate and its bytes over the memory rate (INT32_OPS_S,
@@ -1879,6 +1912,437 @@ def tools_drive(dev, card: str, run_b: dict) -> dict:
             "k1_launches": sum(k1_steps.values()) + k1_11b, "phase_s": time.time() - t_phase}
 
 
+def capture_results(module, name: str):
+    """Wrap module.<name> so each call's result is kept in the returned
+    list; the caller restores the original afterwards."""
+    real = getattr(module, name)
+    seen: list = []
+
+    def wrapper(*args, **kw):
+        out = real(*args, **kw)
+        seen.append(out)
+        return out
+
+    setattr(module, name, wrapper)
+    return real, seen
+
+
+def stage_walls():
+    """Wrap stages.run_stage to time each stage this process runs (host
+    clock, barriers included): returns (real run_stage, {stage: seconds})."""
+    from canu_tpu_torch.pipeline import stages
+
+    real, walls = stages.run_stage, {}
+
+    def timed_stage(ctx, name, done, fn, **kw):
+        t = time.time()
+        try:
+            return real(ctx, name, done, fn, **kw)
+        finally:
+            walls[name] = walls.get(name, 0.0) + time.time() - t
+
+    stages.run_stage = timed_stage
+    return real, walls
+
+
+def collective_stats() -> dict:
+    """parallel.launch.STATS as {collective: {calls, bytes, s}}."""
+    from canu_tpu_torch.parallel import launch
+
+    return {k: {"calls": v[0], "bytes": v[1], "s": v[2]} for k, v in launch.STATS.items()}
+
+
+def grid_world_of_one(dev, card: str, fasta: str, ref: dict, work: str) -> dict:
+    """Phase 14a: a world of one rank over NCCL on this card
+    (parallel.launch.init_distributed with a FileStore), the cor
+    gatekeeper, meryl and overlap stages with shardedCompute=true, the
+    counts set to 0 just before and read just after: the hash-range
+    meryl's all_to_all on NCCL, the ring (one step), K1 in the verify and
+    no other kernel, no plain loop on the card; the frequent table,
+    candidates and store equal cor_overlap_reference.json.  Then the k=22
+    sharded count against the single-device counter, and one
+    sharded_verify_candidates (K2 at band 128) on every third candidate,
+    held bit for bit to the same call with the plain INF-walled loop in
+    K2's place (ops.align.banded_extend_plain on the card, on the same
+    inputs), whose rows 14b's ranks must give too (saved to
+    work/sample.npz)."""
+    import numpy as np
+    import torch
+
+    from canu_tpu_torch.config import Config
+    from canu_tpu_torch.ops import align as AL
+    from canu_tpu_torch.ops import kmer as KM
+    from canu_tpu_torch.parallel import launch
+    from canu_tpu_torch.parallel import shard_overlap as SO
+    from canu_tpu_torch.pipeline import stages
+    from canu_tpu_torch.pipeline.driver import make_ctx
+
+    t_phase = time.time()
+    got = launch.init_distributed("file://" + os.path.join(work, "store14a"), 1, 0, device=dev)
+    check(got == (0, 1) and launch.backend() == "nccl",
+          f"14a: the world of one did not join over NCCL: {got}, {launch.backend()}")
+    cfg = Config()
+    cfg.set("genomeSize", "300k")
+    cfg.set("shardedCompute", "true")
+    ctx = make_ctx(os.path.join(work, "one"), "bench", cfg)
+    real_ring, rings = capture_results(SO, "sharded_find_candidates")
+    real_stage, walls = stage_walls()
+    try:
+        reset_counts()
+        launch.STATS.clear()
+        t = time.time()
+        rs = stages.gatekeeper(ctx, "cor", [fasta])
+        fk = stages.meryl(ctx, "cor", rs, device=dev)
+        meryl_stats = collective_stats()
+        st = stages.overlap(ctx, "cor", rs, fk, device=dev)
+        torch.cuda.synchronize()
+        t_run = time.time() - t
+        counts = read_counts()
+        stats = collective_stats()
+    finally:
+        SO.sharded_find_candidates, stages.run_stage = real_ring, real_stage
+    prof = dict(AL.LAST_PROFILE)
+    log(f"[14a grid] {card}: a world of one over {launch.backend()}: gatekeeper + meryl + "
+        f"overlap (cor, shardedCompute=true) {t_run:.2f} s; stage walls "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+        + f"; launch counts {counts}; collectives {stats}")
+    check(meryl_stats.get("all_to_all", {}).get("calls", 0) >= 1,
+          "14a: the sharded meryl never ran its all_to_all on NCCL")
+    check(len(rings) == 1, "14a: the overlap stage never ran the ring")
+    check(counts["K1"] > 0, "14a: kernel K1 never launched during the stages")
+    check(counts["K2"] == counts["K3"] == 0, "14a: kernel K2 or K3 launched off its path")
+    check(counts["plain_myers_segments"] == 0 and counts["plain_extend_rows"] == 0,
+          "14a: a plain loop ran on the card during the stages")
+    fdig = frequent_digest(os.path.join(ctx.work_dir, "correction", "bench.ms16.frequent.npz"))
+    check_store("14a grid", st, prof, fdig, ref)
+    pairs = rings[0]
+
+    # the two-lane sharded count against the single-device counter
+    t = time.time()
+    kc22 = SO.sharded_count_readset(rs, k=22, device=dev)
+    t22 = time.time() - t
+    one = KM.count_readset_device(rs, k=22, device=dev).to_host()
+    order = np.argsort(one.unique, kind="stable")
+    check(np.array_equal(kc22.unique, one.unique[order])
+          and np.array_equal(kc22.counts, one.counts[order]),
+          "14a: the k=22 sharded count differs from the single-device counter")
+    log(f"[14a grid] sharded k=22 count: {len(kc22.unique)} distinct k-mers, {t22:.2f} s, "
+        "equal to the single-device counter")
+
+    # the INF-walled sharded verify in a world of one: the rows 14b holds
+    sample = np.ascontiguousarray(pairs[::3, :2])
+    reset_counts()
+    rows, verify_ms = once_ms(lambda: SO.sharded_verify_candidates(rs, sample, k=16, band=128,
+                                                                   device=dev))
+    k2 = read_counts()["K2"]
+    check(k2 > 0, "14a: sharded_verify_candidates never launched K2")
+    # the same call with the plain loop in K2's place (not counted)
+    real_extend, AL.banded_extend = AL.banded_extend, AL.banded_extend_plain
+    try:
+        plain, plain_ms = once_ms(lambda: SO.sharded_verify_candidates(rs, sample, k=16,
+                                                                       band=128, device=dev))
+    finally:
+        AL.banded_extend = real_extend
+    check(plain.shape == rows.shape == (len(sample), 13),
+          f"14a: sharded verify rows {rows.shape}, plain {plain.shape}")
+    k2_err = int(np.abs(rows.astype(np.int64) - plain.astype(np.int64)).max(initial=0))
+    check(k2_err == 0, f"14a: the sharded verify's rows on K2 differ from the plain loop's "
+          f"(max |diff| {k2_err})")
+    np.savez(os.path.join(work, "sample.npz"), pairs=sample, rows=rows, all_pairs=pairs)
+    log(f"[14a grid] sharded_verify_candidates on {len(sample)} of the {len(pairs)} "
+        f"candidates: {verify_ms:.1f} ms (CUDA events), K2 launches {k2}; the plain loop in "
+        f"its place {plain_ms:.1f} ms, rows equal (max |diff| {k2_err}, tolerance 0)")
+    launch.shutdown()
+    return {"run_s": t_run, "stage_walls_s": walls, "launches": counts, "collectives": stats,
+            "k22_distinct": len(kc22.unique), "k22_s": t22, "sample": len(sample),
+            "verify_ms": verify_ms, "verify_plain_ms": plain_ms, "k2_err": k2_err,
+            "k2_launches": k2, "phase_s": time.time() - t_phase}
+
+
+def grid_rank(rank: str, world: str, url: str, work: str, fasta: str, backend: str) -> int:
+    """Phase 14b, one rank (a process of its own, jax and canu_tpu blocked):
+    joins the world over ``backend`` on card rank % cards (cuda:0 for
+    every rank of a one-card machine), runs correction_phase from the FASTA
+    (Config() + genomeSize=300k) in work/range, then the cor meryl and
+    overlap stages under ovsShardExchange=allgather in work/allgather,
+    then sharded_verify_candidates on 14a's sample; writes what it saw to
+    work/rank<r>.json."""
+    import numpy as np
+    import torch
+
+    from canu_tpu_torch.config import Config
+    from canu_tpu_torch.ops import falcon as F
+    from canu_tpu_torch.ops import votepile as VP
+    from canu_tpu_torch.parallel import launch
+    from canu_tpu_torch.parallel import shard_overlap as SO
+    from canu_tpu_torch.pipeline import stages
+    from canu_tpu_torch.pipeline.driver import make_ctx
+    from canu_tpu_torch.stores.overlaps import OverlapStore, store_digest
+    from canu_tpu_torch.stores.readset import ReadSet
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_cases import corrected_digest
+
+    r, n = int(rank), int(world)
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // n))
+    dev = torch.device("cuda", r % torch.cuda.device_count())
+    t = time.time()
+    got = launch.init_distributed(url, n, r, backend=backend, device=dev)
+    check(got == (r, n), f"14b rank {r}: joined as {got}")
+    out: dict = {"rank": r, "join_s": time.time() - t}
+    log(f"[14b rank {r}] joined a world of {n} over {launch.backend()} on {dev} in "
+        f"{out['join_s']:.2f} s")
+
+    # correction_phase: blocks this rank corrected, the DP by CUDA events,
+    # the memory peak, the stage walls and the collectives
+    blocks: dict = {}
+    dp: list = []
+    real = {"blocks": F.correct_reads_blocks, "dp": VP.align_positions_lean,
+            "ring": SO.sharded_find_candidates}
+
+    def capture(*args, **kw):
+        for bi, items in real["blocks"](*args, **kw):
+            blocks[bi] = items
+            yield bi, items
+
+    def timed_dp(*args, **kw):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = real["dp"](*args, **kw)
+        e1.record()
+        dp.append((e0, e1))
+        return res
+
+    cfg = Config()
+    cfg.set("genomeSize", BENCH_GENOME)
+    ctx = make_ctx(os.path.join(work, "range"), "bench", cfg)
+    F.correct_reads_blocks, VP.align_positions_lean = capture, timed_dp
+    real_ring, rings = capture_results(SO, "sharded_find_candidates")
+    real_stage, walls = stage_walls()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        launch.STATS.clear()
+        t = time.time()
+        stages.correction_phase(ctx, [fasta], device=dev)
+        torch.cuda.synchronize()
+        out["correction_phase_s"] = time.time() - t
+        out["launches"] = read_counts()
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        out["collectives"] = collective_stats()
+    finally:
+        F.correct_reads_blocks, VP.align_positions_lean = real["blocks"], real["dp"]
+        SO.sharded_find_candidates, stages.run_stage = real["ring"], real_stage
+    out["stage_walls_s"] = walls
+    out["dp_s"] = sum(a.elapsed_time(b) for a, b in dp) / 1e3
+    out["blocks"] = {bi: {"reads": len(items), "bases": sum(len(s) for _, s in items),
+                          "sha256": corrected_digest(items)} for bi, items in blocks.items()}
+    d = os.path.join(ctx.work_dir, "correction")
+    st = OverlapStore.load(os.path.join(d, "bench.ovlStore"))
+    out["store"] = {"rows": len(st), "sha256": store_digest(st),
+                    "frequent_sha256": frequent_digest(os.path.join(d, "bench.ms16.frequent.npz"))}
+    sample = np.load(os.path.join(work, "sample.npz"))
+    check(len(rings) == 1 and np.array_equal(rings[0], sample["all_pairs"]),
+          f"14b rank {r}: the ring's candidates differ from the world of one's")
+    out["n_candidates"] = len(rings[0])
+    if r == 0:
+        from canu_tpu_torch.io.fastx import read_fastx
+
+        rs0 = ReadSet.load(os.path.join(d, "bench.gkpStore"))
+        names = {rs0.name(i) for i in range(1, rs0.n_reads + 1)}
+        recs = list(read_fastx(os.path.join(d, "bench.correctedReads.fasta.gz")))
+        out["corrected_reads"] = len(recs)
+        out["names_ok"] = all(x.name.rsplit("_corr", 1)[0] in names
+                              and x.name.rsplit("_corr", 1)[1].isdigit() for x in recs)
+    log(f"[14b rank {r}] correction_phase {out['correction_phase_s']:.2f} s; stage walls "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+        + f"; DP {out['dp_s']:.3f} s (CUDA events); blocks {sorted(blocks)}; launch counts "
+        f"{out['launches']}; device peak {out['peak_bytes'] / 1e9:.3f} GB "
+        f"(this process); collectives {out['collectives']}")
+
+    # the cor overlap stage again, every rank holding the whole table
+    rs = ReadSet.load(os.path.join(d, "bench.gkpStore"))
+    cfg2 = Config()
+    cfg2.set("genomeSize", BENCH_GENOME)
+    cfg2.set("ovsShardExchange", "allgather")
+    ctx2 = make_ctx(os.path.join(work, "allgather"), "bench", cfg2)
+    reset_counts()
+    t = time.time()
+    st2 = stages.overlap(ctx2, "cor", rs, stages.meryl(ctx2, "cor", rs, device=dev), device=dev)
+    torch.cuda.synchronize()
+    out["allgather"] = {"stage_s": time.time() - t, "launches": read_counts(), "rows": len(st2),
+                        "sha256": store_digest(st2)}
+    log(f"[14b rank {r}] meryl + overlap under ovsShardExchange=allgather "
+        f"{out['allgather']['stage_s']:.2f} s; launch counts {out['allgather']['launches']}")
+
+    # the INF-walled sharded verify on 14a's sample
+    reset_counts()
+    launch.barrier("verify")
+    rows, ms = once_ms(lambda: SO.sharded_verify_candidates(rs, sample["pairs"], k=16, band=128,
+                                                            device=dev))
+    out["verify"] = {"ms": ms, "launches": read_counts(),
+                     "equal": bool(np.array_equal(rows, sample["rows"]))}
+    log(f"[14b rank {r}] sharded_verify_candidates on {len(sample['pairs'])} pairs: "
+        f"{ms:.1f} ms (CUDA events, its half and the gather); launch counts "
+        f"{out['verify']['launches']}; rows equal to the world of one's: {out['verify']['equal']}")
+    launch.shutdown()
+    with open(os.path.join(work, f"rank{r}.json"), "w") as fh:
+        json.dump(out, fh, default=str)
+    return 0
+
+
+# a 14b rank: jax and the JAX package blocked, as main() blocks them
+GRID_RANK = ('import sys; sys.modules["jax"] = None; sys.modules["canu_tpu"] = None; '
+             'sys.path.insert(0, sys.argv[1]); import chip_smoke; '
+             'sys.exit(chip_smoke.grid_rank(*sys.argv[2:]))')
+
+
+def card_memory_used_mb():
+    """The memory in use on every card together (nvidia-smi), MB; None if
+    it cannot say."""
+    try:
+        q = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, timeout=10)
+        return sum(float(x) for x in q.stdout.split()) if q.returncode == 0 else None
+    except (OSError, ValueError, subprocess.TimeoutExpired):
+        return None
+
+
+def grid_drive(dev, card: str, correct: dict) -> dict:
+    """Phase 14: the sharded path (canu_tpu_torch.parallel).  14a: a world of
+    one rank over NCCL in this process (grid_world_of_one).  14b: one rank
+    a card over NCCL on a machine of several cards, else two ranks on the
+    one card over gloo (NCCL refuses two ranks on one card), each a process
+    of its own started after the kernels were built (grid_rank):
+    correction_phase from phase 10's FASTA, the gatekeeper
+    writer-only, the hash-range meryl, the ring, each rank verifying a
+    strided half of the candidates, the a_id-range exchange into store
+    shards merged by rank 0 (save_from_row_shards), the correction blocks
+    strided over the ranks.  Gates: the cor frequent table, candidates and
+    store equal cor_overlap_reference.json; rank r corrects blocks r,
+    r + n, ... (two ranks: 0, 2, 4, 6, 8 and 1, 3, 5, 7), blocks 0, 3, 6, 8 equal
+    correction_reference.json; every record <read>_corrN; K1 on each rank;
+    no plain loop on the card; the allgather exchange's store equal too;
+    sharded_verify_candidates' rows on both ranks equal the world of
+    one's, with K2 launched.  The cards' memory in use is sampled
+    (nvidia-smi) while the ranks run."""
+    import threading
+
+    import torch
+
+    with open(os.path.join(ROOT, "canu_tpu_torch", "cor_overlap_reference.json")) as fh:
+        ref = json.load(fh)
+    with open(os.path.join(ROOT, "canu_tpu_torch", "correction_reference.json")) as fh:
+        cref = json.load(fh)
+    t_phase = time.time()
+    cards = torch.cuda.device_count()
+    n, backend = (cards, "nccl") if cards > 1 else (2, "gloo")
+    work = tempfile.mkdtemp(prefix="chip_smoke_grid_")
+    one = grid_world_of_one(dev, card, correct["fasta"], ref, work)
+
+    url = "file://" + os.path.join(work, "store14b")
+    logs = [os.path.join(OUT_DIR, f"phase14_rank{r}.log") for r in range(n)]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    samples: list = []
+    stop = threading.Event()
+
+    def sample_memory():
+        while not stop.is_set():
+            samples.append(card_memory_used_mb())
+            stop.wait(1.0)
+
+    sampler = threading.Thread(target=sample_memory, daemon=True)
+    t = time.time()
+    files = [open(p, "w") for p in logs]
+    procs = [subprocess.Popen([sys.executable, "-c", GRID_RANK, ROOT, str(r), str(n), url, work,
+                               correct["fasta"], backend], stdout=files[r],
+                              stderr=subprocess.STDOUT, cwd=ROOT) for r in range(n)]
+    sampler.start()
+    rcs = []
+    try:
+        deadline = time.time() + 900
+        for p in procs:
+            try:
+                rcs.append(p.wait(timeout=max(1.0, deadline - time.time())))
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        stop.set()
+        sampler.join()
+        for f in files:
+            f.close()
+    wall = time.time() - t
+    for r, p in enumerate(logs):
+        with open(p) as fh:
+            for line in fh:
+                if line.startswith("[14b") or "FAILED" in line or "Error" in line:
+                    log(line.rstrip())
+    check(all(rc == 0 for rc in rcs), f"14b: a rank failed or timed out (exit codes {rcs}); "
+          f"its log is in chiprun_out/phase14_rank*.log")
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(work, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    mem = [s for s in samples if s is not None]
+    log(f"[14b grid] {card}: {n} ranks over {backend} on "
+        f"{min(n, torch.cuda.device_count())} card(s): {wall:.1f} s from the spawn to "
+        f"every rank's exit; correction_phase {[round(x['correction_phase_s'], 2) for x in ranks]} s "
+        f"(phase 10, one rank: {correct['run_s']:.2f} s); DP "
+        f"{[round(x['dp_s'], 3) for x in ranks]} s; per-process device peaks "
+        f"{[round(x['peak_bytes'] / 1e9, 3) for x in ranks]} GB; the cards' memory in use "
+        f"(nvidia-smi, {len(mem)} samples) peaked at {max(mem) if mem else 'not measured'} MB")
+
+    for x in ranks:
+        r = x["rank"]
+        c = x["launches"]
+        check(c["K1"] > 0, f"14b: kernel K1 never launched on rank {r}")
+        check(c["plain_myers_segments"] == 0 and c["plain_extend_rows"] == 0,
+              f"14b: a plain loop ran on the card on rank {r}")
+        c = x["allgather"]["launches"]
+        check(c["K1"] > 0 and c["plain_myers_segments"] == 0 and c["plain_extend_rows"] == 0,
+              f"14b: rank {r}'s allgather stage missed K1 or ran a plain loop")
+        check(x["store"]["sha256"] == ref["store_sha256"] and x["store"]["rows"] == ref["rows"],
+              f"14b: the range exchange's cor store differs from the JAX package's (rank {r})")
+        check(x["store"]["frequent_sha256"] == ref["frequent_sha256"],
+              "14b: the frequent-mer table differs from the JAX package's")
+        check(x["n_candidates"] == ref["n_candidates"], "14b: the candidate count differs")
+        check(x["allgather"]["sha256"] == ref["store_sha256"],
+              f"14b: the allgather exchange's store differs from the JAX package's (rank {r})")
+        v = x["verify"]
+        check(v["equal"] and v["launches"]["K2"] > 0 and v["launches"]["plain_extend_rows"] == 0,
+              f"14b: sharded_verify_candidates on rank {r} differs from the world of one's "
+              "or missed K2")
+        check(sorted(int(b) for b in x["blocks"]) == list(range(r, cref["n_blocks"], n)),
+              f"14b: rank {r} corrected blocks {sorted(x['blocks'])}")
+    blocks = {int(b): v for x in ranks for b, v in x["blocks"].items()}
+    for rb in cref["blocks"]:
+        got = blocks[rb["index"]]
+        log(f"[14b grid] block {rb['index']} (rank {rb['index'] % n}): {got['reads']} reads, "
+            f"{got['bases']} bases, sha256 {got['sha256']} (reference {rb['sha256']})")
+        check(got["sha256"] == rb["sha256"], f"14b: block {rb['index']}'s corrected reads differ "
+              "from the JAX package's")
+    check(ranks[0]["names_ok"] and ranks[0]["corrected_reads"]
+          == sum(v["reads"] for v in blocks.values()),
+          "14b: the corrected FASTA misses reads or a record is not <read>_corrN")
+    log(f"[14b grid] the cor store (range and allgather exchanges), the frequent table and "
+        f"{ref['n_candidates']} candidates equal the JAX package's; blocks "
+        f"{[b['index'] for b in cref['blocks']]} equal; {ranks[0]['corrected_reads']} corrected "
+        f"reads; K1 launches {[x['launches']['K1'] for x in ranks]}")
+    log(f"[14 grid] phase wall {time.time() - t_phase:.1f} s")
+    return {"a": one, "b": ranks, "n": n, "backend": backend, "b_wall_s": wall,
+            "card_memory_mb": mem,
+            "k1_launches": one["launches"]["K1"] + sum(
+                x["launches"]["K1"] + x["allgather"]["launches"]["K1"] for x in ranks),
+            "k2_launches": one["k2_launches"] + sum(x["verify"]["launches"]["K2"]
+                                                    for x in ranks),
+            "phase_s": time.time() - t_phase}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "canu_tpu_torch")):
         print("chip_smoke: canu_tpu_torch/ is not beside this script; run it from a "
@@ -2160,6 +2624,9 @@ def main() -> int:
     # ---- 13: the tools CLI ---------------------------------------------------
     record["tools"] = tools = tools_drive(dev, card, assemble["b"])
 
+    # ---- 14: the sharded path: a world of one over NCCL, two ranks over gloo
+    record["grid"] = grid = grid_drive(dev, card, correct)
+
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(record, fh, indent=1, default=str)
@@ -2176,13 +2643,14 @@ def main() -> int:
          "launches": launches + drives["obt"]["launches"]["K1"] + ecoli["launches"]["K1"]
          + correct["launches"]["K1"] + assemble["a"]["launches"]["K1"]
          + assemble["b"]["launches"]["K1"] + record["dag"]["polish"]["launches"]["K1"]
-         + tools["k1_launches"],
+         + tools["k1_launches"] + grid["k1_launches"],
          "max_abs_err": max(err, tools["k1_err"]),
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bd1["bound_ms"],
          "bound_by": bd1["bound_by"], "library_ms": None},
         {"name": "extend_warp (K2)", "route": "cuda", "source": src,
          "replaces": "canu_tpu/ops/pallas/extend_x8.py:72",
-         "launches": drives["utg256"]["launches"]["K2"], "max_abs_err": err_ext,
+         "launches": drives["utg256"]["launches"]["K2"] + grid["k2_launches"],
+         "max_abs_err": max(err_ext, grid["a"]["k2_err"]),
          "ms": k2["first_ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2b["bound_ms"], "bound_by": k2b["bound_by"], "library_ms": None},
         {"name": "extend_block (K3)", "route": "cuda", "source": src,

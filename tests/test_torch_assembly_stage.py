@@ -8,8 +8,7 @@ OEA and the polish are held in tests/test_torch_oea_polish.py) must write
 the same files byte for byte: the trimmed reads, the utg store, the
 unitig and contig layouts, the contigs, unitigs and unassembled FASTA,
 layout.tsv and the GFA.  Then: a second run resumes with every stage
-skipped; useGrid=true raises before any stage runs;
-no card means an error, not the CPU; a CUDA out-of-memory attempt drops
+skipped; no card means an error, not the CPU; a CUDA out-of-memory attempt drops
 the read indexes cached on read sets; the CLI prints the registry and
 exits 2 without genomeSize.  The same parity with OEA and the plurality
 polish on, and a raw-reads parity, run in the slow lane."""
@@ -109,14 +108,6 @@ def test_resume_skips_every_stage(runs):
     _run("torch", Path(dirs["torch"]), GENOME, QUICK,
          trimmed_reads=[os.path.join(dirs["torch"], OUTPUTS[0])])
     assert Path(times).read_text() == before
-
-
-@pytest.mark.parametrize("key,value,item", [("useGrid", "true", "item 13")])
-def test_unported_configurations_raise_before_any_stage(runs, tmp_path, key, value, item):
-    (_, fa) = runs
-    with pytest.raises(NotImplementedError, match=item):
-        _run("torch", tmp_path / "w", GENOME, {**QUICK, key: value}, corrected_reads=[fa])
-    assert not (tmp_path / "w" / "asm.stage-times.jsonl").exists()
 
 
 def test_entry_points_need_a_card_unless_given_the_cpu(runs, tmp_path):

@@ -1,6 +1,7 @@
 """canu_tpu_torch stands alone: a machine with the port and neither jax nor
-the JAX package must be able to run its stages (the cor, utg band-256 and
-obt join + spill + host-count routes, the correction phase from a FASTA,
+the JAX package must be able to run its stages (the cor route, alone and
+sharded in a gloo world of one, the utg band-256 and obt join + spill +
+host-count routes, the correction phase from a FASTA,
 with the falcon and the dag consensus, trimming + assembly from corrected
 reads through run_pipeline, and the tools' kmer-count and bogus), and
 running them where jax is installed must not load it."""
@@ -36,6 +37,21 @@ ctx = make_ctx(tempfile.mkdtemp(), "t", cfg)
 fk = stages.meryl(ctx, "cor", rs, device="cpu")
 st = stages.overlap(ctx, "cor", rs, fk, device="cpu")
 assert len(st) > 0, "empty store"
+# the sharded path in a gloo world of one: the hash-range meryl, the ring
+# and the store equal the single-process stages'
+from canu_tpu_torch.parallel import launch
+from canu_tpu_torch.stores.overlaps import store_digest
+work_sh = tempfile.mkdtemp()
+assert launch.init_distributed("file://" + os.path.join(work_sh, "store"), 1, 0,
+                               device="cpu") == (0, 1)
+cfg.set("shardedCompute", "true")
+ctx_sh = make_ctx(work_sh, "t", cfg)
+st_sh = stages.overlap(ctx_sh, "cor", rs, stages.meryl(ctx_sh, "cor", rs, device="cpu"),
+                       device="cpu")
+assert store_digest(st_sh) == store_digest(st), "sharded store differs"
+assert launch.STATS["all_to_all"][0] == 1 and launch.backend() == "gloo", launch.STATS
+launch.shutdown()
+cfg.set("shardedCompute", "auto")
 # the corrected-read path: two-lane k=22 meryl, the INF-walled engine at band 256
 rs2, _ = simulate_reads(g, coverage=8, mean_len=800, min_len=600, max_len=1000,
                         error_rate=0.03, seed=3)
@@ -134,6 +150,7 @@ from canu_tpu_torch.stores import tigs
 from canu_tpu_torch.ops.kernels import _nvcc, extend_cuda, myers_cuda
 from canu_tpu_torch.utils import intervals, quality
 from canu_tpu_torch.stores import overlaps
+from canu_tpu_torch.parallel import launch, mesh, shard_overlap, storesort
 import canu_tpu_torch.convert, canu_tpu_torch.native
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not loaded, loaded
@@ -200,13 +217,17 @@ def test_make_ctx_and_meryl_leave_jax_unloaded(tmp_path):
 
 def _port_sources() -> list[Path]:
     files = sorted((ROOT / "canu_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_cases.py"]
+    return files + [ROOT / "chip_smoke.py"] + [
+        ROOT / "tests" / f for f in ("torch_cases.py", "torch_parallel_worker.py",
+                                     "torch_mp_worker.py")]
 
 
 def test_package_source_has_no_jax_import():
     pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
     files = _port_sources()
     assert len(files) > 10
+    assert {"launch.py", "mesh.py", "shard_overlap.py", "storesort.py"} <= {
+        p.name for p in files if p.parent.name == "parallel"}
     bad = [str(p) for p in files if pat.search(p.read_text())]
     assert not bad, bad
 
