@@ -11,7 +11,12 @@ every template row with no traceback.
 
 The recurrence, band geometry, uint8 normalization of the forward rows
 and tie-breaks are canu_tpu's, value for value (int32 throughout, as JAX
-runs with x64 off).  What differs is how the rows run as PyTorch ops:
+runs with x64 off).  ``align_positions_lean`` runs the DP on CUDA tensors
+as kernel K4 (csrc/vote_dp.cu, one launch a chunk: the forward pass, the
+backward pass and the combine) and elsewhere as the plain version
+``align_positions_lean_plain``; both share the band starts before the DP
+and the positions and edits after it.  What differs in the plain version
+is how the rows run as PyTorch ops:
 
   * everything that does not depend on the previous row (the evidence
     windows, the substitution costs, the row and lane masks, the
@@ -37,6 +42,9 @@ SMAX = 4
 SROW = 32
 BAD = INF16 * 4  # a combine total outside the band or past either end
 
+# plain DP calls on CUDA tensors; the pipeline must leave it 0
+PLAIN_CUDA_CALLS = 0
+
 
 def _band_starts(centers: torch.Tensor, b_len: torch.Tensor, band: int) -> torch.Tensor:
     """Band start per row: centred on ``centers``, clamped to [0, b_len],
@@ -56,6 +64,39 @@ def _shift_lanes_left(x: torch.Tensor, d: torch.Tensor, fill: int) -> torch.Tens
     return torch.where(idx < W, got, fill)
 
 
+def _anchors(t_len: torch.Tensor, e_len: torch.Tensor, band: int, n_rows: int) -> torch.Tensor:
+    """int32[B, n_rows // SROW]: the band start a_p of row p * SROW, the
+    anchor of super-row p (band centred on the diagonal i * e_len / t_len)."""
+    ri = torch.arange(n_rows + 1, dtype=torch.int32, device=t_len.device)
+    tl = torch.clamp(t_len, min=1)[:, None]
+    centers = torch.minimum((ri[None, :] * e_len[:, None] + tl // 2) // tl, e_len[:, None])
+    o_all = _band_starts(centers, e_len, band)  # [B, n_rows+1]
+    return o_all[:, ::SROW][:, : n_rows // SROW].contiguous()
+
+
+def _positions(K: torch.Tensor, A: torch.Tensor, t_len: torch.Tensor, e_len: torch.Tensor,
+               n_rows: int, Ww: int):
+    """(j_star int32[B, n_rows+1], edits int32[B]) from K int32[B, n_rows+1],
+    each row's least combine key tot * Ww + x: x* is the lane in the frame
+    of the row's super-row, the least total at row t_len the edits (BAD
+    when t_len is not a row)."""
+    K = torch.clamp(K, max=BAD * Ww)
+    x_star = K % Ww
+    row_min = K // Ww
+    ri = torch.arange(n_rows + 1, dtype=torch.int32, device=K.device)
+    fidx = (torch.clamp(ri - 1, min=0) // SROW).to(torch.int64)  # frame of row i
+    el = e_len[:, None]
+    j_star = (A[:, fidx] + x_star).to(torch.int32)  # [B, n_rows+1]
+    live = ri[None, :] <= t_len[:, None]
+    j_star = torch.where(live, j_star, el)
+    j_star = torch.cummax(j_star, dim=1).values
+    j_star = torch.minimum(torch.clamp(j_star, min=0), el)
+    in_rows = (t_len >= 0) & (t_len <= n_rows)
+    at_end = torch.gather(row_min, 1, torch.clamp(t_len, 0, n_rows).to(torch.int64)[:, None])
+    edits = torch.where(in_rows, at_end[:, 0], BAD).to(torch.int32)
+    return j_star, edits
+
+
 def align_positions_lean(
     t: torch.Tensor,  # uint8[B, >=n_rows] template chars (row 0 = first char)
     t_len: torch.Tensor,  # int32[B]
@@ -72,9 +113,39 @@ def align_positions_lean(
     super-rows of SROW rows anchored at the band start of their first
     row; row i (i >= 1) lies in the frame of super-row (i - 1) // SROW.
 
+    On CUDA tensors the DP is one launch of kernel K4
+    (ops/kernels/trace_cuda.py), which raises on what it does not take;
+    on any other device it is align_positions_lean_plain.
+
     Returns (j_star int32[B, n_rows+1], edits int32[B]).  Requires
     band <= 256 and n_rows % SROW == 0.
     """
+    if not t.is_cuda:
+        return align_positions_lean_plain(t, t_len, e, e_len, band, n_rows, ends_free)
+    from .kernels import trace_cuda
+
+    t_len = t_len.to(torch.int32).contiguous()
+    e_len = e_len.to(torch.int32).contiguous()
+    A = _anchors(t_len, e_len, band, n_rows)
+    K = trace_cuda.vote_dp_keys(t.contiguous(), t_len, e.contiguous(), e_len, A, band, n_rows,
+                                ends_free)
+    return _positions(K, A, t_len, e_len, n_rows, band + SMAX * SROW)
+
+
+def align_positions_lean_plain(
+    t: torch.Tensor,
+    t_len: torch.Tensor,
+    e: torch.Tensor,
+    e_len: torch.Tensor,
+    band: int,
+    n_rows: int,
+    ends_free: bool = False,
+):
+    """align_positions_lean as PyTorch ops, 7 a forward row and 13 a
+    backward one: the CPU's DP, and the reference kernel K4 is held to."""
+    global PLAIN_CUDA_CALLS
+    if t.is_cuda:
+        PLAIN_CUDA_CALLS += 1
     assert band <= 256, "uint8 row normalization requires band <= 256"
     assert n_rows % SROW == 0, "n_rows must be a multiple of SROW"
     dev = t.device
@@ -88,10 +159,7 @@ def align_positions_lean(
     x = torch.arange(Ww, dtype=i32, device=dev)
     xr = torch.flip(x, (0,))  # lane y of a reversed row holds lane Ww - 1 - y
     ri = torch.arange(n_rows + 1, dtype=i32, device=dev)
-    tl = torch.clamp(t_len, min=1)[:, None]
-    centers = torch.minimum((ri[None, :] * e_len[:, None] + tl // 2) // tl, e_len[:, None])
-    o_all = _band_starts(centers, e_len, band)  # [B, n_rows+1]
-    A = o_all[:, ::R][:, :Q].contiguous()  # anchors a_p = o_all[:, p*R]
+    A = _anchors(t_len, e_len, band, n_rows)  # a_p, the band start of row p*R
     el = e_len[:, None]
 
     # every super-row's evidence window, lane k = e[a_p - 1 + k] (0 past
@@ -214,17 +282,4 @@ def align_positions_lean(
         g_row(dg_x[0], keep[0], alt[0])
         combine(lo, fk[0])
 
-    # ---- positions and edits from the per-row keys ----
-    K = torch.clamp(K, max=BADK)
-    x_star = K % Ww
-    row_min = K // Ww
-    fidx = (torch.clamp(ri - 1, min=0) // R).to(torch.int64)  # frame of row i
-    j_star = (A[:, fidx] + x_star.T).to(i32)  # [B, n_rows+1]
-    live = ri[None, :] <= t_len[:, None]
-    j_star = torch.where(live, j_star, el)
-    j_star = torch.cummax(j_star, dim=1).values
-    j_star = torch.minimum(torch.clamp(j_star, min=0), el)
-    in_rows = (t_len >= 0) & (t_len <= n_rows)
-    at_end = torch.gather(row_min.T, 1, torch.clamp(t_len, 0, n_rows).to(torch.int64)[:, None])
-    edits = torch.where(in_rows, at_end[:, 0], BAD).to(i32)
-    return j_star, edits
+    return _positions(K.T, A, t_len, e_len, n_rows, Ww)

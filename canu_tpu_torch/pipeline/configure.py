@@ -48,7 +48,12 @@ def configure_resources(cfg, log=None) -> Resources:
     if threads > 0:
         decisions["sortThreads"] = threads
     # the vote engine's DP state is its peak ([n_rows, B, window] bytes,
-    # window = band + SMAX*SROW): keep it under ~1/6 of the card.  Votes
+    # window = band + SMAX*SROW): keep it under ~1/6 of the card.  On the
+    # card, kernel K4's scratch is (row lanes + 8) bytes a cell
+    # (ops/kernels/trace_cuda.py scratch_bytes: the uint8 forward rows, 384
+    # lanes at band 256, and their int32 minima and keys), 2% above the
+    # 384 counted here; votepile.chunk_jobs caps a chunk at 256 jobs, so at
+    # 2,048 rows it takes 201.4 + 4.2 MB whatever the budget.  Votes
     # are exact float32 sums, so the chunk size changes no corrected base
     card = int(torch.cuda.mem_get_info()[1]) if torch.cuda.is_available() else 0
     if card > 0:

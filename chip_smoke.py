@@ -6,16 +6,19 @@ and check them.
 
 Phases (each prints its results; any failure exits non-zero):
   1 device    require CUDA; print the card's name and power limit
-  2 build     compile kernels K1 (csrc/myers_tile.cu) and K2/K3
-              (csrc/banded_extend.cu) from this checkout, one nvcc each,
-              in parallel
+  2 build     compile kernels K1 (csrc/myers_tile.cu), K2/K3
+              (csrc/banded_extend.cu) and K4 (csrc/vote_dp.cu) from this
+              checkout, one nvcc each, in parallel
   3 kernel    each kernel against its plain PyTorch loop on the card, bit
               for bit: (a) K1's six outputs on edge cases (every window
               edge of its A, B and shift streams), (b) K1 on 256 real
               extensions sampled from the first verify group of phase 4,
               (c) K2 and K3's three outputs on edge cases at bands 128,
               256 (K2), 640 and 1024 (K3) and on 256 real extensions
-              sampled from the first call of each utg drive of phase 7
+              sampled from the first call of each utg drive of phase 7,
+              (d) K4's j* and edits against the plain DP on
+              tests/torch_cases.py trace_cases at bands 128, 200 and 256,
+              ends_free both ways, 256 rows
   4 slice     meryl + overlap ("cor") stages on the bench.py read set
               (1,025 reads, 3.64 Mb) in a temporary directory; K1 must
               have launched and the plain loop must not have run on the
@@ -76,8 +79,9 @@ Phases (each prints its results; any failure exits non-zero):
   10 correct  correction_phase (gatekeeper, meryl, overlap "cor", the
               falcon-sense vote engine) from a FASTA of the raw bench
               reads, Config() + genomeSize=300k, in a directory of its own:
-              K1 must have launched and no other kernel or plain loop run
-              on the card; the gatekeeper store's reads and bases, the cor
+              K1 must have launched, K4 once per call of the vote engine's
+              DP, and no other kernel, plain loop or plain DP run on the
+              card; the gatekeeper store's reads and bases, the cor
               store (cor_overlap_reference.json) and the corrected reads of
               every block that correction_reference.json covers (by
               digest) must equal the JAX package's; every corrected record
@@ -86,9 +90,9 @@ Phases (each prints its results; any failure exits non-zero):
               decode), chunks and jobs, one chunk's launches and device
               busy share (torch.profiler; table in
               chiprun_out/profile_correct.txt) and the device memory peak
-              over the correction.  The vote engine is PyTorch ops (the
-              JAX package's is XLA, with no Pallas kernel): no kernel of
-              its own, so no line in the kernel record
+              over the correction.  The vote engine's DP is kernel K4 (the
+              JAX package's is a jitted XLA program, with no Pallas
+              kernel); its windows and fold are PyTorch ops
   11 assemble run_pipeline from a FASTA of simulated corrected reads (the
               bench shapes at 1.5% error), Config() + genomeSize, twice,
               each in a directory of its own with the counts set to 0
@@ -98,8 +102,9 @@ Phases (each prints its results; any failure exits non-zero):
               plurality polish, outputs: FASTA, layout.tsv, GFA with
               links re-aligned, HTML).  K1 must have launched in the obt
               overlap, the utg overlap, the OEA adjust and, where the GFA
-              keeps a link, align_links; no other kernel and no plain loop
-              on the card.  11a: random_genome(100 kb, seed=71) with three
+              keeps a link, align_links; K4 once per DP call of RED and the
+              polish; no other kernel, plain loop or plain DP on the card.
+              11a: random_genome(100 kb, seed=71) with three
               copies of a 9 kb repeat (cut from the bench's 300 kb so the
               JAX package's CPU reference finishes); the trimmed reads,
               utg store, RED corrections, adjusted erates, unitig and
@@ -126,7 +131,7 @@ Phases (each prints its results; any failure exits non-zero):
               stage by resume and exit 0, and -options must list
               genomeSize
   12 dag      the tag-chain consensus (ops/dagcon.py: the paths on the
-              vote engine's DP, PyTorch ops; the chain DP host numpy).
+              vote engine's DP, K4; the chain DP host numpy).
               12a: correction_phase with corConsensus=dag on a copy of
               phase 10's directory without its corrected reads (the
               gatekeeper, meryl and cor overlap stages resume), every
@@ -137,11 +142,18 @@ Phases (each prints its results; any failure exits non-zero):
               products: only those two stages may run, and the layouts,
               the contigs/unassembled/unitigs FASTA, layout.tsv and the
               GFA must equal the JAX package's run of 11a with
-              cnsConsensus=dag (scripts/torch_dag_reference.py).  No
-              kernel and no plain loop on the card, but K1 in 12b's
-              align_links.  Prints the walls, the path chunks, the DP by
-              CUDA events, the host time of the tag chains and the device
-              memory peak
+              cnsConsensus=dag (scripts/torch_dag_reference.py).  K4 once
+              per path chunk, K1 in 12b's align_links and no other kernel,
+              plain loop or plain DP on the card.  Prints the walls, the
+              path chunks, the DP by CUDA events, the host time of the tag
+              chains and the device memory peak
+  12c vote_dp K4 held bit for bit (j* and edits) to the plain DP on the
+              card on DP calls the main path made: the first three chunks
+              of phase 10 (falcon, band 256, 2,048 rows), the first of
+              11a's RED and of its polish, the first path chunk of 12b
+              (ends_free=True); K4 on phase 10's first chunk by CUDA
+              events (mean of 10) beside the whole DP call, the plain
+              version's one run and its bound (vdp_bound)
   13 tools    canu_tpu_torch.tools.main in this process on the scripted
               session of tests/torch_cases.py tools_session (simulate at
               the bench shapes, analyze, sample, kmer-count at k=16 and
@@ -171,7 +183,8 @@ Phases (each prints its results; any failure exits non-zero):
               count must equal the single-device counter;
               sharded_verify_candidates (K2, band 128) on every third
               candidate gives the rows 14b holds, held bit for bit to the
-              same call with the plain loop in K2's place.  14b: two
+              same call with the plain loop in K2's place; K2 alone on
+              each of its launches beside extend_bound.  14b: two
               ranks on this one card over gloo (NCCL refuses two ranks on
               one card; one rank a card over NCCL on a machine of several),
               each a process of its own, started after phase 2 built the
@@ -184,7 +197,8 @@ Phases (each prints its results; any failure exits non-zero):
               reference, rank 0 corrects blocks 0, 2, 4, 6, 8 and rank 1
               blocks 1, 3, 5, 7, blocks 0, 3, 6, 8 equal
               correction_reference.json, every record <read>_corrN, K1
-              on each rank, no plain loop on the card; the cor stages again
+              on each rank and K4 once per DP call, no plain loop or plain
+              DP on the card; the cor stages again
               under ovsShardExchange=allgather give the same store;
               sharded_verify_candidates' rows on two ranks equal the
               world of one's, K2 launched.  Each rank prints its stage
@@ -196,11 +210,12 @@ Phases (each prints its results; any failure exits non-zero):
 Each kernel's bound is the larger of its operations over the card's
 32-bit integer rate and its bytes over the memory rate (INT32_OPS_S,
 HBM_BYTES_S).  The operations are the least the function needs on this
-run's data (K1_*_OPS, INF_*_OPS; k1_work and extend_bound count the live
-rows, shifted rows, rows with b_len in the window and band cells up to
-b_len; for K2 and K3 the rows up to each extension's exit row, after
-which its outputs are fixed, and the kernels line gives their bound
-under that count).  The bytes are each input the kernel needs read once
+run's data (K1_*_OPS, INF_*_OPS, VDP_*_OPS; k1_work and extend_bound
+count the live rows, shifted rows, rows with b_len in the window and band
+cells up to b_len; for K2 and K3 the rows up to each extension's exit
+row, after which its outputs are fixed, and the kernels line gives their
+bound under that count; vdp_bound the window cells at j <= e_len of the
+rows up to t_len, both passes).  The bytes are each input the kernel needs read once
 and each output written once.  The plain loops' own per-row counts
 (plain_row_ops) are printed beside, as a second figure.
 
@@ -260,6 +275,17 @@ INF_CELL_OPS = 4  # each band cell up to b_len of a live row: mismatch 1,
 #   min(left + 1, m) 1 add-min
 INF_ROW_OPS = 8  # each live row: its shift 1, b_len-in-band test 2,
 #   capture compare 1 and 3 moves, the a_len test 1
+# K4 (the vote engine's DP, ops.trace.align_positions_lean_plain's rows),
+# each window cell at j <= e_len of a live row (rows 0..t_len):
+VDP_FWD_CELL_OPS = 13  # forward: mismatch 1, the diagonal's cost select
+#   1, up + 1 - x and diagonal + cost - x 2, their min 1, the closure min 1,
+#   + x 1, the INF16 cap 1, the row mask 1; the row minimum 1, and the uint8
+#   normalization's subtract 1, clamp 1, INF16 select 1
+VDP_BWD_CELL_OPS = 19  # backward: mismatch 1, cost select 1, the two adds
+#   2, their min 1, the INF16 cap 1, the closure min 1, - x 1, the cap 1, the
+#   keep or boundary select 1; the combine: F's key (the 255 test 1, Fm + Fu
+#   1, * Ww + x 1 multiply-add, the BAD select 1), G's key (test 1, * Ww 1,
+#   select 1), their sum 1, the row's min 1
 
 
 def log(msg: str) -> None:
@@ -568,6 +594,71 @@ def extend_bound(args, band: int, n_rows: int, exit_rows=None) -> dict:
             "live_rows": int(live.sum()), "cells": cells}
 
 
+def keep_call(args, kw):
+    """A call's (args, kwargs) with its tensors copied, kept for a later
+    comparison."""
+    import torch
+
+    return (tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args), dict(kw))
+
+
+def dp_inputs(call):
+    """A captured ops.trace.align_positions_lean call as (t, t_len, e,
+    e_len, band, n_rows, ends_free), as the dispatcher hands them to K4."""
+    import torch
+
+    (t, t_len, e, e_len, band, n_rows), kw = call
+    return (t.contiguous(), t_len.to(torch.int32).contiguous(), e.contiguous(),
+            e_len.to(torch.int32).contiguous(), band, n_rows, bool(kw.get("ends_free", False)))
+
+
+def vdp_bound(call) -> dict:
+    """K4's bound on one DP call: VDP_FWD_CELL_OPS + VDP_BWD_CELL_OPS a
+    window cell at j <= e_len of a live row (rows 0..min(t_len, n_rows));
+    bytes = each live row's forward row (Ww bytes and its int32 minimum)
+    written and read back, the template characters of the live rows, the
+    evidence up to e_len, t_len and e_len, j* and the edits."""
+    import torch
+
+    from canu_tpu_torch.ops import trace as TT
+
+    t, t_len, e, e_len, band, n_rows, _ = dp_inputs(call)
+    B = t.shape[0]
+    Ww = band + TT.SMAX * TT.SROW
+    A = TT._anchors(t_len, e_len, band, n_rows).to(torch.int64)
+    ri = torch.arange(n_rows + 1, device=t.device)
+    frame = torch.clamp(ri - 1, min=0) // TT.SROW
+    tl = torch.clamp(t_len.to(torch.int64), 0, n_rows)
+    el = e_len.to(torch.int64)
+    live = ri[None] <= tl[:, None]
+    cells = int((torch.clamp(el[:, None] - A[:, frame] + 1, 0, Ww) * live).sum())
+    n_live = int(live.sum())
+    nbytes = (2 * n_live * (Ww + 4) + int(tl.sum()) + int(torch.clamp(el, 0, e.shape[1]).sum())
+              + 8 * B + 4 * B * (n_rows + 2))
+    return {**bound((VDP_FWD_CELL_OPS + VDP_BWD_CELL_OPS) * cells, nbytes),
+            "live_rows": n_live, "cells": cells}
+
+
+def held_dp(name: str, call):
+    """A DP call through ops.trace.align_positions_lean (K4 on the card)
+    and the plain version on the same inputs, j* and edits bit for bit:
+    (max |diff| (0), the plain version's ms by CUDA events)."""
+    from canu_tpu_torch.ops import trace as TT
+
+    args, kw = call
+    got = TT.align_positions_lean(*args, **kw)
+    ref, plain_ms = once_ms(lambda: TT.align_positions_lean_plain(*args, **kw))
+    err = 0
+    for field, r, g in zip(("j_star", "edits"), ref, got):
+        check(r.shape == g.shape and r.dtype == g.dtype,
+              f"{name}: K4's {field} is {g.dtype}{tuple(g.shape)}, the plain DP's "
+              f"{r.dtype}{tuple(r.shape)}")
+        d = int((r.long() - g.long()).abs().max()) if r.numel() else 0
+        check(d == 0, f"{name}: K4 and the plain DP differ in {field} (max |diff| {d})")
+        err = max(err, d)
+    return err, plain_ms
+
+
 def capture_calls(module, name: str, first_only: bool = False):
     """Wrap module.<name> so each call's (args, kwargs) (or the first
     call's) are kept in the returned list; the caller restores the
@@ -639,18 +730,21 @@ def profiled(busy: dict, tables: list):
 
 
 def reset_counts() -> None:
-    """Set every kernel's launch count, the plain loops' CUDA counts and the
-    calls of the host k-mer counter, the hash-join and the spill build to 0."""
+    """Set every kernel's launch count, the plain loops' and the plain DP's
+    CUDA counts and the calls of the host k-mer counter, the hash-join and
+    the spill build to 0."""
     from canu_tpu_torch.ops import align as AL
     from canu_tpu_torch.ops import kmer as KM
     from canu_tpu_torch.ops import minhash as MH
     from canu_tpu_torch.ops import myers as MY
+    from canu_tpu_torch.ops import trace as TT
     from canu_tpu_torch.ops.kernels import extend_cuda as EX
     from canu_tpu_torch.ops.kernels import myers_cuda as K1
+    from canu_tpu_torch.ops.kernels import trace_cuda as K4
     from canu_tpu_torch.stores import overlaps as OV
 
-    K1.LAUNCHES = EX.WARP_LAUNCHES = EX.BLOCK_LAUNCHES = 0
-    MY.PLAIN_CUDA_SEGMENTS = AL.PLAIN_CUDA_ROWS = 0
+    K1.LAUNCHES = EX.WARP_LAUNCHES = EX.BLOCK_LAUNCHES = K4.LAUNCHES = 0
+    MY.PLAIN_CUDA_SEGMENTS = AL.PLAIN_CUDA_ROWS = TT.PLAIN_CUDA_CALLS = 0
     KM.HOST_COUNTS = MH.JOIN_CALLS = OV.SPILL_BUILDS = 0
 
 
@@ -659,14 +753,30 @@ def read_counts() -> dict:
     from canu_tpu_torch.ops import kmer as KM
     from canu_tpu_torch.ops import minhash as MH
     from canu_tpu_torch.ops import myers as MY
+    from canu_tpu_torch.ops import trace as TT
     from canu_tpu_torch.ops.kernels import extend_cuda as EX
     from canu_tpu_torch.ops.kernels import myers_cuda as K1
+    from canu_tpu_torch.ops.kernels import trace_cuda as K4
     from canu_tpu_torch.stores import overlaps as OV
 
     return {"K1": K1.LAUNCHES, "K2": EX.WARP_LAUNCHES, "K3": EX.BLOCK_LAUNCHES,
-            "plain_myers_segments": MY.PLAIN_CUDA_SEGMENTS,
-            "plain_extend_rows": AL.PLAIN_CUDA_ROWS, "host_kmer_counts": KM.HOST_COUNTS,
-            "join_calls": MH.JOIN_CALLS, "spill_builds": OV.SPILL_BUILDS}
+            "K4": K4.LAUNCHES, "plain_myers_segments": MY.PLAIN_CUDA_SEGMENTS,
+            "plain_extend_rows": AL.PLAIN_CUDA_ROWS, "plain_dp": TT.PLAIN_CUDA_CALLS,
+            "host_kmer_counts": KM.HOST_COUNTS, "join_calls": MH.JOIN_CALLS,
+            "spill_builds": OV.SPILL_BUILDS}
+
+
+def no_plain(counts: dict) -> bool:
+    """No plain loop (Myers segment, INF-walled row) and no plain DP ran on
+    the card."""
+    return counts["plain_myers_segments"] == counts["plain_extend_rows"] == counts["plain_dp"] == 0
+
+
+def check_dp(phase: str, counts: dict, dp_calls: int) -> None:
+    """Kernel K4 launched once per call of the vote engine's DP, which ran."""
+    check(dp_calls > 0, f"{phase}: the vote engine's DP never ran")
+    check(counts["K4"] == dp_calls, f"{phase}: kernel K4 launched {counts['K4']} times for "
+          f"{dp_calls} DP calls")
 
 
 def check_store(phase: str, st, prof: dict, fdig: str, ref: dict) -> None:
@@ -727,12 +837,12 @@ def drive_stage(phase: str, tag: str, band: int, rs, dev, ref: dict, kernel: str
     log(f"[{phase}] {tag} k={k} band {band}: meryl {t_meryl:.2f} s; meryl+overlap "
         f"{t_stage:.2f} s; overlap sub-walls {sub}; verify profile {prof}")
     log(f"[{phase}] launch counts {counts}")
-    for name in ("K1", "K2", "K3"):
+    for name in ("K1", "K2", "K3", "K4"):
         if name == kernel:
             check(counts[name] > 0, f"{phase}: kernel {name} never launched during the stage")
         else:
             check(counts[name] == 0, f"{phase}: kernel {name} launched off its path")
-    check(counts["plain_myers_segments"] == 0 and counts["plain_extend_rows"] == 0,
+    check(no_plain(counts),
           f"{phase}: a plain loop ran on the card during the stage")
     fdig = frequent_digest(os.path.join(work, stages.TAG_DIR[tag], f"bench.ms{k}.frequent.npz"))
     check_store(phase, st, prof, fdig, ref)
@@ -987,8 +1097,9 @@ def ecoli_drive(dev, card: str) -> dict:
         f"hash-join, verify, store = spill sort + store write); verify profile {prof}")
     log(f"[9 ecoli] launch and call counts {counts}")
     check(counts["K1"] > 0, "9 ecoli: kernel K1 never launched during the stage")
-    check(counts["K2"] == counts["K3"] == 0, "9 ecoli: kernel K2 or K3 launched off its path")
-    check(counts["plain_myers_segments"] == 0 and counts["plain_extend_rows"] == 0,
+    check(counts["K2"] == counts["K3"] == counts["K4"] == 0,
+          "9 ecoli: kernel K2, K3 or K4 launched off its path")
+    check(no_plain(counts),
           "9 ecoli: a plain loop ran on the card during the stage")
     for name in ("host_kmer_counts", "join_calls", "spill_builds"):
         check(counts[name] == 1, f"9 ecoli: {name} is {counts[name]}, expected 1")
@@ -1056,8 +1167,9 @@ def correct_drive(dev, card: str) -> dict:
     """Phase 10: the port's correction_phase from a FASTA of the raw bench
     reads, Config() + genomeSize=300k, in a directory of its own, the
     counts set to 0 just before and read just after.  K1 must have launched
-    (the cor overlap stage) and no other kernel and no plain loop on the
-    card.  Holds the gatekeeper store, the cor store and each block of
+    (the cor overlap stage), K4 once per DP call, and no other kernel, plain
+    loop or plain DP on the card; the first three DP calls' inputs are kept
+    for phase 12c.  Holds the gatekeeper store, the cor store and each block of
     corrected reads that correction_reference.json covers against the JAX
     package's; the FASTA must be non-empty with every record
     <read>_corrN.  Prints the stage walls and the correction's parts:
@@ -1131,8 +1243,16 @@ def correct_drive(dev, card: str) -> dict:
         torch.cuda.synchronize()
         mem["peak"] = torch.cuda.max_memory_allocated(dev)
 
+    dp_chunks: list = []
+    dp_timed = timed("dp")
+
+    def dp(*args, **kw):
+        if len(dp_chunks) < 3:  # held to the plain DP in phase 12c
+            dp_chunks.append(keep_call(args, kw))
+        return dp_timed(*args, **kw)
+
     chunk_timed = timed("chunk")
-    F.correct_reads_blocks, VP.align_positions_lean = capture, timed("dp")
+    F.correct_reads_blocks, VP.align_positions_lean = capture, dp
     VP._vote_many, F._finalize_plurality = chunk, timed("finalize")
     try:
         reset_counts()
@@ -1150,8 +1270,9 @@ def correct_drive(dev, card: str) -> dict:
         f"{t_run:.2f} s; launch counts {counts}")
     check(counts["K1"] > 0, "10 correct: kernel K1 never launched during the phase")
     check(counts["K2"] == counts["K3"] == 0, "10 correct: kernel K2 or K3 launched off its path")
-    check(counts["plain_myers_segments"] == 0 and counts["plain_extend_rows"] == 0,
-          "10 correct: a plain loop ran on the card during the phase")
+    check_dp("10 correct", counts, len(ev["dp"]))
+    check(no_plain(counts),
+          "10 correct: a plain loop or the plain DP ran on the card during the phase")
 
     # the gatekeeper store and the cor store equal the JAX package's
     d = os.path.join(work, "correction")
@@ -1230,7 +1351,7 @@ def correct_drive(dev, card: str) -> dict:
         f"{mem['start'] / 1e9:.3f} GB allocated at its start)")
     log(f"[10 correct] phase wall {time.time() - t_phase:.1f} s")
     return {"run_s": t_run, "stage_walls_s": walls, "parts_s": parts, "chunks": n_chunks,
-            "jobs": n_jobs,
+            "jobs": n_jobs, "dp_calls": len(ev["dp"]), "dp_chunks": dp_chunks,
             "launches": counts, "chunk_wall_s": wall1, "chunk_wall_profiled_s": wall_p,
             "chunk_launches": launches, "chunk_busy_s": busy, "peak_bytes": mem["peak"],
             "start_bytes": mem["start"], "corrected_reads": len(recs), "work": work,
@@ -1254,8 +1375,9 @@ def assemble_run(name: str, dev, card: str, genome_len: int, genome_seed: int, r
     reads, Config() + genomeSize, in a directory of its own, the counts set
     to 0 just before and read just after.  K1 must have launched in the obt
     overlap, the utg overlap and the OEA adjust (and in align_links where
-    the GFA keeps a link); no other kernel and no plain loop on the card.
-    With ``ref`` every gate of assembly_digests must equal the JAX
+    the GFA keeps a link), K4 once per DP call (RED's and the polish's
+    first kept for phase 12c); no other kernel, no plain loop and no plain
+    DP on the card.  With ``ref`` every gate of assembly_digests must equal the JAX
     package's.  Returns the run's record (walls, launches, K1 in the
     adjust with its bound, memory peak, contigs, identity)."""
     import torch
@@ -1307,6 +1429,8 @@ def assemble_run(name: str, dev, card: str, genome_len: int, genome_seed: int, r
             "links": GFA.align_links, "dp": VP.align_positions_lean,
             "assembly": stages.assembly_phase, "rows": MY._rows_kernel}
     adjust_calls: list = []
+    n_dp = [0]
+    dp_chunks: dict = {}  # RED's and the polish's first DP call, held to the plain DP in 12c
 
     def counted(key, fn):
         def call(*args, **kw):
@@ -1339,8 +1463,11 @@ def assemble_run(name: str, dev, card: str, genome_len: int, genome_seed: int, r
         return counted("align_links", real["links"])(tigs, lk, *args, **kw)
 
     def dp(*args, **kw):
+        n_dp[0] += 1
         if where[0] not in dp_ev:
             return real["dp"](*args, **kw)
+        if where[0] not in dp_chunks:
+            dp_chunks[where[0]] = keep_call(args, kw)
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
         out = real["dp"](*args, **kw)
@@ -1383,8 +1510,9 @@ def assemble_run(name: str, dev, card: str, genome_len: int, genome_seed: int, r
     log(f"[{tag} assemble] {card}: run_pipeline from corrected reads: {t_run:.2f} s; launch "
         f"counts {counts}; K1 launches by step {k1_in}")
     check(counts["K2"] == counts["K3"] == 0, f"{tag}: kernel K2 or K3 launched off its path")
-    check(counts["plain_myers_segments"] == 0 and counts["plain_extend_rows"] == 0,
-          f"{tag}: a plain loop ran on the card during the run")
+    check_dp(tag, counts, n_dp[0])
+    check(no_plain(counts),
+          f"{tag}: a plain loop or the plain DP ran on the card during the run")
     for step in ("obt-overlap", "utg-overlap", "adjust"):
         check(k1_in.get(step, 0) > 0, f"{tag}: kernel K1 never launched in {step}")
     if n_links[0]:
@@ -1448,6 +1576,7 @@ def assemble_run(name: str, dev, card: str, genome_len: int, genome_seed: int, r
             + ", ".join(ref["gates"]))
     log(f"[{tag} assemble] phase wall {time.time() - t_phase:.1f} s")
     return {"run_s": t_run, "stage_walls_s": walls, "oea_sub": oea_sub, "launches": counts,
+            "dp_calls": n_dp[0], "dp_chunks": dp_chunks,
             "k1_by_step": k1_in, "vote_chunks": chunks_in, "dp_s": dp_s,
             "adjust_k1_ms": k1_ms, "adjust_k1_bounds": k1_bounds, "peak_bytes": mem["peak"],
             "start_bytes": mem["start"], "step_peak_bytes": dict(step_peak), "contigs": lens,
@@ -1569,10 +1698,11 @@ def dag_correct(dev, card: str, correct: dict, ref: dict) -> dict:
     10's directory without its corrected reads, so the gatekeeper, meryl
     and cor overlap stages resume as done and every block runs through
     the tag-chain consensus; the counts set to 0 just before and read
-    just after.  No kernel and no plain loop may run on the card (the
-    paths are the vote engine's DP, PyTorch ops, counted by
-    dagcon.CHUNKS).  The blocks dag_reference.json covers must equal the
-    JAX package's by digest; every record is <read>_corrN."""
+    just after.  K4 must launch once per path chunk (the paths are the
+    vote engine's DP, counted by dagcon.CHUNKS), and no other kernel, no
+    plain loop and no plain DP may run on the card.  The blocks
+    dag_reference.json covers must equal the JAX package's by digest;
+    every record is <read>_corrN."""
     import shutil
 
     import torch
@@ -1640,8 +1770,9 @@ def dag_correct(dev, card: str, correct: dict, ref: dict) -> dict:
         f"stores: {t_run:.2f} s; launch counts {counts}")
     check(all(v == 0 for k, v in counts.items() if k in ("K1", "K2", "K3")),
           "12a: a kernel launched during the dag correction (the stages before it resume)")
-    check(counts["plain_myers_segments"] == 0 and counts["plain_extend_rows"] == 0,
-          "12a: a plain loop ran on the card during the dag correction")
+    check_dp("12a", counts, len(dp_ev))
+    check(no_plain(counts),
+          "12a: a plain loop or the plain DP ran on the card during the dag correction")
     check(n_chunks > 0, "12a: the dag consensus ran no path chunk")
     check(sorted(blocks) == list(range(ref["n_blocks"])),
           f"12a: blocks {sorted(blocks)}, the reference's phase has {ref['n_blocks']}")
@@ -1673,7 +1804,8 @@ def dag_correct(dev, card: str, correct: dict, ref: dict) -> dict:
     log(f"[12a memory] {card}: device peak over the dag correction {mem['peak'] / 1e9:.3f} GB "
         f"({(mem['peak'] - mem['start']) / 1e9:.3f} GB above its start)")
     return {"run_s": t_run, "stage_walls_s": walls, "launches": counts, "chunks": n_chunks,
-            "jobs": n_jobs, "dp_s": dp_s, "host_s": prof, "peak_bytes": mem["peak"],
+            "jobs": n_jobs, "dp_calls": len(dp_ev), "dp_s": dp_s, "host_s": prof,
+            "peak_bytes": mem["peak"],
             "start_bytes": mem["start"], "corrected_reads": len(recs),
             "phase_s": time.time() - t_phase}
 
@@ -1682,8 +1814,9 @@ def dag_polish(dev, card: str, run_a: dict, ref: dict) -> dict:
     """Phase 12b: run_pipeline with cnsConsensus=dag resumed on a copy of
     11a's directory without the consensus and output stages' products:
     only those two stages may run (the stage-times lines and the log say
-    which ran).  K1 may launch only in the GFA's align_links; no other
-    kernel and no plain loop on the card.  Every gate of
+    which ran).  K4 must launch once per path chunk (the first chunk's
+    inputs are kept for phase 12c) and K1 only in the GFA's align_links; no
+    other kernel, no plain loop and no plain DP on the card.  Every gate of
     dag_reference.json's polish entry (the JAX package's run of 11a with
     cnsConsensus=dag) must be equal."""
     import shutil
@@ -1718,11 +1851,14 @@ def dag_polish(dev, card: str, run_a: dict, ref: dict) -> dict:
     cfg.set("cnsConsensus", "dag")
 
     dp_ev: list = []
+    dp_chunk: list = []  # the first path chunk, held to the plain DP in 12c
     mem: dict = {}
     k1_links = [0]
     real = {"dp": DG.align_positions_lean, "links": GFA.align_links}
 
     def dp(*args, **kw):
+        if not dp_chunk:
+            dp_chunk.append(keep_call(args, kw))
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
         res = real["dp"](*args, **kw)
@@ -1763,8 +1899,9 @@ def dag_polish(dev, card: str, run_a: dict, ref: dict) -> dict:
           "the outputs alone")
     check(counts["K1"] == k1_links[0] and counts["K2"] == counts["K3"] == 0,
           "12b: a kernel launched off align_links during the dag polish")
-    check(counts["plain_myers_segments"] == 0 and counts["plain_extend_rows"] == 0,
-          "12b: a plain loop ran on the card during the dag polish")
+    check_dp("12b", counts, len(dp_ev))
+    check(no_plain(counts),
+          "12b: a plain loop or the plain DP ran on the card during the dag polish")
     check(DG.CHUNKS > 0, "12b: the dag consensus ran no path chunk")
     digests = assembly_digests(wd, "asm")
     for key, want in ref["gates"].items():
@@ -1780,7 +1917,8 @@ def dag_polish(dev, card: str, run_a: dict, ref: dict) -> dict:
     log(f"[12b memory] {card}: device peak over the resumed run {mem['peak'] / 1e9:.3f} GB "
         f"({(mem['peak'] - mem['start']) / 1e9:.3f} GB above its start)")
     return {"run_s": t_run, "stages_run": ran, "stage_walls_s": walls, "launches": counts,
-            "k1_align_links": k1_links[0], "chunks": DG.CHUNKS, "jobs": DG.JOBS, "dp_s": dp_s,
+            "k1_align_links": k1_links[0], "chunks": DG.CHUNKS, "jobs": DG.JOBS,
+            "dp_calls": len(dp_ev), "dp_chunk": dp_chunk[0], "dp_s": dp_s,
             "host_s": prof, "peak_bytes": mem["peak"], "start_bytes": mem["start"],
             "digests": digests, "phase_s": time.time() - t_phase}
 
@@ -1792,6 +1930,50 @@ def dag_drive(dev, card: str, correct: dict, assemble: dict) -> dict:
         ref = json.load(fh)
     return {"correct": dag_correct(dev, card, correct, ref["correction"]),
             "polish": dag_polish(dev, card, assemble["a"], ref["polish"])}
+
+
+def vote_dp_drive(dev, card: str, correct: dict, assemble: dict, dag: dict) -> dict:
+    """Phase 12c: kernel K4 held bit for bit to the plain DP on the card
+    (held_dp) on DP calls the main path made: the first three chunks of
+    phase 10 (falcon, band 256, 2,048 rows), the first of 11a's RED and of
+    its polish and the first path chunk of 12b's dag polish (all with
+    ends_free=True); then K4 alone on the first phase-10 chunk by CUDA
+    events (mean of 10 launches) beside the whole DP call (the anchors, K4
+    and the positions), the plain version's one run and vdp_bound."""
+    from canu_tpu_torch.ops import trace as TT
+    from canu_tpu_torch.ops.kernels import trace_cuda as K4
+
+    assemble["b"].pop("dp_chunks")
+    chunks = [(f"10 chunk {i + 1}", c) for i, c in enumerate(correct.pop("dp_chunks"))]
+    red_polish = assemble["a"].pop("dp_chunks")
+    chunks += [(f"11a {k}", red_polish[k]) for k in ("red", "polish") if k in red_polish]
+    chunks.append(("12b dag", dag["polish"].pop("dp_chunk")))
+    check(len(chunks) == 6, f"12c: {len(chunks)} captured DP chunks, expected 3 of phase 10, "
+          "11a's RED and polish, 12b's dag")
+    err, held = 0, {}
+    for name, call in chunks:
+        t, _, e, _, band, n_rows, ef = dp_inputs(call)
+        e_k, plain_ms = held_dp(f"12c {name}", call)
+        err = max(err, e_k)
+        held[name] = {"jobs": t.shape[0], "band": band, "n_rows": n_rows, "ends_free": ef,
+                      "evidence_cols": e.shape[1], "plain_ms": plain_ms}
+        log(f"[12c vote_dp] {name}: {t.shape[0]} jobs x {n_rows} rows, band {band}, ends_free "
+            f"{ef}: K4 bit-equal to the plain DP (j* and edits; plain {plain_ms:.1f} ms)")
+    call = chunks[0][1]
+    t, tl, e, el, band, n_rows, ef = dp_inputs(call)
+    A = TT._anchors(tl, el, band, n_rows)
+    ms = cuda_ms(lambda: K4.vote_dp_keys(t, tl, e, el, A, band, n_rows, ef), 10)
+    call_ms = cuda_ms(lambda: TT.align_positions_lean(*call[0], **call[1]), 10)
+    plain_ms = held[chunks[0][0]]["plain_ms"]
+    bd = vdp_bound(call)
+    log(f"[12c timing] {card}: K4 on phase 10's first chunk ({t.shape[0]} jobs x {n_rows} rows, "
+        f"band {band}): {ms:.3f} ms (CUDA events, mean of 10); the whole DP call (anchors, K4, "
+        f"positions) {call_ms:.3f} ms; the plain DP {plain_ms:.1f} ms; bound {bd['bound_ms']:.3f} "
+        f"ms ({bd['ops']:.3e} operations on {bd['cells']} cells of {bd['live_rows']} live rows, "
+        f"{bd['bytes']:.3e} bytes; bound by {bd['bound_by']}; {100 * bd['bound_ms'] / ms:.1f}% of "
+        f"it); scratch {K4.scratch_bytes(t.shape[0], band, n_rows) / 1e6:.1f} MB")
+    return {"err": err, "held": held, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound": bd}
 
 
 def tools_drive(dev, card: str, run_b: dict) -> dict:
@@ -1860,7 +2042,7 @@ def tools_drive(dev, card: str, run_b: dict) -> dict:
     check(n_bad == 0, f"13: {n_bad} tools steps differ from the JAX package's")
     k1_steps = {n: c["K1"] for n, c in per_step.items() if c["K1"]}
     others = {n: c for n, c in per_step.items()
-              if c["K2"] or c["K3"] or c["plain_myers_segments"] or c["plain_extend_rows"]}
+              if c["K2"] or c["K3"] or c["K4"] or not no_plain(c)}
     log(f"[13 tools] {card}: {len(recs)} steps in {t_run:.1f} s, every one equal to the JAX "
         f"package's; K1 launches by step {k1_steps}")
     check(k1_steps.get("bogus", 0) > 0 and set(k1_steps) == {"bogus"},
@@ -1965,7 +2147,8 @@ def grid_world_of_one(dev, card: str, fasta: str, ref: dict, work: str) -> dict:
     held bit for bit to the same call with the plain INF-walled loop in
     K2's place (ops.align.banded_extend_plain on the card, on the same
     inputs), whose rows 14b's ranks must give too (saved to
-    work/sample.npz)."""
+    work/sample.npz); K2 alone on each of its launches by CUDA events
+    beside extend_bound to the exit rows."""
     import numpy as np
     import torch
 
@@ -2010,8 +2193,9 @@ def grid_world_of_one(dev, card: str, fasta: str, ref: dict, work: str) -> dict:
           "14a: the sharded meryl never ran its all_to_all on NCCL")
     check(len(rings) == 1, "14a: the overlap stage never ran the ring")
     check(counts["K1"] > 0, "14a: kernel K1 never launched during the stages")
-    check(counts["K2"] == counts["K3"] == 0, "14a: kernel K2 or K3 launched off its path")
-    check(counts["plain_myers_segments"] == 0 and counts["plain_extend_rows"] == 0,
+    check(counts["K2"] == counts["K3"] == counts["K4"] == 0,
+          "14a: kernel K2, K3 or K4 launched off its path")
+    check(no_plain(counts),
           "14a: a plain loop ran on the card during the stages")
     fdig = frequent_digest(os.path.join(ctx.work_dir, "correction", "bench.ms16.frequent.npz"))
     check_store("14a grid", st, prof, fdig, ref)
@@ -2032,10 +2216,15 @@ def grid_world_of_one(dev, card: str, fasta: str, ref: dict, work: str) -> dict:
     # the INF-walled sharded verify in a world of one: the rows 14b holds
     sample = np.ascontiguousarray(pairs[::3, :2])
     reset_counts()
-    rows, verify_ms = once_ms(lambda: SO.sharded_verify_candidates(rs, sample, k=16, band=128,
-                                                                   device=dev))
+    real_extend, k2_calls = capture_calls(AL, "banded_extend")
+    try:
+        rows, verify_ms = once_ms(lambda: SO.sharded_verify_candidates(rs, sample, k=16,
+                                                                       band=128, device=dev))
+    finally:
+        AL.banded_extend = real_extend
     k2 = read_counts()["K2"]
-    check(k2 > 0, "14a: sharded_verify_candidates never launched K2")
+    check(k2 > 0 and k2 == len(k2_calls), "14a: sharded_verify_candidates never launched K2, "
+          "or not once per banded_extend call")
     # the same call with the plain loop in K2's place (not counted)
     real_extend, AL.banded_extend = AL.banded_extend, AL.banded_extend_plain
     try:
@@ -2052,11 +2241,30 @@ def grid_world_of_one(dev, card: str, fasta: str, ref: dict, work: str) -> dict:
     log(f"[14a grid] sharded_verify_candidates on {len(sample)} of the {len(pairs)} "
         f"candidates: {verify_ms:.1f} ms (CUDA events), K2 launches {k2}; the plain loop in "
         f"its place {plain_ms:.1f} ms, rows equal (max |diff| {k2_err}, tolerance 0)")
+    # K2 alone on the call's launches, beside its bound up to each
+    # extension's exit row (torch_cases.extend_exit_rows)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_cases import extend_exit_rows
+
+    k2_ms, k2_bounds = [], []
+    for args, _ in k2_calls:
+        a5, (band, n_rows) = args[:5], args[5:7]
+        exit_rows = extend_exit_rows(*a5, band, n_rows)[0]
+        k2_ms.append(cuda_ms(lambda: extend_kernel(band)[1](*a5, band, n_rows), 3))
+        k2_bounds.append(extend_bound(a5, band, n_rows, exit_rows))
+        bd = k2_bounds[-1]
+        log(f"[14a timing] {card}: sharded_verify_candidates' K2 launch {len(k2_ms)}: "
+            f"{a5[0].shape[0]} extensions x {n_rows} rows, band {band}: {k2_ms[-1]:.3f} ms; "
+            f"bound {bd['bound_ms']:.4f} ms to the exit rows ({bd['ops']:.3e} operations, "
+            f"{bd['bytes']:.3e} bytes; bound by {bd['bound_by']}; "
+            f"{100 * bd['bound_ms'] / k2_ms[-1]:.1f}% of it)")
+    del k2_calls
     launch.shutdown()
     return {"run_s": t_run, "stage_walls_s": walls, "launches": counts, "collectives": stats,
             "k22_distinct": len(kc22.unique), "k22_s": t22, "sample": len(sample),
             "verify_ms": verify_ms, "verify_plain_ms": plain_ms, "k2_err": k2_err,
-            "k2_launches": k2, "phase_s": time.time() - t_phase}
+            "k2_launches": k2, "k2_ms": k2_ms, "k2_bounds": k2_bounds,
+            "phase_s": time.time() - t_phase}
 
 
 def grid_rank(rank: str, world: str, url: str, work: str, fasta: str, backend: str) -> int:
@@ -2135,6 +2343,7 @@ def grid_rank(rank: str, world: str, url: str, work: str, fasta: str, backend: s
         F.correct_reads_blocks, VP.align_positions_lean = real["blocks"], real["dp"]
         SO.sharded_find_candidates, stages.run_stage = real["ring"], real_stage
     out["stage_walls_s"] = walls
+    out["dp_calls"] = len(dp)
     out["dp_s"] = sum(a.elapsed_time(b) for a, b in dp) / 1e3
     out["blocks"] = {bi: {"reads": len(items), "bases": sum(len(s) for _, s in items),
                           "sha256": corrected_digest(items)} for bi, items in blocks.items()}
@@ -2301,10 +2510,10 @@ def grid_drive(dev, card: str, correct: dict) -> dict:
         r = x["rank"]
         c = x["launches"]
         check(c["K1"] > 0, f"14b: kernel K1 never launched on rank {r}")
-        check(c["plain_myers_segments"] == 0 and c["plain_extend_rows"] == 0,
-              f"14b: a plain loop ran on the card on rank {r}")
+        check_dp(f"14b rank {r}", c, x["dp_calls"])
+        check(no_plain(c), f"14b: a plain loop or the plain DP ran on the card on rank {r}")
         c = x["allgather"]["launches"]
-        check(c["K1"] > 0 and c["plain_myers_segments"] == 0 and c["plain_extend_rows"] == 0,
+        check(c["K1"] > 0 and no_plain(c),
               f"14b: rank {r}'s allgather stage missed K1 or ran a plain loop")
         check(x["store"]["sha256"] == ref["store_sha256"] and x["store"]["rows"] == ref["rows"],
               f"14b: the range exchange's cor store differs from the JAX package's (rank {r})")
@@ -2340,6 +2549,7 @@ def grid_drive(dev, card: str, correct: dict) -> dict:
                 x["launches"]["K1"] + x["allgather"]["launches"]["K1"] for x in ranks),
             "k2_launches": one["k2_launches"] + sum(x["verify"]["launches"]["K2"]
                                                     for x in ranks),
+            "k4_launches": sum(x["launches"]["K4"] for x in ranks),
             "phase_s": time.time() - t_phase}
 
 
@@ -2386,12 +2596,15 @@ def main() -> int:
     from canu_tpu_torch.ops.kernels import _nvcc
     from canu_tpu_torch.ops.kernels import extend_cuda as EX
     from canu_tpu_torch.ops.kernels import myers_cuda as K1
+    from canu_tpu_torch.ops.kernels import trace_cuda as K4
 
     t = time.time()
-    built = _nvcc.build(K1.SOURCE, EX.SOURCE)
-    log(f"[2 build] both libraries in {time.time() - t:.1f} s (one nvcc each, in parallel)")
+    sources = (K1.SOURCE, EX.SOURCE, K4.SOURCE)
+    built = _nvcc.build(*sources)
+    log(f"[2 build] {len(sources)} libraries in {time.time() - t:.1f} s (one nvcc each, in "
+        "parallel)")
     record["build_s"] = {}
-    for src, (lib, build_s, ptxas) in zip((K1.SOURCE, EX.SOURCE), built):
+    for src, (lib, build_s, ptxas) in zip(sources, built):
         log(f"[2 build] {os.path.relpath(lib, ROOT)}: nvcc {build_s:.1f} s")
         for line in ptxas.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
@@ -2413,6 +2626,20 @@ def main() -> int:
                                                     e_args, band, e_rows))
         log(f"[3c kernel] band {band}: {extend_kernel(band)[0]} bit-equal to the plain loop on "
             f"{e_args[0].shape[0]} edge-case extensions x {e_rows} rows")
+
+    # ---- 3d: K4 vs the plain DP, the shared cases ----------------------------
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_cases import trace_cases
+
+    err_dp = 0
+    for band in (128, 200, 256):
+        for ef in (False, True):
+            args = [torch.from_numpy(x).to(dev) for x in trace_cases(256 + band + int(ef), 256,
+                                                                     band)]
+            err_dp = max(err_dp, held_dp(f"3d K4 band {band} ends_free {ef}",
+                                         ((*args, band, 256), {"ends_free": ef}))[0])
+            log(f"[3d kernel] K4 bit-equal to the plain DP on {args[0].shape[0]} jobs x 256 rows "
+                f"(tests/torch_cases.py trace_cases), band {band}, ends_free {ef}")
 
     # ---- 4: the slice ------------------------------------------------------
     from canu_tpu_torch.config import Config
@@ -2447,8 +2674,8 @@ def main() -> int:
         launches, plain_segments = counts["K1"], counts["plain_myers_segments"]
     finally:
         MY.banded_extend_myers, MY._rows_kernel = real_extend, real_rows
-    check(counts["K2"] == counts["K3"] == 0 and counts["plain_extend_rows"] == 0,
-          f"the cor stage ran the INF-walled engine: {counts}")
+    check(counts["K2"] == counts["K3"] == counts["K4"] == 0 and no_plain(counts),
+          f"the cor stage ran the INF-walled engine, the DP or a plain loop: {counts}")
     prof = dict(AL.LAST_PROFILE)
     with open(ctx.path("bench.stage-times.jsonl")) as fh:
         sub = [json.loads(ln) for ln in fh if '"cor-overlap.sub"' in ln][-1]["sub_walls_s"]
@@ -2619,7 +2846,10 @@ def main() -> int:
     record["assemble"] = assemble = assemble_drive(dev, card)
 
     # ---- 12: the tag-chain (dag) consensus, correction and polish ----------
-    record["dag"] = dag_drive(dev, card, correct, assemble)
+    record["dag"] = dag = dag_drive(dev, card, correct, assemble)
+
+    # ---- 12c: K4 against the plain DP on chunks of phases 10-12, its time --
+    record["vote_dp"] = vdp = vote_dp_drive(dev, card, correct, assemble, dag)
 
     # ---- 13: the tools CLI ---------------------------------------------------
     record["tools"] = tools = tools_drive(dev, card, assemble["b"])
@@ -2658,6 +2888,14 @@ def main() -> int:
          "launches": drives["utg1024"]["launches"]["K3"], "max_abs_err": err_ext,
          "ms": k3["first_ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3b["bound_ms"], "bound_by": k3b["bound_by"], "library_ms": None},
+        {"name": "vote_dp (K4)", "route": "cuda", "source": "canu_tpu_torch/csrc/vote_dp.cu",
+         "replaces": "canu_tpu/ops/trace.py:175",
+         "launches": correct["launches"]["K4"] + assemble["a"]["launches"]["K4"]
+         + assemble["b"]["launches"]["K4"] + dag["correct"]["launches"]["K4"]
+         + dag["polish"]["launches"]["K4"] + grid["k4_launches"],
+         "max_abs_err": max(err_dp, vdp["err"]), "ms": vdp["ms"], "plain_ms": vdp["plain_ms"],
+         "bound_ms": vdp["bound"]["bound_ms"], "bound_by": vdp["bound"]["bound_by"],
+         "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -11,61 +11,18 @@ import torch
 
 import canu_tpu.ops.trace as JT
 import canu_tpu_torch.ops.trace as TT
-from canu_tpu_torch.sim.simulate import mutate_read
-from torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_cases import one_torch_thread, trace_cases  # noqa: F401  (autouse fixture)
 
 
-def _homopolymer_template(rng, n):
-    """Runs of 2-7 equal bases: deletions and insertions in a run tie."""
-    out = []
-    while len(out) < n:
-        out += [int(rng.integers(0, 4))] * int(rng.integers(2, 8))
-    return np.array(out[:n], np.uint8)
-
-
-def _cases(seed: int, n_rows: int, band: int):
-    """(t, t_len, e, e_len) rows: mutated reads at 10-15% error, a
-    zero-length pad row, templates shorter than n_rows and of n_rows,
-    evidence with flanks beyond the template's ends, evidence as long as
-    its window, homopolymer runs with one base deleted and one doubled,
-    a template longer than its evidence."""
-    rng = np.random.default_rng(seed)
-    LE = n_rows + max(band, n_rows // 2)
-    rows = []
-    for er in (0.10, 0.12, 0.15, 0.15):
-        t = rng.integers(0, 4, int(rng.integers(n_rows // 3, n_rows))).astype(np.uint8)
-        rows.append((t, mutate_read(t, er, rng)))
-    t = rng.integers(0, 4, n_rows).astype(np.uint8)  # t_len == n_rows
-    rows.append((t, mutate_read(t, 0.12, rng)))
-    rows.append((np.zeros(0, np.uint8), np.zeros(0, np.uint8)))  # pad row
-    t = rng.integers(0, 4, n_rows // 2).astype(np.uint8)  # flanked evidence
-    flank = rng.integers(0, 4, band // 2 + 40).astype(np.uint8)
-    rows.append((t, np.concatenate([flank, mutate_read(t, 0.1, rng), flank])))
-    t = rng.integers(0, 4, n_rows - 8).astype(np.uint8)  # evidence fills its window
-    e = np.concatenate([mutate_read(t, 0.1, rng), rng.integers(0, 4, LE).astype(np.uint8)])
-    rows.append((t, e[: LE - 1]))
-    h = _homopolymer_template(rng, n_rows // 2)
-    rows.append((h, np.delete(h, [5, 40])))
-    rows.append((h, np.insert(h, [7, 33], h[[7, 33]])))
-    t = rng.integers(0, 4, n_rows // 2).astype(np.uint8)  # template longer than evidence
-    rows.append((t, t[: n_rows // 4]))
-    B = len(rows)
-    ta = np.zeros((B, n_rows), np.uint8)
-    ea = np.zeros((B, LE), np.uint8)
-    tl = np.zeros(B, np.int32)
-    el = np.zeros(B, np.int32)
-    for b, (t, e) in enumerate(rows):
-        e = e[:LE]
-        ta[b, : len(t)] = t
-        ea[b, : len(e)] = e
-        tl[b], el[b] = len(t), len(e)
-    return ta, tl, ea, el
-
-
-@pytest.mark.parametrize("band,ends_free", [(128, False), (128, True), (256, True)])
-def test_align_positions_lean_equal(band, ends_free):
-    n_rows = 256
-    ta, tl, ea, el = _cases(n_rows + band + int(ends_free), n_rows, band)
+@pytest.mark.parametrize("band,ends_free,n_rows", [
+    pytest.param(128, False, 256, id="128-False"),
+    pytest.param(128, True, 256, id="128-True"),
+    pytest.param(256, True, 256, id="256-True"),
+    pytest.param(200, False, 256, id="200-False"),  # a band not a multiple of 32
+    pytest.param(256, True, 512, id="256-True-512rows"),
+])
+def test_align_positions_lean_equal(band, ends_free, n_rows):
+    ta, tl, ea, el = trace_cases(n_rows + band + int(ends_free), n_rows, band)
     js_j, ed_j = JT.align_positions_lean(jnp.asarray(ta), jnp.asarray(tl), jnp.asarray(ea),
                                          jnp.asarray(el), band, n_rows, ends_free=ends_free)
     js_t, ed_t = TT.align_positions_lean(torch.from_numpy(ta), torch.from_numpy(tl),

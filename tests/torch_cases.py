@@ -8,9 +8,12 @@ against canu_tpu's banded extension on the CPU and against kernels K2
 and K3 on the card; ``extend_exit_rows``: the row after which each
 extension's outputs are fixed, where K2 and K3 stop (the tests check the
 argument; chip_smoke.py counts the kernels' bound up to it).
-``myers_edge_cases``: kernel K1's; ``k1_rows_plain``: the plain rows of
-one K1 launch, cut into segments that run at once from given carries (a
-long launch held to the plain loop at the cost of one segment of it).
+``myers_edge_cases``: kernel K1's; ``trace_cases``: the vote engine's
+DP's (ops.trace.align_positions_lean), held against canu_tpu's on the CPU
+and kernel K4 against the plain version on the card; ``k1_rows_plain``:
+the plain rows of one K1 launch, cut into segments that run at once from
+given carries (a long launch held to the plain loop at the cost of one
+segment of it).
 ``candidate_sample`` and
 ``store_rows_of_pairs``: a sample of a candidate list and a store's rows
 for it, which stand in for a full verify where the reference cannot run
@@ -174,6 +177,53 @@ def extend_exit_rows(a, a_len, b, b_len, centers, band, n_rows):
 
 
 # ---- the Myers engine (kernel K1) ------------------------------------------
+
+def homopolymer_template(rng, n):
+    """Runs of 2-7 equal bases: deletions and insertions in a run tie."""
+    out = []
+    while len(out) < n:
+        out += [int(rng.integers(0, 4))] * int(rng.integers(2, 8))
+    return np.array(out[:n], np.uint8)
+
+
+def trace_cases(seed: int, n_rows: int, band: int):
+    """(t, t_len, e, e_len) rows: mutated reads at 10-15% error, a
+    zero-length pad row, templates shorter than n_rows and of n_rows,
+    evidence with flanks beyond the template's ends, evidence as long as
+    its window, homopolymer runs with one base deleted and one doubled,
+    a template longer than its evidence."""
+    rng = np.random.default_rng(seed)
+    LE = n_rows + max(band, n_rows // 2)
+    rows = []
+    for er in (0.10, 0.12, 0.15, 0.15):
+        t = rng.integers(0, 4, int(rng.integers(n_rows // 3, n_rows))).astype(np.uint8)
+        rows.append((t, mutate_read(t, er, rng)))
+    t = rng.integers(0, 4, n_rows).astype(np.uint8)  # t_len == n_rows
+    rows.append((t, mutate_read(t, 0.12, rng)))
+    rows.append((np.zeros(0, np.uint8), np.zeros(0, np.uint8)))  # pad row
+    t = rng.integers(0, 4, n_rows // 2).astype(np.uint8)  # flanked evidence
+    flank = rng.integers(0, 4, band // 2 + 40).astype(np.uint8)
+    rows.append((t, np.concatenate([flank, mutate_read(t, 0.1, rng), flank])))
+    t = rng.integers(0, 4, n_rows - 8).astype(np.uint8)  # evidence fills its window
+    e = np.concatenate([mutate_read(t, 0.1, rng), rng.integers(0, 4, LE).astype(np.uint8)])
+    rows.append((t, e[: LE - 1]))
+    h = homopolymer_template(rng, n_rows // 2)
+    rows.append((h, np.delete(h, [5, 40])))
+    rows.append((h, np.insert(h, [7, 33], h[[7, 33]])))
+    t = rng.integers(0, 4, n_rows // 2).astype(np.uint8)  # template longer than evidence
+    rows.append((t, t[: n_rows // 4]))
+    B = len(rows)
+    ta = np.zeros((B, n_rows), np.uint8)
+    ea = np.zeros((B, LE), np.uint8)
+    tl = np.zeros(B, np.int32)
+    el = np.zeros(B, np.int32)
+    for b, (t, e) in enumerate(rows):
+        e = e[:LE]
+        ta[b, : len(t)] = t
+        ea[b, : len(e)] = e
+        tl[b], el[b] = len(t), len(e)
+    return ta, tl, ea, el
+
 
 NAMES = ("edits", "a_used", "b_used", "p_edits", "p_a", "p_b")
 
