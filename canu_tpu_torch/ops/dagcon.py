@@ -14,9 +14,10 @@ path.
 
 The base-level alignment of every evidence window onto its template runs
 on the device of the planes with the vote engine's DP
-(trace.align_positions_lean, PyTorch ops); what comes back per job is the
-evidence position j*(i) of every template row and the oriented evidence
-window.  Tag extraction, edge counting and the heaviest-chain DP are host
+(trace.align_positions_lean: kernel K4 on the card, a group of chunks a
+launch); what comes back per job is the evidence position j*(i) of every
+template row and the oriented evidence window.  Tag extraction, edge
+counting and the heaviest-chain DP are host
 numpy, copied from canu_tpu: the DP keeps the first predecessor of the
 highest score (a strict ``>``) and the backtrack starts at np.argmax's
 first maximum.  cnsConsensus=dag and corConsensus=dag select it; the
@@ -49,7 +50,8 @@ MAX_DELTA = 12
 CHUNKS = JOBS = 0
 PROFILE: dict = {}
 
-# chunks whose paths may be on the device before the oldest is fetched
+# groups of chunks whose paths may be on the device before the oldest is
+# fetched
 MAX_INFLIGHT = 8
 
 
@@ -60,13 +62,14 @@ def _lap(name: str, t0: float) -> None:
 def _paths_many(t_words, t_lengths, e_words, e_lengths,
                 cols: torch.Tensor,  # int32[7, B]: t_idx, e_idx, t_bgn, t_span, e_lo, e_span, flipped
                 band: int, n_rows: int):
-    """Alignment paths of one chunk of evidence jobs on the planes' device.
+    """Alignment paths of a group of evidence jobs on the planes' device
+    (one DP call, one launch of kernel K4 on the card).
 
     Returns (j_star int32[B, n_rows+1], e_sub uint8[B, W_e]) with W_e =
     n_rows + max(band, n_rows // 2): each template row's evidence position
-    and the oriented evidence window it indexes.  The front half of
-    votepile._vote_chunk_core; the paths go to the host instead of being
-    folded into votes, since the DAG needs each read's chain.
+    and the oriented evidence window it indexes.  votepile._group_paths
+    with ends_free; the paths go to the host instead of being folded into
+    votes, since the DAG needs each read's chain.
     """
     t_idx, e_idx = cols[0].to(torch.int64), cols[1].to(torch.int64)
     W_e = n_rows + max(band, n_rows // 2)
@@ -82,9 +85,10 @@ def paths_for_jobs(t_words, t_lengths, e_words, e_lengths, jobs, Lt: int,
     """Every job through _paths_many; returns host arrays (js int32[n,
     Lt+1], e_sub uint8[n, W_e]).  Chunks of votepile.chunk_jobs(Lt) jobs
     (CHUNK_CELL_BUDGET, sized from the card's memory), the band capped at
-    256, up to MAX_INFLIGHT chunks enqueued ahead of the fetch, which takes
-    their results in order.  Each job's DP is its own, so the results do
-    not depend on the chunk size."""
+    256, votepile.group_chunks of them a DP call, up to MAX_INFLIGHT groups
+    enqueued ahead of the fetch, which takes their results in order.  Each
+    job's DP is its own, so the results do not depend on the chunk or group
+    size."""
     global CHUNKS, JOBS
     t0 = time.perf_counter()
     n = len(jobs)
@@ -96,6 +100,7 @@ def paths_for_jobs(t_words, t_lengths, e_words, e_lengths, jobs, Lt: int,
     if n == 0:
         return js_out, es_out
     B = votepile.chunk_jobs(n_rows)
+    k = votepile.group_chunks(band_c, n_rows, B, t_words.device)
     # the vote engine's job columns; the first seven are _paths_many's
     packed_d = torch.from_numpy(votepile.pack_columns(jobs, B)[:, :7]).to(t_words.device)
     C_total = packed_d.shape[0]
@@ -103,16 +108,16 @@ def paths_for_jobs(t_words, t_lengths, e_words, e_lengths, jobs, Lt: int,
     pending: list = []
 
     def drain_one() -> None:
-        c0, js_d, es_d = pending.pop(0)
-        lo, hi = c0 * B, min((c0 + 1) * B, n)
+        lo, js_d, es_d = pending.pop(0)
+        hi = min(lo + js_d.shape[0], n)
         js_out[lo:hi] = js_d.cpu().numpy()[: hi - lo]
         es_out[lo:hi] = es_d.cpu().numpy()[: hi - lo]
 
-    for c0 in range(C_total):
-        js_d, es_d = _paths_many(t_words, t_lengths, e_words, e_lengths, packed_d[c0], band_c,
-                                 n_rows)
-        CHUNKS += 1
-        pending.append((c0, js_d, es_d))
+    for c0 in range(0, C_total, k):
+        cols = votepile.group_columns(packed_d, c0, k)
+        js_d, es_d = _paths_many(t_words, t_lengths, e_words, e_lengths, cols, band_c, n_rows)
+        CHUNKS += cols.shape[1] // B
+        pending.append((c0 * B, js_d, es_d))
         if len(pending) >= MAX_INFLIGHT:
             drain_one()
     while pending:

@@ -12,10 +12,10 @@ every template row with no traceback.
 The recurrence, band geometry, uint8 normalization of the forward rows
 and tie-breaks are canu_tpu's, value for value (int32 throughout, as JAX
 runs with x64 off).  ``align_positions_lean`` runs the DP on CUDA tensors
-as kernel K4 (csrc/vote_dp.cu, one launch a chunk: the forward pass, the
-backward pass and the combine) and elsewhere as the plain version
-``align_positions_lean_plain``; both share the band starts before the DP
-and the positions and edits after it.  What differs in the plain version
+as kernel K4 (csrc/vote_dp.cu, one launch for all the jobs of a call: the
+two passes at once, two warps a job, and the combine) and elsewhere as the
+plain version ``align_positions_lean_plain``; both share the band starts
+before the DP and the positions and edits after it.  What differs in the plain version
 is how the rows run as PyTorch ops:
 
   * everything that does not depend on the previous row (the evidence
@@ -113,9 +113,10 @@ def align_positions_lean(
     super-rows of SROW rows anchored at the band start of their first
     row; row i (i >= 1) lies in the frame of super-row (i - 1) // SROW.
 
-    On CUDA tensors the DP is one launch of kernel K4
+    On CUDA tensors the DP is one launch of kernel K4 for all B jobs
     (ops/kernels/trace_cuda.py), which raises on what it does not take;
-    on any other device it is align_positions_lean_plain.
+    on any other device it is align_positions_lean_plain.  Each job's DP
+    is its own, so the result of a job does not depend on B.
 
     Returns (j_star int32[B, n_rows+1], edits int32[B]).  Requires
     band <= 256 and n_rows % SROW == 0.

@@ -9,7 +9,8 @@ then call a per-column plurality.
   * evidence jobs are columnar host arrays of indices into device planes
     of packed words; a chunk uploads a few KB of ids and coordinates,
     never sequence data;
-  * alignment positions come from ops.trace.align_positions_lean;
+  * alignment positions come from ops.trace.align_positions_lean, one
+    call (one launch of kernel K4 on the card) for a group of chunks;
   * each job's votes are packed into one int32 code a template column,
     shifted to template coordinates, expanded to the 15 channels and
     folded into the block's float32 accumulator [G, 15, Lt] with one
@@ -32,6 +33,7 @@ import torch
 
 from .hashing import u32_tensor
 from .kmer import unpack_bases
+from .kernels.trace_cuda import group_jobs, scratch_bytes
 from .trace import align_positions_lean
 
 # packed result bit layout (uint16 values; plurality mode — RED packs uint8)
@@ -107,30 +109,40 @@ def _gather_window(words, lengths, idx, bgn, flipped, out_len: int) -> torch.Ten
     return _shift_rows_left(raw, bgn, out_len)
 
 
-def _vote_chunk_core(
-    votes: torch.Tensor,  # f32[G, 15, Lt] accumulator
+def _group_paths(
     t_words, t_lengths, e_words, e_lengths,
-    t_idx, e_idx,  # int32[B] rows into the planes
-    t_bgn, t_span,  # int32[B] template window
-    e_lo, e_span,  # int32[B] oriented evidence window
-    flipped,  # bool[B]
-    slot,  # int32[B] template slot in the block
-    weight,  # f32[B] per-job vote weight (QV tie-break)
-    band: int, n_rows: int, Lt: int, G: int,
-    ends_free: bool = False,
+    cols: torch.Tensor,  # int32[>= 7, n]: t_idx, e_idx, t_bgn, t_span, e_lo, e_span, flipped
+    band: int, n_rows: int, ends_free: bool = False,
+):
+    """Windows and alignment paths of a group of chunks' jobs: one DP call
+    (one launch of kernel K4 on the card) for all n of them.
+
+    Returns (j_star int32[n, n_rows+1], t_sub uint8[n, n_rows], e_sub
+    uint8[n, W_e]) with W_e = n_rows + max(band, n_rows // 2)."""
+    W_e = n_rows + max(band, n_rows // 2)
+    t_idx, e_idx = cols[0].to(torch.int64), cols[1].to(torch.int64)
+    t_sub = _gather_window(t_words, t_lengths, t_idx, cols[2], None, n_rows)
+    e_sub = _gather_window(e_words, e_lengths, e_idx, cols[4], cols[6] != 0, W_e)
+    e_span = torch.clamp(cols[5], max=W_e - 1)
+    js, _ = align_positions_lean(t_sub, cols[3], e_sub, e_span, band, n_rows,
+                                 ends_free=ends_free)
+    return js, t_sub, e_sub
+
+
+def _fold_chunk(
+    votes: torch.Tensor,  # f32[G, 15, Lt] accumulator
+    js, t_sub, e_sub,  # one chunk's slice of _group_paths
+    cols: torch.Tensor,  # int32[9, B]: the chunk's job columns, weight bitcast
+    n_rows: int, Lt: int, G: int,
 ) -> torch.Tensor:
-    """Align one chunk of evidence windows and fold votes into the block."""
-    B = t_idx.shape[0]
+    """Fold one chunk's votes into the block."""
+    B = js.shape[0]
     dev = votes.device
     i32 = torch.int32
-    W_e = n_rows + max(band, n_rows // 2)
-    t_idx, e_idx = t_idx.to(torch.int64), e_idx.to(torch.int64)
-    t_sub = _gather_window(t_words, t_lengths, t_idx, t_bgn, None, n_rows)
-    e_sub = _gather_window(e_words, e_lengths, e_idx, e_lo, flipped, W_e)
-    e_span = torch.clamp(e_span, max=W_e - 1)
-
-    js, _ = align_positions_lean(t_sub, t_span, e_sub, e_span, band, n_rows,
-                                 ends_free=ends_free)
+    W_e = e_sub.shape[1]
+    t_bgn, t_span, slot = cols[2], cols[3], cols[7]
+    e_span = torch.clamp(cols[5], max=W_e - 1)
+    weight = cols[8].contiguous().view(torch.float32)
 
     dj = js[:, 1:] - js[:, :-1]  # [B, n_rows]
     rowpos = torch.arange(n_rows, dtype=i32, device=dev)[None, :]
@@ -187,23 +199,6 @@ def _vote_chunk_core(
     onehot = (slot[:, None] == torch.arange(G, dtype=i32, device=dev)[None, :]).to(torch.float32)
     delta = (onehot * w[:, None]).T @ contrib.reshape(B, N_CH * Lt)
     return votes + delta.reshape(G, N_CH, Lt)
-
-
-def _vote_many(
-    votes: torch.Tensor,  # f32[G, 15, Lt] accumulator
-    t_words, t_lengths, e_words, e_lengths,
-    packed_cols: torch.Tensor,  # int32[9, B]: job columns, weight bitcast
-    band: int, n_rows: int, Lt: int, G: int,
-    ends_free: bool = False,
-) -> torch.Tensor:
-    """One chunk of evidence jobs."""
-    xs = packed_cols
-    return _vote_chunk_core(
-        votes, t_words, t_lengths, e_words, e_lengths,
-        xs[0], xs[1], xs[2], xs[3], xs[4], xs[5], xs[6] != 0, xs[7],
-        xs[8].contiguous().view(torch.float32),
-        band=band, n_rows=n_rows, Lt=Lt, G=G, ends_free=ends_free,
-    )
 
 
 def _template_codes(t_words, t_lengths, t_idx, Lt: int):
@@ -304,9 +299,13 @@ def _pow2_at_least(x: int) -> int:
 
 
 # budget knobs: positions per vote block (G*Lt) and DP cells per chunk
-# (B*n_rows); configure.configure_resources sizes the second from the card
+# (B*n_rows), the second sized from the card by
+# configure.configure_resources; and the device bytes of kernel K4's
+# scratch one DP call (a group of chunks) may take: None sizes it from the
+# device of the work (group_chunks), a number holds on every device
 BLOCK_POS_BUDGET = 1 << 21
 CHUNK_CELL_BUDGET = 1 << 21
+GROUP_BYTE_BUDGET: int | None = None
 
 
 def block_geometry(max_t_len: int) -> tuple[int, int]:
@@ -322,11 +321,39 @@ def chunk_jobs(n_rows: int) -> int:
     return max(32, min(256, CHUNK_CELL_BUDGET // n_rows))
 
 
+def group_chunks(band: int, n_rows: int, B: int, dev: torch.device) -> int:
+    """Chunks of B jobs one DP call on dev takes.  On the card, as many as
+    kernel K4's scratch for them fits in a sixth of its memory
+    (ops/kernels/trace_cuda.py group_jobs), as CHUNK_CELL_BUDGET is sized.
+    On the CPU the plain DP holds no K4 scratch but each chunk's whole DP
+    state, which CHUNK_CELL_BUDGET sizes for one chunk: one chunk a call.
+    GROUP_BYTE_BUDGET, when set, is the budget on either device (the CPU
+    tests group with it).  Raises when not even one chunk fits."""
+    budget = GROUP_BYTE_BUDGET
+    if budget is None:
+        if dev.type != "cuda":
+            return 1
+        budget = torch.cuda.get_device_properties(dev).total_memory // 6
+    k = group_jobs(band, n_rows, budget) // B
+    if k < 1:
+        raise ValueError(f"a chunk of {B} jobs at {n_rows} rows, band {band}, needs "
+                         f"{scratch_bytes(B, band, n_rows)} bytes of DP scratch, over the "
+                         f"group budget of {budget} bytes")
+    return k
+
+
+def group_columns(packed: torch.Tensor, c0: int, k: int) -> torch.Tensor:
+    """Chunks c0..c0+k-1 of packed int32[C, F, B] as one int32[F, k*B]
+    plane, chunk after chunk."""
+    grp = packed[c0 : c0 + k]
+    return grp.permute(1, 0, 2).reshape(grp.shape[1], -1)
+
+
 _COL_FIELDS = ("t_idx", "e_idx", "t_bgn", "t_span", "e_lo", "e_span",
                "flipped", "slot", "weight")
 
-# chunks and jobs run by pile_votes (counters the chip check reads)
-CHUNKS = JOBS = 0
+# chunks, jobs and DP groups run by pile_votes (counters the chip check reads)
+CHUNKS = JOBS = GROUPS = 0
 
 
 def pack_columns(jobs: VoteJobs, B: int) -> np.ndarray:
@@ -356,9 +383,11 @@ def pile_votes(
 ) -> torch.Tensor:
     """Run all evidence jobs of one template block; returns the device
     votes f32[G, 15, Lt].  Every job runs at n_rows = Lt, in chunks of
-    chunk_jobs(Lt) jobs, one chunk at a time; the planes' device is the
-    device of the work."""
-    global CHUNKS, JOBS
+    chunk_jobs(Lt) jobs; the chunks' windows and DP run a group of
+    group_chunks of them at a time (one DP call), then each chunk of the
+    group is folded in, in order; the planes' device is the device of the
+    work."""
+    global CHUNKS, JOBS, GROUPS
     dev = t_words.device
     votes = torch.zeros((G, N_CH, Lt), dtype=torch.float32, device=dev)
     if len(jobs) == 0:
@@ -366,12 +395,18 @@ def pile_votes(
     n_rows = Lt
     B = chunk_jobs(n_rows)
     band_c = min(band if band is not None else 256, 256)
+    k = group_chunks(band_c, n_rows, B, dev)
     packed = torch.from_numpy(pack_columns(jobs, B)).to(dev)
     JOBS += len(jobs)
-    for c in range(packed.shape[0]):
-        votes = _vote_many(votes, t_words, t_lengths, e_words, e_lengths, packed[c],
-                           band_c, n_rows, Lt, G, ends_free)
-        CHUNKS += 1
+    for c0 in range(0, packed.shape[0], k):
+        cols = group_columns(packed, c0, k)
+        js, t_sub, e_sub = _group_paths(t_words, t_lengths, e_words, e_lengths, cols, band_c,
+                                        n_rows, ends_free)
+        GROUPS += 1
+        for lo in range(0, cols.shape[1], B):
+            votes = _fold_chunk(votes, js[lo : lo + B], t_sub[lo : lo + B], e_sub[lo : lo + B],
+                                cols[:, lo : lo + B], n_rows, Lt, G)
+            CHUNKS += 1
     return votes
 
 

@@ -47,14 +47,14 @@ def configure_resources(cfg, log=None) -> Resources:
     sort_threads = max(0, threads)  # 0 = native default (hw concurrency)
     if threads > 0:
         decisions["sortThreads"] = threads
-    # the vote engine's DP state is its peak ([n_rows, B, window] bytes,
-    # window = band + SMAX*SROW): keep it under ~1/6 of the card.  On the
-    # card, kernel K4's scratch is (row lanes + 8) bytes a cell
-    # (ops/kernels/trace_cuda.py scratch_bytes: the uint8 forward rows, 384
-    # lanes at band 256, and their int32 minima and keys), 2% above the
-    # 384 counted here; votepile.chunk_jobs caps a chunk at 256 jobs, so at
-    # 2,048 rows it takes 201.4 + 4.2 MB whatever the budget.  Votes
-    # are exact float32 sums, so the chunk size changes no corrected base
+    # the vote engine's DP state is its peak: keep a chunk's cells
+    # ([n_rows, B, window] bytes, window = band + SMAX*SROW) under ~1/6 of
+    # the card; votepile.chunk_jobs caps a chunk at 256 jobs, so at 2,048
+    # rows a chunk is 256 jobs on an 80 GB card.  One DP call on the card
+    # takes a group of chunks whose kernel K4 scratch fits the same 1/6,
+    # which votepile.group_chunks works out from the card it runs on.
+    # Votes are exact float32 sums, so neither size changes a corrected
+    # base
     card = int(torch.cuda.mem_get_info()[1]) if torch.cuda.is_available() else 0
     if card > 0:
         cells = max(1 << 19, min(1 << 23, (card // 6) // (256 + SMAX * SROW)))

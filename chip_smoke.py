@@ -18,7 +18,10 @@ Phases (each prints its results; any failure exits non-zero):
               sampled from the first call of each utg drive of phase 7,
               (d) K4's j* and edits against the plain DP on
               tests/torch_cases.py trace_cases at bands 128, 200 and 256,
-              ends_free both ways, 256 rows
+              ends_free both ways, 256 rows, and on DP_GROUP_CASES: one
+              launch each of 300 to 4,096 jobs, 1, 2, 3 and 63
+              super-rows, bands 1, 128, 129 and 256, t_len over every
+              row, mostly short or uniform
   4 slice     meryl + overlap ("cor") stages on the bench.py read set
               (1,025 reads, 3.64 Mb) in a temporary directory; K1 must
               have launched and the plain loop must not have run on the
@@ -80,15 +83,17 @@ Phases (each prints its results; any failure exits non-zero):
               falcon-sense vote engine) from a FASTA of the raw bench
               reads, Config() + genomeSize=300k, in a directory of its own:
               K1 must have launched, K4 once per call of the vote engine's
-              DP, and no other kernel, plain loop or plain DP run on the
+              DP (a group of chunks; one launch of 4 chunks or more at
+              least), and no other kernel, plain loop or plain DP run on the
               card; the gatekeeper store's reads and bases, the cor
               store (cor_overlap_reference.json) and the corrected reads of
               every block that correction_reference.json covers (by
               digest) must equal the JAX package's; every corrected record
               is <read>_corrN.  Prints the stage walls, the correction's
-              parts (selection, DP, windows + vote fold, finalize, fetch,
-              decode), chunks and jobs, one chunk's launches and device
-              busy share (torch.profiler; table in
+              parts (selection, DP, windows, vote fold, finalize, fetch,
+              decode), chunks, groups and jobs, the jobs of each K4
+              launch, one chapter's launches and device busy share
+              (torch.profiler; table in
               chiprun_out/profile_correct.txt) and the device memory peak
               over the correction.  The vote engine's DP is kernel K4 (the
               JAX package's is a jitted XLA program, with no Pallas
@@ -148,12 +153,16 @@ Phases (each prints its results; any failure exits non-zero):
               path chunks, the DP by CUDA events, the host time of the tag
               chains and the device memory peak
   12c vote_dp K4 held bit for bit (j* and edits) to the plain DP on the
-              card on DP calls the main path made: the first three chunks
-              of phase 10 (falcon, band 256, 2,048 rows), the first of
-              11a's RED and of its polish, the first path chunk of 12b
-              (ends_free=True); K4 on phase 10's first chunk by CUDA
-              events (mean of 10) beside the whole DP call, the plain
-              version's one run and its bound (vdp_bound)
+              card on DP calls the main path made, each a K4 launch of a
+              group of chunks: the first three of phase 10 (falcon, band
+              256, 2,048 rows), the first of 11a's RED and of its
+              polish, the first of 12b (ends_free=True); the first whole,
+              the others on a seeded subset of their jobs that holds each
+              chunk's first and last (dp_subset); K4 by CUDA events on
+              phase 10's first chunk alone (mean of 10) and on its first
+              full group (mean of 5, and its share a chunk), each beside
+              its bound (vdp_bound), the whole DP call, the plain DP's one
+              run on the group and the E. coli projection of the DP
   13 tools    canu_tpu_torch.tools.main in this process on the scripted
               session of tests/torch_cases.py tools_session (simulate at
               the bench shapes, analyze, sample, kmer-count at k=16 and
@@ -639,14 +648,41 @@ def vdp_bound(call) -> dict:
             "live_rows": n_live, "cells": cells}
 
 
-def held_dp(name: str, call):
-    """A DP call through ops.trace.align_positions_lean (K4 on the card)
-    and the plain version on the same inputs, j* and edits bit for bit:
-    (max |diff| (0), the plain version's ms by CUDA events)."""
+# a DP call of more jobs than this is held to the plain DP on a subset of them
+HELD_JOBS = 256
+
+
+def dp_subset(B: int, chunk: int, n: int = HELD_JOBS, seed: int = 11):
+    """The jobs of a DP call of B jobs in chunks of `chunk` that held_dp
+    runs the plain DP on: each chunk's first and last job, and seeded
+    random others up to n in all (sorted)."""
+    import numpy as np
+
+    ends = sorted({x for c0 in range(0, B, chunk) for x in (c0, min(c0 + chunk, B) - 1)})
+    rest = np.setdiff1d(np.arange(B), ends)
+    pick = np.random.default_rng(seed).permutation(rest)[: max(0, n - len(ends))]
+    return np.sort(np.concatenate([np.asarray(ends, np.int64), pick.astype(np.int64)]))
+
+
+def held_dp(name: str, call, chunk: int | None = None):
+    """A DP call through ops.trace.align_positions_lean (K4 on the card, one
+    launch for all its jobs) and the plain version on the same inputs, j*
+    and edits bit for bit: (max |diff| (0), the plain version's ms by CUDA
+    events, the jobs held).  Given `chunk` and more than HELD_JOBS jobs,
+    the plain version runs on dp_subset's jobs only, held against K4's rows
+    of them from the full launch."""
+    import torch
+
     from canu_tpu_torch.ops import trace as TT
 
     args, kw = call
     got = TT.align_positions_lean(*args, **kw)
+    B = args[0].shape[0]
+    idx = None
+    if chunk is not None and B > HELD_JOBS:
+        idx = torch.from_numpy(dp_subset(B, chunk)).to(args[0].device)
+        got = tuple(g[idx] for g in got)
+        args = tuple(a[idx] for a in args[:4]) + tuple(args[4:])
     ref, plain_ms = once_ms(lambda: TT.align_positions_lean_plain(*args, **kw))
     err = 0
     for field, r, g in zip(("j_star", "edits"), ref, got):
@@ -656,7 +692,7 @@ def held_dp(name: str, call):
         d = int((r.long() - g.long()).abs().max()) if r.numel() else 0
         check(d == 0, f"{name}: K4 and the plain DP differ in {field} (max |diff| {d})")
         err = max(err, d)
-    return err, plain_ms
+    return err, plain_ms, (B if idx is None else len(idx))
 
 
 def capture_calls(module, name: str, first_only: bool = False):
@@ -743,7 +779,7 @@ def reset_counts() -> None:
     from canu_tpu_torch.ops.kernels import trace_cuda as K4
     from canu_tpu_torch.stores import overlaps as OV
 
-    K1.LAUNCHES = EX.WARP_LAUNCHES = EX.BLOCK_LAUNCHES = K4.LAUNCHES = 0
+    K1.LAUNCHES = EX.WARP_LAUNCHES = EX.BLOCK_LAUNCHES = K4.LAUNCHES = K4.JOBS_LAUNCHED = 0
     MY.PLAIN_CUDA_SEGMENTS = AL.PLAIN_CUDA_ROWS = TT.PLAIN_CUDA_CALLS = 0
     KM.HOST_COUNTS = MH.JOIN_CALLS = OV.SPILL_BUILDS = 0
 
@@ -1168,16 +1204,19 @@ def correct_drive(dev, card: str) -> dict:
     reads, Config() + genomeSize=300k, in a directory of its own, the
     counts set to 0 just before and read just after.  K1 must have launched
     (the cor overlap stage), K4 once per DP call, and no other kernel, plain
-    loop or plain DP on the card; the first three DP calls' inputs are kept
-    for phase 12c.  Holds the gatekeeper store, the cor store and each block of
-    corrected reads that correction_reference.json covers against the JAX
-    package's; the FASTA must be non-empty with every record
-    <read>_corrN.  Prints the stage walls and the correction's parts:
-    selection and decode on the host clock, the DP, the rest of each vote
-    chunk (windows and fold) and the finalize by CUDA events, the fetch of
-    the packed rows (host clock; it waits for the device); the chunks and
-    jobs; one chunk under torch.profiler (its launches and the device busy
-    share); the device memory peak over the correction."""
+    loop or plain DP on the card, and at least one K4 launch of 4 chunks
+    or more (a DP call takes a group of chunks); the first three DP calls'
+    inputs are kept for phase 12c.  Holds the gatekeeper store, the cor
+    store and each block of corrected reads that correction_reference.json
+    covers against the JAX package's; the FASTA must be non-empty with
+    every record <read>_corrN.  Prints the stage walls and the correction's
+    parts: selection and decode on the host clock, the DP, the windows of
+    each group and the fold of each chunk and the finalize by CUDA events,
+    the fetch of the packed rows (host clock; it waits for the device); the
+    chunks, groups and jobs and the jobs of each K4 launch; the first
+    pile_votes call (a chapter of chunks) under torch.profiler (its
+    launches and the device busy share); the device memory peak over the
+    correction."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1185,6 +1224,7 @@ def correct_drive(dev, card: str) -> dict:
     from canu_tpu_torch.io.fastx import read_fastx, write_fasta
     from canu_tpu_torch.ops import falcon as F
     from canu_tpu_torch.ops import votepile as VP
+    from canu_tpu_torch.ops.kernels import trace_cuda as K4
     from canu_tpu_torch.pipeline import stages
     from canu_tpu_torch.pipeline.driver import make_ctx
     from canu_tpu_torch.stores.overlaps import OverlapStore, store_digest
@@ -1207,15 +1247,17 @@ def correct_drive(dev, card: str) -> dict:
     ctx = make_ctx(work, "bench", cfg)
 
     # instrumentation, each undone below: every block's reads as the phase
-    # gets them, CUDA events around the DP, each vote chunk and each
-    # finalize, the first chunk's inputs, the memory peak from the first
-    # block on
+    # gets them, CUDA events around the DP, each group's windows and DP,
+    # each chunk's fold and each finalize, the first chapter's inputs, the
+    # memory peak from the first block on
     blocks: dict = {}
-    ev: dict = {"dp": [], "chunk": [], "finalize": []}
-    first_chunk: list = []
+    ev: dict = {"dp": [], "group": [], "fold": [], "finalize": []}
+    first_chapter: list = []
+    dp_jobs: list = []  # the jobs each DP call launched K4 on (K4.JOBS_LAUNCHED)
     mem: dict = {}
     real = {"blocks": F.correct_reads_blocks, "dp": VP.align_positions_lean,
-            "chunk": VP._vote_many, "finalize": F._finalize_plurality}
+            "group": VP._group_paths, "fold": VP._fold_chunk, "finalize": F._finalize_plurality,
+            "chapter": F.pile_votes}
 
     def timed(name):
         def call(*args, **kw):
@@ -1228,10 +1270,10 @@ def correct_drive(dev, card: str) -> dict:
             return out
         return call
 
-    def chunk(*args, **kw):
-        if not first_chunk:
-            first_chunk.append((args, kw))
-        return chunk_timed(*args, **kw)
+    def chapter(*args, **kw):
+        if not first_chapter:
+            first_chapter.append((args, kw))
+        return real["chapter"](*args, **kw)
 
     def capture(*args, **kw):
         torch.cuda.synchronize()
@@ -1249,15 +1291,18 @@ def correct_drive(dev, card: str) -> dict:
     def dp(*args, **kw):
         if len(dp_chunks) < 3:  # held to the plain DP in phase 12c
             dp_chunks.append(keep_call(args, kw))
-        return dp_timed(*args, **kw)
+        j0 = K4.JOBS_LAUNCHED
+        out = dp_timed(*args, **kw)
+        dp_jobs.append(K4.JOBS_LAUNCHED - j0)
+        return out
 
-    chunk_timed = timed("chunk")
     F.correct_reads_blocks, VP.align_positions_lean = capture, dp
-    VP._vote_many, F._finalize_plurality = chunk, timed("finalize")
+    VP._group_paths, VP._fold_chunk = timed("group"), timed("fold")
+    F._finalize_plurality, F.pile_votes = timed("finalize"), chapter
     try:
         reset_counts()
         F.PROFILE.clear()
-        VP.CHUNKS = VP.JOBS = 0
+        VP.CHUNKS = VP.JOBS = VP.GROUPS = 0
         t = time.time()
         stages.correction_phase(ctx, [fasta], device=dev)
         torch.cuda.synchronize()
@@ -1265,12 +1310,17 @@ def correct_drive(dev, card: str) -> dict:
         counts = read_counts()
     finally:
         F.correct_reads_blocks, VP.align_positions_lean = real["blocks"], real["dp"]
-        VP._vote_many, F._finalize_plurality = real["chunk"], real["finalize"]
+        VP._group_paths, VP._fold_chunk = real["group"], real["fold"]
+        F._finalize_plurality, F.pile_votes = real["finalize"], real["chapter"]
+    chunk_b = VP.chunk_jobs(F.VOTE_SEG)
     log(f"[10 correct] {card}: correction_phase from a FASTA of {raw.n_reads} reads: "
-        f"{t_run:.2f} s; launch counts {counts}")
+        f"{t_run:.2f} s; launch counts {counts}; jobs a K4 launch {dp_jobs} (chunks of "
+        f"{chunk_b})")
     check(counts["K1"] > 0, "10 correct: kernel K1 never launched during the phase")
     check(counts["K2"] == counts["K3"] == 0, "10 correct: kernel K2 or K3 launched off its path")
     check_dp("10 correct", counts, len(ev["dp"]))
+    check(max(dp_jobs) >= 4 * chunk_b,
+          f"10 correct: no K4 launch took 4 chunks or more (jobs a launch {dp_jobs})")
     check(no_plain(counts),
           "10 correct: a plain loop or the plain DP ran on the card during the phase")
 
@@ -1311,26 +1361,28 @@ def correct_drive(dev, card: str) -> dict:
         walls = {r["stage"]: r["wall_s"] for r in map(json.loads, fh) if "wall_s" in r}
     dev_s = {k: sum(a.elapsed_time(b) for a, b in v) / 1e3 for k, v in ev.items()}
     prof = dict(F.PROFILE)
-    n_chunks, n_jobs = VP.CHUNKS, VP.JOBS
+    n_chunks, n_jobs, n_groups = VP.CHUNKS, VP.JOBS, VP.GROUPS
     parts = {"select_s": prof.get("select", 0.0), "dp_s": dev_s["dp"],
-             "windows_and_fold_s": dev_s["chunk"] - dev_s["dp"],
+             "windows_s": dev_s["group"] - dev_s["dp"], "fold_s": dev_s["fold"],
              "finalize_s": dev_s["finalize"], "fetch_s": prof.get("fetch", 0.0),
              "decode_s": prof.get("decode", 0.0), "enqueue_votes_s": prof.get("votes", 0.0)}
     log(f"[10 timing] {card}: stage walls {walls}; correction parts " + ", ".join(
-        f"{k} {v:.3f}" for k, v in parts.items()) + f" (DP, windows+fold and finalize: CUDA "
-        f"events; the rest host clock); {n_jobs} vote jobs in {n_chunks} chunks of "
-        f"{VP.chunk_jobs(F.VOTE_SEG)}")
+        f"{k} {v:.3f}" for k, v in parts.items()) + f" (DP, windows, fold and finalize: CUDA "
+        f"events; the rest host clock); {n_jobs} vote jobs in {n_chunks} chunks of {chunk_b}, "
+        f"{n_groups} DP groups")
 
-    # one chunk: its launches and the device's busy share
-    args, kw = first_chunk[0]
+    # the first chapter (pile_votes call): its launches and the device's busy share
+    args, kw = first_chapter[0]
+    c0 = VP.CHUNKS
     torch.cuda.synchronize()
     t = time.time()
-    real["chunk"](*args, **kw)
+    real["chapter"](*args, **kw)
     torch.cuda.synchronize()
     wall1 = time.time() - t
+    ch_chunks = VP.CHUNKS - c0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
         t = time.time()
-        real["chunk"](*args, **kw)
+        real["chapter"](*args, **kw)
         torch.cuda.synchronize()
         wall_p = time.time() - t
     cuda_ev = [e for e in p.key_averages()
@@ -1338,12 +1390,13 @@ def correct_drive(dev, card: str) -> dict:
     launches = sum(e.count for e in cuda_ev)
     busy = sum(e.self_device_time_total for e in cuda_ev) / 1e6
     with open(os.path.join(OUT_DIR, "profile_correct.txt"), "w") as fh:
-        fh.write(f"{card}\none vote chunk: wall {wall_p:.3f} s under the profiler, device busy "
-                 f"{busy:.3f} s\n" + p.key_averages().table(sort_by="self_device_time_total",
-                                                           row_limit=25) + "\n")
-    log(f"[10 profile] {card}: one vote chunk: wall {wall1:.3f} s ({wall_p:.3f} s under the "
-        f"profiler); {launches} device launches (kernels, copies and fills); device busy "
-        f"{busy:.3f} s = {100 * busy / wall1:.1f}% of the chunk's wall "
+        fh.write(f"{card}\none vote chapter ({ch_chunks} chunks): wall {wall_p:.3f} s under the "
+                 f"profiler, device busy {busy:.3f} s\n"
+                 + p.key_averages().table(sort_by="self_device_time_total", row_limit=25) + "\n")
+    log(f"[10 profile] {card}: one vote chapter ({ch_chunks} chunks): wall {wall1:.3f} s "
+        f"({wall_p:.3f} s under the profiler), {wall1 / ch_chunks:.4f} s a chunk; {launches} "
+        f"device launches (kernels, copies and fills), {launches / ch_chunks:.1f} a chunk; "
+        f"device busy {busy:.3f} s = {100 * busy / wall1:.1f}% of the chapter's wall "
         f"({100 * busy / wall_p:.1f}% under the profiler); table in "
         "chiprun_out/profile_correct.txt")
     log(f"[10 memory] {card}: device peak over the correction "
@@ -1351,9 +1404,11 @@ def correct_drive(dev, card: str) -> dict:
         f"{mem['start'] / 1e9:.3f} GB allocated at its start)")
     log(f"[10 correct] phase wall {time.time() - t_phase:.1f} s")
     return {"run_s": t_run, "stage_walls_s": walls, "parts_s": parts, "chunks": n_chunks,
-            "jobs": n_jobs, "dp_calls": len(ev["dp"]), "dp_chunks": dp_chunks,
-            "launches": counts, "chunk_wall_s": wall1, "chunk_wall_profiled_s": wall_p,
-            "chunk_launches": launches, "chunk_busy_s": busy, "peak_bytes": mem["peak"],
+            "jobs": n_jobs, "groups": n_groups, "dp_calls": len(ev["dp"]), "dp_jobs": dp_jobs,
+            "dp_chunks": dp_chunks, "chunk_jobs": chunk_b, "launches": counts,
+            "chapter_chunks": ch_chunks, "chapter_wall_s": wall1,
+            "chapter_wall_profiled_s": wall_p, "chapter_launches": launches,
+            "chapter_busy_s": busy, "peak_bytes": mem["peak"],
             "start_bytes": mem["start"], "corrected_reads": len(recs), "work": work,
             "fasta": fasta, "phase_s": time.time() - t_phase}
 
@@ -1527,9 +1582,10 @@ def assemble_run(name: str, dev, card: str, genome_len: int, genome_seed: int, r
     dp_s = {k: sum(a.elapsed_time(b) for a, b in v) / 1e3 for k, v in dp_ev.items()}
     log(f"[{tag} timing] {card}: stage walls {walls}")
     log(f"[{tag} timing] {card}: oea.sub {oea_sub['sub_walls_s']} ({oea_sub['changed_reads']} "
-        f"reads changed); RED {chunks_in.get('red', 0)} vote chunks, DP {dp_s['red']:.3f} s; "
-        f"polish {chunks_in.get('polish', 0)} vote chunks, DP {dp_s['polish']:.3f} s (DP by "
-        f"CUDA events)")
+        f"reads changed); RED {chunks_in.get('red', 0)} vote chunks in {len(dp_ev['red'])} DP "
+        f"groups, DP {dp_s['red']:.3f} s; polish {chunks_in.get('polish', 0)} vote chunks in "
+        f"{len(dp_ev['polish'])} DP groups, DP {dp_s['polish']:.3f} s (DP by CUDA events; one K4 "
+        "launch a group)")
     # K1 in the OEA adjust: every launch with CUDA events beside its bound
     k1_launches = [k1_call(c) for c in adjust_calls]
     del adjust_calls
@@ -1796,7 +1852,8 @@ def dag_correct(dev, card: str, correct: dict, ref: dict) -> dict:
     dp_s = sum(a.elapsed_time(b) for a, b in dp_ev) / 1e3
     prof = {k: round(v, 3) for k, v in DG.PROFILE.items()}
     log(f"[12a timing] {card}: stage walls {walls}; {n_jobs} path jobs in {n_chunks} chunks of "
-        f"{DG.votepile.chunk_jobs(F.VOTE_SEG)}; DP {dp_s:.3f} s (CUDA events); host parts "
+        f"{DG.votepile.chunk_jobs(F.VOTE_SEG)}, {len(dp_ev)} DP groups (one K4 launch each); DP "
+        f"{dp_s:.3f} s (CUDA events); host parts "
         f"{prof} (dagcon.PROFILE: paths, enqueue and fetch, waiting for the device; tags and "
         f"chain, the tags and the tag-chain DP of every segment); {len(recs)} reads, "
         f"{sum(len(r.seq) for r in recs)} bases in {len(blocks)} blocks; blocks "
@@ -1911,8 +1968,8 @@ def dag_polish(dev, card: str, run_a: dict, ref: dict) -> dict:
     walls = {r["stage"]: r["wall_s"] for r in new if "wall_s" in r}
     dp_s = sum(a.elapsed_time(b) for a, b in dp_ev) / 1e3
     prof = {k: round(v, 3) for k, v in DG.PROFILE.items()}
-    log(f"[12b timing] {card}: stage walls {walls}; {DG.JOBS} path jobs in {DG.CHUNKS} chunks; "
-        f"DP {dp_s:.3f} s (CUDA events); host {prof} (dagcon.PROFILE, as in 12a); every gate "
+    log(f"[12b timing] {card}: stage walls {walls}; {DG.JOBS} path jobs in {DG.CHUNKS} chunks, "
+        f"{len(dp_ev)} DP groups; DP {dp_s:.3f} s (CUDA events); host {prof} (dagcon.PROFILE, as in 12a); every gate "
         f"equals the JAX package's: " + ", ".join(ref["gates"]))
     log(f"[12b memory] {card}: device peak over the resumed run {mem['peak'] / 1e9:.3f} GB "
         f"({(mem['peak'] - mem['start']) / 1e9:.3f} GB above its start)")
@@ -1932,48 +1989,76 @@ def dag_drive(dev, card: str, correct: dict, assemble: dict) -> dict:
             "polish": dag_polish(dev, card, assemble["a"], ref["polish"])}
 
 
+# E. coli correction's vote chunks (ROADMAP 9(b)), for the DP projection
+ECOLI_CHUNKS = 8600
+
+
 def vote_dp_drive(dev, card: str, correct: dict, assemble: dict, dag: dict) -> dict:
     """Phase 12c: kernel K4 held bit for bit to the plain DP on the card
-    (held_dp) on DP calls the main path made: the first three chunks of
-    phase 10 (falcon, band 256, 2,048 rows), the first of 11a's RED and of
-    its polish and the first path chunk of 12b's dag polish (all with
-    ends_free=True); then K4 alone on the first phase-10 chunk by CUDA
-    events (mean of 10 launches) beside the whole DP call (the anchors, K4
-    and the positions), the plain version's one run and vdp_bound."""
+    (held_dp) on DP calls the main path made, each one K4 launch of a
+    group of chunks: the first three of phase 10 (falcon, band 256, 2,048
+    rows), the first of 11a's RED and of its polish and the first of 12b's
+    dag polish (all with ends_free=True); the first is held whole, the
+    others on dp_subset's jobs (each chunk's first and last, seeded others)
+    from the full launch.  Then by CUDA events: K4 on phase 10's first
+    chunk alone (mean of 10 launches, PR 10's shape) and on its first full
+    group (mean of 5), each beside vdp_bound, the whole DP call (anchors,
+    K4, positions) of the group, the plain DP's run on the group; the
+    per-chunk share of the group and the E. coli projection (per-chunk
+    time x ECOLI_CHUNKS)."""
     from canu_tpu_torch.ops import trace as TT
     from canu_tpu_torch.ops.kernels import trace_cuda as K4
 
+    chunk = correct["chunk_jobs"]
     assemble["b"].pop("dp_chunks")
-    chunks = [(f"10 chunk {i + 1}", c) for i, c in enumerate(correct.pop("dp_chunks"))]
+    chunks = [(f"10 group {i + 1}", c) for i, c in enumerate(correct.pop("dp_chunks"))]
     red_polish = assemble["a"].pop("dp_chunks")
     chunks += [(f"11a {k}", red_polish[k]) for k in ("red", "polish") if k in red_polish]
     chunks.append(("12b dag", dag["polish"].pop("dp_chunk")))
-    check(len(chunks) == 6, f"12c: {len(chunks)} captured DP chunks, expected 3 of phase 10, "
+    check(len(chunks) == 6, f"12c: {len(chunks)} captured DP calls, expected 3 of phase 10, "
           "11a's RED and polish, 12b's dag")
     err, held = 0, {}
-    for name, call in chunks:
+    for k, (name, call) in enumerate(chunks):
         t, _, e, _, band, n_rows, ef = dp_inputs(call)
-        e_k, plain_ms = held_dp(f"12c {name}", call)
+        e_k, plain_ms, n_held = held_dp(f"12c {name}", call, None if k == 0 else chunk)
         err = max(err, e_k)
-        held[name] = {"jobs": t.shape[0], "band": band, "n_rows": n_rows, "ends_free": ef,
-                      "evidence_cols": e.shape[1], "plain_ms": plain_ms}
-        log(f"[12c vote_dp] {name}: {t.shape[0]} jobs x {n_rows} rows, band {band}, ends_free "
-            f"{ef}: K4 bit-equal to the plain DP (j* and edits; plain {plain_ms:.1f} ms)")
-    call = chunks[0][1]
+        held[name] = {"jobs": t.shape[0], "held_jobs": n_held, "band": band, "n_rows": n_rows,
+                      "ends_free": ef, "evidence_cols": e.shape[1], "plain_ms": plain_ms}
+        how = ("all of them" if n_held == t.shape[0] else
+               f"{n_held} of them (each chunk of {chunk}'s first and last, seeded others up to "
+               f"{HELD_JOBS}; dp_subset), K4's rows from the full launch")
+        log(f"[12c vote_dp] {name}: one K4 launch of {t.shape[0]} jobs x {n_rows} rows, band "
+            f"{band}, ends_free {ef}: bit-equal to the plain DP (j* and edits) on {how}; plain "
+            f"{plain_ms:.1f} ms")
+    name, call = chunks[0]
     t, tl, e, el, band, n_rows, ef = dp_inputs(call)
+    B = t.shape[0]
     A = TT._anchors(tl, el, band, n_rows)
-    ms = cuda_ms(lambda: K4.vote_dp_keys(t, tl, e, el, A, band, n_rows, ef), 10)
-    call_ms = cuda_ms(lambda: TT.align_positions_lean(*call[0], **call[1]), 10)
-    plain_ms = held[chunks[0][0]]["plain_ms"]
+    one = tuple(x[:chunk].contiguous() for x in (t, tl, e, el, A))
+    ms1 = cuda_ms(lambda: K4.vote_dp_keys(*one, band, n_rows, ef), 10)
+    ms = cuda_ms(lambda: K4.vote_dp_keys(t, tl, e, el, A, band, n_rows, ef), 5)
+    call_ms = cuda_ms(lambda: TT.align_positions_lean(*call[0], **call[1]), 5)
+    plain_ms = held[name]["plain_ms"]
+    bd1 = vdp_bound(((one[0], one[1], one[2], one[3], band, n_rows), {"ends_free": ef}))
     bd = vdp_bound(call)
-    log(f"[12c timing] {card}: K4 on phase 10's first chunk ({t.shape[0]} jobs x {n_rows} rows, "
-        f"band {band}): {ms:.3f} ms (CUDA events, mean of 10); the whole DP call (anchors, K4, "
-        f"positions) {call_ms:.3f} ms; the plain DP {plain_ms:.1f} ms; bound {bd['bound_ms']:.3f} "
-        f"ms ({bd['ops']:.3e} operations on {bd['cells']} cells of {bd['live_rows']} live rows, "
-        f"{bd['bytes']:.3e} bytes; bound by {bd['bound_by']}; {100 * bd['bound_ms'] / ms:.1f}% of "
-        f"it); scratch {K4.scratch_bytes(t.shape[0], band, n_rows) / 1e6:.1f} MB")
-    return {"err": err, "held": held, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-            "bound": bd}
+    n_ch = -(-B // chunk)
+    per_chunk = ms / n_ch
+    log(f"[12c timing] {card}: K4 on phase 10's first chunk alone ({chunk} jobs x {n_rows} rows, "
+        f"band {band}): {ms1:.3f} ms (CUDA events, mean of 10; bound {bd1['bound_ms']:.3f} ms, "
+        f"{100 * bd1['bound_ms'] / ms1:.1f}% of it); on its first full group (one launch of "
+        f"{B} jobs, {n_ch} chunks): {ms:.3f} ms (mean of 5), {per_chunk:.3f} ms a chunk; bound "
+        f"{bd['bound_ms']:.3f} ms ({bd['ops']:.3e} operations on {bd['cells']} cells of "
+        f"{bd['live_rows']} live rows, {bd['bytes']:.3e} bytes; bound by {bd['bound_by']}; "
+        f"{100 * bd['bound_ms'] / ms:.1f}% of it); the whole DP call (anchors, K4, positions) "
+        f"{call_ms:.3f} ms; the plain DP on the group {plain_ms:.1f} ms; scratch "
+        f"{K4.scratch_bytes(B, band, n_rows) / 1e6:.1f} MB ({K4.scratch_bytes(1, band, n_rows)} "
+        f"bytes a job)")
+    log(f"[12c projection] {card}: E. coli correction's DP, {ECOLI_CHUNKS} chunks at the group's "
+        f"{per_chunk:.3f} ms a chunk: {ECOLI_CHUNKS * per_chunk / 1e3:.2f} s (at the lone chunk's "
+        f"{ms1:.3f} ms: {ECOLI_CHUNKS * ms1 / 1e3:.2f} s)")
+    return {"err": err, "held": held, "ms": ms, "ms_chunk": ms1, "ms_per_chunk": per_chunk,
+            "group_jobs": B, "group_chunks": n_ch, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound": bd, "bound_chunk": bd1, "ecoli_dp_s": ECOLI_CHUNKS * per_chunk / 1e3}
 
 
 def tools_drive(dev, card: str, run_b: dict) -> dict:
@@ -2629,7 +2714,7 @@ def main() -> int:
 
     # ---- 3d: K4 vs the plain DP, the shared cases ----------------------------
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from torch_cases import trace_cases
+    from torch_cases import DP_GROUP_CASES, dp_group_case, trace_cases
 
     err_dp = 0
     for band in (128, 200, 256):
@@ -2640,6 +2725,16 @@ def main() -> int:
                                          ((*args, band, 256), {"ends_free": ef}))[0])
             log(f"[3d kernel] K4 bit-equal to the plain DP on {args[0].shape[0]} jobs x 256 rows "
                 f"(tests/torch_cases.py trace_cases), band {band}, ends_free {ef}")
+    for B, n_rows, band, ef, short in DP_GROUP_CASES:
+        args = [torch.from_numpy(x).to(dev)
+                for x in dp_group_case(B + n_rows + band, B, n_rows, band, short)]
+        l0 = K4.LAUNCHES
+        err_dp = max(err_dp, held_dp(f"3d K4 group {B} x {n_rows}, band {band}",
+                                     ((*args, band, n_rows), {"ends_free": ef}))[0])
+        check(K4.LAUNCHES == l0 + 1, f"3d: K4 launched {K4.LAUNCHES - l0} times for one DP call")
+        log(f"[3d kernel] K4 bit-equal to the plain DP on one launch of {B} jobs x {n_rows} rows "
+            f"(tests/torch_cases.py dp_group_case, {'mostly short' if short else 'uniform'} "
+            f"t_len), band {band}, ends_free {ef}")
 
     # ---- 4: the slice ------------------------------------------------------
     from canu_tpu_torch.config import Config

@@ -1,6 +1,6 @@
 """The port's tag-chain (dag) consensus against canu_tpu's on the CPU: the
 paths of evidence windows (dagcon._paths_many, paths_for_jobs, whatever
-the chunk size), the tag extraction, the heaviest-chain DP and
+the chunk and DP group sizes), the tag extraction, the heaviest-chain DP and
 dag_segments; polish_tig(mode="dag") on tests/test_dagcon.py's
 two-haplotype pile; correct_reads_blocks(mode="dag") block for block; and
 correction_phase with corConsensus=dag and run_pipeline with
@@ -30,6 +30,7 @@ import canu_tpu_torch.ops.consensus as TC
 import canu_tpu_torch.ops.dagcon as TD
 import canu_tpu_torch.ops.falcon as TF
 import canu_tpu_torch.ops.votepile as TV
+from canu_tpu_torch.ops.kernels import trace_cuda as TK4
 import canu_tpu_torch.stores.readset as TRS
 import canu_tpu_torch.stores.tigs as TT
 from canu_tpu_torch.io.fastx import write_fasta
@@ -157,6 +158,32 @@ def test_paths_for_jobs_equal_whatever_the_chunk_size(windows, monkeypatch):
         for g, w in zip(got, want):
             assert g.dtype == w.dtype
             np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("per_group", [1, 2])
+def test_paths_for_jobs_grouped_equal(windows, per_group, monkeypatch):
+    """An odd number of chunks cut into DP groups of per_group chunks (the
+    last one smaller): js and e_sub equal canu_tpu's."""
+    tj, jj = windows["jobs"]
+    want = JD.paths_for_jobs(*windows["jax"], jj, SEG, BAND)
+    B = next(b for b in range(32, 64) if -(-len(tj) // b) % 2 == 1 and -(-len(tj) // b) >= 3)
+    n_chunks = -(-len(tj) // B)
+    monkeypatch.setattr(TV, "CHUNK_CELL_BUDGET", SEG * B)
+    monkeypatch.setattr(TV, "GROUP_BYTE_BUDGET",
+                        (per_group * B + B - 1) * TK4.scratch_bytes(1, BAND, SEG))
+    assert (TV.chunk_jobs(SEG), TV.group_chunks(BAND, SEG, B, torch.device("cpu"))) == (B, per_group)
+    c0 = TD.CHUNKS
+    calls = []
+    real = TD.align_positions_lean
+    monkeypatch.setattr(TD, "align_positions_lean",
+                        lambda t, *a, **k: calls.append(t.shape[0]) or real(t, *a, **k))
+    got = TD.paths_for_jobs(*windows["torch"], tj, SEG, BAND)
+    assert TD.CHUNKS - c0 == n_chunks
+    assert calls == [min(per_group * B, n_chunks * B - g) for g in range(0, n_chunks * B,
+                                                                          per_group * B)]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
 
 
 def _tag_sets(windows, mod):

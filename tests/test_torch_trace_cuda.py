@@ -18,7 +18,8 @@ import torch
 
 from canu_tpu_torch.ops import trace as TT
 from canu_tpu_torch.ops.kernels import trace_cuda as K4
-from torch_cases import one_torch_thread, trace_cases  # noqa: F401  (autouse fixture)
+from torch_cases import (DP_GROUP_CASES, dp_group_case, one_torch_thread,  # noqa: F401
+                         trace_cases)
 
 
 @pytest.fixture
@@ -105,12 +106,35 @@ def test_wrapper_refuses_host_tensors_instead_of_falling_back():
 
 def test_scratch_covers_the_padded_window():
     # the stored rows hold the window band + 128 in whole warps of 8 or
-    # 12 cells a lane, and chunks at the budget's 256 jobs x 2,048 rows
-    # take 205.6 MB (pipeline/configure.py)
+    # 12 cells a lane; each warp of a job stores at most half_rows rows
+    # (whole super-rows of them staged) before the two meet at M = 32 *
+    # round(t_len / 64), for every t_len; a job at 2,048 rows and band 256
+    # takes 1.19 MB (pipeline/configure.py)
     for band in (1, 127, 128, 129, 200, 256):
         W = K4.row_lanes(band)
         assert W in (256, 384) and W >= band + 128 and W - (band + 128) < 128
-    assert K4.scratch_bytes(256, 256, 2048) == 256 * 2049 * (384 + 8) == 205_621_248
+    for n_rows in (32, 64, 96, 128, 2016, 2048):
+        H = K4.half_rows(n_rows)
+        assert H % 32 == 0 and H <= n_rows // 2 + 16
+        for T in range(n_rows + 1):
+            M = 32 * ((T + 32) // 64)
+            assert M <= T and M <= H and T - M <= H and 32 * -(-(T - M) // 32) <= H
+    assert K4.half_rows(2048) == 1024 and K4.half_rows(2016) == 1024
+    assert K4.scratch_bytes(256, 256, 2048) == 256 * (1025 * 388 + 1024 * 768 + 2049 * 4) \
+        == 305_235_968
+
+
+@pytest.mark.parametrize("band,n_rows", [(1, 32), (129, 96), (256, 2048)])
+def test_group_jobs_fits_its_budget_and_is_never_zero(band, n_rows):
+    one = K4.scratch_bytes(1, band, n_rows)
+    rng = np.random.default_rng(band + n_rows)
+    for budget in [one, one + 1, 2 * one - 1, 7 * one, *rng.integers(one, 1 << 34, 20)]:
+        n = K4.group_jobs(band, n_rows, int(budget))
+        assert n >= 1 and K4.scratch_bytes(n, band, n_rows) <= budget
+        assert K4.scratch_bytes(n + 1, band, n_rows) > budget
+    for budget in (0, one - 1):
+        with pytest.raises(ValueError, match="exceeds the budget"):
+            K4.group_jobs(band, n_rows, budget)
 
 
 @pytest.mark.cuda
@@ -146,3 +170,17 @@ def test_kernel_matches_plain_on_random_lengths(cuda_device, band, n_rows, LE, e
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_wrapper_refuses_on_card(cuda_device, case):
     _refused(cuda_device, case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n_rows,band,ends_free,mostly_short", DP_GROUP_CASES)
+def test_kernel_matches_plain_on_groups(cuda_device, B, n_rows, band, ends_free, mostly_short):
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in dp_group_case(B + n_rows + band, B, n_rows, band, mostly_short)]
+    launches, jobs = K4.LAUNCHES, K4.JOBS_LAUNCHED
+    got = TT.align_positions_lean(*args, band, n_rows, ends_free=ends_free)
+    assert (K4.LAUNCHES, K4.JOBS_LAUNCHED) == (launches + 1, jobs + B)
+    ref = TT.align_positions_lean_plain(*args, band, n_rows, ends_free=ends_free)
+    torch.cuda.synchronize()
+    for name, r, g in zip(("j_star", "edits"), ref, got):
+        np.testing.assert_array_equal(r.cpu().numpy(), g.cpu().numpy(), err_msg=name)

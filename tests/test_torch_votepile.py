@@ -1,7 +1,8 @@
 """canu_tpu_torch.ops.votepile against canu_tpu.ops.votepile on the CPU: the
 vote piles (float32 votes, with QV weights, flipped evidence and several
-chunks), both finalizers' packed values, decode_pieces, segment_codes_plane
-and device_words give the same results.  Exact: votes are exact float32
+chunks, whatever the chunks a DP group), both finalizers' packed values,
+decode_pieces, segment_codes_plane and device_words give the same
+results.  Exact: votes are exact float32
 sums."""
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 
 import canu_tpu.ops.votepile as JV
 import canu_tpu_torch.ops.votepile as TV
+from canu_tpu_torch.ops.kernels import trace_cuda as K4
 from canu_tpu_torch.sim.simulate import mutate_read
 from canu_tpu_torch.utils import bitpack
 from torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
@@ -20,6 +22,7 @@ from torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 LT = 256  # template rows of the pile (n_rows = Lt)
 S_E = 512  # evidence plane row width
 G = 8
+CPU = torch.device("cpu")
 
 
 def _pile_inputs(seed: int, n_jobs: int = 150):
@@ -92,6 +95,64 @@ def test_pile_votes_equal(piles):
     assert ref.sum() > 0 and (ref != np.round(ref)).any()  # QV weights are non-uniform
 
 
+@pytest.mark.parametrize("per_group", [1, 2, 3])
+def test_pile_votes_grouped_equal(piles, per_group, monkeypatch):
+    """pile_votes with a DP group budget of per_group chunks of 32 jobs: the
+    5 chunks go to the DP in groups of per_group (the last one smaller)
+    and are folded in order; the votes and both finalizers' packed values
+    equal canu_tpu's exactly."""
+    (jt, jl, ref), (tt, tl, _) = piles
+    _, ev, cols, weight = _pile_inputs(11)
+    te, tel, _ = TV.segment_codes_plane(ev, S_E, "cpu")
+    one = K4.scratch_bytes(1, 256, LT)
+    monkeypatch.setattr(TV, "CHUNK_CELL_BUDGET", 32 * LT)
+    monkeypatch.setattr(TV, "GROUP_BYTE_BUDGET", (per_group * 32 + 31) * one)
+    assert TV.group_chunks(256, LT, 32, CPU) == per_group
+    chunks, groups = TV.CHUNKS, TV.GROUPS
+    got = TV.pile_votes(tt, tl, te, tel, _jobs(TV.VoteJobs, cols, weight), G, LT, ends_free=True)
+    assert (TV.CHUNKS - chunks, TV.GROUPS - groups) == (5, -(-5 // per_group))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    t_idx = np.arange(G, dtype=np.int32)
+    for keep in (False, True):
+        rp, rc = JV._finalize_plurality(jt, jl, jnp.asarray(t_idx), jnp.asarray(ref), 2.0, LT, keep)
+        gp, gc = TV._finalize_plurality(tt, tl, torch.from_numpy(t_idx), got, 2.0, LT, keep)
+        np.testing.assert_array_equal(gp.numpy(), np.asarray(rp).astype(np.int64))
+        np.testing.assert_array_equal(gc.numpy(), np.asarray(rc))
+    r = JV._finalize_red(jt, jl, jnp.asarray(t_idx), jnp.asarray(ref), 2.0, 1.0, LT)
+    g = TV._finalize_red(tt, tl, torch.from_numpy(t_idx), got, 2.0, 1.0, LT)
+    np.testing.assert_array_equal(g.numpy(), np.asarray(r).astype(np.int64))
+
+
+def test_group_chunks_raises_when_a_chunk_does_not_fit(monkeypatch):
+    monkeypatch.setattr(TV, "GROUP_BYTE_BUDGET", 32 * K4.scratch_bytes(1, 256, LT) - 1)
+    with pytest.raises(ValueError, match="group budget"):
+        TV.group_chunks(256, LT, 32, CPU)
+    monkeypatch.setattr(TV, "GROUP_BYTE_BUDGET", 0)
+    with pytest.raises(ValueError, match="exceeds the budget"):
+        TV.group_chunks(256, LT, 32, CPU)
+
+
+@pytest.mark.parametrize("card_gb", [0, 16, 80])
+def test_group_chunks_default_fits_a_canonical_chunk(card_gb, monkeypatch):
+    """With the budgets as a fresh process has them (nothing sized by
+    configure_resources) a canonical chunk (2,048 rows, band 256, 256
+    jobs) goes to the DP: one a call on the CPU, as many as K4's scratch
+    fits in a sixth of the card on a CUDA device (card_gb 0: the CPU)."""
+    assert TV.GROUP_BYTE_BUDGET is None
+    B = TV.chunk_jobs(2048)
+    assert B == 256
+    if card_gb == 0:
+        assert TV.group_chunks(256, 2048, B, CPU) == 1
+        return
+    card = card_gb << 30
+    props = type("Props", (), {"total_memory": card})()
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev: props)
+    k = TV.group_chunks(256, 2048, B, torch.device("cuda", 0))
+    assert k >= 1 and K4.scratch_bytes(k * B, 256, 2048) <= card // 6
+    assert K4.scratch_bytes((k + 1) * B, 256, 2048) > card // 6
+    assert card_gb < 80 or k >= 16  # a pile_votes chapter of a correction block
+
+
 def test_finalizers_equal(piles):
     (jt, jl, votes), (tt, tl, _) = piles
     rng = np.random.default_rng(5)
@@ -148,3 +209,22 @@ def test_device_words_equal():
     np.testing.assert_array_equal(tw.numpy(), np.asarray(jw).astype(np.int64))
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
     assert TV.device_words(trs, "cpu")[0] is tw  # cached per read set and device
+
+
+def test_pile_votes_fresh_at_real_geometry(piles):
+    """pile_votes at the correction's geometry (2,048 rows, band 256, a
+    chunk of 256 jobs) with the budgets as a fresh process has them, as a
+    resumed correction_phase runs it: one chunk, one DP call on the CPU,
+    and the votes of templates up to LT bases equal canu_tpu's at LT
+    rows, zero past them."""
+    (_, _, ref), _ = piles
+    tmpl, ev, cols, weight = _pile_inputs(11)
+    assert TV.GROUP_BYTE_BUDGET is None and TV.chunk_jobs(2048) == 256
+    tt, tl, _ = TV.segment_codes_plane(tmpl, 2048, "cpu")
+    te, tel, _ = TV.segment_codes_plane(ev, S_E, "cpu")
+    chunks, groups = TV.CHUNKS, TV.GROUPS
+    got = TV.pile_votes(tt, tl, te, tel, _jobs(TV.VoteJobs, cols, weight), G, 2048,
+                        ends_free=True).numpy()
+    assert (TV.CHUNKS - chunks, TV.GROUPS - groups) == (1, 1)
+    np.testing.assert_array_equal(got[:, :, :LT], ref)
+    assert not got[:, :, LT:].any()

@@ -10,7 +10,10 @@ extension's outputs are fixed, where K2 and K3 stop (the tests check the
 argument; chip_smoke.py counts the kernels' bound up to it).
 ``myers_edge_cases``: kernel K1's; ``trace_cases``: the vote engine's
 DP's (ops.trace.align_positions_lean), held against canu_tpu's on the CPU
-and kernel K4 against the plain version on the card; ``k1_rows_plain``:
+and kernel K4 against the plain version on the card; ``dp_group_case``
+and ``DP_GROUP_CASES``: K4 launches of thousands of jobs whose t_len
+runs over every row (``mostly_short``: most of them short), held to the
+plain version on the card; ``k1_rows_plain``:
 the plain rows of one K1 launch, cut into segments that run at once from
 given carries (a long launch held to the plain loop at the cost of one
 segment of it).
@@ -223,6 +226,48 @@ def trace_cases(seed: int, n_rows: int, band: int):
         ea[b, : len(e)] = e
         tl[b], el[b] = len(t), len(e)
     return ta, tl, ea, el
+
+
+# kernel K4 against the plain DP on the card: (jobs, n_rows, band,
+# ends_free, mostly_short); n_rows = 32, 64, 96 and 2,016 are 1, 2, 3 and 63
+# super-rows, bands 1, 128, 129 (the switch from 8 to 12 cells a lane) and
+# 256, launches of 1,000 and 4,096 jobs
+DP_GROUP_CASES = ((1000, 256, 256, True, False), (4096, 128, 128, False, True),
+                  (1000, 32, 129, True, True), (1000, 64, 1, False, False),
+                  (1000, 96, 128, False, True), (4096, 256, 1, True, True),
+                  (300, 2016, 256, True, True), (300, 2016, 129, False, False))
+
+
+def dp_group_case(seed: int, B: int, n_rows: int, band: int, mostly_short: bool):
+    """(t, t_len, e, e_len) of B vote-engine jobs: the first min(B, n_rows +
+    7) jobs' t_len run evenly from -2 to n_rows + 4 (every row when B
+    allows: meeting rows of both parities, lengths past either end), the
+    rest t_len uniform in [0, n_rows] or, mostly_short, four in
+    five of them at most n_rows // 8; the evidence a 12% mutated copy of
+    the template's window between random flanks, and one job in eight an
+    e_len drawn from [-2, LE + 9] (past the evidence, empty, negative)."""
+    rng = np.random.default_rng(seed)
+    LE = n_rows + max(band, n_rows // 2)
+    t = rng.integers(0, 4, (B, n_rows)).astype(np.uint8)
+    tl = rng.integers(0, n_rows + 1, B).astype(np.int32)
+    if mostly_short:
+        short = rng.random(B) < 0.8
+        tl[short] = rng.integers(0, n_rows // 8 + 1, int(short.sum()))
+    k = min(B, n_rows + 7)
+    tl[:k] = -2 + np.arange(k) * (n_rows + 6) // max(k - 1, 1)
+    e = np.zeros((B, LE), np.uint8)
+    el = np.zeros(B, np.int32)
+    for b in range(B):
+        core = t[b, : max(0, min(int(tl[b]), n_rows))].copy()
+        hit = rng.random(len(core)) < 0.12
+        core[hit] = rng.integers(0, 4, int(hit.sum()))
+        ev = np.concatenate([rng.integers(0, 4, int(rng.integers(0, 12))), core,
+                             rng.integers(0, 4, int(rng.integers(0, 12)))])[:LE]
+        e[b, : len(ev)] = ev
+        el[b] = len(ev)
+    odd = rng.random(B) < 0.125
+    el[odd] = rng.integers(-2, LE + 10, int(odd.sum()))
+    return t, tl, e, el
 
 
 NAMES = ("edits", "a_used", "b_used", "p_edits", "p_a", "p_b")
