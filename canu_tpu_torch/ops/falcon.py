@@ -264,7 +264,9 @@ def _pack_template_blocks(template_ids: np.ndarray, tl: np.ndarray, nseg: np.nda
 # host wall seconds of the correction's parts, summed over the blocks it
 # ran: template and evidence selection, the block geometry, enqueueing
 # the vote chunks and the finalize, fetching the packed rows (which waits
-# for the device) and decoding them; the chip check reads them
+# for the device) and decoding them; and correction_phase's own: writing
+# the block files, concatenating them and re-reading the whole gzip to
+# count its records; the chip check reads them
 PROFILE: dict = {}
 
 

@@ -451,6 +451,7 @@ def correction_phase(ctx: AssemblyCtx, raw_inputs: list[str], device=None) -> No
 
     def fn() -> None:
         from ..io.fastx import write_fasta
+        from ..ops.falcon import _lap
 
         os.makedirs(blocks_dir, exist_ok=True)
         done_blocks = {int(f[6:11]) for f in os.listdir(blocks_dir)
@@ -481,9 +482,11 @@ def correction_phase(ctx: AssemblyCtx, raw_inputs: list[str], device=None) -> No
             template_filter=str(ctx.cfg.get("corFilter")),
             device=dev,
         ):
+            t0 = time.perf_counter()
             p = os.path.join(blocks_dir, f"block_{bi:05d}.fasta.gz")
             write_fasta(p + ".WORKING.gz", items)
             os.replace(p + ".WORKING.gz", p)
+            _lap("write", t0)  # the block file's gzip FASTA
             n_blocks += 1
             ctx.log.info("correction block %d done (%d reads, %d blocks total)",
                          bi, len(items), n_blocks)
@@ -491,6 +494,7 @@ def correction_phase(ctx: AssemblyCtx, raw_inputs: list[str], device=None) -> No
         if not is_writer():
             return  # rank 0 concatenates; the others re-check done()
         # concatenate block gzips (gzip members concatenate legally)
+        t0 = time.perf_counter()
         n_blocks = 0
         with open(out + ".WORKING.gz", "wb") as oh:
             for f in sorted(os.listdir(blocks_dir)):
@@ -498,8 +502,10 @@ def correction_phase(ctx: AssemblyCtx, raw_inputs: list[str], device=None) -> No
                     with open(os.path.join(blocks_dir, f), "rb") as ih:
                         oh.write(ih.read())
                     n_blocks += 1
+        t0 = _lap("concat", t0)
         with gzip.open(out + ".WORKING.gz", "rt") as fh:
             n = sum(1 for line in fh if line.startswith(">"))
+        _lap("count", t0)  # the re-read of the whole gzip that counts its records
         os.replace(out + ".WORKING.gz", out)
         if not bool(ctx.cfg.get("saveReadCorrections")):
             shutil.rmtree(blocks_dir, ignore_errors=True)  # concatenated

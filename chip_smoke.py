@@ -87,11 +87,13 @@ Phases (each prints its results; any failure exits non-zero):
               least), and no other kernel, plain loop or plain DP run on the
               card; the gatekeeper store's reads and bases, the cor
               store (cor_overlap_reference.json) and the corrected reads of
-              every block that correction_reference.json covers (by
+              each of the nine blocks (correction_reference.json, by
               digest) must equal the JAX package's; every corrected record
               is <read>_corrN.  Prints the stage walls, the correction's
               parts (selection, DP, windows, vote fold, finalize, fetch,
-              decode), chunks, groups and jobs, the jobs of each K4
+              decode, the block files' writes, their concatenation and the
+              re-read that counts the records), chunks, groups and jobs,
+              the jobs of each K4
               launch, one chapter's launches and device busy share
               (torch.profiler; table in
               chiprun_out/profile_correct.txt) and the device memory peak
@@ -204,7 +206,7 @@ Phases (each prints its results; any failure exits non-zero):
               rank 0 merges, correction blocks strided over the ranks):
               the cor frequent table, candidates and store equal the
               reference, rank 0 corrects blocks 0, 2, 4, 6, 8 and rank 1
-              blocks 1, 3, 5, 7, blocks 0, 3, 6, 8 equal
+              blocks 1, 3, 5, 7, every block equal to
               correction_reference.json, every record <read>_corrN, K1
               on each rank and K4 once per DP call, no plain loop or plain
               DP on the card; the cor stages again
@@ -215,6 +217,30 @@ Phases (each prints its results; any failure exits non-zero):
               CUDA events, its launches and its device peak; the card's
               memory in use is sampled by nvidia-smi meanwhile; the
               ranks' logs are in chiprun_out/phase14_rank*.log
+  15 ecolicor correction_phase from a FASTA of raw reads at E. coli scale:
+              the JAX package's config 2 at 10% error (random_genome(4.6
+              Mb, seed=7) at 25x, 32,994 reads, 116.2 Mb), Config() +
+              genomeSize, nothing cut, in a directory of its own with the
+              counts set to 0 first: the device k-mer counter (116 M k=16
+              instances), the hash-join, K1, the store, ~290 blocks of
+              the vote engine.  K1 must have launched, K4 once per DP
+              call (one launch of 4 chunks or more at least), no K2 or K3
+              launch and no plain loop or plain DP on the card; the
+              gatekeeper store's reads and bases, the frequent table, the
+              whole candidate set, the cor store's rows whose a_id is one
+              of 256 sampled templates and those templates' corrected
+              reads in the phase's FASTA must equal
+              ecoli_correction_reference.json (the JAX package's
+              correction of that sample on its restricted store,
+              scripts/torch_ecoli_correction_reference.py); K4's first
+              DP call held to the plain DP on a subset of its jobs.
+              Prints the stage walls, meryl's route, the overlap's
+              sub-walls, K1 on each launch beside its bound, the
+              correction's parts (phase 10's, and the block files'
+              writes, their concatenation and the re-read that counts
+              the records), templates, blocks, chunks, DP groups, the
+              jobs of each K4 launch and the device memory peak over
+              meryl, the verify and the correction
 
 Each kernel's bound is the larger of its operations over the card's
 32-bit integer rate and its bytes over the memory rate (INT32_OPS_S,
@@ -1000,15 +1026,97 @@ def extend_drive(name: str, calls, card: str, reps: int = 3) -> dict:
             "first_bound_exit": first["bound_exit"]}
 
 
-def ecoli_reads():
-    """The E. coli-scale corrected read set (the JAX package's config 2,
-    scripts/scale_run.py: 4.6 Mb at 25x)."""
+def ecoli_reads(error_rate: float = 0.03):
+    """The E. coli-scale read set (the JAX package's config 2,
+    scripts/scale_run.py: 4.6 Mb at 25x): corrected reads at 3% error
+    (phase 9), raw reads at 10% (phase 15)."""
     from canu_tpu_torch.sim.simulate import random_genome, simulate_reads
 
     g = random_genome(ECOLI_GENOME, seed=7)
     rs, _ = simulate_reads(g, coverage=25, mean_len=3500, min_len=1500, max_len=7800,
-                           error_rate=0.03, seed=8)
+                           error_rate=error_rate, seed=8)
     return rs
+
+
+def cuda_timed(real, events: list):
+    """real, with a pair of CUDA events recorded around each call into
+    events."""
+    import torch
+
+    def call(*args, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real(*args, **kw)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    return call
+
+
+def k1_metered(real, k1: dict, dev):
+    """A stand-in for K1.myers_rows_cuda that times each launch with CUDA
+    events and computes its bound after it (k1_bound; the seconds that
+    takes go into k1["bound_s"]).  The bound's own temporaries stay out of
+    the verify's memory peak: the peak up to each launch goes into
+    k1["peak"] and the device's peak count is reset after the bound."""
+    import torch
+
+    def call(*args):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real(*args)
+        e1.record()
+        k1["events"].append((e0, e1))
+        k1["peak"] = max(k1["peak"], torch.cuda.max_memory_allocated(dev))
+        t0 = time.time()
+        k1["bounds"].append(k1_bound(args, torch.clamp(args[4].to(torch.int64), 0, args[6])))
+        k1["bound_s"] += time.time() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        return out
+
+    return call
+
+
+def verify_metered(real, k1: dict, mem: dict, dev):
+    """A stand-in for ops.align.verify_overlaps that reads the device memory
+    at the outer call's start (mem["start"]) and its peak (mem["peak"],
+    with k1_metered's k1["peak"]); the palindromic pass recurses."""
+    import torch
+
+    depth = [0]
+
+    def call(*args, **kw):
+        if depth[0] == 0:
+            torch.cuda.synchronize()
+            mem["start"] = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            k1["peak"] = 0
+        depth[0] += 1
+        try:
+            return real(*args, **kw)
+        finally:
+            depth[0] -= 1
+            if depth[0] == 0:
+                mem["peak"] = max(k1["peak"], torch.cuda.max_memory_allocated(dev))
+
+    return call
+
+
+def k1_drive_line(phase: str, card: str, k1: dict) -> tuple:
+    """Log K1 on every launch of a drive (CUDA events) beside its bound;
+    returns (ms of each launch, the bounds, the drive's bound in ms)."""
+    k1_ms = [e0.elapsed_time(e1) for e0, e1 in k1["events"]]
+    bd = k1["bounds"]
+    tb = sum(x["bound_ms"] for x in bd)
+    log(f"[{phase} timing] {card}: K1 per drive: {len(k1_ms)} launches, {sum(k1_ms):.3f} ms "
+        f"(first {k1_ms[0]:.3f} ms, largest {max(k1_ms):.3f} ms); bound {tb:.3f} ms "
+        f"({100 * tb / sum(k1_ms):.1f}% of it; {sum(x['ops'] for x in bd):.3e} operations, "
+        f"{sum(x['bytes'] for x in bd):.3e} bytes, {sum(x['live_rows'] for x in bd)} live rows; "
+        f"computed after each launch, {k1['bound_s']:.2f} s of the verify wall)")
+    return k1_ms, bd, tb
 
 
 def ecoli_drive(dev, card: str) -> dict:
@@ -1062,37 +1170,6 @@ def ecoli_drive(dev, card: str) -> dict:
             "window": AL._verify_window, "join": MH.find_candidates_join,
             "host": KM.count_readset_host, "append": OV.OverlapSpill.append}
 
-    def k1_timed(*args):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = real["k1"](*args)
-        e1.record()
-        k1["events"].append((e0, e1))
-        # the bound's own temporaries stay out of the verify's peak
-        k1["peak"] = max(k1["peak"], torch.cuda.max_memory_allocated(dev))
-        t0 = time.time()
-        k1["bounds"].append(k1_bound(args, torch.clamp(args[4].to(torch.int64), 0, args[6])))
-        k1["bound_s"] += time.time() - t0
-        torch.cuda.reset_peak_memory_stats(dev)
-        return out
-
-    depth = [0]
-
-    def verify_measured(*args, **kw):
-        if depth[0] == 0:  # the outer call (the palindromic pass recurses)
-            torch.cuda.synchronize()
-            mem["start"] = torch.cuda.memory_allocated(dev)
-            torch.cuda.reset_peak_memory_stats(dev)
-            k1["peak"] = 0
-        depth[0] += 1
-        try:
-            return real["verify"](*args, **kw)
-        finally:
-            depth[0] -= 1
-            if depth[0] == 0:
-                mem["peak"] = max(k1["peak"], torch.cuda.max_memory_allocated(dev))
-
     def window(*args):
         out = real["window"](*args)
         mem["windows"].append((args[:3], out))
@@ -1108,7 +1185,9 @@ def ecoli_drive(dev, card: str) -> dict:
         spilled.append(table)
         return real["append"](self, table)
 
-    K1.myers_rows_cuda, AL.verify_overlaps, AL._verify_window = k1_timed, verify_measured, window
+    K1.myers_rows_cuda = k1_metered(real["k1"], k1, dev)
+    AL.verify_overlaps = verify_metered(real["verify"], k1, mem, dev)
+    AL._verify_window = window
     MH.find_candidates_join = lambda *a, **kw: pairs_seen.append(real["join"](*a, **kw)) or \
         pairs_seen[-1]
     KM.count_readset_host, OV.OverlapSpill.append = host_timed, append
@@ -1174,14 +1253,7 @@ def ecoli_drive(dev, card: str) -> dict:
         f"equals the in-RAM build of the {len(spilled)} tables the spill got ({len(cat)} rows)")
 
     # K1 on every launch of the drive, by CUDA events, beside its bound
-    k1_ms = [e0.elapsed_time(e1) for e0, e1 in k1["events"]]
-    bd = k1["bounds"]
-    tb = sum(x["bound_ms"] for x in bd)
-    log(f"[9 timing] {card}: K1 per ecoli drive: {len(k1_ms)} launches, {sum(k1_ms):.3f} ms "
-        f"(first {k1_ms[0]:.3f} ms, largest {max(k1_ms):.3f} ms); bound {tb:.3f} ms "
-        f"({100 * tb / sum(k1_ms):.1f}% of it; {sum(x['ops'] for x in bd):.3e} operations, "
-        f"{sum(x['bytes'] for x in bd):.3e} bytes, {sum(x['live_rows'] for x in bd)} live rows; "
-        f"computed after each launch, {k1['bound_s']:.2f} s of the verify wall)")
+    k1_ms, bd, tb = k1_drive_line("9", card, k1)
     (w_args, (group, n_window)), *rest = mem["windows"]
     est = AL._chunk_staging_bytes(*w_args) * n_window
     log(f"[9 memory] {card}: verify device peak {mem['peak'] / 1e9:.3f} GB "
@@ -1207,8 +1279,8 @@ def correct_drive(dev, card: str) -> dict:
     loop or plain DP on the card, and at least one K4 launch of 4 chunks
     or more (a DP call takes a group of chunks); the first three DP calls'
     inputs are kept for phase 12c.  Holds the gatekeeper store, the cor
-    store and each block of corrected reads that correction_reference.json
-    covers against the JAX package's; the FASTA must be non-empty with
+    store and each of the nine blocks of corrected reads
+    (correction_reference.json) against the JAX package's; the FASTA must be non-empty with
     every record <read>_corrN.  Prints the stage walls and the correction's
     parts: selection and decode on the host clock, the DP, the windows of
     each group and the fold of each chunk and the finalize by CUDA events,
@@ -1260,15 +1332,7 @@ def correct_drive(dev, card: str) -> dict:
             "chapter": F.pile_votes}
 
     def timed(name):
-        def call(*args, **kw):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            out = real[name](*args, **kw)
-            e1.record()
-            ev[name].append((e0, e1))
-            return out
-        return call
+        return cuda_timed(real[name], ev[name])
 
     def chapter(*args, **kw):
         if not first_chapter:
@@ -1365,7 +1429,9 @@ def correct_drive(dev, card: str) -> dict:
     parts = {"select_s": prof.get("select", 0.0), "dp_s": dev_s["dp"],
              "windows_s": dev_s["group"] - dev_s["dp"], "fold_s": dev_s["fold"],
              "finalize_s": dev_s["finalize"], "fetch_s": prof.get("fetch", 0.0),
-             "decode_s": prof.get("decode", 0.0), "enqueue_votes_s": prof.get("votes", 0.0)}
+             "decode_s": prof.get("decode", 0.0), "enqueue_votes_s": prof.get("votes", 0.0),
+             "block_write_s": prof.get("write", 0.0), "concat_s": prof.get("concat", 0.0),
+             "count_s": prof.get("count", 0.0)}
     log(f"[10 timing] {card}: stage walls {walls}; correction parts " + ", ".join(
         f"{k} {v:.3f}" for k, v in parts.items()) + f" (DP, windows, fold and finalize: CUDA "
         f"events; the rest host clock); {n_jobs} vote jobs in {n_chunks} chunks of {chunk_b}, "
@@ -2515,8 +2581,8 @@ def grid_drive(dev, card: str, correct: dict) -> dict:
     shards merged by rank 0 (save_from_row_shards), the correction blocks
     strided over the ranks.  Gates: the cor frequent table, candidates and
     store equal cor_overlap_reference.json; rank r corrects blocks r,
-    r + n, ... (two ranks: 0, 2, 4, 6, 8 and 1, 3, 5, 7), blocks 0, 3, 6, 8 equal
-    correction_reference.json; every record <read>_corrN; K1 on each rank;
+    r + n, ... (two ranks: 0, 2, 4, 6, 8 and 1, 3, 5, 7), every block equal
+    to correction_reference.json; every record <read>_corrN; K1 on each rank;
     no plain loop on the card; the allgather exchange's store equal too;
     sharded_verify_candidates' rows on both ranks equal the world of
     one's, with K2 launched.  The cards' memory in use is sampled
@@ -2636,6 +2702,253 @@ def grid_drive(dev, card: str, correct: dict) -> dict:
                                                     for x in ranks),
             "k4_launches": sum(x["launches"]["K4"] for x in ranks),
             "phase_s": time.time() - t_phase}
+
+
+def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
+    """Phase 15: the port's correction_phase from a FASTA of raw reads at
+    E. coli scale (the JAX package's config 2 at 10% error, nothing cut),
+    Config() + genomeSize=4.6 Mb, in a directory of its own, the counts set
+    to 0 just before and read just after.  K1 must have launched (the cor
+    overlap), K4 once per DP call with at least one launch of 4 chunks or
+    more, and no K2 or K3 launch, plain loop or plain DP on the card.  Holds
+    against ecoli_correction_reference.json: the gatekeeper store's reads
+    and bases, the frequent table, the whole candidate set, the cor store's
+    rows whose a_id is a sampled template (tests/torch_cases.py
+    template_sample, store_of_templates) and the sampled templates' records
+    <read>_corrN in the phase's correctedReads.fasta.gz.  The first DP call
+    is held to the plain DP on dp_subset's jobs (held_dp).  Prints the stage
+    walls and meryl's route (device or host counter), the overlap's
+    sub-walls and verify profile, the store's route (in RAM or spill), K1
+    on each launch by CUDA events beside its bound, the correction's parts
+    as phase 10 prints them with the block files' writes, their
+    concatenation and the re-read that counts the records, the templates,
+    blocks, chunks, DP groups and the jobs of each K4 launch, the DP beside
+    projected_dp_s (phase 12c's projection from its full group), and the
+    device memory peak over meryl, over the verify and over the
+    correction."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from canu_tpu_torch.config import Config
+    from canu_tpu_torch.io.fastx import read_fastx, write_fasta
+    from canu_tpu_torch.ops import align as AL
+    from canu_tpu_torch.ops import falcon as F
+    from canu_tpu_torch.ops import minhash as MH
+    from canu_tpu_torch.ops import votepile as VP
+    from canu_tpu_torch.ops.kernels import myers_cuda as K1
+    from canu_tpu_torch.ops.kernels import trace_cuda as K4
+    from canu_tpu_torch.pipeline import stages
+    from canu_tpu_torch.pipeline.driver import make_ctx
+    from canu_tpu_torch.stores.overlaps import OverlapStore, store_digest
+    from canu_tpu_torch.stores.readset import ReadSet
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_cases import corrected_digest, store_of_templates, template_sample
+
+    with open(os.path.join(ROOT, "canu_tpu_torch", "ecoli_correction_reference.json")) as fh:
+        ref = json.load(fh)
+    t_phase = t = time.time()
+    raw = ecoli_reads(error_rate=0.10)
+    work = tempfile.mkdtemp(prefix="chip_smoke_ecolicor_")
+    fasta = os.path.join(work, "reads.fasta")
+    write_fasta(fasta, ((raw.name(i), raw.get_seq(i)) for i in range(1, raw.n_reads + 1)))
+    log(f"[15 ecolicor] raw read set: {raw.n_reads} reads, {raw.total_bases} bases, simulated "
+        f"and written to a FASTA in {time.time() - t:.1f} s")
+    del raw
+    cfg = Config()
+    cfg.set("genomeSize", ECOLI_GENOME)
+    ctx = make_ctx(work, "ecoli", cfg)
+
+    # instrumentation, each undone below: K1's events and bounds, the
+    # memory peaks over meryl, the verify and the correction, the
+    # candidates, the blocks' templates, CUDA events around the DP, each
+    # group's windows, each chunk's fold and each finalize, the first DP
+    # call's inputs
+    k1 = {"events": [], "bounds": [], "peak": 0, "bound_s": 0.0}
+    mem: dict = {"verify": {}}
+    pairs_seen, block_templates, dp_jobs, first_dp = [], [], [], []
+    ev: dict = {"dp": [], "group": [], "fold": [], "finalize": []}
+    real = {"k1": K1.myers_rows_cuda, "verify": AL.verify_overlaps,
+            "join": MH.find_candidates_join, "meryl": stages.meryl,
+            "blocks": F.correct_reads_blocks, "vote_blocks": F.run_vote_blocks,
+            "dp": VP.align_positions_lean, "group": VP._group_paths, "fold": VP._fold_chunk,
+            "finalize": F._finalize_plurality}
+
+    def peak_from_here() -> int:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        return torch.cuda.memory_allocated(dev)
+
+    def meryl(*args, **kw):
+        start = peak_from_here()
+        t0 = time.time()
+        out = real["meryl"](*args, **kw)
+        torch.cuda.synchronize()
+        mem["meryl"] = {"start": start, "peak": torch.cuda.max_memory_allocated(dev),
+                        "wall_s": time.time() - t0}
+        return out
+
+    def blocks(*args, **kw):
+        start = peak_from_here()
+        yield from real["blocks"](*args, **kw)
+        torch.cuda.synchronize()
+        mem["correct"] = {"start": start, "peak": torch.cuda.max_memory_allocated(dev)}
+
+    def vote_blocks(*args, **kw):
+        for bi, bt, rows2d in real["vote_blocks"](*args, **kw):
+            block_templates.append(len(bt))
+            yield bi, bt, rows2d
+
+    def timed(name):
+        return cuda_timed(real[name], ev[name])
+
+    dp_timed = timed("dp")
+
+    def dp(*args, **kw):
+        if not first_dp:  # held to the plain DP below
+            first_dp.append(keep_call(args, kw))
+        j0 = K4.JOBS_LAUNCHED
+        out = dp_timed(*args, **kw)
+        dp_jobs.append(K4.JOBS_LAUNCHED - j0)
+        return out
+
+    K1.myers_rows_cuda = k1_metered(real["k1"], k1, dev)
+    AL.verify_overlaps = verify_metered(real["verify"], k1, mem["verify"], dev)
+    MH.find_candidates_join = lambda *a, **kw: pairs_seen.append(real["join"](*a, **kw)) or \
+        pairs_seen[-1]
+    stages.meryl, F.correct_reads_blocks, F.run_vote_blocks = meryl, blocks, vote_blocks
+    VP.align_positions_lean, VP._group_paths, VP._fold_chunk = dp, timed("group"), timed("fold")
+    F._finalize_plurality = timed("finalize")
+    try:
+        reset_counts()
+        F.PROFILE.clear()
+        VP.CHUNKS = VP.JOBS = VP.GROUPS = 0
+        t = time.time()
+        stages.correction_phase(ctx, [fasta], device=dev)
+        torch.cuda.synchronize()
+        t_run = time.time() - t
+        counts = read_counts()
+    finally:
+        K1.myers_rows_cuda, AL.verify_overlaps = real["k1"], real["verify"]
+        MH.find_candidates_join, stages.meryl = real["join"], real["meryl"]
+        F.correct_reads_blocks, F.run_vote_blocks = real["blocks"], real["vote_blocks"]
+        VP.align_positions_lean, VP._group_paths = real["dp"], real["group"]
+        VP._fold_chunk, F._finalize_plurality = real["fold"], real["finalize"]
+    chunk_b = VP.chunk_jobs(F.VOTE_SEG)
+    route = "host" if counts["host_kmer_counts"] else "device"
+    store_route = "spill" if counts["spill_builds"] else "in RAM"
+    log(f"[15 ecolicor] {card}: correction_phase from the FASTA: {t_run:.2f} s; launch and call "
+        f"counts {counts}; meryl counted on the {route}; the cor store built {store_route}")
+    check(counts["K1"] > 0, "15 ecolicor: kernel K1 never launched during the phase")
+    check(counts["K2"] == counts["K3"] == 0, "15 ecolicor: kernel K2 or K3 launched off its path")
+    check_dp("15 ecolicor", counts, len(ev["dp"]))
+    check(max(dp_jobs) >= 4 * chunk_b,
+          f"15 ecolicor: no K4 launch took 4 chunks or more (largest {max(dp_jobs)} jobs)")
+    check(no_plain(counts),
+          "15 ecolicor: a plain loop or the plain DP ran on the card during the phase")
+    check(counts["join_calls"] == 1, f"15 ecolicor: {counts['join_calls']} hash-joins, expected 1")
+    check(len(k1["events"]) == counts["K1"], "15 ecolicor: K1 launches and timed calls differ")
+
+    # the gatekeeper store, the frequent table, the candidates, the sampled
+    # templates' store rows and corrected reads equal the JAX package's
+    d = os.path.join(work, "correction")
+    rs = ReadSet.load(os.path.join(d, "ecoli.gkpStore"))
+    log(f"[15 ecolicor] gatekeeper store {rs.n_reads} reads, {rs.total_bases} bases (reference "
+        f"{ref['gatekeeper_reads']}, {ref['gatekeeper_bases']})")
+    check(rs.n_reads == ref["gatekeeper_reads"] and rs.total_bases == ref["gatekeeper_bases"],
+          "15 ecolicor: the gatekeeper store differs from the JAX package's")
+    fdig = frequent_digest(os.path.join(d, f"ecoli.ms{ref['k']}.frequent.npz"))
+    (pairs,) = pairs_seen
+    cdig = hashlib.sha256(np.ascontiguousarray(pairs.astype("<i8")).tobytes()).hexdigest()
+    log(f"[15 ecolicor] frequent sha256 {fdig}; {len(pairs)} candidates (reference "
+        f"{ref['n_candidates']}), sha256 {cdig}")
+    check(fdig == ref["frequent_sha256"],
+          "15 ecolicor: frequent-mer table differs from the JAX package's")
+    check(len(pairs) == ref["n_candidates"] and cdig == ref["candidates_sha256"],
+          "15 ecolicor: candidates differ from the JAX package's")
+    st = OverlapStore.load(os.path.join(d, "ecoli.ovlStore"))
+    tids = F.select_templates(rs, float(cfg.get("genomeSize")), int(cfg.get("corOutCoverage")))
+    sample = template_sample(tids)
+    check([int(i) for i in sample] == ref["sample"]["ids"],
+          "15 ecolicor: the template sample differs from the reference's")
+    rows = store_of_templates(st, sample)
+    rdig = store_digest(rows)
+    log(f"[15 ecolicor] {len(tids)} templates (reference {ref['n_templates']}); store rows "
+        f"{len(st)}; the rows of the {len(sample)} sampled templates {len(rows.a_id)} "
+        f"(reference {ref['sample']['rows']}), sha256 {rdig}")
+    check(len(rows.a_id) == ref["sample"]["rows"] and rdig == ref["sample"]["store_sha256"],
+          "15 ecolicor: the sampled templates' store rows differ from the JAX package's")
+    t = time.time()
+    recs = list(read_fastx(os.path.join(d, "ecoli.correctedReads.fasta.gz")))
+    names = {rs.name(i) for i in range(1, rs.n_reads + 1)}
+    check(len(recs) > 0 and all(r.name.rsplit("_corr", 1)[0] in names
+                                and r.name.rsplit("_corr", 1)[1].isdigit() for r in recs),
+          "15 ecolicor: the corrected FASTA is empty or a record is not named <read>_corrN")
+    picked = {rs.name(int(i)) for i in sample}
+    mine = [(r.name, r.seq) for r in recs if r.name.rsplit("_corr", 1)[0] in picked]
+    sref = ref["sample"]
+    dig = corrected_digest(mine)
+    log(f"[15 ecolicor] {len(recs)} corrected reads, {sum(len(r.seq) for r in recs)} bases "
+        f"(read back in {time.time() - t:.1f} s); the sampled templates' {len(mine)} records, "
+        f"{sum(len(x) for _, x in mine)} bases, sha256 {dig} (reference "
+        f"{sref['corrected_reads']}, {sref['corrected_bases']}, {sref['corrected_sha256']})")
+    check(dig == sref["corrected_sha256"],
+          "15 ecolicor: the sampled templates' corrected reads differ from the JAX package's")
+
+    # K4 on the first DP call, held to the plain DP on dp_subset's jobs
+    (call,) = first_dp
+    err, plain_ms, n_held = held_dp("15 group 1", call, chunk_b)
+    log(f"[15 vote_dp] the first DP call: one K4 launch of {call[0][0].shape[0]} jobs, "
+        f"bit-equal to the plain DP (j* and edits) on {n_held} of them (dp_subset); plain "
+        f"{plain_ms:.1f} ms")
+
+    # where the time went
+    with open(ctx.path("ecoli.stage-times.jsonl")) as fh:
+        lines = [json.loads(ln) for ln in fh]
+    walls = {r["stage"]: r["wall_s"] for r in lines if "wall_s" in r}
+    sub = [r for r in lines if r.get("stage") == "cor-overlap.sub"][-1]
+    k1_ms, bd, tb = k1_drive_line("15", card, k1)
+    dev_s = {k: sum(a.elapsed_time(b) for a, b in v) / 1e3 for k, v in ev.items()}
+    prof = dict(F.PROFILE)
+    parts = {"select_s": prof.get("select", 0.0), "setup_s": prof.get("setup", 0.0),
+             "dp_s": dev_s["dp"], "windows_s": dev_s["group"] - dev_s["dp"],
+             "fold_s": dev_s["fold"], "finalize_s": dev_s["finalize"],
+             "enqueue_votes_s": prof.get("votes", 0.0), "fetch_s": prof.get("fetch", 0.0),
+             "decode_s": prof.get("decode", 0.0), "block_write_s": prof.get("write", 0.0),
+             "concat_s": prof.get("concat", 0.0), "count_s": prof.get("count", 0.0)}
+    log(f"[15 timing] {card}: stage walls {walls}; meryl {mem['meryl']['wall_s']:.2f} s on the "
+        f"{route}; overlap sub-walls {sub['sub_walls_s']} (sketch, match = the hash-join, "
+        f"verify, store); verify profile {sub['verify_profile']}")
+    log(f"[15 timing] {card}: correction parts " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts.items()) + " (DP, windows, fold and finalize: CUDA "
+        "events; the rest host clock)")
+    n_dp = len(dp_jobs)
+    log(f"[15 timing] {card}: {sum(block_templates)} templates in {len(block_templates)} blocks; "
+        f"{VP.JOBS} vote jobs in {VP.CHUNKS} chunks of {chunk_b}, {VP.GROUPS} DP groups, "
+        f"{counts['K4']} K4 launches of {min(dp_jobs)}-{max(dp_jobs)} jobs (median "
+        f"{int(np.median(dp_jobs))}; each in chiprun_out/chip_smoke.json); the DP "
+        f"{dev_s['dp']:.3f} s (phase 12c's projection for {ECOLI_CHUNKS} chunks: "
+        + ("not made" if projected_dp_s is None else f"{projected_dp_s:.2f} s") + ")")
+    for name, m in (("meryl", mem["meryl"]), ("verify", mem["verify"]),
+                    ("correction", mem["correct"])):
+        log(f"[15 memory] {card}: device peak over the {name} {m['peak'] / 1e9:.3f} GB "
+            f"({(m['peak'] - m['start']) / 1e9:.3f} GB above the {m['start'] / 1e9:.3f} GB "
+            "allocated at its start)")
+    log(f"[15 ecolicor] phase wall {time.time() - t_phase:.1f} s")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"run_s": t_run, "stage_walls_s": walls, "meryl_route": route,
+            "store_route": store_route, "sub_walls_s": sub["sub_walls_s"],
+            "verify_profile": sub["verify_profile"], "parts_s": parts,
+            "templates": sum(block_templates), "blocks": len(block_templates),
+            "chunks": VP.CHUNKS, "jobs": VP.JOBS, "groups": VP.GROUPS, "dp_calls": n_dp,
+            "dp_jobs": dp_jobs, "chunk_jobs": chunk_b, "launches": counts,
+            "n_candidates": len(pairs), "rows": len(st), "corrected_reads": len(recs),
+            "k1_ms": k1_ms, "k1_bounds": bd, "k1_ms_per_drive": sum(k1_ms),
+            "k1_bound_ms_per_drive": tb,
+            "k1_bound_s": k1["bound_s"], "dp_err": err, "dp_plain_ms": plain_ms,
+            "memory": mem, "phase_s": time.time() - t_phase}
 
 
 def main() -> int:
@@ -2952,6 +3265,10 @@ def main() -> int:
     # ---- 14: the sharded path: a world of one over NCCL, two ranks over gloo
     record["grid"] = grid = grid_drive(dev, card, correct)
 
+    # ---- 15: read correction from a FASTA at E. coli scale -----------------
+    record["ecolicor"] = ecolicor = ecolicor_drive(dev, card, vdp["ecoli_dp_s"])
+    err_dp = max(err_dp, ecolicor["dp_err"])
+
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(record, fh, indent=1, default=str)
@@ -2968,7 +3285,7 @@ def main() -> int:
          "launches": launches + drives["obt"]["launches"]["K1"] + ecoli["launches"]["K1"]
          + correct["launches"]["K1"] + assemble["a"]["launches"]["K1"]
          + assemble["b"]["launches"]["K1"] + record["dag"]["polish"]["launches"]["K1"]
-         + tools["k1_launches"] + grid["k1_launches"],
+         + tools["k1_launches"] + grid["k1_launches"] + ecolicor["launches"]["K1"],
          "max_abs_err": max(err, tools["k1_err"]),
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bd1["bound_ms"],
          "bound_by": bd1["bound_by"], "library_ms": None},
@@ -2987,7 +3304,8 @@ def main() -> int:
          "replaces": "canu_tpu/ops/trace.py:175",
          "launches": correct["launches"]["K4"] + assemble["a"]["launches"]["K4"]
          + assemble["b"]["launches"]["K4"] + dag["correct"]["launches"]["K4"]
-         + dag["polish"]["launches"]["K4"] + grid["k4_launches"],
+         + dag["polish"]["launches"]["K4"] + grid["k4_launches"]
+         + ecolicor["launches"]["K4"],
          "max_abs_err": max(err_dp, vdp["err"]), "ms": vdp["ms"], "plain_ms": vdp["plain_ms"],
          "bound_ms": vdp["bound"]["bound_ms"], "bound_by": vdp["bound"]["bound_by"],
          "library_ms": None},

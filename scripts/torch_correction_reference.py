@@ -12,16 +12,11 @@ Runs canu_tpu on the CPU (the JAX package is the reference):
              genomeSize, as correction_phase runs them;
   blocks     the template blocks correction_phase will make of them
              (canu_tpu.ops.falcon's selection, segment table and packing);
-  correct    canu_tpu's correction_phase from the FASTA, on a subset of the
-             blocks: every third block and the last (0, 3, 6, ..., n-1).
-             The other blocks get an empty block file first, so the
-             phase's resume skips them, as it skips finished blocks.
-A CPU run of every block would take about half an hour (~13 s a chunk of
-256 jobs at 2,048 rows on 8 cores); the subset's blocks are computed
-alone, as every block is (tests/test_torch_falcon.py shows skipping
-blocks leaves the others' reads unchanged).  Each block's reads are
-digested with tests/torch_cases.py corrected_digest; each step's wall
-seconds go into the file beside its result.
+  correct    canu_tpu's correction_phase from the FASTA, every block.
+A CPU run takes about half an hour (~13 s a chunk of 256 jobs at 2,048
+rows on 8 cores).  Each block's reads are digested with
+tests/torch_cases.py corrected_digest; each step's wall seconds go into
+the file beside its result.
 """
 
 from __future__ import annotations
@@ -39,11 +34,6 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tests"))
-
-
-def subset_of(n_blocks: int) -> list[int]:
-    """The blocks the reference corrects: every third block and the last."""
-    return sorted(set(range(0, n_blocks, 3)) | {n_blocks - 1})
 
 
 def main() -> int:
@@ -106,19 +96,13 @@ def main() -> int:
     tl, nseg, _row0 = F._segment_table(rs.length, tids, S)
     blocks = F._pack_template_blocks(tids, tl, nseg, G)
     block_of = {rs.name(int(tids[i])): bi for bi, tsel in enumerate(blocks) for i in tsel}
-    subset = subset_of(len(blocks))
-    bdir = os.path.join(work, "correction", "blocks")
-    os.makedirs(bdir, exist_ok=True)
-    for bi in range(len(blocks)):
-        if bi not in subset:
-            with gzip.open(os.path.join(bdir, f"block_{bi:05d}.fasta.gz"), "wt"):
-                pass
+    covered = list(range(len(blocks)))
 
     t = time.time()
     stages.correction_phase(ctx, [fasta])
     lap("correction", t)
     out = os.path.join(work, "correction", "bench.correctedReads.fasta.gz")
-    per_block: dict[int, list[tuple[str, str]]] = {bi: [] for bi in subset}
+    per_block: dict[int, list[tuple[str, str]]] = {bi: [] for bi in covered}
     name = None
     with gzip.open(out, "rt") as fh:
         recs = []
@@ -134,7 +118,7 @@ def main() -> int:
 
     ref = {
         "what": "canu_tpu (JAX, CPU) correction_phase from a FASTA of the bench read set: "
-                "the corrected reads of a subset of its template blocks, for "
+                "the corrected reads of each of its template blocks, for "
                 "chip_smoke.py's correct phase",
         "made_by": "JAX_PLATFORMS=cpu python scripts/torch_correction_reference.py"
                    + (f" --genome {args.genome}" if args.genome != 300_000 else ""),
@@ -150,14 +134,14 @@ def main() -> int:
         "n_templates": int(len(tids)),
         "n_jobs": int(len(jobs)),
         "n_blocks": len(blocks),
-        "subset_rule": "every third block and the last: 0, 3, 6, ..., n_blocks - 1",
-        "blocks_covered": subset,
+        "subset_rule": "every block",
+        "blocks_covered": covered,
         "digest_of": "tests/torch_cases.py corrected_digest: sha256 over the sorted (name, "
                      "seq) records, each as 'name<TAB>seq<LF>'",
         "blocks": [{"index": bi, "templates": int(len(blocks[bi])),
                     "reads": len(per_block[bi]),
                     "bases": int(sum(len(s) for _, s in per_block[bi])),
-                    "sha256": corrected_digest(per_block[bi])} for bi in subset],
+                    "sha256": corrected_digest(per_block[bi])} for bi in covered],
         "cpu_seconds": secs,
     }
     with open(args.out, "w") as fh:

@@ -21,6 +21,12 @@ segment of it).
 ``store_rows_of_pairs``: a sample of a candidate list and a store's rows
 for it, which stand in for a full verify where the reference cannot run
 one (chip_smoke.py's ecoli phase; scripts/torch_ecoli_reference.py).
+``template_sample``, ``pairs_of_reads`` and ``store_of_templates``: the
+template sample of an E. coli-scale correction, the candidates and store
+rows it needs, which stand in for a full correction where the reference
+cannot run one (chip_smoke.py's ecolicor phase;
+scripts/torch_ecoli_correction_reference.py;
+test_torch_ecoli_correction_sample.py shows the sample sound).
 ``corrected_digest``: the digest of a block of corrected reads that
 chip_smoke.py's correct phase holds against
 scripts/torch_correction_reference.py's.  ``assembly_digests``: the
@@ -432,6 +438,33 @@ def store_rows_of_pairs(st, pairs: np.ndarray) -> SimpleNamespace:
     want = np.asarray(pairs[:, 0], np.int64) << 32 | np.asarray(pairs[:, 1], np.int64)
     m = np.isin(key, want)
     return SimpleNamespace(**{c: np.asarray(getattr(st, c))[m] for c in cols})
+
+
+TEMPLATE_SAMPLE = 256  # templates whose corrected reads stand in for a whole correction
+
+
+def template_sample(template_ids: np.ndarray, n: int = TEMPLATE_SAMPLE) -> np.ndarray:
+    """Every floor(T/n)-th id of the sorted template ids, n of them (all of
+    them when T <= n)."""
+    ids = np.sort(np.asarray(template_ids))
+    return ids[:: max(1, len(ids) // n)][:n]
+
+
+def pairs_of_reads(pairs: np.ndarray, ids: np.ndarray) -> np.ndarray:
+    """The candidate rows with a read of ids on either side."""
+    return pairs[np.isin(pairs[:, 0], ids) | np.isin(pairs[:, 1], ids)]
+
+
+def store_of_templates(st, ids: np.ndarray, cls=SimpleNamespace):
+    """The rows of store st whose a_id is in ids, as cls(n_reads, **columns)
+    (an OverlapStore class of either package) or, by default, a namespace
+    of the 8 columns for store_digest.  The mirror rows (b_id in ids) stay
+    out: they would make the partners templates with part of their
+    evidence, whose corrected reads differ from the full run's."""
+    cols = ("a_id", "b_id", "flipped", "a_bgn", "a_end", "b_bgn", "b_end", "erate_q")
+    m = np.isin(np.asarray(st.a_id), ids)
+    kept = {c: np.asarray(getattr(st, c))[m] for c in cols}
+    return SimpleNamespace(**kept) if cls is SimpleNamespace else cls(st.n_reads, **kept)
 
 
 def corrected_digest(records) -> str:
