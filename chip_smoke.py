@@ -1,6 +1,6 @@
 """Run canu_tpu_torch's overlap, correction, trimming and assembly paths,
-the dag consensus, the tools and the sharded path once on one NVIDIA GPU
-and check them.
+the dag consensus, the tools, the sharded path and raw reads to contigs
+at E. coli scale once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -64,10 +64,11 @@ Phases (each prints its results; any failure exits non-zero):
               row and of the rows up to the exit rows; the first call's
               first 1,024 extensions (the shape of one call per chunk);
               the whole first call against banded_extend_plain
-  9 ecoli     meryl + overlap ("obt", band 128) at E. coli scale: the
-              JAX package's config 2, random_genome(4.6 Mb, seed=7) at 25x
-              (32,994 corrected reads, 115.3 Mb), ovsMethod=spill: the
-              host k-mer counter (115 M k=22 instances, above the device
+  9 ecoli     meryl + overlap ("obt", band 128) at the shapes of the JAX
+              package's config 2, cut to 3 Mb (ECOLI_OBT_GENOME; phase 16
+              runs obt at 4.6 Mb): random_genome(3 Mb, seed=7) at 25x
+              (21,506 corrected reads, 75.2 Mb), ovsMethod=spill: the
+              host k-mer counter (74.8 M k=22 instances, above the device
               budget of 2^26), the hash-join (above 5,000 reads), K1 and
               the spill store with the native external sort, each counted
               (once each; K1 launched; no other kernel or plain loop on
@@ -167,7 +168,7 @@ Phases (each prints its results; any failure exits non-zero):
               run on the group and the E. coli projection of the DP
   13 tools    canu_tpu_torch.tools.main in this process on the scripted
               session of tests/torch_cases.py tools_session (simulate at
-              the bench shapes, analyze, sample, kmer-count at k=16 and
+              the bench shapes on a 100 kb genome, TOOLS_GENOME, analyze, sample, kmer-count at k=16 and
               k=22, kmer-op's ten ops, map-mers, mask-mers, mer-trim,
               mercy, ov-import of random overlaps, a PAF and a text
               dump, ov-stats, ov-dump, best-edges, dump-reads,
@@ -220,8 +221,10 @@ Phases (each prints its results; any failure exits non-zero):
   15 ecolicor correction_phase from a FASTA of raw reads at E. coli scale:
               the JAX package's config 2 at 10% error (random_genome(4.6
               Mb, seed=7) at 25x, 32,994 reads, 116.2 Mb), Config() +
-              genomeSize, nothing cut, in a directory of its own with the
-              counts set to 0 first: the device k-mer counter (116 M k=16
+              genomeSize with the pacbio read-type profile and the
+              resource solver (run_pipeline's configuration of
+              -pacbio-raw reads), nothing cut, in a directory of its own
+              that phase 16 goes on in, with the counts set to 0 first: the device k-mer counter (116 M k=16
               instances), the hash-join, K1, the store, ~290 blocks of
               the vote engine.  K1 must have launched, K4 once per DP
               call (one launch of 4 chunks or more at least), no K2 or K3
@@ -239,8 +242,43 @@ Phases (each prints its results; any failure exits non-zero):
               correction's parts (phase 10's, and the block files'
               writes, their concatenation and the re-read that counts
               the records), templates, blocks, chunks, DP groups, the
-              jobs of each K4 launch and the device memory peak over
-              meryl, the verify and the correction
+              jobs of each K4 launch, K4's bound summed over the DP calls
+              and the device memory peak over meryl, the verify and the
+              correction
+  16 ecoliasm run_pipeline(raw_reads=[the FASTA]) in phase 15's
+              directory, Config() + genomeSize, the counts set to 0
+              first: the correction resumes (its log says so, its FASTA is
+              untouched), then trimming (obt gatekeeper, meryl on the host
+              counter, overlap, trimming) and assembly (utg gatekeeper,
+              meryl, overlap, oea: RED and OEA's adjust, unitig,
+              consensus: the plurality polish, outputs) at E. coli scale.
+              K1 must have launched in the obt and utg overlaps, the
+              adjust, align_links (where the GFA has a link) and the judge,
+              K4 once per DP call, no K2 or K3 launch and no plain loop or
+              plain DP on the card; RED's and the polish's first DP calls
+              held to the plain DP on dp_subset's jobs.  Each stage is held
+              to ecoli_assembly_reference.json (the JAX package on the
+              CPU, scripts/torch_ecoli_assembly_reference.py) on its own
+              input as the card made it: each input's digest first (the
+              corrected and trimmed reads, the autoerate gate, RED's
+              corrections of every read, the adjusted utg store,
+              spec.used), then the obt and utg gatekeepers, frequent
+              tables and candidates, a 256-read sample's store rows of
+              each, the sampled reads' trimmed records and RED
+              corrections, the adjusted erates of the utg sample's rows
+              and every unitig and contig layout; without a reference (or
+              where an input differs) the inputs go to
+              chiprun_out/ecoli_asm/ for that script and the phase fails.
+              The judge (sim/bogus.py evaluate_assembly, K1 on the card):
+              contigs, NG50, misjoins, identity, genome fraction, printed
+              beside canu_tpu's own run on these reads and the 0.999 bar,
+              not gated.  Then python -m canu_tpu_torch -pacbio-raw on the
+              directory must skip every stage.  Prints the stage walls,
+              the overlaps' and oea's sub-walls, meryl's route, each
+              step's device memory peak, K1 per drive (obt, utg, adjust,
+              align_links, judge) by CUDA events beside its bound, RED's
+              and the polish's DP by CUDA events beside their summed
+              bounds
 
 Each kernel's bound is the larger of its operations over the card's
 32-bit integer rate and its bytes over the memory rate (INT32_OPS_S,
@@ -274,7 +312,11 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 OLD_GROUP_LANES = 4 * 2 * 512  # a K1 launch at MYERS_GROUP 4: 4 chunks of 512 pairs, both ways
 OLD_EXTEND_LANES = 2 * 512  # a K2/K3 launch of one chunk of 512 pairs, both ways
 BENCH_GENOME = 300_000  # bench.py's genome (phases 4-8 and 10)
-ECOLI_GENOME = 4_600_000  # phase 9's genome, the JAX package's config 2
+ECOLI_GENOME = 4_600_000  # the JAX package's config 2 (phases 15, 16)
+# phase 9's genome: config 2's shapes at 3 Mb, whose 75 M k=22 instances
+# still go to the host counter (above the device budget, 2^26); phase 16
+# runs obt at 4.6 Mb
+ECOLI_OBT_GENOME = 3_000_000
 ECOLI_SAMPLE = 2048  # candidates whose store rows phase 9 holds against the reference
 # phase 11: the largest contig's identity to the simulated genome is held
 # equal to the JAX package's (assembly_reference.json); the bar that
@@ -653,22 +695,36 @@ def vdp_bound(call) -> dict:
     bytes = each live row's forward row (Ww bytes and its int32 minimum)
     written and read back, the template characters of the live rows, the
     evidence up to e_len, t_len and e_len, j* and the edits."""
+    t, t_len, e, e_len, band, n_rows, _ = dp_inputs(call)
+    return vdp_bound_of(t_len, e_len, e.shape[1], band, n_rows)
+
+
+def dp_lens(args) -> tuple:
+    """What vdp_bound_of needs of a DP call's (t, t_len, e, e_len, band,
+    n_rows), kept without a host sync: copies of t_len and e_len, the
+    evidence columns, band and n_rows."""
+    return (args[1].clone(), args[3].clone(), args[2].shape[1], args[4], args[5])
+
+
+def vdp_bound_of(t_len, e_len, e_cols: int, band: int, n_rows: int) -> dict:
+    """vdp_bound from a DP call's t_len, e_len, evidence columns, band and
+    n_rows (dp_lens)."""
     import torch
 
     from canu_tpu_torch.ops import trace as TT
 
-    t, t_len, e, e_len, band, n_rows, _ = dp_inputs(call)
-    B = t.shape[0]
+    t_len, e_len = t_len.to(torch.int32), e_len.to(torch.int32)
+    B = t_len.shape[0]
     Ww = band + TT.SMAX * TT.SROW
     A = TT._anchors(t_len, e_len, band, n_rows).to(torch.int64)
-    ri = torch.arange(n_rows + 1, device=t.device)
+    ri = torch.arange(n_rows + 1, device=t_len.device)
     frame = torch.clamp(ri - 1, min=0) // TT.SROW
     tl = torch.clamp(t_len.to(torch.int64), 0, n_rows)
     el = e_len.to(torch.int64)
     live = ri[None] <= tl[:, None]
     cells = int((torch.clamp(el[:, None] - A[:, frame] + 1, 0, Ww) * live).sum())
     n_live = int(live.sum())
-    nbytes = (2 * n_live * (Ww + 4) + int(tl.sum()) + int(torch.clamp(el, 0, e.shape[1]).sum())
+    nbytes = (2 * n_live * (Ww + 4) + int(tl.sum()) + int(torch.clamp(el, 0, e_cols).sum())
               + 8 * B + 4 * B * (n_rows + 2))
     return {**bound((VDP_FWD_CELL_OPS + VDP_BWD_CELL_OPS) * cells, nbytes),
             "live_rows": n_live, "cells": cells}
@@ -1026,13 +1082,13 @@ def extend_drive(name: str, calls, card: str, reps: int = 3) -> dict:
             "first_bound_exit": first["bound_exit"]}
 
 
-def ecoli_reads(error_rate: float = 0.03):
+def ecoli_reads(error_rate: float = 0.03, genome: int = ECOLI_GENOME):
     """The E. coli-scale read set (the JAX package's config 2,
     scripts/scale_run.py: 4.6 Mb at 25x): corrected reads at 3% error
-    (phase 9), raw reads at 10% (phase 15)."""
+    (phase 9, at ECOLI_OBT_GENOME), raw reads at 10% (phase 15)."""
     from canu_tpu_torch.sim.simulate import random_genome, simulate_reads
 
-    g = random_genome(ECOLI_GENOME, seed=7)
+    g = random_genome(genome, seed=7)
     rs, _ = simulate_reads(g, coverage=25, mean_len=3500, min_len=1500, max_len=7800,
                            error_rate=error_rate, seed=8)
     return rs
@@ -1150,14 +1206,14 @@ def ecoli_drive(dev, card: str) -> dict:
     with open(os.path.join(ROOT, "canu_tpu_torch", "ecoli_overlap_reference.json")) as fh:
         ref = json.load(fh)
     t_phase = t = time.time()
-    rs = ecoli_reads()
+    rs = ecoli_reads(genome=ECOLI_OBT_GENOME)
     log(f"[9 ecoli] read set: {rs.n_reads} reads, {rs.total_bases} bases "
         f"(simulated in {time.time() - t:.1f} s)")
     check(rs.n_reads == ref["n_reads"] and rs.total_bases == ref["total_bases"],
           "E. coli read set differs from the reference's")
     work = tempfile.mkdtemp(prefix="chip_smoke_ecoli_")
     cfg = Config()
-    cfg.set("genomeSize", ECOLI_GENOME)
+    cfg.set("genomeSize", ECOLI_OBT_GENOME)
     cfg.set("ovsMethod", "spill")
     ctx = make_ctx(work, "ecoli", cfg)
 
@@ -2726,8 +2782,6 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
     projected_dp_s (phase 12c's projection from its full group), and the
     device memory peak over meryl, over the verify and over the
     correction."""
-    import shutil
-
     import numpy as np
     import torch
 
@@ -2740,6 +2794,7 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
     from canu_tpu_torch.ops.kernels import myers_cuda as K1
     from canu_tpu_torch.ops.kernels import trace_cuda as K4
     from canu_tpu_torch.pipeline import stages
+    from canu_tpu_torch.pipeline.configure import configure_resources
     from canu_tpu_torch.pipeline.driver import make_ctx
     from canu_tpu_torch.stores.overlaps import OverlapStore, store_digest
     from canu_tpu_torch.stores.readset import ReadSet
@@ -2757,9 +2812,15 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
     log(f"[15 ecolicor] raw read set: {raw.n_reads} reads, {raw.total_bases} bases, simulated "
         f"and written to a FASTA in {time.time() - t:.1f} s")
     del raw
+    # run_pipeline's configuration of -pacbio-raw reads (the read-type
+    # profile, the resource solver), so that phase 16 resumes this
+    # correction as the user's run would have made it
     cfg = Config()
     cfg.set("genomeSize", ECOLI_GENOME)
+    cfg.apply_read_type_profile()
+    cfg.validate()
     ctx = make_ctx(work, "ecoli", cfg)
+    configure_resources(cfg, ctx.log)
 
     # instrumentation, each undone below: K1's events and bounds, the
     # memory peaks over meryl, the verify and the correction, the
@@ -2768,7 +2829,7 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
     # call's inputs
     k1 = {"events": [], "bounds": [], "peak": 0, "bound_s": 0.0}
     mem: dict = {"verify": {}}
-    pairs_seen, block_templates, dp_jobs, first_dp = [], [], [], []
+    pairs_seen, block_templates, dp_jobs, first_dp, dp_lens_seen = [], [], [], [], []
     ev: dict = {"dp": [], "group": [], "fold": [], "finalize": []}
     real = {"k1": K1.myers_rows_cuda, "verify": AL.verify_overlaps,
             "join": MH.find_candidates_join, "meryl": stages.meryl,
@@ -2812,6 +2873,7 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
         j0 = K4.JOBS_LAUNCHED
         out = dp_timed(*args, **kw)
         dp_jobs.append(K4.JOBS_LAUNCHED - j0)
+        dp_lens_seen.append(dp_lens(args))
         return out
 
     K1.myers_rows_cuda = k1_metered(real["k1"], k1, dev)
@@ -2925,6 +2987,13 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
         f"{k} {v:.3f}" for k, v in parts.items()) + " (DP, windows, fold and finalize: CUDA "
         "events; the rest host clock)")
     n_dp = len(dp_jobs)
+    vb = [vdp_bound_of(*x) for x in dp_lens_seen]
+    del dp_lens_seen
+    dp_bound_s = sum(b["bound_ms"] for b in vb) / 1e3
+    log(f"[15 timing] {card}: K4's bound summed over the {len(vb)} DP calls (vdp_bound): "
+        f"{dp_bound_s:.3f} s ({sum(b['ops'] for b in vb):.3e} operations on "
+        f"{sum(b['cells'] for b in vb)} cells, {sum(b['bytes'] for b in vb):.3e} bytes), "
+        f"{100 * dp_bound_s / max(dev_s['dp'], 1e-9):.1f}% of the DP's {dev_s['dp']:.3f} s")
     log(f"[15 timing] {card}: {sum(block_templates)} templates in {len(block_templates)} blocks; "
         f"{VP.JOBS} vote jobs in {VP.CHUNKS} chunks of {chunk_b}, {VP.GROUPS} DP groups, "
         f"{counts['K4']} K4 launches of {min(dp_jobs)}-{max(dp_jobs)} jobs (median "
@@ -2936,9 +3005,9 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
         log(f"[15 memory] {card}: device peak over the {name} {m['peak'] / 1e9:.3f} GB "
             f"({(m['peak'] - m['start']) / 1e9:.3f} GB above the {m['start'] / 1e9:.3f} GB "
             "allocated at its start)")
-    log(f"[15 ecolicor] phase wall {time.time() - t_phase:.1f} s")
-    shutil.rmtree(work, ignore_errors=True)
-    return {"run_s": t_run, "stage_walls_s": walls, "meryl_route": route,
+    log(f"[15 ecolicor] phase wall {time.time() - t_phase:.1f} s; its directory goes on to "
+        "phase 16")
+    return {"work": work, "fasta": fasta, "run_s": t_run, "stage_walls_s": walls, "meryl_route": route,
             "store_route": store_route, "sub_walls_s": sub["sub_walls_s"],
             "verify_profile": sub["verify_profile"], "parts_s": parts,
             "templates": sum(block_templates), "blocks": len(block_templates),
@@ -2948,7 +3017,485 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
             "k1_ms": k1_ms, "k1_bounds": bd, "k1_ms_per_drive": sum(k1_ms),
             "k1_bound_ms_per_drive": tb,
             "k1_bound_s": k1["bound_s"], "dp_err": err, "dp_plain_ms": plain_ms,
+            "dp_s": dev_s["dp"], "dp_bound_s": dp_bound_s, "dp_bounds": vb,
             "memory": mem, "phase_s": time.time() - t_phase}
+
+
+# canu_tpu's own result on config 2's raw reads (BASELINE.md, run r5b):
+# contigs, NG50, misjoins, identity, genome fraction
+CANU_TPU_ECOLI = {"contigs": 2, "ng50": 3_811_527, "misjoins": 0, "identity": 0.99999,
+                  "genome_fraction": 0.9997}
+# where a first run of phase 16 (no reference yet, or an input digest that
+# differs from the reference's) leaves its stage-boundary inputs
+ECOLI_ASM_OUT = os.path.join(OUT_DIR, "ecoli_asm")
+
+
+def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
+    """Phase 16: raw reads to contigs at E. coli scale through the port's
+    entry point, run_pipeline(raw_reads=[FASTA]) with Config() +
+    genomeSize, in phase 15's directory, so that the correction resumes:
+    trimming (obt gatekeeper, meryl, overlap, trimming) and assembly (utg
+    gatekeeper, meryl, overlap, oea: RED and OEA's adjust, unitig,
+    consensus, outputs), the counts set to 0 just before and read just
+    after.  K1 must have launched in the obt and utg overlaps, the adjust,
+    align_links (where the GFA has a link) and the judge, K4 once per DP
+    call, no K2 or K3 launch and no plain loop or plain DP on the card.
+    Each stage is held to ecoli_assembly_reference.json (the JAX package on
+    the CPU, scripts/torch_ecoli_assembly_reference.py) on its own input
+    as this card made it: first each input's digest (the corrected reads,
+    the trimmed reads, the autoerate gate, RED's corrections of every
+    read, the adjusted utg store, spec.used), then the obt and utg
+    gatekeepers, frequent tables and candidates, the store rows of a
+    256-read sample of each (tests/torch_cases.py template_sample,
+    store_of_templates), the sampled reads' trimmed records and RED
+    corrections, the adjusted erates of every row of the utg sample's
+    reads (rows_of_reads) and every unitig and contig layout.  Without a
+    reference, or where an input's digest differs, the inputs go to
+    chiprun_out/ecoli_asm/ for the reference script and the phase fails.
+    RED's and the polish's first DP calls are held to the plain DP
+    (held_dp).  The judge (sim/bogus.py evaluate_assembly, K1) scores the
+    contigs against the genome: printed beside canu_tpu's own result and
+    the 0.999 bar, not gated.  Then the CLI on the directory must skip
+    every stage.  Prints the stage walls, the overlaps' and oea's
+    sub-walls, meryl's route, each step's device memory peak, K1 on each
+    launch by CUDA events beside its bound per drive, and RED's and the
+    polish's DP by CUDA events beside their bounds."""
+    import logging
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from canu_tpu_torch.config import Config
+    from canu_tpu_torch.io import fastx as FX
+    from canu_tpu_torch.io import gfa as GFA
+    from canu_tpu_torch.ops import consensus as CNS
+    from canu_tpu_torch.ops import falcon as F
+    from canu_tpu_torch.ops import kmer as KM
+    from canu_tpu_torch.ops import minhash as MH
+    from canu_tpu_torch.ops import oea as OEA
+    from canu_tpu_torch.ops import votepile as VP
+    from canu_tpu_torch.ops.kernels import myers_cuda as K1
+    from canu_tpu_torch.ops.kernels import trace_cuda as K4
+    from canu_tpu_torch.pipeline import stages
+    from canu_tpu_torch.pipeline.driver import run_pipeline
+    from canu_tpu_torch.sim import bogus as BG
+    from canu_tpu_torch.sim.simulate import random_genome
+    from canu_tpu_torch.stores.overlaps import OverlapStore, store_digest
+    from canu_tpu_torch.stores.readset import ReadSet
+    from canu_tpu_torch.utils.bitpack import seq_to_codes
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_cases import (
+        _sha_of,
+        corrected_digest,
+        corrections_arrays,
+        corrections_records,
+        fasta_records,
+        pack_records,
+        rows_of_reads,
+        store_halves,
+        store_of_templates,
+        template_sample,
+        tig_records,
+        trimmed_of,
+    )
+
+    ref_path = os.path.join(ROOT, "canu_tpu_torch", "ecoli_assembly_reference.json")
+    ref = None
+    if os.path.exists(ref_path):
+        with open(ref_path) as fh:
+            ref = json.load(fh)
+    t_phase = time.time()
+    work, fasta = cor["work"], cor["fasta"]
+    cor_out = os.path.join(work, "correction", "ecoli.correctedReads.fasta.gz")
+    cor_mtime = os.path.getmtime(cor_out)
+    cfg = Config()
+    cfg.set("genomeSize", ECOLI_GENOME)
+
+    # instrumentation, each undone below: each step's K1 launches, vote
+    # chunks, host k-mer counts and device peak; K1 by CUDA events with its
+    # bound a launch; the DP of RED and the polish by CUDA events, what
+    # their bounds need and their first calls; the candidates; each
+    # overlap's store; RED's corrections; the judge's K1; the log
+    where = [None]
+    k1_in: dict = {}
+    chunks_in: dict = {}
+    hosts_in: dict = {}
+    step_peak: dict = {}
+    step_wall: dict = {}
+    k1 = {"events": [], "bounds": [], "where": [], "peak": 0, "bound_s": 0.0}
+    dp_ev: dict = {"red": [], "polish": []}
+    dp_seen: dict = {"red": [], "polish": []}
+    dp_first: dict = {}
+    pairs_seen: list = []
+    stores: dict = {}
+    corr: dict = {}
+    n_links = [0]
+    n_dp = [0]
+    msgs: list = []
+    real = {"k1": K1.myers_rows_cuda, "meryl": stages.meryl, "overlap": stages.overlap,
+            "join": MH.find_candidates_join, "red": OEA.detect_read_errors,
+            "adjust": OEA.adjust_overlap_erates, "polish": CNS.polish_tig,
+            "links": GFA.align_links, "dp": VP.align_positions_lean,
+            "bogus": BG._segment_identity, "write": FX.write_fasta}
+
+    def counted(key, fn):
+        def call(*args, **kw):
+            k0, c0, h0, prev = K1.LAUNCHES, VP.CHUNKS, KM.HOST_COUNTS, where[0]
+            where[0] = key
+            torch.cuda.synchronize()
+            m0 = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            k1["peak"] = 0
+            t0 = time.time()
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                step_wall[key] = step_wall.get(key, 0.0) + time.time() - t0
+                step_peak[key] = max(step_peak.get(key, 0), k1["peak"] - m0,
+                                     torch.cuda.max_memory_allocated(dev) - m0)
+                where[0] = prev
+                k1_in[key] = k1_in.get(key, 0) + K1.LAUNCHES - k0
+                chunks_in[key] = chunks_in.get(key, 0) + VP.CHUNKS - c0
+                hosts_in[key] = hosts_in.get(key, 0) + KM.HOST_COUNTS - h0
+        return call
+
+    def k1_call(*args):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real["k1"](*args)
+        e1.record()
+        k1["events"].append((e0, e1))
+        k1["where"].append(where[0])
+        k1["peak"] = max(k1["peak"], torch.cuda.max_memory_allocated(dev))
+        t0 = time.time()
+        k1["bounds"].append(k1_bound(args, torch.clamp(args[4].to(torch.int64), 0, args[6])))
+        k1["bound_s"] += time.time() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        return out
+
+    def meryl(ctx, tg, *args, **kw):
+        return counted(f"{tg}-meryl", real["meryl"])(ctx, tg, *args, **kw)
+
+    def overlap(ctx, tg, *args, **kw):
+        st = counted(f"{tg}-overlap", real["overlap"])(ctx, tg, *args, **kw)
+        # the sample's rows now: the oea stage installs the adjusted erates
+        # in this same store
+        rows = store_of_templates(st, template_sample(np.arange(1, st.n_reads + 1)))
+        stores[tg] = {"sample_rows": int(len(rows.a_id)), "sample_store_sha256": store_digest(rows)}
+        return st
+
+    def join(*args, **kw):
+        pairs_seen.append(real["join"](*args, **kw))
+        return pairs_seen[-1]
+
+    def red(*args, **kw):
+        out = counted("red", real["red"])(*args, **kw)
+        corr.update(out)
+        return out
+
+    def write_fasta(path, *args, **kw):
+        t0 = time.time()
+        try:
+            return real["write"](path, *args, **kw)
+        finally:
+            key = f"write_fasta {os.path.basename(path).split('.WORKING')[0]}"
+            step_wall[key] = step_wall.get(key, 0.0) + time.time() - t0
+
+    def links(tigs, lk, *args, **kw):
+        n_links[0] += len(lk)
+        return counted("align_links", real["links"])(tigs, lk, *args, **kw)
+
+    def dp(*args, **kw):
+        n_dp[0] += 1
+        if where[0] not in dp_ev:
+            return real["dp"](*args, **kw)
+        if where[0] not in dp_first:
+            dp_first[where[0]] = keep_call(args, kw)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real["dp"](*args, **kw)
+        e1.record()
+        dp_ev[where[0]].append((e0, e1))
+        dp_seen[where[0]].append(dp_lens(args))
+        return out
+
+    class Lines(logging.Handler):
+        def emit(self, rec):
+            msgs.append(rec.getMessage())
+
+    # on the root logger, which the stages' records reach whether or not
+    # make_ctx has set the prefix's logger up yet
+    lines_h = Lines()
+    logging.getLogger().addHandler(lines_h)
+    K1.myers_rows_cuda = k1_call
+    stages.meryl, stages.overlap, MH.find_candidates_join = meryl, overlap, join
+    OEA.detect_read_errors, OEA.adjust_overlap_erates = red, counted("adjust", real["adjust"])
+    CNS.polish_tig, GFA.align_links = counted("polish", real["polish"]), links
+    VP.align_positions_lean, FX.write_fasta = dp, write_fasta
+    try:
+        reset_counts()
+        VP.CHUNKS = VP.JOBS = VP.GROUPS = 0
+        t = time.time()
+        run_pipeline(work, "ecoli", cfg, raw_reads=[fasta], device=dev)
+        torch.cuda.synchronize()
+        t_run = time.time() - t
+        counts = read_counts()
+        # the judge: the contigs against the simulated genome, K1 on the card
+        genome = random_genome(ECOLI_GENOME, seed=7)
+        contigs = [seq_to_codes(r[1]) for r in fasta_records(os.path.join(work,
+                                                                          "ecoli.contigs.fasta"))]
+        BG._segment_identity = counted("bogus", real["bogus"])
+        k0 = K1.LAUNCHES
+        t = time.time()
+        ev = BG.evaluate_assembly(genome, contigs, k=21, circular=True, device=dev)
+        t_judge = time.time() - t
+        judge_k1 = K1.LAUNCHES - k0
+    finally:
+        logging.getLogger().removeHandler(lines_h)
+        K1.myers_rows_cuda = real["k1"]
+        stages.meryl, stages.overlap = real["meryl"], real["overlap"]
+        MH.find_candidates_join = real["join"]
+        OEA.detect_read_errors, OEA.adjust_overlap_erates = real["red"], real["adjust"]
+        CNS.polish_tig, GFA.align_links = real["polish"], real["links"]
+        VP.align_positions_lean, BG._segment_identity = real["dp"], real["bogus"]
+        FX.write_fasta = real["write"]
+    log(f"[16 ecoliasm] {card}: run_pipeline(raw_reads=...) in phase 15's directory: "
+        f"{t_run:.2f} s; launch and call counts {counts}; K1 launches by step {k1_in}; "
+        f"host k-mer counts by step {hosts_in}")
+    resumed = any("correction phase complete, skipping" in m for m in msgs)
+    log(f"[16 ecoliasm] correction resumed from phase 15 (the log says \"correction phase "
+        f"complete, skipping\"): {resumed}; its FASTA untouched: "
+        f"{os.path.getmtime(cor_out) == cor_mtime}")
+    check(resumed and os.path.getmtime(cor_out) == cor_mtime,
+          "16 ecoliasm: the correction phase ran again instead of resuming phase 15's")
+    check(counts["K2"] == counts["K3"] == 0, "16 ecoliasm: kernel K2 or K3 launched off its path")
+    check_dp("16 ecoliasm", counts, n_dp[0])
+    check(no_plain(counts),
+          "16 ecoliasm: a plain loop or the plain DP ran on the card during the run")
+    for step in ("obt-overlap", "utg-overlap", "adjust"):
+        check(k1_in.get(step, 0) > 0, f"16 ecoliasm: kernel K1 never launched in {step}")
+    if n_links[0]:
+        check(k1_in.get("align_links", 0) > 0, "16 ecoliasm: align_links never launched K1")
+    check(judge_k1 > 0 and k1_in.get("bogus", 0) == judge_k1,
+          "16 ecoliasm: the judge never launched K1")
+    check(len(k1["events"]) == counts["K1"] + judge_k1,
+          "16 ecoliasm: K1 launches and timed calls differ")
+    check(len(pairs_seen) == 2 and counts["join_calls"] == 2,
+          f"16 ecoliasm: {len(pairs_seen)} hash-joins, expected the obt and the utg one")
+    for name in ("contigs.fasta", "unassembled.fasta", "unitigs.fasta", "layout.tsv",
+                 "contigs.gfa"):
+        check(os.path.exists(os.path.join(work, f"ecoli.{name}")), f"16 ecoliasm: no ecoli.{name}")
+
+    d_trim, d_utg = os.path.join(work, "trimming"), os.path.join(work, "unitigging")
+
+    # K4 on RED's and the polish's first DP calls, held to the plain DP
+    chunk_b = VP.chunk_jobs(F.VOTE_SEG)
+    dp_err, held = 0, {}
+    for key in ("red", "polish"):
+        check(key in dp_first, f"16 ecoliasm: {key} made no DP call")
+        e_k, plain_ms, n_held = held_dp(f"16 {key} group 1", dp_first[key], chunk_b)
+        dp_err = max(dp_err, e_k)
+        held[key] = {"jobs": dp_first[key][0][0].shape[0], "held_jobs": n_held,
+                     "plain_ms": plain_ms}
+        log(f"[16 vote_dp] {key}'s first DP call: one K4 launch of "
+            f"{dp_first[key][0][0].shape[0]} jobs, bit-equal to the plain DP (j* and edits) on "
+            f"{n_held} of them (dp_subset); plain {plain_ms:.1f} ms")
+    dp_first.clear()
+
+    # where the time went
+    with open(os.path.join(work, "ecoli.stage-times.jsonl")) as fh:
+        lines = [json.loads(ln) for ln in fh]
+    lines = [r for r in lines if r.get("t_end", 0) >= t_phase]
+    walls = {r["stage"]: r["wall_s"] for r in lines if "wall_s" in r}
+    subs = {r["stage"]: r.get("sub_walls_s") for r in lines if r["stage"].endswith(".sub")}
+    log(f"[16 timing] {card}: stage walls {walls} (sum {sum(walls.values()):.1f} s)")
+    log(f"[16 timing] {card}: sub-walls {subs}; RED {len(corr)} reads changed")
+    log(f"[16 timing] {card}: step walls (host clock around each call) " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in step_wall.items()))
+    routes = {tg: ("host" if hosts_in.get(f"{tg}-meryl", 0) else "device") for tg in ("obt", "utg")}
+    log(f"[16 timing] {card}: meryl counted on the {routes['obt']} (obt) and the {routes['utg']} "
+        f"(utg)")
+    k1_ms = [a.elapsed_time(b) for a, b in k1["events"]]
+    k1_drive: dict = {}
+    for w, ms, bd in zip(k1["where"], k1_ms, k1["bounds"]):
+        x = k1_drive.setdefault(w, {"launches": 0, "ms": 0.0, "bound_ms": 0.0, "ops": 0.0,
+                                    "bytes": 0.0, "first_ms": ms})
+        x["launches"] += 1
+        x["ms"] += ms
+        x["bound_ms"] += bd["bound_ms"]
+        x["ops"] += bd["ops"]
+        x["bytes"] += bd["bytes"]
+    for w, x in k1_drive.items():
+        log(f"[16 timing] {card}: K1 in {w}: {x['launches']} launches, {x['ms']:.3f} ms (first "
+            f"{x['first_ms']:.3f} ms); bound {x['bound_ms']:.3f} ms ({x['ops']:.3e} operations, "
+            f"{x['bytes']:.3e} bytes; {100 * x['bound_ms'] / max(x['ms'], 1e-9):.1f}% of it)")
+    log(f"[16 timing] {card}: K1's bounds computed after each launch: {k1['bound_s']:.2f} s of "
+        "the walls")
+    dp_s, dp_bound = {}, {}
+    for key in ("red", "polish"):
+        dp_s[key] = sum(a.elapsed_time(b) for a, b in dp_ev[key]) / 1e3
+        vb = [vdp_bound_of(*x) for x in dp_seen[key]]
+        dp_bound[key] = {"calls": len(vb), "bound_s": sum(b["bound_ms"] for b in vb) / 1e3,
+                         "ops": sum(b["ops"] for b in vb), "bytes": sum(b["bytes"] for b in vb),
+                         "cells": sum(b["cells"] for b in vb),
+                         "bound_by": "operations" if sum(b["ops"] for b in vb) / INT32_OPS_S
+                         >= sum(b["bytes"] for b in vb) / HBM_BYTES_S else "bytes"}
+        b = dp_bound[key]
+        log(f"[16 timing] {card}: {key}: {chunks_in.get(key, 0)} vote chunks in {b['calls']} DP "
+            f"calls (one K4 launch each), DP {dp_s[key]:.3f} s by CUDA events; bound "
+            f"{b['bound_s']:.3f} s ({b['ops']:.3e} operations on {b['cells']} cells, "
+            f"{b['bytes']:.3e} bytes; {100 * b['bound_s'] / max(dp_s[key], 1e-9):.1f}% of it)")
+    dp_seen.clear()
+    for k, v in step_peak.items():
+        log(f"[16 memory] {card}: device peak over {k}: {v / 1e9:.3f} GB above its start")
+
+    # what came out, and the judge
+    lens = sorted((len(c) for c in contigs), reverse=True)
+    with open(os.path.join(work, "ecoli.contigs.gfa")) as fh:
+        gl = [ln.split("\t") for ln in fh.read().splitlines()]
+    s_names = {f[1] for f in gl if f[0] == "S"}
+    check(all(f[1] in s_names and f[3] in s_names for f in gl if f[0] == "L"),
+          "16 ecoliasm: a GFA L-line names a segment that is not an S-line")
+    with open(os.path.join(work, "ecoli.layout.tsv")) as fh:
+        ids = np.array([int(ln.split("\t")[1]) for ln in fh.read().splitlines()], np.int64)
+    n_utg = ReadSet.load(os.path.join(d_utg, "ecoli.gkpStore")).n_reads
+    check(len(ids) > 0 and ids.min() >= 1 and ids.max() <= n_utg,
+          "16 ecoliasm: a layout.tsv read id is not in the utg store")
+    judge = {"contigs": len(contigs), "ng50": int(ev.contig_ng50), "misjoins": int(ev.n_misjoins),
+             "identity": float(ev.identity), "genome_fraction": float(ev.genome_fraction),
+             "duplication": float(ev.duplication), "placed": int(ev.n_placed),
+             "ideal_ng50": int(ev.ideal_ng50), "largest": lens[0] if lens else 0}
+    log(f"[16 judge] {card}: sim/bogus.py evaluate_assembly on the card in {t_judge:.1f} s "
+        f"({judge_k1} K1 launches): {ev.summary()}; largest contig {judge['largest']}; GFA "
+        f"{len(s_names)} S-lines, {sum(1 for f in gl if f[0] == 'L')} L-lines ({n_links[0]} "
+        "links re-aligned)")
+    log(f"[16 judge] canu_tpu on these reads (BASELINE.md, run r5b): {CANU_TPU_ECOLI['contigs']} "
+        f"contigs, NG50 {CANU_TPU_ECOLI['ng50']}, {CANU_TPU_ECOLI['misjoins']} misjoins, identity "
+        f"{CANU_TPU_ECOLI['identity']}, genome fraction {CANU_TPU_ECOLI['genome_fraction']}; the "
+        f"port's identity {judge['identity']:.5f} is "
+        + ("at or above" if judge["identity"] >= TRUTH_IDENTITY else "BELOW")
+        + f" tests/test_pipeline.py's {TRUTH_IDENTITY} (reported, not gated)")
+
+    # the CLI on the directory: every stage skips by resume
+    with open(os.path.join(work, "ecoli.stage-times.jsonl")) as fh:
+        n_lines = len(fh.readlines())
+    t = time.time()
+    r = subprocess.run([sys.executable, "-m", "canu_tpu_torch", "-p", "ecoli", "-d", work,
+                        f"genomeSize={ECOLI_GENOME}", "-pacbio-raw", fasta],
+                       cwd=ROOT, capture_output=True, text=True, timeout=600)
+    t_cli = time.time() - t
+    out = r.stdout + r.stderr
+    skipped = out.count("already done, skipping") + out.count("phase complete, skipping")
+    with open(os.path.join(work, "ecoli.stage-times.jsonl")) as fh:
+        n_after = len(fh.readlines())
+    log(f"[16 cli] python -m canu_tpu_torch -pacbio-raw on the directory: rc {r.returncode} in "
+        f"{t_cli:.1f} s; {skipped} skips; stage starts {out.count(': start (attempt')}")
+    check(r.returncode == 0, f"16 cli: exit {r.returncode}: {out[-2000:]}")
+    check(": start (attempt" not in out and n_after == n_lines and skipped > 0,
+          "16 cli: a stage ran again on a finished directory")
+    # the stage-boundary inputs as this card made them
+    t = time.time()
+    cor_recs = fasta_records(cor_out)
+    trim_recs = fasta_records(os.path.join(d_trim, "ecoli.trimmedReads.fasta.gz"))
+    with open(os.path.join(d_trim, "autoerate.json"), "rb") as fh:
+        auto_raw = fh.read()
+    with open(os.path.join(work, "ecoli.spec.used"), "rb") as fh:
+        spec_raw = fh.read()
+    adjusted = OverlapStore.load(os.path.join(d_utg, "ecoli.ovlStore.adjusted"))
+    inputs = {
+        "corrected": {"n": len(cor_recs), "bases": sum(len(s) for _, s in cor_recs),
+                      "sha256": corrected_digest(cor_recs)},
+        "trimmed": {"n": len(trim_recs), "bases": sum(len(s) for _, s in trim_recs),
+                    "sha256": corrected_digest(trim_recs)},
+        "autoerate": {"value": json.loads(auto_raw),
+                      "sha256": hashlib.sha256(auto_raw).hexdigest()},
+        "red": {"reads": len(corr), "n": sum(len(v) for v in corr.values()),
+                "sha256": _sha_of(corrections_records(corr))},
+        "adjusted_store": {"n": len(adjusted), "sha256": store_digest(adjusted)},
+        "spec_used": {"sha256": hashlib.sha256(spec_raw).hexdigest()},
+    }
+    log(f"[16 inputs] the stage-boundary inputs (read back in {time.time() - t:.1f} s): "
+        + "; ".join(f"{k} {v}" for k, v in inputs.items()))
+    same = ref is not None and all(ref["inputs"].get(k) == v for k, v in inputs.items())
+    if not same:
+        # the reference script's inputs: the corrected reads at 2 bits a
+        # base, the trimmed reads' names (cut from them), the autoerate
+        # gate, RED's corrections, the adjusted store's a_id < b_id rows
+        # and every row's erate, spec.used; with their digests
+        shutil.rmtree(ECOLI_ASM_OUT, ignore_errors=True)
+        os.makedirs(ECOLI_ASM_OUT)
+        np.savez_compressed(os.path.join(ECOLI_ASM_OUT, "corrected.npz"), **pack_records(cor_recs))
+        with open(os.path.join(ECOLI_ASM_OUT, "trimmed_names.txt"), "w") as fh:
+            fh.write("\n".join(n for n, _ in trim_recs) + "\n")
+        np.savez_compressed(os.path.join(ECOLI_ASM_OUT, "red.npz"), **corrections_arrays(corr))
+        np.savez_compressed(os.path.join(ECOLI_ASM_OUT, "adjusted_store.npz"),
+                            **store_halves(adjusted))
+        for name, raw in (("autoerate.json", auto_raw), ("ecoli.spec.used", spec_raw)):
+            with open(os.path.join(ECOLI_ASM_OUT, name), "wb") as fh:
+                fh.write(raw)
+        with open(os.path.join(ECOLI_ASM_OUT, "inputs.json"), "w") as fh:
+            json.dump(inputs, fh, indent=1)
+        sizes = {f: os.path.getsize(os.path.join(ECOLI_ASM_OUT, f))
+                 for f in sorted(os.listdir(ECOLI_ASM_OUT))}
+        log(f"[16 inputs] {'no reference' if ref is None else 'an input differs from the reference'}"
+            f": the inputs went to chiprun_out/ecoli_asm/ ({sum(sizes.values()) / 1e6:.1f} MB: "
+            + ", ".join(f"{k} {v}" for k, v in sizes.items()) + ")")
+        if ref is not None:
+            for k, v in inputs.items():
+                log(f"[16 inputs] {k}: {v} (reference {ref['inputs'].get(k)})")
+    check(ref is not None, "16 ecoliasm: no ecoli_assembly_reference.json; the inputs to build "
+                           "it are in chiprun_out/ecoli_asm/ (scripts/torch_ecoli_assembly_"
+                           "reference.py)")
+    check(same, "16 ecoliasm: a stage-boundary input differs from the one the reference was "
+                "built from")
+
+    # each stage's outputs against the JAX package's on those inputs
+    got: dict = {}
+    for tag, d in (("obt", d_trim), ("utg", d_utg)):
+        rs = ReadSet.load(os.path.join(d, "ecoli.gkpStore"))
+        k = int(cfg.get(tag + "MerSize"))
+        pairs = pairs_seen[0 if tag == "obt" else 1]
+        sample = template_sample(np.arange(1, rs.n_reads + 1))
+        got[tag] = {"gatekeeper_reads": int(rs.n_reads), "gatekeeper_bases": int(rs.total_bases),
+                    "frequent_sha256": frequent_digest(os.path.join(d, f"ecoli.ms{k}.frequent.npz")),
+                    "n_candidates": int(len(pairs)),
+                    "candidates_sha256": hashlib.sha256(np.ascontiguousarray(
+                        pairs.astype("<i8")).tobytes()).hexdigest(), **stores[tag]}
+        names = {rs.name(int(i)) for i in sample}
+        if tag == "obt":
+            mine = trimmed_of(trim_recs, names)
+            got["trimmed_sample"] = {"n": len(mine), "sha256": corrected_digest(mine)}
+        else:
+            mine = {int(i): corr[int(i)] for i in sample if int(i) in corr}
+            got["red_sample"] = {"reads": len(mine), "n": sum(len(v) for v in mine.values()),
+                                 "sha256": _sha_of(corrections_records(mine))}
+            ar = rows_of_reads(adjusted, sample)
+            got["adjusted_sample"] = {"n": int(len(ar.a_id)), "sha256": store_digest(ar)}
+    for key, name in (("utg_layouts", "utgStore"), ("ctg_layouts", "ctgStore")):
+        items = tig_records(os.path.join(d_utg, f"ecoli.{name}"))
+        got[key] = {"n": len(items), "sha256": _sha_of(items)}
+    del cor_recs
+    if ref is None:
+        log(f"[16 ecoliasm] the stages' outputs on these inputs: {got}")
+    for key, want in (ref or {}).get("gates", {}).items():
+        log(f"[16 ecoliasm] {key}: {got.get(key)} (reference {want})")
+        check(got.get(key) == want, f"16 ecoliasm: {key} differs from the JAX package's")
+    log("[16 ecoliasm] every stage equals the JAX package's on its input: "
+        + ", ".join((ref or {}).get("gates", {})))
+
+    log(f"[16 ecoliasm] phase wall {time.time() - t_phase:.1f} s")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"run_s": t_run, "stage_walls_s": walls, "sub_walls_s": subs, "step_walls_s": step_wall,
+            "meryl_routes": routes, "launches": counts, "k1_by_step": k1_in, "judge_k1": judge_k1,
+            "vote_chunks": chunks_in, "dp_calls": n_dp[0], "dp_s": dp_s, "dp_bound": dp_bound,
+            "dp_err": dp_err, "held": held, "k1_ms": k1_ms, "k1_where": k1["where"],
+            "k1_drive": k1_drive, "k1_bound_s": k1["bound_s"], "step_peak_bytes": step_peak,
+            "inputs": inputs, "gates": got, "judge": judge, "judge_s": t_judge,
+            "links_aligned": n_links[0], "cli_s": t_cli, "phase_s": time.time() - t_phase}
 
 
 def main() -> int:
@@ -3269,6 +3816,10 @@ def main() -> int:
     record["ecolicor"] = ecolicor = ecolicor_drive(dev, card, vdp["ecoli_dp_s"])
     err_dp = max(err_dp, ecolicor["dp_err"])
 
+    # ---- 16: raw reads to contigs at E. coli scale, correction resumed ------
+    record["ecoliasm"] = ecoliasm = ecoliasm_drive(dev, card, ecolicor)
+    err_dp = max(err_dp, ecoliasm["dp_err"])
+
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(record, fh, indent=1, default=str)
@@ -3285,7 +3836,8 @@ def main() -> int:
          "launches": launches + drives["obt"]["launches"]["K1"] + ecoli["launches"]["K1"]
          + correct["launches"]["K1"] + assemble["a"]["launches"]["K1"]
          + assemble["b"]["launches"]["K1"] + record["dag"]["polish"]["launches"]["K1"]
-         + tools["k1_launches"] + grid["k1_launches"] + ecolicor["launches"]["K1"],
+         + tools["k1_launches"] + grid["k1_launches"] + ecolicor["launches"]["K1"]
+         + ecoliasm["launches"]["K1"] + ecoliasm["judge_k1"],
          "max_abs_err": max(err, tools["k1_err"]),
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bd1["bound_ms"],
          "bound_by": bd1["bound_by"], "library_ms": None},
@@ -3305,7 +3857,7 @@ def main() -> int:
          "launches": correct["launches"]["K4"] + assemble["a"]["launches"]["K4"]
          + assemble["b"]["launches"]["K4"] + dag["correct"]["launches"]["K4"]
          + dag["polish"]["launches"]["K4"] + grid["k4_launches"]
-         + ecolicor["launches"]["K4"],
+         + ecolicor["launches"]["K4"] + ecoliasm["launches"]["K4"],
          "max_abs_err": max(err_dp, vdp["err"]), "ms": vdp["ms"], "plain_ms": vdp["plain_ms"],
          "bound_ms": vdp["bound"]["bound_ms"], "bound_by": vdp["bound"]["bound_by"],
          "library_ms": None},

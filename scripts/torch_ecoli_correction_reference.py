@@ -11,7 +11,8 @@ Runs canu_tpu on the CPU (the JAX package is the reference):
              simulate_reads(coverage=25, mean_len=3500, min_len=1500,
              max_len=7800, error_rate=0.10, seed=8), written to a FASTA
              file (no QVs: every vote weighs 1.0);
-  stages     gatekeeper and meryl ("cor", k=16) with Config() + genomeSize;
+  stages     gatekeeper and meryl ("cor", k=16) with Config() + genomeSize
+             and the pacbio read-type profile, as run_pipeline sets them;
   candidates build_sketches + find_candidates_join with the cor sketch
              preset, as the overlap stage runs them above 5,000 reads;
   sample     every floor(T/256)-th id of select_templates' sorted output,
@@ -104,6 +105,10 @@ def main() -> int:
     lap("simulate", t)
     cfg = Config()
     cfg.set("genomeSize", args.genome)
+    # run_pipeline's configuration: -pacbio-raw's read-type profile
+    # (corOvlErrorRate 0.24 among others)
+    cfg.apply_read_type_profile()
+    cfg.validate()
     ctx = make_ctx(work, "ecoli", cfg)
     tag = "cor"
     k = int(cfg.get(tag + "MerSize"))
@@ -169,7 +174,8 @@ def main() -> int:
         "read_set": f"random_genome({args.genome}, seed=7); simulate_reads(coverage=25, "
                     "mean_len=3500, min_len=1500, max_len=7800, error_rate=0.10, seed=8); "
                     "written to a FASTA file",
-        "config": f"Config() + genomeSize={args.genome}",
+        "config": f"Config() + genomeSize={args.genome}, then apply_read_type_profile() "
+                  "(readType pacbio), as run_pipeline configures it",
         "gatekeeper_reads": int(rs.n_reads),
         "gatekeeper_bases": int(rs.total_bases),
         "k": k,

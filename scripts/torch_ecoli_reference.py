@@ -2,7 +2,10 @@
 meryl + candidate outputs at E. coli scale, and its store on a sample of
 the candidates, for chip_smoke.py's "ecoli" phase to hold the port against.
 
-    JAX_PLATFORMS=cpu python scripts/torch_ecoli_reference.py [--genome 4600000]
+    JAX_PLATFORMS=cpu python scripts/torch_ecoli_reference.py [--genome 3000000]
+
+chip_smoke.py's phase 9 runs at 3 Mb (config 2's shapes cut to fit its
+time limit; its 75 M k=22 instances still go to the host counter).
 
 Runs canu_tpu on the CPU (the JAX package is the reference):
   meryl      canu_tpu.pipeline.stages.meryl(ctx, "obt", rs) (Config() +
@@ -51,7 +54,7 @@ def array_digest(a: np.ndarray) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--genome", type=int, default=4_600_000)
+    ap.add_argument("--genome", type=int, default=3_000_000)
     ap.add_argument("--out", default=os.path.join(ROOT, "canu_tpu_torch",
                                                   "ecoli_overlap_reference.json"))
     args = ap.parse_args()
@@ -116,7 +119,7 @@ def main() -> int:
                 "its verify + OverlapStore.build on a sample of the candidates, for "
                 "chip_smoke.py's ecoli phase",
         "made_by": "JAX_PLATFORMS=cpu python scripts/torch_ecoli_reference.py"
-                   + (f" --genome {args.genome}" if args.genome != 4_600_000 else ""),
+                   + (f" --genome {args.genome}" if args.genome != 3_000_000 else ""),
         "read_set": f"random_genome({args.genome}, seed=7); simulate_reads(coverage=25, "
                     "mean_len=3500, min_len=1500, max_len=7800, error_rate=0.03, seed=8)",
         "config": f"Config() + genomeSize={args.genome}",

@@ -2,7 +2,7 @@
 chip_smoke.py's scripted tools session, for phase 13 to hold the port's
 ``python -m canu_tpu_torch.tools`` against.
 
-    JAX_PLATFORMS=cpu python scripts/torch_tools_reference.py [--genome 300000]
+    JAX_PLATFORMS=cpu python scripts/torch_tools_reference.py [--genome 100000]
 
 Runs canu_tpu.tools.__main__.main in this process on the CPU, step by step,
 in a temporary directory (tests/torch_cases.py tools_session; its setup
@@ -35,7 +35,7 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--genome", type=int, default=300_000)
+    ap.add_argument("--genome", type=int, default=100_000)
     ap.add_argument("--out", default=os.path.join(ROOT, "canu_tpu_torch",
                                                   "tools_reference.json"))
     args = ap.parse_args()
@@ -55,7 +55,7 @@ def main() -> int:
         "what": "canu_tpu (JAX, CPU) tools CLI on the scripted session of "
                 "tests/torch_cases.py tools_session, for chip_smoke.py's tools phase",
         "made_by": "JAX_PLATFORMS=cpu python scripts/torch_tools_reference.py"
-                   + (f" --genome {args.genome}" if args.genome != 300_000 else ""),
+                   + (f" --genome {args.genome}" if args.genome != 100_000 else ""),
         "genome": args.genome,
         "db22_steps": list(TOOLS_DB22_STEPS),
         "db22_note": "run with KmerCounts.load keeping the saved uint64 k-mers (canu_tpu's "

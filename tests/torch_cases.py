@@ -423,6 +423,10 @@ def myers_edge_cases():
     return cases
 
 
+# an overlap store's columns, in store_digest's order
+STORE_COLS = ("a_id", "b_id", "flipped", "a_bgn", "a_end", "b_bgn", "b_end", "erate_q")
+
+
 def candidate_sample(pairs: np.ndarray, n: int = 2048) -> np.ndarray:
     """Every floor(M/n)-th row of the sorted candidate rows, n of them
     (all of them when M <= n)."""
@@ -432,12 +436,11 @@ def candidate_sample(pairs: np.ndarray, n: int = 2048) -> np.ndarray:
 def store_rows_of_pairs(st, pairs: np.ndarray) -> SimpleNamespace:
     """The rows of store st whose read pair, either way round, is an
     (a_id, b_id) row of pairs: the 8 store columns, for store_digest."""
-    cols = ("a_id", "b_id", "flipped", "a_bgn", "a_end", "b_bgn", "b_end", "erate_q")
     a, b = np.asarray(st.a_id).astype(np.int64), np.asarray(st.b_id).astype(np.int64)
     key = np.minimum(a, b) << 32 | np.maximum(a, b)
     want = np.asarray(pairs[:, 0], np.int64) << 32 | np.asarray(pairs[:, 1], np.int64)
     m = np.isin(key, want)
-    return SimpleNamespace(**{c: np.asarray(getattr(st, c))[m] for c in cols})
+    return SimpleNamespace(**{c: np.asarray(getattr(st, c))[m] for c in STORE_COLS})
 
 
 TEMPLATE_SAMPLE = 256  # templates whose corrected reads stand in for a whole correction
@@ -461,9 +464,8 @@ def store_of_templates(st, ids: np.ndarray, cls=SimpleNamespace):
     of the 8 columns for store_digest.  The mirror rows (b_id in ids) stay
     out: they would make the partners templates with part of their
     evidence, whose corrected reads differ from the full run's."""
-    cols = ("a_id", "b_id", "flipped", "a_bgn", "a_end", "b_bgn", "b_end", "erate_q")
     m = np.isin(np.asarray(st.a_id), ids)
-    kept = {c: np.asarray(getattr(st, c))[m] for c in cols}
+    kept = {c: np.asarray(getattr(st, c))[m] for c in STORE_COLS}
     return SimpleNamespace(**kept) if cls is SimpleNamespace else cls(st.n_reads, **kept)
 
 
@@ -552,6 +554,200 @@ def assembly_digests(work_dir: str, prefix: str, corrections: dict | None = None
         lines = fh.read().splitlines()
     out["gfa"] = recs(tuple(ln.split("\t")) for ln in lines if ln[:2] in ("S\t", "L\t"))
     out["gfa"]["l_lines"] = sum(1 for ln in lines if ln.startswith("L\t"))
+    return out
+
+
+# ---- the E. coli assembly's stage boundaries: each stage of a trimming +
+# assembly run at E. coli scale held to the reference on its own input
+# (chip_smoke.py's ecoliasm phase, scripts/torch_ecoli_assembly_reference.py,
+# test_torch_ecoli_assembly_sample.py shows the sample rules sound)
+
+def rows_of_reads(st, ids: np.ndarray, cls=SimpleNamespace):
+    """The rows of store st with a read of ids on either side, both mirror
+    copies, as cls(n_reads, **columns) or a namespace of the 8 columns:
+    what OEA's adjust of those reads' overlaps reads and writes (it
+    verifies each pair once, from its a_id < b_id row)."""
+    a, b = np.asarray(st.a_id), np.asarray(st.b_id)
+    m = np.isin(a, ids) | np.isin(b, ids)
+    kept = {c: np.asarray(getattr(st, c))[m] for c in STORE_COLS}
+    return SimpleNamespace(**kept) if cls is SimpleNamespace else cls(st.n_reads, **kept)
+
+
+def trimmed_of(records, names: set) -> list[tuple[str, str]]:
+    """The trimmed records <read>_trim_<bgn>_<end>[_s<i>] of the reads in
+    names."""
+    return [(n, s) for n, s in records if n.rsplit("_trim_", 1)[0] in names]
+
+
+def verify_kwargs(cfg, tag: str) -> dict:
+    """The overlap stage's verify arguments for tag (both packages'
+    stages.overlap), without the device."""
+    ms = int(cfg.get(tag + "MinShared"))
+    return dict(k=int(cfg.get(tag + "MerSize")), band=int(cfg.get(tag + "OvlBandWidth")),
+                max_erate=float(cfg.get(tag + "OvlErrorRate")),
+                min_overlap=int(cfg.get("minOverlapLength")), chunk=512, min_shared=ms,
+                partial=tag in ("cor", "obt"), palindromic_min=ms if tag == "obt" else 0)
+
+
+def red_kwargs(cfg) -> dict:
+    """The oea stage's detect_read_errors arguments."""
+    return dict(min_alt_votes=int(cfg.get("oeaMinAltVotes")),
+                max_own_votes=int(cfg.get("oeaMaxOwnVotes")),
+                band=int(cfg.get("utgBandWidth")) * 2)
+
+
+def adjust_kwargs(cfg) -> dict:
+    """The oea stage's adjust_overlap_erates arguments."""
+    return dict(band=int(cfg.get("utgBandWidth")), chunk=int(cfg.get("oeaBatchSize")),
+                only_changed=bool(cfg.get("oeaOnlyChanged")))
+
+
+def _with_stages(stages, rs, st, call):
+    """call() with a package's gatekeeper, meryl and overlap stages standing
+    in by the given read set and store (the stages module's globals,
+    restored after)."""
+    real = {n: getattr(stages, n) for n in ("gatekeeper", "meryl", "overlap")}
+    stages.gatekeeper = lambda *a, **k: rs
+    stages.meryl = lambda *a, **k: None
+    stages.overlap = lambda *a, **k: st
+    try:
+        return call()
+    finally:
+        for n, f in real.items():
+            setattr(stages, n, f)
+
+
+def trim_with_store(stages, ctx, rs, st, **kw) -> list[tuple[str, str]]:
+    """A package's trimming_phase in ctx on the obt read set rs and store st
+    (its gatekeeper, meryl and overlap stages stand in by them): the
+    trimmed records it writes.  With a store of some reads' a_id rows, the
+    records of those reads."""
+    _with_stages(stages, rs, st, lambda: stages.trimming_phase(ctx, ["-"], **kw))
+    return fasta_records(os.path.join(ctx.work_dir, "trimming",
+                                      f"{ctx.prefix}.trimmedReads.fasta.gz"))
+
+
+def unitig_layouts(stages, StopPipeline, ctx, rs, adjusted, **kw) -> dict:
+    """A package's assembly_phase in ctx up to its unitig stage on the utg
+    read set rs and the OEA-adjusted store (saved where the oea stage
+    leaves it, so that stage resumes; stopAfter=unitig): the digests of
+    the unitig and contig layouts, as assembly_digests gives them."""
+    d = os.path.join(ctx.work_dir, "unitigging")
+    os.makedirs(d, exist_ok=True)
+    adjusted.save(os.path.join(d, f"{ctx.prefix}.ovlStore.adjusted"))
+    ctx.cfg.set("stopAfter", "unitig")
+
+    def run():
+        try:
+            stages.assembly_phase(ctx, ["-"], **kw)
+        except StopPipeline:
+            pass
+
+    _with_stages(stages, rs, None, run)
+    out = {}
+    for key, name in (("utg_layouts", "utgStore"), ("ctg_layouts", "ctgStore")):
+        items = tig_records(os.path.join(d, f"{ctx.prefix}.{name}"))
+        out[key] = {"n": len(items), "sha256": _sha_of(items)}
+    return out
+
+
+_ACGT = np.full(256, 255, np.uint8)
+_ACGT[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
+
+
+def pack_records(records) -> dict[str, np.ndarray]:
+    """(name, seq) records as arrays for np.savez: the names joined by LF,
+    each sequence's length, the bases at 2 bits (A, C, G, T; four a
+    byte) and the position and byte of every other character."""
+    names = "\n".join(n for n, _ in records).encode()
+    seqs = [s.encode() for _, s in records]
+    raw = np.frombuffer(b"".join(seqs), np.uint8)
+    codes = _ACGT[raw]
+    odd = np.flatnonzero(codes == 255)
+    codes = np.where(codes == 255, 0, codes).astype(np.uint8)
+    codes = np.concatenate([codes, np.zeros(-len(codes) % 4, np.uint8)]).reshape(-1, 4)
+    packed = codes[:, 0] | codes[:, 1] << 2 | codes[:, 2] << 4 | codes[:, 3] << 6
+    return {"names": np.frombuffer(names, np.uint8), "lengths": np.array([len(s) for s in seqs],
+                                                                          np.int64),
+            "packed": packed.astype(np.uint8), "odd_pos": odd.astype(np.int64),
+            "odd_byte": raw[odd]}
+
+
+def unpack_records(z) -> list[tuple[str, str]]:
+    """pack_records' arrays back to the (name, seq) records."""
+    names = bytes(np.asarray(z["names"])).decode().split("\n")
+    p = np.asarray(z["packed"])
+    codes = np.stack([(p >> s) & 3 for s in (0, 2, 4, 6)], axis=1).reshape(-1)
+    raw = np.frombuffer(b"ACGT", np.uint8)[codes]
+    raw[np.asarray(z["odd_pos"])] = np.asarray(z["odd_byte"])
+    ends = np.cumsum(np.asarray(z["lengths"]))
+    buf = raw[: int(ends[-1]) if len(ends) else 0].tobytes()
+    starts = np.concatenate([[0], ends[:-1]])
+    return [(n, buf[int(b):int(e)].decode()) for n, b, e in zip(names, starts, ends)]
+
+
+def trimmed_from_names(corrected, names) -> list[tuple[str, str]]:
+    """The trimmed records named <read>_trim_<bgn>_<end>[_s<i>], cut from
+    the corrected records (name, seq) by the coordinates in their names."""
+    seq_of = dict(corrected)
+    out = []
+    for n in names:
+        read, coords = n.rsplit("_trim_", 1)
+        bgn, end = (int(x) for x in coords.split("_")[:2])
+        out.append((n, seq_of[read][bgn:end]))
+    return out
+
+
+def store_halves(st) -> dict[str, np.ndarray]:
+    """An overlap store as arrays for np.savez: its a_id < b_id rows (the
+    other copy of each is their mirror) and every row's erate_q, which
+    OEA's adjust can leave differing between the two copies."""
+    half = np.asarray(st.a_id) < np.asarray(st.b_id)
+    out = {c: np.asarray(getattr(st, c))[half] for c in STORE_COLS[:-1]}
+    out.update(erate_q=np.asarray(st.erate_q), n_reads=np.int64(st.n_reads))
+    return out
+
+
+def store_from_halves(cls, z):
+    """store_halves' arrays back to an OverlapStore of class cls: the
+    mirror rows added and sorted as OverlapStore.build sorts them, then
+    every row's erate_q."""
+    h = {c: np.asarray(z[c]) for c in STORE_COLS[:-1]}
+    a = np.concatenate([h["a_id"], h["b_id"]])
+    b = np.concatenate([h["b_id"], h["a_id"]])
+    order = np.lexsort((b, a))
+    cols = {"a_id": a, "b_id": b, "flipped": np.concatenate([h["flipped"]] * 2)}
+    for x, y in (("a_bgn", "b_bgn"), ("a_end", "b_end")):
+        cols[x] = np.concatenate([h[x], h[y]])
+        cols[y] = np.concatenate([h[y], h[x]])
+    dt = {"a_id": np.int32, "b_id": np.int32, "flipped": bool, "a_bgn": np.int32,
+          "a_end": np.int32, "b_bgn": np.int32, "b_end": np.int32}
+    out = {c: np.ascontiguousarray(cols[c][order].astype(dt[c])) for c in STORE_COLS[:-1]}
+    out["erate_q"] = np.asarray(z["erate_q"]).astype(np.uint16)
+    return cls(int(z["n_reads"]), **out)
+
+
+def corrections_arrays(corr: dict) -> dict[str, np.ndarray]:
+    """RED's corrections {read: int32[M, 2]} as arrays for np.savez (read,
+    position, base), sorted by read."""
+    ids = sorted(corr)
+    if not ids:
+        return {"read": np.zeros(0, np.int32), "pos": np.zeros(0, np.int32),
+                "base": np.zeros(0, np.uint8)}
+    v = [np.asarray(corr[r]) for r in ids]
+    return {"read": np.repeat(np.asarray(ids, np.int32), [len(x) for x in v]),
+            "pos": np.concatenate([x[:, 0] for x in v]).astype(np.int32),
+            "base": np.concatenate([x[:, 1] for x in v]).astype(np.uint8)}
+
+
+def corrections_from_arrays(z) -> dict[int, np.ndarray]:
+    """corrections_arrays' arrays back to {read: int32[M, 2]}."""
+    rid, pos, base = (np.asarray(z[k]) for k in ("read", "pos", "base"))
+    cut = np.flatnonzero(np.diff(rid)) + 1
+    out = {}
+    for r, p, b in zip(np.split(rid, cut), np.split(pos, cut), np.split(base, cut)):
+        if len(r):
+            out[int(r[0])] = np.stack([p, b.astype(np.int32)], axis=1).astype(np.int32)
     return out
 
 
@@ -715,7 +911,7 @@ def gfa_store(AL, OV, rows, n_reads):
 # ---- the tools CLI's scripted session (chip_smoke.py phase 13,
 # scripts/torch_tools_reference.py, tests/test_torch_tools.py) ---------------
 
-TOOLS_GENOME = 300_000  # the bench genome's length
+TOOLS_GENOME = 100_000  # chip_smoke.py's session: a third of the bench genome
 TOOLS_SIM_SEED = 81  # simulate -seed (the reads draw from seed + 1)
 TOOLS_SETUP_SEED = 82  # the PAF lines and the judged contigs
 TOOLS_MISJOIN = 40_000  # where the misjoined contig jumps (test_bogus.py's case)
