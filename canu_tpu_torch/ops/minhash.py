@@ -9,14 +9,20 @@
            that share a (slot, value) bucket are paired, O(N H log(N H))
            sorting instead of O(N^2) compares.
 
-Placement (stage C) is folded into verification (ops.align), as in the
-pipeline of canu_tpu.
+  stage C  placement (place_candidates): for candidate pairs, the
+           shared-k-mer join gives an orientation vote, a median diagonal
+           and the inlier spans.  The pipeline folds it into verification
+           (ops.align), as canu_tpu's does; canu_tpu's tests call it.
+
+On the card stage A is kernel K5 and stage B's block matcher kernel K6
+(ops/kernels/minhash_cuda.py, csrc/minhash.cu); on the CPU their plain
+PyTorch versions, which the kernels are held to bit for bit.
 """
 
 from __future__ import annotations
 
 import logging
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Optional
 
 import numpy as np
@@ -24,14 +30,20 @@ import torch
 
 from ..device import resolve_device
 from ..stores.readset import ReadSet
+from ..utils.bitpack import n_words
 from .hashing import hash_seeds, mix32, u32_numpy, u32_tensor
 from .kmer import INVALID_KMER, FrequentKmers, block_tensors, extract_kmers_any, length_bucketed_blocks
+from .kmerjoin import masked_median, pair_matches
 
 UINT32_MAX = 0xFFFFFFFF
 
 # hash slots evaluated together in _sketch_kernel: bounds the [B, h, P]
 # temporary at SKETCH_ELEMS int64 elements
 SKETCH_ELEMS = 1 << 23
+
+# calls of the plain sketch and the plain slot count on a CUDA tensor
+# (chip_smoke.py requires 0 on the path: the card runs K5 and K6)
+PLAIN_CUDA_SKETCHES = PLAIN_CUDA_MATCHES = 0
 
 
 def _fk_array(frequent: "FrequentKmers | None") -> np.ndarray:
@@ -50,8 +62,24 @@ def _sketch_kernel(words, lengths, seeds, fk_kmers, k: int) -> torch.Tensor:
 
     words [B, W] packed reads, lengths [B], seeds int64[H] (uint32 values),
     fk_kmers int64[F] sorted frequent k-mers.  Returns int64[B, H] min-hash
-    values (UINT32_MAX for empty reads).
+    values (UINT32_MAX for empty reads).  On CUDA tensors one launch of
+    kernel K5 (ops/kernels/minhash_cuda.py), which raises on what it does
+    not take; on the CPU _sketch_kernel_plain.
     """
+    if not words.is_cuda:
+        return _sketch_kernel_plain(words, lengths, seeds, fk_kmers, k)
+    from .kernels import minhash_cuda
+
+    return minhash_cuda.sketch(words, lengths, seeds, fk_kmers, k)
+
+
+def _sketch_kernel_plain(words, lengths, seeds, fk_kmers, k: int) -> torch.Tensor:
+    """_sketch_kernel as PyTorch ops, hash slots in slices of SKETCH_ELEMS
+    [B, h, P] temporaries: the CPU's sketch, and the reference kernel K5
+    is held to."""
+    global PLAIN_CUDA_SKETCHES
+    if words.is_cuda:
+        PLAIN_CUDA_SKETCHES += 1
     canon, _ = extract_kmers_any(words, lengths, k)  # [B, P]
     valid = canon != INVALID_KMER
     if fk_kmers.shape[0] > 0:
@@ -78,13 +106,41 @@ def build_sketches(readset: ReadSet, k: int = 16, n_hashes: int = 128,
     seeds = u32_tensor(hash_seeds(n_hashes, seed), dev)
     fk = u32_tensor(_fk_array(frequent), dev)
     out = np.full((readset.n_reads, n_hashes), UINT32_MAX, dtype=np.uint32)
+    # every block is launched before any is fetched, so the host packs the
+    # next block while the card sketches this one
+    pending = []
     for ids, W in length_bucketed_blocks(readset, block_size):
         words, lengths = block_tensors(readset, ids, W, dev)
-        out[ids - 1] = u32_numpy(_sketch_kernel(words, lengths, seeds, fk, k))
+        pending.append((ids, _sketch_kernel(words, lengths, seeds, fk, k)))
+    for ids, sk in pending:
+        out[ids - 1] = u32_numpy(sk)
     return out
 
 
 # ---- stage B: block x block slot matching -----------------------------------
+
+
+def _slot_counts_plain(SA: torch.Tensor, SB: torch.Tensor) -> torch.Tensor:
+    """slot_counts as PyTorch ops, one compare-and-add a slot."""
+    global PLAIN_CUDA_MATCHES
+    if SA.is_cuda:
+        PLAIN_CUDA_MATCHES += 1
+    cnt = torch.zeros((SA.shape[0], SB.shape[0]), dtype=torch.int32, device=SA.device)
+    for h in range(SA.shape[1]):
+        a = SA[:, h]
+        cnt += ((a[:, None] == SB[None, :, h]) & (a != UINT32_MAX)[:, None]).to(torch.int32)
+    return cnt
+
+
+def slot_counts(SA: torch.Tensor, SB: torch.Tensor) -> torch.Tensor:
+    """Slot agreements int32[Na, Nb] of two sketch blocks SA [Na, H], SB
+    [Nb, H] (UINT32_MAX slots never match): kernel K6's count launch on
+    CUDA tensors, _slot_counts_plain on the CPU."""
+    if not SA.is_cuda:
+        return _slot_counts_plain(SA, SB)
+    from .kernels import minhash_cuda
+
+    return minhash_cuda.slot_counts(SA, SB)
 
 
 def _match_kernel(SA: torch.Tensor, SB: torch.Tensor, min_matches: int,
@@ -93,28 +149,37 @@ def _match_kernel(SA: torch.Tensor, SB: torch.Tensor, min_matches: int,
 
     SA [Na, H], SB [Nb, H] sketches.  Returns (ii, jj, cnt, n_found):
     row-major candidate lists padded to max_out with index Na and count 0
-    (the fixed-size nonzero of canu_tpu); for a self block only i < j is
-    reported.  UINT32_MAX slots (empty reads) never match.
+    (the fixed-size nonzero of canu_tpu), and n_found a 0-d int64 tensor
+    on the device (it may exceed max_out); for a self block only i < j is
+    reported.  UINT32_MAX slots (empty reads) never match.  On CUDA
+    tensors kernel K6 (its count and compact launches, nothing fetched);
+    on the CPU _match_kernel_plain.
     """
-    Na, Nb = SA.shape[0], SB.shape[0]
-    cnt = torch.zeros((Na, Nb), dtype=torch.int32, device=SA.device)
-    for h in range(SA.shape[1]):
-        a = SA[:, h]
-        eq = (a[:, None] == SB[None, :, h]) & (a != UINT32_MAX)[:, None]
-        cnt += eq.to(torch.int32)
+    if not SA.is_cuda:
+        return _match_kernel_plain(SA, SB, min_matches, self_block, max_out)
+    from .kernels import minhash_cuda
+
+    return minhash_cuda.match_block(SA, SB, min_matches, self_block, max_out)
+
+
+def _match_kernel_plain(SA: torch.Tensor, SB: torch.Tensor, min_matches: int,
+                        self_block: bool, max_out: int):
+    """_match_kernel as PyTorch ops: the CPU's matcher, and the reference
+    kernel K6 is held to."""
+    Na = SA.shape[0]
+    cnt = _slot_counts_plain(SA, SB)
     mask = cnt >= min_matches
     if self_block:
         mask = torch.triu(mask, diagonal=1)
     nz = torch.nonzero(mask)
-    n_found = int(nz.shape[0])
-    take = min(n_found, max_out)
+    take = min(int(nz.shape[0]), max_out)
     ii = torch.full((max_out,), Na, dtype=torch.int64, device=SA.device)
     jj = torch.full((max_out,), Na, dtype=torch.int64, device=SA.device)
     c = torch.zeros(max_out, dtype=torch.int32, device=SA.device)
     ii[:take] = nz[:take, 0]
     jj[:take] = nz[:take, 1]
     c[:take] = cnt[nz[:take, 0], nz[:take, 1]]
-    return ii, jj, c, n_found
+    return ii, jj, c, torch.tensor(nz.shape[0], dtype=torch.int64, device=SA.device)
 
 
 def find_candidates(sketches: np.ndarray, min_matches: int = 3, block_size: int = 1024,
@@ -124,35 +189,44 @@ def find_candidates(sketches: np.ndarray, min_matches: int = 3, block_size: int 
     Returns int64[M, 3] (a_id, b_id, slot_matches) with a_id < b_id
     (1-based), sorted by (a_id, b_id).  The reference's hash-block x
     query-block job matrix (OverlapMhap.pm:214-296) is a host loop over
-    device block pairs.
+    device block pairs; every pair is launched before any result is
+    fetched, then every pair's n_found comes back in one copy and the
+    candidate columns in one copy a group of pairs, as canu_tpu drains.
     """
     dev = resolve_device(device)
     N = len(sketches)
     S = u32_tensor(sketches, dev)
     starts = list(range(0, N, block_size))
-    done = []
+    pending = []
     for bi, sa in enumerate(starts):
         SA = S[sa : min(sa + block_size, N)]
         for sb in starts[bi:]:
             SB = S[sb : min(sb + block_size, N)]
             out = _match_kernel(SA, SB, min_matches, sa == sb, max_out_per_blockpair)
-            done.append((sa, sb, out))
-    nf_all = np.array([out[3] for _, _, out in done], np.int64)
-    if len(nf_all) and int(nf_all.max()) > max_out_per_blockpair:
+            pending.append((sa, sb, out))
+    if not pending:
+        return np.zeros((0, 3), dtype=np.int64)
+    nf_all = torch.stack([out[3] for _, _, out in pending]).cpu().numpy()
+    if int(nf_all.max()) > max_out_per_blockpair:
         bad = int(np.argmax(nf_all))
         raise RuntimeError(
-            f"candidate overflow in block pair ({done[bad][0]},{done[bad][1]}): "
+            f"candidate overflow in block pair ({pending[bad][0]},{pending[bad][1]}): "
             f"{int(nf_all[bad])}; raise max_out_per_blockpair or min_matches"
         )
     rows = []
-    for sa, sb, (ii, jj, cc, nf) in done:
-        if nf == 0:
+    GROUP = 8
+    for g0 in range(0, len(pending), GROUP):
+        grp, nfs = pending[g0 : g0 + GROUP], nf_all[g0 : g0 + GROUP]
+        nfmax = int(nfs.max())
+        if nfmax == 0:
             continue
-        rows.append(np.stack([
-            ii[:nf].cpu().numpy() + sa + 1,
-            jj[:nf].cpu().numpy() + sb + 1,
-            cc[:nf].cpu().numpy().astype(np.int64),
-        ], axis=1))
+        packed = torch.stack([torch.stack([ii[:nfmax], jj[:nfmax], cc[:nfmax].to(torch.int64)])
+                              for _, _, (ii, jj, cc, _) in grp]).cpu().numpy()  # [K, 3, nfmax]
+        for g, (sa, sb, _) in enumerate(grp):
+            nf = int(nfs[g])
+            if nf:
+                rows.append(np.stack([packed[g, 0, :nf] + sa + 1, packed[g, 1, :nf] + sb + 1,
+                                      packed[g, 2, :nf]], axis=1))
     if not rows:
         return np.zeros((0, 3), dtype=np.int64)
     out = np.concatenate(rows)
@@ -248,3 +322,94 @@ class OverlapCandidates:
 
     def __len__(self) -> int:
         return len(self.a_id)
+
+
+# ---- stage C: shared-kmer placement ----------------------------------------
+
+
+def _pair_stats_kernel(wordsA, lenA, wordsB, lenB, fk_kmers, k: int):
+    """Per candidate pair: orientation vote + median diagonal + span.
+
+    All tensors are [C, ...] (one row per pair).  Returns (flipped
+    bool[C], diag int32[C], n_inliers int32[C], a_lo, a_hi, b_lo, b_hi
+    int32[C]) where the spans cover the inlier k-mer matches (the B span
+    in forward-B coordinates).  Shared k-mers come from the one-sort
+    adjacency join (ops.kmerjoin).
+    """
+    canonA, strandA = extract_kmers_any(wordsA, lenA, k)  # [C, P]
+    canonB, strandB = extract_kmers_any(wordsB, lenB, k)
+    P = canonA.shape[1]
+    validA = canonA != INVALID_KMER
+    validB = canonB != INVALID_KMER
+    if fk_kmers.shape[0] > 0:
+        idx = torch.clamp(torch.searchsorted(fk_kmers, canonB), max=fk_kmers.shape[0] - 1)
+        validB = validB & (fk_kmers[idx] != canonB)
+    pos = torch.arange(P, dtype=torch.int32, device=canonA.device)[None, :].expand(canonA.shape)
+    hit, posA_m, posB_m, agree = pair_matches(canonA, validA, strandA, pos, canonB, validB,
+                                              strandB, pos)
+    n_same = (hit & agree).sum(dim=1, dtype=torch.int32)
+    n_opp = (hit & ~agree).sum(dim=1, dtype=torch.int32)
+    flipped = n_opp > n_same
+
+    # B position mapped into forward-A-compatible coordinates
+    posB_fl = lenB[:, None] - k - posB_m  # position in rc(B)
+    posB_eff = torch.where(flipped[:, None], posB_fl, posB_m)
+    sel = hit & (agree != flipped[:, None])  # matches agreeing with the vote
+    diag = posA_m - posB_eff
+    big = 2**30
+    med = masked_median(diag, sel)
+
+    # inliers: diagonal within an indel-proportional tolerance (float32
+    # product truncated, as canu_tpu computes it with x64 off)
+    min_len = torch.minimum(lenA, lenB)
+    tol = torch.clamp((min_len.to(torch.float32) * torch.tensor(0.30, dtype=torch.float32))
+                      .to(torch.int32), min=100)
+    inl = sel & ((diag - med[:, None]).abs() <= tol[:, None])
+    n_inl = inl.sum(dim=1, dtype=torch.int32)
+
+    # spans over inlier matches (A coords; B span in forward-B coords)
+    a_lo = torch.where(inl, posA_m, big).amin(dim=1)
+    a_hi = torch.where(inl, posA_m + k, -1).amax(dim=1)
+    b_lo = torch.where(inl, posB_m, big).amin(dim=1)
+    b_hi = torch.where(inl, posB_m + k, -1).amax(dim=1)
+    med2 = masked_median(diag, inl)
+    return flipped, med2, n_inl, a_lo, a_hi, b_lo, b_hi
+
+
+_PLACED = tuple(f.name for f in fields(OverlapCandidates))
+
+
+def place_candidates(readset: ReadSet, pairs: np.ndarray, k: int = 16,
+                     frequent: Optional[FrequentKmers] = None, min_shared: int = 4,
+                     chunk: int = 256, device=None) -> OverlapCandidates:
+    """Run stage C on candidate (a_id, b_id) pairs, `chunk` pairs a device
+    call (the last padded to it), and keep the pairs with at least
+    min_shared inlier shared k-mers (canu_tpu.ops.minhash.place_candidates)."""
+    dev = resolve_device(device)
+    fk = u32_tensor(_fk_array(frequent), dev)
+    cols: dict[str, list[np.ndarray]] = {n: [] for n in _PLACED}
+    for s in range(0, len(pairs), chunk):
+        chunk_pairs = pairs[s : s + chunk]
+        a_ids = chunk_pairs[:, 0].astype(np.int64)
+        b_ids = chunk_pairs[:, 1].astype(np.int64)
+        wmax = n_words(int(max(readset.length[a_ids - 1].max(), readset.length[b_ids - 1].max())))
+        W = 1 << max(0, int(wmax - 1).bit_length())
+        wa, la = readset.block_words(a_ids, W)
+        wb, lb = readset.block_words(b_ids, W)
+        C = len(chunk_pairs)
+        if C < chunk:
+            padw = np.zeros((chunk - C, W), np.uint32)
+            padl = np.zeros(chunk - C, np.int32)
+            wa, la = np.vstack([wa, padw]), np.concatenate([la, padl])
+            wb, lb = np.vstack([wb, padw]), np.concatenate([lb, padl])
+        lens = [torch.from_numpy(x.astype(np.int32)).to(dev) for x in (la, lb)]
+        stats = _pair_stats_kernel(u32_tensor(wa, dev), lens[0], u32_tensor(wb, dev), lens[1],
+                                   fk, k)
+        fl, dg, ni, alo, ahi, blo, bhi = (t[:C].cpu().numpy() for t in stats)
+        keep = ni >= min_shared
+        for name, v in zip(_PLACED, (a_ids, b_ids, fl, dg, ni, alo, ahi, blo, bhi)):
+            cols[name].append(v[keep])
+    dtypes = {"flipped": bool}
+    return OverlapCandidates(**{
+        n: (np.concatenate(cols[n]) if cols[n] else np.zeros(0)).astype(dtypes.get(n, np.int32))
+        for n in _PLACED})

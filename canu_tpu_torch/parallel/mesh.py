@@ -27,7 +27,7 @@ import torch
 
 from ..ops.hashing import mix32
 from ..ops.kmer import INVALID_KMER, extract_kmers_any
-from ..ops.minhash import _sketch_kernel
+from ..ops.minhash import _sketch_kernel, slot_counts
 from .launch import all_gather, all_reduce_sum, all_to_all, from_wire, rank_world, to_wire
 
 UINT32_MAX = 0xFFFFFFFF
@@ -70,18 +70,16 @@ def _world(mesh) -> int:
 
 
 def _local_sketch(words, lengths, seeds, fk, k: int) -> torch.Tensor:
-    """Sketch one read block against a slice of hash seeds: int64[B, H_loc]."""
+    """Sketch one read block against a slice of hash seeds: int64[B, H_loc]
+    (kernel K5 on the card, ops.minhash._sketch_kernel)."""
     return _sketch_kernel(words, lengths, seeds, fk, k)
 
 
 def _count_matches(SA: torch.Tensor, SB: torch.Tensor, min_matches: int) -> torch.Tensor:
     """Slot agreements int32[Na, Nb] of two sketch blocks (UINT32_MAX slots
-    never match)."""
-    cnt = torch.zeros((SA.shape[0], SB.shape[0]), dtype=torch.int32, device=SA.device)
-    for h in range(SA.shape[1]):
-        a = SA[:, h]
-        cnt += ((a[:, None] == SB[None, :, h]) & (a != UINT32_MAX)[:, None]).to(torch.int32)
-    return cnt
+    never match): kernel K6's count launch on the card (ops.minhash
+    slot_counts)."""
+    return slot_counts(SA, SB)
 
 
 def sharded_overlap_step(mesh, k: int = 16, min_matches: int = 3):

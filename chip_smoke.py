@@ -7,8 +7,9 @@ at E. coli scale once on one NVIDIA GPU and check them.
 Phases (each prints its results; any failure exits non-zero):
   1 device    require CUDA; print the card's name and power limit
   2 build     compile kernels K1 (csrc/myers_tile.cu), K2/K3
-              (csrc/banded_extend.cu) and K4 (csrc/vote_dp.cu) from this
-              checkout, one nvcc each, in parallel
+              (csrc/banded_extend.cu), K4 (csrc/vote_dp.cu) and K5/K6
+              (csrc/minhash.cu) from this checkout, one nvcc each, in
+              parallel
   3 kernel    each kernel against its plain PyTorch loop on the card, bit
               for bit: (a) K1's six outputs on edge cases (every window
               edge of its A, B and shift streams), (b) K1 on 256 real
@@ -21,7 +22,18 @@ Phases (each prints its results; any failure exits non-zero):
               ends_free both ways, 256 rows, and on DP_GROUP_CASES: one
               launch each of 300 to 4,096 jobs, 1, 2, 3 and 63
               super-rows, bands 1, 128, 129 and 256, t_len over every
-              row, mostly short or uniform
+              row, mostly short or uniform, (e) K5's sketch and K6's
+              match (ii, jj, c, n_found, and the count launch's slot
+              counts) against the plain sketch and match on
+              tests/torch_cases.py's edge cases (SKETCH_EDGE_CASES:
+              reads of 0, k-1, k and off-word lengths, k 16 and 22, H 1,
+              64 and 768, the sentinel table and ~3,000 frequent keys,
+              most >= 2^31, holding every key of one read;
+              MATCH_EDGE_CASES: self and cross blocks, Na != Nb, an empty
+              read's row, max_out above and below n_found), then on the
+              sketch blocks and block pairs phases 4 and 4c ran, the
+              first block of phase 15's sketch and block pairs of its
+              sketches
   4 slice     meryl + overlap ("cor") stages on the bench.py read set
               (1,025 reads, 3.64 Mb) in a temporary directory; K1 must
               have launched and the plain loop must not have run on the
@@ -32,6 +44,17 @@ Phases (each prints its results; any failure exits non-zero):
               overlaps, on reads whose extensions really fail), store
               equal to the JAX package's (the "cor256" entry) and its
               rows against the band-128 store's
+  4c frequent the cor and obt meryl + overlap stages on the bench shapes
+              with a 1.5 kb repeat of 24 copies (tests/torch_cases.py
+              frequent_reads: raw reads for cor, corrected ones for obt,
+              each with a palindromic chimeric read), ovsMethod=spill:
+              each frequent table must be non-empty, K1, K5 and K6 must
+              have launched and the spill build once, no other kernel or
+              plain loop on the card; the frequent tables, candidates and
+              spilled stores (by store_digest, obt's with the palindromic
+              pair's repeated rows) equal the JAX package's
+              (frequent_overlap_reference.json,
+              scripts/torch_frequent_reference.py)
   5 timing    warm passes of sketch, match and verify as bench.py times
               them, one more pass under torch.profiler (device busy share
               of each sub-stage; tables in chiprun_out/profile.txt); K1
@@ -40,7 +63,10 @@ Phases (each prints its results; any failure exits non-zero):
               the same extensions cut into the launches of 4 chunks
               that MYERS_GROUP 4 made before (lane slices; the first is
               the earlier first group); K1 against the plain loop on the
-              phase-3b sample and on the whole first verify group
+              phase-3b sample and on the whole first verify group; K5 on
+              every block of the pass's sketch and K6 on every block pair
+              of its match (CUDA events) beside their bounds and the plain
+              versions' times
   6 obt       meryl + overlap ("obt", k=22 two-lane k-mers, band 128:
               K1 with partial and palindromic pairs) on the corrected
               read set (1,004 reads, 3.61 Mb, 3% error)
@@ -242,9 +268,10 @@ Phases (each prints its results; any failure exits non-zero):
               correction's parts (phase 10's, and the block files'
               writes, their concatenation and the re-read that counts
               the records), templates, blocks, chunks, DP groups, the
-              jobs of each K4 launch, K4's bound summed over the DP calls
-              and the device memory peak over meryl, the verify and the
-              correction
+              jobs of each K4 launch, K4's bound summed over the DP calls,
+              K5 over the whole sketch (CUDA events on each launch) beside
+              its summed bound, and the device memory peak over meryl, the
+              verify and the correction
   16 ecoliasm run_pipeline(raw_reads=[the FASTA]) in phase 15's
               directory, Config() + genomeSize, the counts set to 0
               first: the correction resumes (its log says so, its FASTA is
@@ -288,7 +315,9 @@ count the live rows, shifted rows, rows with b_len in the window and band
 cells up to b_len; for K2 and K3 the rows up to each extension's exit
 row, after which its outputs are fixed, and the kernels line gives their
 bound under that count; vdp_bound the window cells at j <= e_len of the
-rows up to t_len, both passes).  The bytes are each input the kernel needs read once
+rows up to t_len, both passes; sketch_bound the kept (window, slot) pairs
+and the windows on the read, SKETCH_*_OPS; match_bound the (cell, slot)
+pairs a block pair needs, MATCH_*_OPS).  The bytes are each input the kernel needs read once
 and each output written once.  The plain loops' own per-row counts
 (plain_row_ops) are printed beside, as a second figure.
 
@@ -363,6 +392,20 @@ VDP_BWD_CELL_OPS = 19  # backward: mismatch 1, cost select 1, the two adds
 #   keep or boundary select 1; the combine: F's key (the 255 test 1, Fm + Fu
 #   1, * Ww + x 1 multiply-add, the BAD select 1), G's key (test 1, * Ww 1,
 #   select 1), their sum 1, the row's min 1
+# K5 (the MinHash sketch, ops.minhash._sketch_kernel_plain's windows):
+SKETCH_HASH_OPS = 10  # each kept (window, slot): the seed xor 1, mix32's
+#   three shift-xors 6 and two multiplies 2, the min 1
+SKETCH_KEY_OPS = 8  # each window at k <= 16: the rolling forward and
+#   reverse k-mers (shift, or, mask) 6, the canonical min 1, the on-read test 1
+SKETCH_KEY2_OPS = 35  # each window at 16 < k <= 32: the two-lane roll 12,
+#   the 64-bit canonical min 3, the fold's two mix32 16 and its xor 1, the
+#   move off UINT32_MAX 2, the on-read test 1
+SKETCH_PROBE_OPS = 3  # each probe of the frequent-mer binary search:
+#   compare, select, halve; ceil(log2 F) probes and the equality test a window
+# K6 (the block matcher, ops.minhash._match_kernel_plain):
+MATCH_SLOT_OPS = 2  # each (cell, slot) needed, with SA's slot not
+#   UINT32_MAX: the compare 1, the add 1
+MATCH_CELL_OPS = 2  # each cell needed: the threshold test 1, the row's count 1
 
 
 def log(msg: str) -> None:
@@ -848,21 +891,24 @@ def profiled(busy: dict, tables: list):
 
 
 def reset_counts() -> None:
-    """Set every kernel's launch count, the plain loops' and the plain DP's
-    CUDA counts and the calls of the host k-mer counter, the hash-join and
-    the spill build to 0."""
+    """Set every kernel's launch count, the plain loops', the plain DP's, the
+    plain sketch's and the plain match's CUDA counts and the calls of the
+    host k-mer counter, the hash-join and the spill build to 0."""
     from canu_tpu_torch.ops import align as AL
     from canu_tpu_torch.ops import kmer as KM
     from canu_tpu_torch.ops import minhash as MH
     from canu_tpu_torch.ops import myers as MY
     from canu_tpu_torch.ops import trace as TT
     from canu_tpu_torch.ops.kernels import extend_cuda as EX
+    from canu_tpu_torch.ops.kernels import minhash_cuda as MK
     from canu_tpu_torch.ops.kernels import myers_cuda as K1
     from canu_tpu_torch.ops.kernels import trace_cuda as K4
     from canu_tpu_torch.stores import overlaps as OV
 
     K1.LAUNCHES = EX.WARP_LAUNCHES = EX.BLOCK_LAUNCHES = K4.LAUNCHES = K4.JOBS_LAUNCHED = 0
+    MK.SKETCH_LAUNCHES = MK.MATCH_LAUNCHES = MK.COMPACT_LAUNCHES = 0
     MY.PLAIN_CUDA_SEGMENTS = AL.PLAIN_CUDA_ROWS = TT.PLAIN_CUDA_CALLS = 0
+    MH.PLAIN_CUDA_SKETCHES = MH.PLAIN_CUDA_MATCHES = 0
     KM.HOST_COUNTS = MH.JOIN_CALLS = OV.SPILL_BUILDS = 0
 
 
@@ -873,21 +919,38 @@ def read_counts() -> dict:
     from canu_tpu_torch.ops import myers as MY
     from canu_tpu_torch.ops import trace as TT
     from canu_tpu_torch.ops.kernels import extend_cuda as EX
+    from canu_tpu_torch.ops.kernels import minhash_cuda as MK
     from canu_tpu_torch.ops.kernels import myers_cuda as K1
     from canu_tpu_torch.ops.kernels import trace_cuda as K4
     from canu_tpu_torch.stores import overlaps as OV
 
     return {"K1": K1.LAUNCHES, "K2": EX.WARP_LAUNCHES, "K3": EX.BLOCK_LAUNCHES,
-            "K4": K4.LAUNCHES, "plain_myers_segments": MY.PLAIN_CUDA_SEGMENTS,
+            "K4": K4.LAUNCHES, "K5": MK.SKETCH_LAUNCHES, "K6": MK.MATCH_LAUNCHES,
+            "K6_compact": MK.COMPACT_LAUNCHES, "plain_myers_segments": MY.PLAIN_CUDA_SEGMENTS,
             "plain_extend_rows": AL.PLAIN_CUDA_ROWS, "plain_dp": TT.PLAIN_CUDA_CALLS,
+            "plain_sketch": MH.PLAIN_CUDA_SKETCHES, "plain_match": MH.PLAIN_CUDA_MATCHES,
             "host_kmer_counts": KM.HOST_COUNTS, "join_calls": MH.JOIN_CALLS,
             "spill_builds": OV.SPILL_BUILDS}
 
 
 def no_plain(counts: dict) -> bool:
-    """No plain loop (Myers segment, INF-walled row) and no plain DP ran on
-    the card."""
-    return counts["plain_myers_segments"] == counts["plain_extend_rows"] == counts["plain_dp"] == 0
+    """No plain loop (Myers segment, INF-walled row), no plain DP, no plain
+    sketch and no plain match ran on the card."""
+    return (counts["plain_myers_segments"] == counts["plain_extend_rows"] == counts["plain_dp"]
+            == counts["plain_sketch"] == counts["plain_match"] == 0)
+
+
+def check_minhash(phase: str, counts: dict, match: bool) -> None:
+    """Kernel K5 sketched the phase's overlap stages; kernel K6 matched
+    where the block matcher or the sharded ring ran (match), never where
+    the hash-join did; each K6 call of find_candidates compacted (the
+    ring's count launches do not)."""
+    check(counts["K5"] > 0, f"{phase}: kernel K5 never launched during the overlap")
+    if match:
+        check(counts["K6"] > 0, f"{phase}: kernel K6 never launched during the overlap")
+    else:
+        check(counts["K6"] == 0, f"{phase}: kernel K6 launched though the hash-join matched")
+    check(counts["K6_compact"] <= counts["K6"], f"{phase}: more K6 compact launches than counts")
 
 
 def check_dp(phase: str, counts: dict, dp_calls: int) -> None:
@@ -915,6 +978,291 @@ def check_store(phase: str, st, prof: dict, fdig: str, ref: dict) -> None:
     check(len(st) == ref["rows"] and sdig == ref["store_sha256"],
           f"{phase}: overlap store differs from the JAX package's")
     log(f"[{phase}] store equals the JAX package's row for row")
+
+
+def sketch_bound(words, lengths, seeds, fk, k: int) -> dict:
+    """Kernel K5's bound on one block: SKETCH_HASH_OPS a kept (window,
+    slot), the key (SKETCH_KEY_OPS or SKETCH_KEY2_OPS) and the frequent-mer
+    search a window on the read; its bytes each input read once (the words
+    as the int64 they are passed in) and the output written once."""
+    import math
+
+    import torch
+
+    from canu_tpu_torch.ops.kmer import INVALID_KMER, extract_kmers_any
+
+    canon, _ = extract_kmers_any(words, lengths, k)
+    valid = canon != INVALID_KMER
+    F, H = fk.shape[0], seeds.shape[0]
+    kept = valid & (fk[torch.clamp(torch.searchsorted(fk, canon), max=F - 1)] != canon)
+    n_win, n_kept = int(valid.sum()), int(kept.sum())
+    key = SKETCH_KEY_OPS if k <= 16 else SKETCH_KEY2_OPS
+    probes = math.ceil(math.log2(F)) if F > 1 else 0
+    ops = n_kept * H * SKETCH_HASH_OPS + n_win * (key + SKETCH_PROBE_OPS * probes + 1)
+    B, W = words.shape
+    out = bound(ops, 8 * B * W + 4 * B + 8 * H + 8 * F + 8 * B * H)
+    out.update(windows=n_win, kept=n_kept)
+    return out
+
+
+def match_bound(SA, SB, self_block: bool, max_out: int) -> dict:
+    """Kernel K6's bound on one block pair: MATCH_SLOT_OPS a (cell, slot)
+    needed with SA's slot not UINT32_MAX (a self block needs the cells i <
+    j only), MATCH_CELL_OPS a cell; its bytes SA and SB read once (once for
+    a self block) and the max_out-long ii, jj and c written once."""
+    import torch
+
+    Na, H = SA.shape
+    Nb = SB.shape[0]
+    valid = (SA != 0xFFFFFFFF).sum(dim=1).to(torch.int64)
+    rows = torch.arange(Na, dtype=torch.int64, device=SA.device)
+    cols = torch.clamp(Nb - 1 - rows, min=0) if self_block else torch.full_like(rows, Nb)
+    ops = MATCH_SLOT_OPS * int((valid * cols).sum()) + MATCH_CELL_OPS * int(cols.sum())
+    return bound(ops, 8 * Na * H + (0 if self_block else 8 * Nb * H) + 20 * max_out + 8)
+
+
+def sum_bounds(bounds: list) -> dict:
+    """The bound of several launches' work together."""
+    return bound(sum(b["ops"] for b in bounds), sum(b["bytes"] for b in bounds))
+
+
+def held_sketch(name: str, args) -> int:
+    """Kernel K5 bit for bit against the plain sketch on one block's
+    (words, lengths, seeds, fk, k) on the card; returns the max |difference|
+    (0)."""
+    import torch
+
+    from canu_tpu_torch.ops import minhash as MH
+
+    ref = MH._sketch_kernel_plain(*args)
+    got = MH._sketch_kernel(*args)
+    torch.cuda.synchronize()
+    check(got.shape == ref.shape and got.dtype == ref.dtype,
+          f"{name}: K5 gave {tuple(got.shape)} {got.dtype}, the plain sketch {tuple(ref.shape)}")
+    d = int((got - ref).abs().max()) if ref.numel() else 0
+    check(d == 0, f"{name}: kernel K5 and the plain sketch differ (max |diff| {d})")
+    return d
+
+
+def held_match(name: str, SA, SB, min_matches: int, self_block: bool, max_out: int) -> tuple:
+    """Kernel K6 (both launches, and its count launch alone) bit for bit
+    against the plain match on one block pair on the card; returns (max
+    |difference| (0), n_found)."""
+    import torch
+
+    from canu_tpu_torch.ops import minhash as MH
+
+    ref = MH._match_kernel_plain(SA, SB, min_matches, self_block, max_out)
+    got = MH._match_kernel(SA, SB, min_matches, self_block, max_out)
+    cnt = (MH._slot_counts_plain(SA, SB), MH.slot_counts(SA, SB))
+    torch.cuda.synchronize()
+    err = 0
+    for field, r, g in zip(("ii", "jj", "c", "n_found", "cnt"), (*ref, cnt[0]), (*got, cnt[1])):
+        check(g.shape == r.shape and g.dtype == r.dtype,
+              f"{name}: K6's {field} is {tuple(g.shape)} {g.dtype}, the plain match's "
+              f"{tuple(r.shape)} {r.dtype}")
+        d = int((g.to(torch.int64) - r.to(torch.int64)).abs().max()) if r.numel() else 0
+        check(d == 0, f"{name}: kernel K6 and the plain match differ in {field} (max |diff| {d})")
+        err = max(err, d)
+    return err, int(ref[3])
+
+
+def minhash_edge_checks(dev) -> int:
+    """Phase 3e's edge cases (tests/torch_cases.py SKETCH_EDGE_CASES,
+    MATCH_EDGE_CASES): K5 and K6 bit for bit against the plain versions;
+    returns the max |difference| (0)."""
+    import torch
+
+    from canu_tpu_torch.ops.hashing import u32_tensor
+    from torch_cases import MATCH_EDGE_CASES, SKETCH_EDGE_CASES, match_edge_case, sketch_edge_case
+
+    err = 0
+    for case in SKETCH_EDGE_CASES:
+        words, lengths, seeds, table, k = sketch_edge_case(*case)
+        args = (u32_tensor(words, dev), torch.from_numpy(lengths).to(dev), u32_tensor(seeds, dev),
+                u32_tensor(table, dev), k)
+        err = max(err, held_sketch(f"3e K5 k={k} H={len(seeds)} {case[2]}", args))
+    log(f"[3e kernel] K5 bit-equal to the plain sketch on {len(SKETCH_EDGE_CASES)} edge blocks "
+        "(reads of 0, k-1, k, 17, 33, 55, 90, 100, 127 and 128 bases; k 16 and 22; H 1, 64, "
+        "768; the sentinel table and ~3,000 frequent keys, most >= 2^31, holding every key of "
+        "one read)")
+    for Na, Nb, H, mm, self_block, max_out in MATCH_EDGE_CASES:
+        SA, SB = (u32_tensor(x, dev) for x in match_edge_case(Na, Nb, H))
+        e, n = held_match(f"3e K6 {Na} x {Nb}", SA, SA if self_block else SB, mm, self_block,
+                          max_out)
+        err = max(err, e)
+        log(f"[3e kernel] K6 bit-equal to the plain match on {Na} x {Nb} x {H} slots "
+            f"({'self' if self_block else 'cross'} block, min_matches {mm}, an empty read's "
+            f"row): n_found {n}, max_out {max_out}")
+    return err
+
+
+def held_minhash_calls(phase: str, sketch_calls: list, match_calls: list) -> int:
+    """Phase 3e on real blocks: K5 and K6 bit for bit against the plain
+    versions on captured _sketch_kernel and _match_kernel calls ((args,
+    kwargs) on the card); returns the max |difference| (0)."""
+    err, found = 0, []
+    for i, (args, _kw) in enumerate(sketch_calls):
+        err = max(err, held_sketch(f"3e {phase} sketch block {i}", args))
+    for i, (args, _kw) in enumerate(match_calls):
+        e, n = held_match(f"3e {phase} block pair {i}", *args)
+        err, found = max(err, e), found + [n]
+    log(f"[3e kernel] {phase}: K5 bit-equal to the plain sketch on {len(sketch_calls)} blocks "
+        f"({', '.join(f'{a[0].shape[0]} reads x {a[0].shape[1]} words, H {a[2].shape[0]}, '
+                      f'F {a[3].shape[0]}, k {a[4]}' for a, _ in sketch_calls[:2])}"
+        f"{', ...' if len(sketch_calls) > 2 else ''}); K6 on {len(match_calls)} block pairs "
+        f"(n_found {found})")
+    return err
+
+
+def minhash_timing(rs, fk, dev, card: str) -> dict:
+    """Phase 5: K5 on every block of the bench pass's sketch (k=16, H=512,
+    128 reads a block) and K6 on every block pair of its match (1,024 reads
+    a block, min_matches 2), each by CUDA events (the mean of 5 after a
+    warm-up) beside its bound and the plain version's time (one run), held
+    bit for bit to it on the way; their sums are the pass's."""
+    from canu_tpu_torch.ops import minhash as MH
+    from canu_tpu_torch.ops.hashing import hash_seeds, u32_tensor
+    from canu_tpu_torch.ops.kmer import block_tensors, length_bucketed_blocks
+
+    seeds = u32_tensor(hash_seeds(512), dev)
+    fkt = u32_tensor(MH._fk_array(fk), dev)
+    sk_args = [(*block_tensors(rs, ids, W, dev), seeds, fkt, 16)
+               for ids, W in length_bucketed_blocks(rs, 128)]
+    err = 0
+    k5 = {"ms": [], "plain_ms": [], "bounds": []}
+    for a in sk_args:
+        k5["ms"].append(cuda_ms(lambda a=a: MH._sketch_kernel(*a), 5))
+        k5["plain_ms"].append(once_ms(lambda a=a: MH._sketch_kernel_plain(*a))[1])
+        k5["bounds"].append(sketch_bound(*a))
+        err = max(err, held_sketch("5 K5 bench block", a))
+    sk = MH.build_sketches(rs, k=16, n_hashes=512, frequent=fk, block_size=128, device=dev)
+    S = u32_tensor(sk, dev)
+    N, bs, max_out = len(sk), 1024, 1 << 17
+    pairs = [(S[a : a + bs], S[b : b + bs], 2, a == b, max_out)
+             for a in range(0, N, bs) for b in range(a, N, bs)]
+    k6 = {"ms": [], "plain_ms": [], "bounds": []}
+    for a in pairs:
+        k6["ms"].append(cuda_ms(lambda a=a: MH._match_kernel(*a), 5))
+        k6["plain_ms"].append(once_ms(lambda a=a: MH._match_kernel_plain(*a))[1])
+        k6["bounds"].append(match_bound(a[0], a[1], a[3], max_out))
+        err = max(err, held_match("5 K6 bench block pair", *a)[0])
+    for name, r, what in (("K5", k5, f"{len(sk_args)} blocks of the sketch"),
+                          ("K6", k6, f"{len(pairs)} block pairs of the match")):
+        r["bound"] = b = sum_bounds(r["bounds"])
+        r["sum_ms"], r["plain_sum_ms"] = sum(r["ms"]), sum(r["plain_ms"])
+        log(f"[5 timing] {card}: {name} on the {what} (CUDA events, mean of 5): "
+            f"{r['sum_ms']:.3f} ms ({', '.join(f'{x:.3f}' for x in r['ms'])}); bound "
+            f"{b['bound_ms']:.3f} ms ({b['ops']:.3e} operations, {b['bytes']:.3e} bytes; bound "
+            f"by {b['bound_by']}; {100 * b['bound_ms'] / r['sum_ms']:.1f}% of it); plain "
+            f"{r['plain_sum_ms']:.1f} ms, bit-equal")
+    k5["windows"] = sum(b["windows"] for b in k5["bounds"])
+    k5["kept"] = sum(b["kept"] for b in k5["bounds"])
+    return {"K5": k5, "K6": k6, "err": err}
+
+
+FREQUENT_TAGS = ("cor", "obt")
+
+
+def frequent_drive(dev, card: str) -> dict:
+    """Phase 4c: the cor and obt meryl + overlap stages on the frequent-mer
+    read sets (tests/torch_cases.py frequent_reads: the bench shapes with a
+    1.5 kb repeat of 24 copies, raw reads for cor and corrected ones for
+    obt, each plus a palindromic chimeric read), Config()
+    + genomeSize=300k + ovsMethod=spill, each in a directory of its own
+    with the counts set to 0 just before and read just after.  Each frequent
+    table must be non-empty; K1, K5 and K6 must have launched, the spill
+    build once, no other kernel and no plain loop on the card; each stage's
+    frequent table, candidates and spilled store (store_digest) equal the
+    JAX package's (frequent_overlap_reference.json), and obt's store holds
+    the palindromic pair's repeated rows.  Returns each stage's record, and
+    the first and last sketch blocks and every block pair for phase 3e."""
+    import numpy as np
+    import torch
+
+    from canu_tpu_torch.config import Config
+    from canu_tpu_torch.ops import minhash as MH
+    from canu_tpu_torch.pipeline import stages
+    from canu_tpu_torch.pipeline.driver import make_ctx
+    from canu_tpu_torch.sim import simulate
+    from canu_tpu_torch.stores.overlaps import store_digest
+    from canu_tpu_torch.stores.readset import ReadSet
+    from torch_cases import candidates_digest, frequent_reads
+
+    with open(os.path.join(ROOT, "canu_tpu_torch", "frequent_overlap_reference.json")) as fh:
+        ref = json.load(fh)
+    t_phase = time.time()
+    out: dict = {"sketch_calls": [], "match_calls": []}
+    for tag in FREQUENT_TAGS:
+        r = ref[tag]
+        t = time.time()
+        rs = frequent_reads(simulate, ReadSet, tag)
+        log(f"[4c frequent] {tag} read set: {rs.n_reads} reads, {rs.total_bases} bases "
+            f"({r['reads']}), a 1.5 kb repeat of 24 copies and a palindromic chimeric read "
+            f"(simulated in {time.time() - t:.1f} s)")
+        check(rs.n_reads == r["n_reads"] and rs.total_bases == r["total_bases"],
+              f"4c {tag}: the read set differs from the reference's")
+        cfg = Config()
+        cfg.set("genomeSize", "300k")
+        cfg.set("ovsMethod", "spill")
+        work = tempfile.mkdtemp(prefix=f"chip_smoke_freq_{tag}_")
+        ctx = make_ctx(work, "freq", cfg)
+        k = int(cfg.get(f"{tag}MerSize"))
+        real_sk, sk_calls = capture_calls(MH, "_sketch_kernel")
+        real_mt, mt_calls = capture_calls(MH, "_match_kernel")
+        real_fc, seen = capture_results(MH, "find_candidates")
+        try:
+            reset_counts()
+            t = time.time()
+            fk = stages.meryl(ctx, tag, rs, device=dev)
+            t_meryl = time.time() - t
+            st = stages.overlap(ctx, tag, rs, fk, device=dev)
+            torch.cuda.synchronize()
+            t_stage = time.time() - t
+            counts = read_counts()
+        finally:
+            MH._sketch_kernel, MH._match_kernel, MH.find_candidates = real_sk, real_mt, real_fc
+        with open(ctx.path("freq.stage-times.jsonl")) as fh:
+            sub = [json.loads(ln) for ln in fh if f'"{tag}-overlap.sub"' in ln][-1]["sub_walls_s"]
+        d = os.path.join(work, stages.TAG_DIR[tag])
+        fdig = frequent_digest(os.path.join(d, f"freq.ms{k}.frequent.npz"))
+        check(len(seen) == 1, f"4c {tag}: the stage called find_candidates {len(seen)} times")
+        pairs = seen[0]
+        cdig = candidates_digest(pairs)
+        ids = np.stack([np.asarray(st.a_id), np.asarray(st.b_id)], axis=1)
+        repeated = int(len(ids) - len(np.unique(ids, axis=0)))
+        sdig = store_digest(st)
+        log(f"[4c frequent] {card}: {tag} k={k}: meryl {t_meryl:.2f} s, meryl+overlap "
+            f"{t_stage:.2f} s; overlap sub-walls {sub}; launch counts {counts}")
+        log(f"[4c frequent] {tag}: {fk.n} frequent mers at threshold {fk.threshold} "
+            f"(reference {r['frequent_n']}), sha256 {fdig}; {len(pairs)} candidates (reference "
+            f"{r['n_candidates']}), sha256 {cdig}; spilled store {len(st)} rows (reference "
+            f"{r['rows']}), {repeated} rows of a repeated pair (reference {r['repeated_rows']}), "
+            f"sha256 {sdig}")
+        check(fk.n > 0, f"4c {tag}: the frequent-mer table is empty")
+        check(fk.n == r["frequent_n"] and fdig == r["frequent_sha256"],
+              f"4c {tag}: the frequent-mer table differs from the JAX package's")
+        check(len(pairs) == r["n_candidates"] and cdig == r["candidates_sha256"],
+              f"4c {tag}: the candidates differ from the JAX package's")
+        check(len(st) == r["rows"] and sdig == r["store_sha256"],
+              f"4c {tag}: the spilled store differs from the JAX package's")
+        check(repeated == r["repeated_rows"] and (repeated > 0 or tag != "obt"),
+              f"4c {tag}: {repeated} rows of repeated pairs (palindromic), reference "
+              f"{r['repeated_rows']}")
+        check(counts["spill_builds"] == 1, f"4c {tag}: the store was not built by the spill")
+        check(counts["K1"] > 0, f"4c {tag}: kernel K1 never launched during the stage")
+        check(counts["K2"] == counts["K3"] == counts["K4"] == 0,
+              f"4c {tag}: kernel K2, K3 or K4 launched off its path")
+        check(no_plain(counts), f"4c {tag}: a plain loop ran on the card during the stage")
+        check_minhash(f"4c {tag}", counts, match=True)
+        out[tag] = {"meryl_s": t_meryl, "stage_s": t_stage, "sub_walls_s": sub,
+                    "frequent_n": fk.n, "n_candidates": len(pairs), "rows": len(st),
+                    "repeated_rows": repeated, "launches": counts}
+        out["sketch_calls"] += [sk_calls[0], sk_calls[-1]]
+        out["match_calls"] += mt_calls
+    log(f"[4c frequent] phase wall {time.time() - t_phase:.1f} s")
+    out["phase_s"] = time.time() - t_phase
+    return out
 
 
 def drive_stage(phase: str, tag: str, band: int, rs, dev, ref: dict, kernel: str):
@@ -962,6 +1310,7 @@ def drive_stage(phase: str, tag: str, band: int, rs, dev, ref: dict, kernel: str
             check(counts[name] == 0, f"{phase}: kernel {name} launched off its path")
     check(no_plain(counts),
           f"{phase}: a plain loop ran on the card during the stage")
+    check_minhash(phase, counts, match=True)
     fdig = frequent_digest(os.path.join(work, stages.TAG_DIR[tag], f"bench.ms{k}.frequent.npz"))
     check_store(phase, st, prof, fdig, ref)
     rec = {"meryl_s": t_meryl, "stage_s": t_stage, "sub_walls_s": sub, "verify_profile": prof,
@@ -1272,6 +1621,7 @@ def ecoli_drive(dev, card: str) -> dict:
           "9 ecoli: kernel K2, K3 or K4 launched off its path")
     check(no_plain(counts),
           "9 ecoli: a plain loop ran on the card during the stage")
+    check_minhash("9 ecoli", counts, match=False)
     for name in ("host_kmer_counts", "join_calls", "spill_builds"):
         check(counts[name] == 1, f"9 ecoli: {name} is {counts[name]}, expected 1")
     check(len(k1["events"]) == counts["K1"], "9 ecoli: K1 launches and timed calls differ")
@@ -1443,6 +1793,7 @@ def correct_drive(dev, card: str) -> dict:
           f"10 correct: no K4 launch took 4 chunks or more (jobs a launch {dp_jobs})")
     check(no_plain(counts),
           "10 correct: a plain loop or the plain DP ran on the card during the phase")
+    check_minhash("10 correct", counts, match=True)
 
     # the gatekeeper store and the cor store equal the JAX package's
     d = os.path.join(work, "correction")
@@ -1690,6 +2041,7 @@ def assemble_run(name: str, dev, card: str, genome_len: int, genome_seed: int, r
     check_dp(tag, counts, n_dp[0])
     check(no_plain(counts),
           f"{tag}: a plain loop or the plain DP ran on the card during the run")
+    check_minhash(tag, counts, match=True)
     for step in ("obt-overlap", "utg-overlap", "adjust"):
         check(k1_in.get(step, 0) > 0, f"{tag}: kernel K1 never launched in {step}")
     if n_links[0]:
@@ -1946,7 +2298,7 @@ def dag_correct(dev, card: str, correct: dict, ref: dict) -> dict:
     n_chunks, n_jobs = DG.CHUNKS, DG.JOBS
     log(f"[12a dag correct] {card}: correction_phase with corConsensus=dag on phase 10's "
         f"stores: {t_run:.2f} s; launch counts {counts}")
-    check(all(v == 0 for k, v in counts.items() if k in ("K1", "K2", "K3")),
+    check(all(v == 0 for k, v in counts.items() if k in ("K1", "K2", "K3", "K5", "K6")),
           "12a: a kernel launched during the dag correction (the stages before it resume)")
     check_dp("12a", counts, len(dp_ev))
     check(no_plain(counts),
@@ -2076,8 +2428,8 @@ def dag_polish(dev, card: str, run_a: dict, ref: dict) -> dict:
         f"align_links {k1_links[0]}")
     check(ran == ["consensus", "outputs"], f"12b: the resume ran {ran}, not the consensus and "
           "the outputs alone")
-    check(counts["K1"] == k1_links[0] and counts["K2"] == counts["K3"] == 0,
-          "12b: a kernel launched off align_links during the dag polish")
+    check(counts["K1"] == k1_links[0] and counts["K2"] == counts["K3"] == counts["K5"]
+          == counts["K6"] == 0, "12b: a kernel launched off align_links during the dag polish")
     check_dp("12b", counts, len(dp_ev))
     check(no_plain(counts),
           "12b: a plain loop or the plain DP ran on the card during the dag polish")
@@ -2404,6 +2756,7 @@ def grid_world_of_one(dev, card: str, fasta: str, ref: dict, work: str) -> dict:
           "14a: kernel K2, K3 or K4 launched off its path")
     check(no_plain(counts),
           "14a: a plain loop ran on the card during the stages")
+    check_minhash("14a", counts, match=True)
     fdig = frequent_digest(os.path.join(ctx.work_dir, "correction", "bench.ms16.frequent.npz"))
     check_store("14a grid", st, prof, fdig, ref)
     pairs = rings[0]
@@ -2719,9 +3072,11 @@ def grid_drive(dev, card: str, correct: dict) -> dict:
         check(c["K1"] > 0, f"14b: kernel K1 never launched on rank {r}")
         check_dp(f"14b rank {r}", c, x["dp_calls"])
         check(no_plain(c), f"14b: a plain loop or the plain DP ran on the card on rank {r}")
+        check_minhash(f"14b rank {r}", c, match=True)
         c = x["allgather"]["launches"]
         check(c["K1"] > 0 and no_plain(c),
               f"14b: rank {r}'s allgather stage missed K1 or ran a plain loop")
+        check_minhash(f"14b rank {r} allgather", c, match=True)
         check(x["store"]["sha256"] == ref["store_sha256"] and x["store"]["rows"] == ref["rows"],
               f"14b: the range exchange's cor store differs from the JAX package's (rank {r})")
         check(x["store"]["frequent_sha256"] == ref["frequent_sha256"],
@@ -2791,6 +3146,8 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
     from canu_tpu_torch.ops import falcon as F
     from canu_tpu_torch.ops import minhash as MH
     from canu_tpu_torch.ops import votepile as VP
+    from canu_tpu_torch.ops.hashing import u32_tensor
+    from canu_tpu_torch.ops.kernels import minhash_cuda as MK
     from canu_tpu_torch.ops.kernels import myers_cuda as K1
     from canu_tpu_torch.ops.kernels import trace_cuda as K4
     from canu_tpu_torch.pipeline import stages
@@ -2831,7 +3188,8 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
     mem: dict = {"verify": {}}
     pairs_seen, block_templates, dp_jobs, first_dp, dp_lens_seen = [], [], [], [], []
     ev: dict = {"dp": [], "group": [], "fold": [], "finalize": []}
-    real = {"k1": K1.myers_rows_cuda, "verify": AL.verify_overlaps,
+    sk_events, sk_args, join_args = [], [], []
+    real = {"k1": K1.myers_rows_cuda, "verify": AL.verify_overlaps, "sketch": MK.sketch,
             "join": MH.find_candidates_join, "meryl": stages.meryl,
             "blocks": F.correct_reads_blocks, "vote_blocks": F.run_vote_blocks,
             "dp": VP.align_positions_lean, "group": VP._group_paths, "fold": VP._fold_chunk,
@@ -2876,10 +3234,20 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
         dp_lens_seen.append(dp_lens(args))
         return out
 
+    sketch_timed = cuda_timed(real["sketch"], sk_events)
+
+    def sketch(*args):
+        sk_args.append(args)  # every K5 launch's inputs, for its bound below
+        return sketch_timed(*args)
+
+    def join(sk, **kw):
+        join_args.append((np.ascontiguousarray(sk[:2048]), kw))  # K6's real blocks below
+        pairs_seen.append(real["join"](sk, **kw))
+        return pairs_seen[-1]
+
     K1.myers_rows_cuda = k1_metered(real["k1"], k1, dev)
     AL.verify_overlaps = verify_metered(real["verify"], k1, mem["verify"], dev)
-    MH.find_candidates_join = lambda *a, **kw: pairs_seen.append(real["join"](*a, **kw)) or \
-        pairs_seen[-1]
+    MK.sketch, MH.find_candidates_join = sketch, join
     stages.meryl, F.correct_reads_blocks, F.run_vote_blocks = meryl, blocks, vote_blocks
     VP.align_positions_lean, VP._group_paths, VP._fold_chunk = dp, timed("group"), timed("fold")
     F._finalize_plurality = timed("finalize")
@@ -2895,6 +3263,7 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
     finally:
         K1.myers_rows_cuda, AL.verify_overlaps = real["k1"], real["verify"]
         MH.find_candidates_join, stages.meryl = real["join"], real["meryl"]
+        MK.sketch = real["sketch"]
         F.correct_reads_blocks, F.run_vote_blocks = real["blocks"], real["vote_blocks"]
         VP.align_positions_lean, VP._group_paths = real["dp"], real["group"]
         VP._fold_chunk, F._finalize_plurality = real["fold"], real["finalize"]
@@ -2910,8 +3279,35 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
           f"15 ecolicor: no K4 launch took 4 chunks or more (largest {max(dp_jobs)} jobs)")
     check(no_plain(counts),
           "15 ecolicor: a plain loop or the plain DP ran on the card during the phase")
+    check_minhash("15 ecolicor", counts, match=False)
     check(counts["join_calls"] == 1, f"15 ecolicor: {counts['join_calls']} hash-joins, expected 1")
     check(len(k1["events"]) == counts["K1"], "15 ecolicor: K1 launches and timed calls differ")
+    check(len(sk_events) == counts["K5"], "15 ecolicor: K5 launches and timed calls differ")
+
+    # K5 over the whole sketch by CUDA events beside its summed bound; K5
+    # on the first (longest) block and K6 on the first 2,048 reads'
+    # sketches (a self and a cross block pair) held to the plain versions
+    k5_ms = sum(a.elapsed_time(b) for a, b in sk_events)
+    k5_bound = sum_bounds([sketch_bound(*a) for a in sk_args])
+    log(f"[15 timing] {card}: K5 over the cor sketch: {len(sk_events)} launches "
+        f"({sk_args[0][0].shape[0]} reads x up to {sk_args[0][0].shape[1]} words, H "
+        f"{sk_args[0][2].shape[0]}), {k5_ms:.3f} ms (CUDA events); bound "
+        f"{k5_bound['bound_ms']:.3f} ms ({k5_bound['ops']:.3e} operations, "
+        f"{k5_bound['bytes']:.3e} bytes; {100 * k5_bound['bound_ms'] / k5_ms:.1f}% of it)")
+    err_mh = held_sketch("15 K5 first block", sk_args[0])
+    ((sk0, jkw),) = join_args
+    S = u32_tensor(sk0, dev)
+    mm = int(jkw["min_matches"])
+    real_blocks = [(S[:1024], S[:1024], mm, True, 1 << 17),
+                   (S[:1024], S[1024:2048], mm, False, 1 << 17)]
+    for i, args in enumerate(real_blocks):
+        e, n = held_match(f"15 K6 block pair {i}", *args)
+        err_mh = max(err_mh, e)
+        log(f"[3e kernel] phase 15: K6 bit-equal to the plain match on the sketches of reads "
+            f"{'1-1,024 with themselves' if i == 0 else '1-1,024 against 1,025-2,048'} (min_matches "
+            f"{mm}): n_found {n}")
+    log("[3e kernel] phase 15: K5 bit-equal to the plain sketch on the first block")
+    del sk_args, S
 
     # the gatekeeper store, the frequent table, the candidates, the sampled
     # templates' store rows and corrected reads equal the JAX package's
@@ -3018,6 +3414,7 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
             "k1_bound_ms_per_drive": tb,
             "k1_bound_s": k1["bound_s"], "dp_err": err, "dp_plain_ms": plain_ms,
             "dp_s": dev_s["dp"], "dp_bound_s": dp_bound_s, "dp_bounds": vb,
+            "k5_ms": k5_ms, "k5_bound": k5_bound, "minhash_err": err_mh,
             "memory": mem, "phase_s": time.time() - t_phase}
 
 
@@ -3276,6 +3673,7 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
     check_dp("16 ecoliasm", counts, n_dp[0])
     check(no_plain(counts),
           "16 ecoliasm: a plain loop or the plain DP ran on the card during the run")
+    check_minhash("16 ecoliasm", counts, match=False)
     for step in ("obt-overlap", "utg-overlap", "adjust"):
         check(k1_in.get(step, 0) > 0, f"16 ecoliasm: kernel K1 never launched in {step}")
     if n_links[0]:
@@ -3540,11 +3938,12 @@ def main() -> int:
     from canu_tpu_torch.ops import myers as MY
     from canu_tpu_torch.ops.kernels import _nvcc
     from canu_tpu_torch.ops.kernels import extend_cuda as EX
+    from canu_tpu_torch.ops.kernels import minhash_cuda as MK
     from canu_tpu_torch.ops.kernels import myers_cuda as K1
     from canu_tpu_torch.ops.kernels import trace_cuda as K4
 
     t = time.time()
-    sources = (K1.SOURCE, EX.SOURCE, K4.SOURCE)
+    sources = (K1.SOURCE, EX.SOURCE, K4.SOURCE, MK.SOURCE)
     built = _nvcc.build(*sources)
     log(f"[2 build] {len(sources)} libraries in {time.time() - t:.1f} s (one nvcc each, in "
         "parallel)")
@@ -3596,8 +3995,12 @@ def main() -> int:
             f"(tests/torch_cases.py dp_group_case, {'mostly short' if short else 'uniform'} "
             f"t_len), band {band}, ends_free {ef}")
 
+    # ---- 3e: K5 and K6 vs the plain sketch and match, edge cases --------------
+    err_mh = minhash_edge_checks(dev)
+
     # ---- 4: the slice ------------------------------------------------------
     from canu_tpu_torch.config import Config
+    from canu_tpu_torch.ops import minhash as MH
     from canu_tpu_torch.pipeline import stages
     from canu_tpu_torch.pipeline.driver import make_ctx
 
@@ -3617,6 +4020,9 @@ def main() -> int:
     # and 5) and every K1 launch's inputs (phase 5)
     real_extend, groups = capture_calls(MY, "banded_extend_myers", first_only=True)
     real_rows, k1_calls = capture_calls(MY, "_rows_kernel")
+    # and its sketch blocks and block pairs (phase 3e)
+    real_sk, sk_calls = capture_calls(MH, "_sketch_kernel")
+    real_mt, mt_calls = capture_calls(MH, "_match_kernel")
     try:
         reset_counts()
         t = time.time()
@@ -3629,22 +4035,33 @@ def main() -> int:
         launches, plain_segments = counts["K1"], counts["plain_myers_segments"]
     finally:
         MY.banded_extend_myers, MY._rows_kernel = real_extend, real_rows
+        MH._sketch_kernel, MH._match_kernel = real_sk, real_mt
     check(counts["K2"] == counts["K3"] == counts["K4"] == 0 and no_plain(counts),
           f"the cor stage ran the INF-walled engine, the DP or a plain loop: {counts}")
+    check_minhash("4 slice", counts, match=True)
     prof = dict(AL.LAST_PROFILE)
     with open(ctx.path("bench.stage-times.jsonl")) as fh:
         sub = [json.loads(ln) for ln in fh if '"cor-overlap.sub"' in ln][-1]["sub_walls_s"]
     log(f"[4 slice] meryl {t_meryl:.2f} s; meryl+overlap {t_stage:.2f} s; overlap sub-walls "
         f"{sub}; verify profile {prof}")
     log(f"[4 slice] K1 launches {launches} (MYERS_GROUP {AL.MYERS_GROUP}); plain-loop "
-        f"segments on the card {plain_segments}")
+        f"segments on the card {plain_segments}; K5 {counts['K5']}, K6 {counts['K6']} "
+        f"(compact {counts['K6_compact']})")
     check(launches > 0, "kernel K1 never launched during the overlap stage")
     check(plain_segments == 0, "the plain Myers loop ran on the card during the stage")
     check(len(k1_calls) == launches, f"{len(k1_calls)} K1 calls captured, {launches} launched")
     fdig = frequent_digest(os.path.join(work, "correction", "bench.ms16.frequent.npz"))
     check_store("4 slice", st, prof, fdig, ref)
     record.update(stage_s=t_stage, meryl_s=t_meryl, sub_walls_s=sub, verify_profile=prof,
-                  rows=len(st), launches=launches, myers_group=AL.MYERS_GROUP)
+                  rows=len(st), launches=launches, myers_group=AL.MYERS_GROUP,
+                  launch_counts=counts)
+
+    # ---- 4c: the cor and obt stages with frequent mers excluded, spilled ----
+    record["frequent"] = freq = frequent_drive(dev, card)
+    err_mh = max(err_mh, held_minhash_calls("phase 4", sk_calls, mt_calls),
+                 held_minhash_calls("phase 4c", freq.pop("sketch_calls"),
+                                    freq.pop("match_calls")))
+    del sk_calls, mt_calls
 
     # ---- 3b: kernel vs plain on real extensions of the first group ----------
     check(len(groups) == 1, "the overlap stage never called banded_extend_myers")
@@ -3696,6 +4113,10 @@ def main() -> int:
         f"{k} wall {w:.3f} s, device busy {d:.3f} s ({100 * d / w:.0f}%)"
         for k, (w, d) in busy.items()) + " (tables in chiprun_out/profile.txt)")
     record["profile_wall_busy_s"] = busy
+
+    # K5 and K6 on every launch of the pass, beside their bounds and plain times
+    record["minhash"] = mht = minhash_timing(rs, fk, dev, card)
+    err_mh = max(err_mh, mht.pop("err"))
 
     # K1 on every launch of the cor stage, and the stage's sum
     k1_launches = [k1_call(c) for c in k1_calls]
@@ -3815,6 +4236,7 @@ def main() -> int:
     # ---- 15: read correction from a FASTA at E. coli scale -----------------
     record["ecolicor"] = ecolicor = ecolicor_drive(dev, card, vdp["ecoli_dp_s"])
     err_dp = max(err_dp, ecolicor["dp_err"])
+    err_mh = max(err_mh, ecolicor["minhash_err"])
 
     # ---- 16: raw reads to contigs at E. coli scale, correction resumed ------
     record["ecoliasm"] = ecoliasm = ecoliasm_drive(dev, card, ecolicor)
@@ -3826,6 +4248,18 @@ def main() -> int:
     check(all(sys.modules.get(m) is None for m in ("jax", "canu_tpu")),
           "jax or canu_tpu was imported")
 
+    # K5 and K6 launches in every main-path run: phases 4, 4b, 4c, 6, 7, 9, 10,
+    # 11, 14 (14a, and 14b's ranks with their allgather stages), 15 and 16
+    main_runs = [counts, freq["cor"]["launches"], freq["obt"]["launches"], ecoli["launches"],
+                 correct["launches"], assemble["a"]["launches"], assemble["b"]["launches"],
+                 grid["a"]["launches"], ecolicor["launches"], ecoliasm["launches"]]
+    main_runs += [d["launches"] for d in drives.values()]
+    main_runs += [x[key]["launches"] if key else x["launches"] for x in grid["b"]
+                  for key in (None, "allgather")]
+    k5_launches = sum(c["K5"] for c in main_runs)
+    k6_launches = sum(c["K6"] for c in main_runs)
+    log(f"[kernels] K5 launched {k5_launches} times and K6 {k6_launches} on the main path's runs "
+        "(phases 4-16)")
     src = "canu_tpu_torch/csrc/banded_extend.cu"
     k2, k3 = ext["utg256"], ext["utg1024"]
     k2b, k3b = k2["first_bound_exit"], k3["first_bound_exit"]
@@ -3860,6 +4294,16 @@ def main() -> int:
          + ecolicor["launches"]["K4"] + ecoliasm["launches"]["K4"],
          "max_abs_err": max(err_dp, vdp["err"]), "ms": vdp["ms"], "plain_ms": vdp["plain_ms"],
          "bound_ms": vdp["bound"]["bound_ms"], "bound_by": vdp["bound"]["bound_by"],
+         "library_ms": None},
+        {"name": "minhash_sketch (K5)", "route": "cuda", "source": "canu_tpu_torch/csrc/minhash.cu",
+         "replaces": "canu_tpu/ops/minhash.py:53", "launches": k5_launches, "max_abs_err": err_mh,
+         "ms": mht["K5"]["sum_ms"], "plain_ms": mht["K5"]["plain_sum_ms"],
+         "bound_ms": mht["K5"]["bound"]["bound_ms"], "bound_by": mht["K5"]["bound"]["bound_by"],
+         "library_ms": None},
+        {"name": "slot_match (K6)", "route": "cuda", "source": "canu_tpu_torch/csrc/minhash.cu",
+         "replaces": "canu_tpu/ops/minhash.py:111", "launches": k6_launches,
+         "max_abs_err": err_mh, "ms": mht["K6"]["sum_ms"], "plain_ms": mht["K6"]["plain_sum_ms"],
+         "bound_ms": mht["K6"]["bound"]["bound_ms"], "bound_by": mht["K6"]["bound"]["bound_by"],
          "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

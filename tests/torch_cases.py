@@ -40,6 +40,13 @@ contig's identity to the simulated genome, which both hold against the
 same measure of the reference's contig.  ``gfa_cases``, ``gfa_tigs``,
 ``gfa_store``, ``GFA_STORE_ROWS``: test_gfa.py's links, which the GFA
 parity tests and chip_smoke.py's card check of write_gfa share.
+``SKETCH_EDGE_CASES`` / ``sketch_edge_case`` and ``MATCH_EDGE_CASES`` /
+``match_edge_case``: the MinHash sketch's and block matcher's edge
+blocks, held against canu_tpu on the CPU and kernels K5 and K6 against
+the plain versions on the card (chip_smoke.py's phase 3e too);
+``frequent_reads`` and ``candidates_digest``: the read sets of
+chip_smoke.py's frequent-mer phase (4c) and
+scripts/torch_frequent_reference.py, and the digest of their candidates.
 ``tools_session``, ``tools_setup`` and ``run_tools_session``: the tools
 CLI's scripted session, whose step records (``tools_record``:
 exit code, stdout, stderr, ``file_digest`` of each file made) chip_smoke.py's
@@ -1132,3 +1139,106 @@ def run_tools_session(work: str, genome: int, main, ReadSet, around=None, **kw):
         recs[name] = tools_record(work, rc, out, err, tools_outputs(work, before))
         outs[name] = out.replace(work, "<work>")
     return recs, secs, outs
+
+
+# ---- kernels K5 and K6: the MinHash sketch and block matcher --------------
+
+# (k, H, frequent table): k = 16 (one lane) and 22 (the two-lane fold), the
+# sensitivity presets' widest H and a lone slot, the no-op sentinel and a
+# table of thousands of keys, most >= 2^31, that holds every key of read 5
+SKETCH_EDGE_CASES = tuple((k, H, fk) for k in (16, 22) for H in (1, 64, 768)
+                          for fk in ("sentinel", "frequent"))
+SKETCH_EDGE_WORDS = 8  # 128 bases a padded read
+
+
+def sketch_edge_case(k: int, H: int, fk: str, seed: int = 3):
+    """(words uint32[10, 8], lengths int32[10], seeds uint32[H], fk
+    uint32[F], k) of ops.minhash._sketch_kernel: reads of 0, k - 1, k, 17,
+    33, 100, 127, 55, 128 bases and a copy of read 5 shortened to 90
+    (lengths off the 16-base words, the window walk's ends; the words past
+    each read zero, as ReadSet.block_words pads).  With fk="frequent",
+    every key of read 5 is frequent, so its row is UINT32_MAX."""
+    from canu_tpu_torch.ops.hashing import hash_seeds
+    from canu_tpu_torch.ops.kmer import INVALID_KMER, extract_kmers_any
+
+    rng = np.random.default_rng(seed + k)
+    W = SKETCH_EDGE_WORDS
+    lens = [0, k - 1, k, 17, 33, 100, 127, 55, 16 * W, 90]
+    words = rng.integers(0, 2**32, (len(lens), W), dtype=np.uint64).astype(np.uint32)
+    words[9] = words[5]
+    for r, n in enumerate(lens):
+        nw = -(-n // 16)
+        words[r, nw:] = 0
+        if n % 16:
+            words[r, nw - 1] &= np.uint32((1 << (2 * (n % 16))) - 1)
+    lengths = np.asarray(lens, np.int32)
+    seeds = hash_seeds(H, 11 + H)
+    if fk == "sentinel":
+        table = np.full(1, 0xFFFFFFFF, np.uint32)
+    else:
+        canon, _ = extract_kmers_any(torch.from_numpy(words.astype(np.int64)),
+                                     torch.from_numpy(lengths), k)
+        keys = canon.numpy()
+        own = keys[5][keys[5] != INVALID_KMER]
+        other = keys[6][keys[6] != INVALID_KMER][:7]
+        high = rng.integers(2**31, 2**32, 3000, dtype=np.uint64)
+        table = np.unique(np.concatenate([own, other, high]).astype(np.uint64)).astype(np.uint32)
+    return words, lengths, seeds, table, k
+
+
+# (Na, Nb, H, min_matches, self_block, max_out): self and cross blocks,
+# Na != Nb, block edges off the 64-cell tiles, max_out above and below
+# n_found, min_matches 0 (every cell set)
+MATCH_EDGE_CASES = ((70, 70, 40, 2, True, 10_000), (70, 130, 33, 3, False, 50),
+                    (1, 5, 7, 1, False, 8), (129, 129, 65, 1, True, 100),
+                    (64, 64, 32, 0, False, 5_000), (200, 65, 64, 2, False, 20))
+
+
+def match_edge_case(Na: int, Nb: int, H: int, seed: int = 5):
+    """(SA uint32[Na, H], SB uint32[Nb, H]) of ops.minhash._match_kernel:
+    values from a small alphabet so that many slots agree, a fifth of the
+    slots UINT32_MAX, SA's row 3 an empty read's (all UINT32_MAX: never a
+    match) and row 0 values >= 2^31, which SB's row 0 repeats.  A self block uses SA as
+    SB."""
+    rng = np.random.default_rng(seed + Na + 7 * Nb + 31 * H)
+    SA = rng.integers(0, 6, (Na, H)).astype(np.uint32)
+    SB = rng.integers(0, 6, (Nb, H)).astype(np.uint32)
+    SA[SA == 5] = 0xFFFFFFFF
+    SB[SB == 5] = 0xFFFFFFFF
+    SA[3 % Na] = 0xFFFFFFFF
+    SA[0] = rng.integers(2**31, 2**32, H, dtype=np.uint64).astype(np.uint32)
+    SB[0 % Nb] = SA[0, :]
+    return SA, SB
+
+
+# ---- chip_smoke.py's frequent-mer drive (phase 4c) --------------------------
+
+# the bench genome's size and read shapes, with a 1.5 kb repeat family of 24
+# copies (12% of the genome): the cor meryl's table holds ~1,500 k=16 mers.
+# cor runs on raw reads (10% error), obt on corrected ones (3%), as the
+# bench read sets of phases 4 and 6 are
+FREQUENT_GENOME = (300_000, 45, [(1500, 24)])
+FREQUENT_SIM = dict(coverage=12, mean_len=3500, min_len=1500, max_len=7800)
+FREQUENT_READS = {"cor": dict(error_rate=0.10, seed=46), "obt": dict(error_rate=0.03, seed=47)}
+
+
+def frequent_reads(sim, ReadSet, tag: str):
+    """The frequent-mer drive's read set for stage `tag` from either
+    package's simulator module and ReadSet class: the simulated reads plus
+    one chimeric read (the longest read's first half, then its second half
+    reverse-complemented), whose pair with that read is palindromic: obt
+    verifies it in both orientations."""
+    length, seed, repeats = FREQUENT_GENOME
+    g = sim.random_genome(length, seed=seed, repeat_spec=repeats)
+    rs, _ = sim.simulate_reads(g, **FREQUENT_SIM, **FREQUENT_READS[tag])
+    codes = [rs.get_codes(i) for i in range(1, rs.n_reads + 1)]
+    c = max(codes, key=len)
+    h = len(c) // 2
+    codes.append(np.concatenate([c[:h], (3 - c[h:])[::-1]]).astype(np.uint8))
+    return ReadSet.from_codes_list(codes, [f"r{i}" for i in range(len(codes))])
+
+
+def candidates_digest(pairs: np.ndarray) -> str:
+    """sha256 of a candidate list's int64 little-endian bytes, C order."""
+    return hashlib.sha256(np.ascontiguousarray(np.asarray(pairs).astype("<i8")).tobytes()
+                          ).hexdigest()
