@@ -4,7 +4,9 @@ Per candidate pair, on the device:
   1. anchors: shared syncmers between the oriented pair (from the
      device-resident ReadIndex, gathered by row id), diagonal-filtered and
      monotonized; the strand vote picks the orientation of raw pairs;
-  2. seed: the middle anchor;
+  2. seed: the middle anchor; steps 1-2 and the extension's inputs are
+     ``_verify_pre``: kernel K7 on CUDA (ops/kernels/verify_cuda.py, one
+     launch a group of chunks), the plain ``_verify_pre_plain`` on the CPU;
   3. extension: forward and backward banded extension from the seed, the
      band centre following the anchor chain by piecewise-linear
      interpolation, on one of two engines:
@@ -39,13 +41,19 @@ from .minhash import OverlapCandidates
 INF = 1 << 28
 SMAX = 4  # band-start slope clamp of the INF-walled engine (columns per row)
 
-# rows the plain INF-walled loop ran on CUDA tensors; the pipeline must
-# leave it 0 (kernel K2 runs there)
+# rows the plain INF-walled loop ran on CUDA tensors, and chunks the plain
+# anchor-and-inputs step did; the pipeline must leave both 0 (kernels K2
+# and K7 run there)
 PLAIN_CUDA_ROWS = 0
+PLAIN_CUDA_PRE = 0
 
 # Wall breakdown of the LAST verify_overlaps call (seconds + counters):
 # device_wait (blocking result fetch), consume (host filtering) and
-# dispatch (the rest of the loop).  Read by the overlap stage.
+# dispatch (the rest of the loop), which holds the host seconds of
+# _verify_pre (pre), the extension (extend) and _verify_post (post);
+# index, the read index's build (0 when cached or given); on the card
+# pre_device, kernel K7's device seconds by CUDA events (None on the CPU,
+# where pre is the whole step).  Read by the overlap stage.
 LAST_PROFILE: dict = {}
 MAX_ANCHORS = 64
 CENTER_STRIDE = 16  # rows per interpolated band-centre sample
@@ -132,15 +140,31 @@ def _anchor_compact(mkA, posA, strA, mkB, posB, strB, lenA, lenB, flipped,
     return aA, aB, n_anchor, flipped, n_minor
 
 
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c rounded once, as a fused multiply-add: the float64
+    sum of the exact product and c, rounded to odd (the two-sum error
+    moves an even result one float64 ulp towards it), then to float32,
+    which gives the one rounding of the exact value."""
+    p = a.double() * b.double()  # exact: 24 + 24 significant bits
+    c = c.double()
+    s = c + p
+    bb = s - c
+    err = (c - (s - bb)) + (p - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    return torch.where((err != 0) & even, torch.nextafter(s, s + err), s).float()
+
+
 def _interp_centers(sub_xa, sub_xb, n_rows: int) -> torch.Tensor:
     """Piecewise-linear band centres c(i) for rows 0..n_rows from anchor
     points (sub_xa -> sub_xb); the caller pads past the last anchor with
     slope-1 points, so the centre line continues at slope 1.
 
     Interpolated on a CENTER_STRIDE-coarse row grid and expanded by
-    repetition.  float32 with jnp.interp's operation order, one rounded
-    op per step, then round-half-to-even, so the integer centres equal
-    canu_tpu's.
+    repetition.  float32 with jnp.interp's operation order, one rounding
+    a step, the last step fp[i-1] + (delta / dx) * df a fused
+    multiply-add as XLA's CPU backend compiles it, then round-half-to-even,
+    so the integer centres equal canu_tpu's (with a separate product and
+    sum some centres of long reads differ by 1).
     """
     B, M = sub_xa.shape
     dev = sub_xa.device
@@ -157,7 +181,7 @@ def _interp_centers(sub_xa, sub_xb, n_rows: int) -> torch.Tensor:
     delta = x - xp_im1
     eps = float(np.spacing(np.finfo(np.float32).eps))
     dx0 = dx.abs() <= eps
-    f = torch.where(dx0, fp_im1, fp_im1 + (delta / torch.where(dx0, 1.0, dx)) * df)
+    f = torch.where(dx0, fp_im1, _fma32(delta / torch.where(dx0, 1.0, dx), df, fp_im1))
     f = torch.where(x < xp[:, :1], fp[:, :1], f)
     f = torch.where(x > xp[:, -1:], fp[:, -1:], f)
     c = torch.round(f).to(torch.int32)
@@ -317,16 +341,30 @@ class OverlapTable:
         return self.erate_q.astype(np.float32) / 10000.0
 
 
-def _verify_pre(index, a_idx, b_idx, flipped, k: int, band: int, n_rows: int,
-                orient: bool = False):
-    """Anchors + seeds + fused fwd/bwd extension inputs of one chunk.
+def _verify_pre_plain(index, a_idx, b_idx, flipped, k: int, band: int, n_rows: int,
+                      orient: bool = False, chunk: int | None = None):
+    """Anchors + seeds + fused fwd/bwd extension inputs, plain PyTorch ops,
+    chunk by chunk: the port of canu_tpu.ops.align._verify_pre, and the
+    reference kernel K7 is held to.
 
-    a_idx/b_idx are row indices into the device ReadIndex.  With
-    orient=True each pair's orientation comes from the syncmer strand
-    vote and ``flipped`` is ignored.  Returns (ext_in, n_anchor, flipped,
-    seedA, seedB, n_minor) with ext_in = (a, a_len, b, b_len, centers)
-    for 2*chunk extensions: forward rows first, then backward rows.
+    a_idx/b_idx are row indices into the device ReadIndex, G chunks of
+    `chunk` pairs (None: one chunk of them all).  With orient=True each
+    pair's orientation comes from the syncmer strand vote and ``flipped``
+    is ignored.  Returns (ext_in, n_anchor, flipped, seedA, seedB,
+    n_minor) with ext_in = (a, a_len, b, b_len, centers) for 2 extensions
+    a pair: chunk 0's forward rows, its backward rows, chunk 1's forward
+    rows, and so on; the per-pair outputs in pair order.
     """
+    global PLAIN_CUDA_PRE
+    chunk = chunk or a_idx.shape[0]
+    if a_idx.shape[0] > chunk:
+        parts = [_verify_pre_plain(index, a_idx[s:s + chunk], b_idx[s:s + chunk],
+                                   flipped[s:s + chunk], k, band, n_rows, orient)
+                 for s in range(0, a_idx.shape[0], chunk)]
+        ext_in = tuple(torch.cat(xs) for xs in zip(*(p[0] for p in parts)))
+        return (ext_in, *(torch.cat(xs) for xs in zip(*(p[1:] for p in parts))))
+    if a_idx.is_cuda:
+        PLAIN_CUDA_PRE += 1
     lenA = index.length[a_idx]
     lenB = index.length[b_idx]
     aA, aB, n_anchor, flipped, n_minor = _anchor_compact(
@@ -382,16 +420,39 @@ def _verify_pre(index, a_idx, b_idx, flipped, k: int, band: int, n_rows: int,
     return ext_in, n_anchor, flipped, seedA, seedB, n_minor
 
 
-def _verify_post(n_anchor, flipped, seedA, seedB, n_minor, e, au, bu, pe, pa, pb):
-    """Fold the fused extension results into one int32[chunk, 13] tile."""
+def _verify_pre(index, a_idx, b_idx, flipped, k: int, band: int, n_rows: int,
+                orient: bool = False, chunk: int | None = None):
+    """_verify_pre_plain's outputs for G chunks of `chunk` pairs at once
+    (a_idx, b_idx, flipped [G * chunk]; chunk None: one chunk of them all),
+    in its layout.  On CUDA tensors kernel K7, one launch (no fallback); on
+    CPU tensors the plain version."""
+    if a_idx.is_cuda:
+        from .kernels import verify_cuda as K7
+
+        return K7.verify_pre(index, a_idx, b_idx, flipped, k, band, n_rows, orient,
+                             chunk or a_idx.shape[0])
+    return _verify_pre_plain(index, a_idx, b_idx, flipped, k, band, n_rows, orient, chunk)
+
+
+def _verify_post(n_anchor, flipped, seedA, seedB, n_minor, e, au, bu, pe, pa, pb,
+                 chunk: int | None = None):
+    """Fold the fused extension results of G chunks of `chunk` pairs (the
+    layout _verify_pre gives; chunk None: one chunk) into one int32[G *
+    chunk, 13] tile."""
     Bn = n_anchor.shape[0]
-    edits = e[:Bn] + e[Bn:]
-    pe_t = pe[:Bn] + pe[Bn:]
+    C = chunk or Bn
+
+    def fwd_bwd(x):
+        x = x.view(Bn // C, 2, C)
+        return x[:, 0].reshape(Bn), x[:, 1].reshape(Bn)
+
+    (ef, eb), (af, ab), (bf, bb) = fwd_bwd(e), fwd_bwd(au), fwd_bwd(bu)
+    (pef, peb), (paf, pab), (pbf, pbb) = fwd_bwd(pe), fwd_bwd(pa), fwd_bwd(pb)
     return torch.stack([
-        n_anchor, seedA - au[Bn:], seedA + au[:Bn], seedB - bu[Bn:], seedB + bu[:Bn],
-        torch.clamp(edits, max=INF), flipped.to(torch.int32), n_minor,
-        seedA - pa[Bn:], seedA + pa[:Bn], seedB - pb[Bn:], seedB + pb[:Bn],
-        torch.clamp(pe_t, max=INF),
+        n_anchor, seedA - ab, seedA + af, seedB - bb, seedB + bf,
+        torch.clamp(ef + eb, max=INF), flipped.to(torch.int32), n_minor,
+        seedA - pab, seedA + paf, seedB - pbb, seedB + pbf,
+        torch.clamp(pef + peb, max=INF),
     ], dim=1).to(torch.int32)
 
 
@@ -442,43 +503,57 @@ def _verify_window(chunk: int, n_rows: int, band: int, device: torch.device) -> 
     return max(1, min(MYERS_GROUP, n // 2)), n
 
 
-def _verify_grouped(index, chunks, k: int, band: int, n_rows: int, orient: bool,
-                    partial_cap_q: int, group: int):
-    """_verify_pre per chunk, ONE extension per group of `group` chunks
-    (the last group takes the chunks that remain), then _verify_post per
-    chunk.  The band picks the engine: 128 the Myers extension
-    (banded_extend_myers), any other the INF-walled one (banded_extend),
-    which has no partial endpoints, so its full extension stands in for
-    them.  chunks: list of (sl, a_idx, b_idx, fl, chunk_rows).  Yields (sl,
-    result tile) in order; a generator, so the caller's bounded drain caps
-    how many chunks' inputs are staged at once.  (canu_tpu runs its
-    remainder chunks singly, to reuse one compiled shape; extensions are
-    independent, so a group's results do not depend on its size.)"""
+def _verify_grouped(index, a_all, b_all, fl_all, chunks, chunk: int, k: int, band: int,
+                    n_rows: int, orient: bool, partial_cap_q: int, group: int, prof: dict):
+    """_verify_pre, ONE extension and _verify_post per group of `group`
+    chunks (the last group takes the chunks that remain).  The band picks
+    the engine: 128 the Myers extension (banded_extend_myers), any other
+    the INF-walled one (banded_extend), which has no partial endpoints, so
+    its full extension stands in for them.  a_all, b_all, fl_all: every
+    chunk's index rows and orientations on the device, chunk after chunk
+    (`chunk` pairs each, padded); chunks: list of (sl, chunk_rows).  Adds
+    the host seconds of each step to prof (pre_s, extend_s, post_s) and,
+    on the card, appends the CUDA events around each _verify_pre to
+    prof["pre_events"]: K7 runs asynchronously, so pre_s holds its launch
+    and its device time shows in whichever later step waits for it.
+    Yields (sl, result tile) in order; a generator, so the caller's bounded
+    drain caps how many chunks' inputs are staged at once.  (canu_tpu runs
+    its remainder chunks singly, to reuse one compiled shape; extensions
+    are independent, so a group's results do not depend on its size.)"""
     from .myers import banded_extend_myers
 
     i = 0
     n = len(chunks)
     while i < n:
         specs = chunks[i : i + group]
-        grp = [(sl, _verify_pre(index, a_idx, b_idx, fl, k, band, n_rows, orient), rows)
-               for sl, a_idx, b_idx, fl, rows in specs]
-        parts = [p[1][0] for p in grp]
-        wide = tuple(torch.cat(xs) for xs in zip(*parts)) if len(grp) > 1 else parts[0]
+        rows_g = slice(i * chunk, (i + len(specs)) * chunk)
+        t0 = time.perf_counter()
+        if a_all.is_cuda:
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        wide, *pre = _verify_pre(index, a_all[rows_g], b_all[rows_g], fl_all[rows_g], k, band,
+                                 n_rows, orient, chunk)
+        if a_all.is_cuda:
+            ev[1].record()
+            prof["pre_events"].append(ev)
+        t1 = time.perf_counter()
         if band == 128:
-            rows = max(p[2] for p in grp)
+            rows = max(r for _sl, r in specs)
             res = banded_extend_myers(*wide, band, n_rows, max_rows=rows,
                                       partial_cap_q=max(1, partial_cap_q))
         else:
             res = banded_extend(*wide, band, n_rows)
             res = res + res
-        B2 = parts[0][0].shape[0]
-        del wide, parts
-        for gi, (sl, pre, _) in enumerate(grp):
-            _, n_anchor, flipped, seedA, seedB, n_minor = pre
-            s = slice(gi * B2, (gi + 1) * B2)
-            yield sl, _verify_post(n_anchor, flipped, seedA, seedB, n_minor,
-                                   *(x[s] for x in res))
-        i += len(grp)
+        del wide
+        t2 = time.perf_counter()
+        tile = _verify_post(*pre, *res, chunk=chunk)
+        t3 = time.perf_counter()
+        prof["pre_s"] += t1 - t0
+        prof["extend_s"] += t2 - t1
+        prof["post_s"] += t3 - t2
+        for gi, (sl, _rows) in enumerate(specs):
+            yield sl, tile[gi * chunk : (gi + 1) * chunk]
+        i += len(specs)
 
 
 def verify_overlaps(readset: ReadSet, cand, k: int = 16, band: int = 128,
@@ -520,26 +595,27 @@ def verify_overlaps(readset: ReadSet, cand, k: int = 16, band: int = 128,
     cols: dict[str, list] = {n: [] for n in (
         "a_id", "b_id", "flipped", "a_bgn", "a_end", "b_bgn", "b_end", "erate_q")}
     M = len(a_id_all)
+    t_index = time.perf_counter()
     if index is None:
         from .minimizers import get_read_index
 
         index = get_read_index(readset, k=k, device=dev)
+    index_s = time.perf_counter() - t_index
     n_rows = index.words.shape[1] * 16
-    pad_row = index.n_reads  # all-zero padding row of the index
+    # every chunk's index rows and orientations, padded to whole chunks with
+    # the index's all-zero padding row, uploaded once
+    n_pad = -(-M // chunk) * chunk
+    a_idx = np.full(n_pad, index.n_reads, np.int64)
+    b_idx = np.full(n_pad, index.n_reads, np.int64)
+    fl = np.zeros(n_pad, bool)
+    a_idx[:M], b_idx[:M], fl[:M] = a_id_all - 1, b_id_all - 1, fl_all
+    a_dev, b_dev, fl_dev = (torch.from_numpy(x).to(dev) for x in (a_idx, b_idx, fl))
     chunk_specs = []
     for s in range(0, M, chunk):
         sl = slice(s, min(s + chunk, M))
-        a_ids, b_ids = a_id_all[sl], b_id_all[sl]
-        C = len(a_ids)
-        a_idx = np.full(chunk, pad_row, np.int64)
-        b_idx = np.full(chunk, pad_row, np.int64)
-        fl = np.zeros(chunk, bool)
-        a_idx[:C], b_idx[:C], fl[:C] = a_ids - 1, b_ids - 1, fl_all[sl]
-        chunk_rows = int(max(readset.length[a_ids - 1].max(initial=1),
-                             readset.length[b_ids - 1].max(initial=1)))
-        chunk_specs.append((sl, torch.from_numpy(a_idx).to(dev),
-                            torch.from_numpy(b_idx).to(dev),
-                            torch.from_numpy(fl).to(dev), chunk_rows))
+        chunk_rows = int(max(readset.length[a_id_all[sl] - 1].max(initial=1),
+                             readset.length[b_id_all[sl] - 1].max(initial=1)))
+        chunk_specs.append((sl, chunk_rows))
     cap_q = int(max_erate * 10000) if partial else 0
     palin: list[np.ndarray] = []
 
@@ -597,8 +673,8 @@ def verify_overlaps(readset: ReadSet, cand, k: int = 16, band: int = 128,
     group, max_in_flight = _verify_window(chunk, n_rows, band, dev)
     fetch_group = max(4, min(32, max_in_flight // 2))
     t_loop0 = time.monotonic()
-    prof = {"device_wait_s": 0.0, "consume_s": 0.0, "n_chunks": len(chunk_specs),
-            "n_candidates": M}
+    prof = {"device_wait_s": 0.0, "consume_s": 0.0, "pre_s": 0.0, "extend_s": 0.0,
+            "post_s": 0.0, "n_chunks": len(chunk_specs), "n_candidates": M, "pre_events": []}
     pending: list = []
 
     def _drain(n: int) -> None:
@@ -614,16 +690,22 @@ def verify_overlaps(readset: ReadSet, cand, k: int = 16, band: int = 128,
         prof["device_wait_s"] += t1 - t0
         prof["consume_s"] += time.monotonic() - t1
 
-    for sl, res in _verify_grouped(index, chunk_specs, k, band, n_rows, orient, cap_q, group):
+    for sl, res in _verify_grouped(index, a_dev, b_dev, fl_dev, chunk_specs, chunk, k, band,
+                                   n_rows, orient, cap_q, group, prof):
         pending.append((sl, res))
         if len(pending) > max_in_flight:
             _drain(fetch_group)
     while pending:
         _drain(fetch_group)
     loop_s = time.monotonic() - t_loop0
-    prof["dispatch_s"] = round(loop_s - prof["device_wait_s"] - prof["consume_s"], 2)
-    prof["device_wait_s"] = round(prof["device_wait_s"], 2)
-    prof["consume_s"] = round(prof["consume_s"], 2)
+    prof["dispatch_s"] = round(loop_s - prof["device_wait_s"] - prof["consume_s"], 3)
+    for key in ("device_wait_s", "consume_s", "pre_s", "extend_s", "post_s"):
+        prof[key] = round(prof[key], 3)
+    prof["index_s"] = round(index_s, 3)
+    # every result was fetched, so every event has completed
+    events = prof.pop("pre_events")
+    prof["pre_device_s"] = (round(sum(e0.elapsed_time(e1) for e0, e1 in events) / 1e3, 4)
+                            if dev.type == "cuda" else None)
     LAST_PROFILE.clear()
     LAST_PROFILE.update(prof)
 
@@ -642,8 +724,11 @@ def verify_overlaps(readset: ReadSet, cand, k: int = 16, band: int = 128,
         if sink is None:
             for name in cols:
                 cols[name].append(getattr(t2, name))
-        for key in ("device_wait_s", "consume_s", "dispatch_s"):
-            prof[key] = round(prof[key] + LAST_PROFILE.get(key, 0.0), 2)
+        for key in ("device_wait_s", "consume_s", "dispatch_s", "pre_s", "extend_s", "post_s",
+                    "index_s"):
+            prof[key] = round(prof[key] + LAST_PROFILE.get(key, 0.0), 3)
+        if prof["pre_device_s"] is not None:
+            prof["pre_device_s"] = round(prof["pre_device_s"] + LAST_PROFILE["pre_device_s"], 4)
         prof["n_chunks"] += LAST_PROFILE.get("n_chunks", 0)
         LAST_PROFILE.clear()
         LAST_PROFILE.update(prof)

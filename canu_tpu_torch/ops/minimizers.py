@@ -25,6 +25,9 @@ from .hashing import mix32, u32_tensor
 from .kmer import INVALID_KMER, block_tensors, extract_kmers, extract_kmers_any, length_bucketed_blocks
 
 UINT32_MAX = 0xFFFFFFFF
+# blocks the plain selection ran on CUDA tensors; the pipeline must leave
+# it 0 (kernel K8 runs there)
+PLAIN_CUDA_SYNCMER = 0
 # k-mer window over s-mers: s = k - SYNC_DELTA, density 1/(SYNC_DELTA+1).
 # SYNC_DELTA must be even so the middle offset is strand-symmetric.
 SYNC_DELTA = 4
@@ -59,13 +62,29 @@ def _syncmer_kernel(words, lengths, k: int, pm: int):
     """Select + compact open syncmers of one padded read block.
 
     Returns (mker int64[B, pm], mpos int32[B, pm], mstr int32[B, pm],
-    n_sel int32[B]); empty slots have mker == INVALID_KMER, mpos -1.
-    The compaction is a STABLE sort by mix32(kmer), the order XLA's sort
-    gives on equal keys.
-    """
+    n_sel int32[B]); empty slots have mker == INVALID_KMER, mpos -1.  On
+    CUDA tensors kernel K8 (no fallback); on CPU tensors the plain
+    version."""
     s, t = syncmer_params(k)
     if s < 2:
         raise ValueError(f"k={k} too small for syncmer selection")
+    if words.is_cuda:
+        from .kernels import verify_cuda as K8
+
+        return K8.syncmer(words, lengths, k, s, t, pm)
+    return _syncmer_kernel_plain(words, lengths, k, pm)
+
+
+def _syncmer_kernel_plain(words, lengths, k: int, pm: int):
+    """_syncmer_kernel in plain PyTorch ops: the port of canu_tpu's, and the
+    reference kernel K8 is held to.  The compaction is a STABLE sort by
+    mix32(kmer), the order XLA's sort gives on equal keys."""
+    global PLAIN_CUDA_SYNCMER
+    s, t = syncmer_params(k)
+    if s < 2:
+        raise ValueError(f"k={k} too small for syncmer selection")
+    if words.is_cuda:
+        PLAIN_CUDA_SYNCMER += 1
     canon, strand = extract_kmers_any(words, lengths, k)  # [B, Pk]
     valid = canon != INVALID_KMER
     B, Pk = canon.shape
@@ -127,7 +146,8 @@ class ReadIndex:
 
 def build_read_index(readset: ReadSet, k: int = 16, pm: int | None = None,
                      block_size: int = 128, device=None) -> ReadIndex:
-    """Build the device index of a read set in one pass.
+    """Build the device index of a read set in one pass: _syncmer_kernel
+    on each length-bucketed block (kernel K8 on the card).
 
     pm defaults to P/4 (syncmer density 1/5), capped at 2048.
     """

@@ -7,9 +7,9 @@ at E. coli scale once on one NVIDIA GPU and check them.
 Phases (each prints its results; any failure exits non-zero):
   1 device    require CUDA; print the card's name and power limit
   2 build     compile kernels K1 (csrc/myers_tile.cu), K2/K3
-              (csrc/banded_extend.cu), K4 (csrc/vote_dp.cu) and K5/K6
-              (csrc/minhash.cu) from this checkout, one nvcc each, in
-              parallel
+              (csrc/banded_extend.cu), K4 (csrc/vote_dp.cu), K5/K6
+              (csrc/minhash.cu) and K7/K8 (csrc/verify.cu) from this
+              checkout, one nvcc each, in parallel
   3 kernel    each kernel against its plain PyTorch loop on the card, bit
               for bit: (a) K1's six outputs on edge cases (every window
               edge of its A, B and shift streams), (b) K1 on 256 real
@@ -33,7 +33,25 @@ Phases (each prints its results; any failure exits non-zero):
               read's row, max_out above and below n_found), then on the
               sketch blocks and block pairs phases 4 and 4c ran, the
               first block of phase 15's sketch and block pairs of its
-              sketches
+              sketches, (f) K7's ten outputs (the base rows, lengths and
+              centres, n_anchor, flipped, the seeds, n_minor) against the
+              plain anchor step chunk by chunk, and K8's four against the
+              plain syncmer selection, on tests/torch_cases.py's edge
+              cases (VERIFY_PRE_EDGE_CASES: groups of 3 chunks with one
+              anchor, a tied strand vote, repeated anchor positions,
+              duplicate keys, a chain whose centre rounds by the order of
+              operations, the padding row, reads against themselves; k 16
+              and 22, W 64 and 96, bands 128, 256 and 1024;
+              SYNCMER_EDGE_CASES: reads of 0, k-1, k and off-word lengths,
+              a repeated motif, a selected k-mer whose key's mix32 is
+              UINT32_MAX, pm above and below n_sel; verify_pre_long_case:
+              reads of up to 170,851 bases, W 16,384), then on the first
+              K7 group and every block of phase 4's index, the first
+              group and index
+              block of phases 4b, 6 and 7, the first group of 11a's and
+              11b's OEA adjust (orient=False), and the first group, every
+              16th after it and each index's first block of phases 9, 15
+              and 16
   4 slice     meryl + overlap ("cor") stages on the bench.py read set
               (1,025 reads, 3.64 Mb) in a temporary directory; K1 must
               have launched and the plain loop must not have run on the
@@ -66,7 +84,9 @@ Phases (each prints its results; any failure exits non-zero):
               phase-3b sample and on the whole first verify group; K5 on
               every block of the pass's sketch and K6 on every block pair
               of its match (CUDA events) beside their bounds and the plain
-              versions' times
+              versions' times; K7 on phase 4's first verify group and K8
+              on every block of its index, beside their bounds and the
+              plain versions' times
   6 obt       meryl + overlap ("obt", k=22 two-lane k-mers, band 128:
               K1 with partial and palindromic pairs) on the corrected
               read set (1,004 reads, 3.61 Mb, 3% error)
@@ -100,8 +120,9 @@ Phases (each prints its results; any failure exits non-zero):
               (once each; K1 launched; no other kernel or plain loop on
               the card); frequent table and candidates equal to the JAX
               package's (ecoli_overlap_reference.json); the store's rows
-              for a sample of 2,048 candidates equal to the JAX package's
-              store of that sample; the spilled store equal to the in-RAM
+              for two samples of 2,048 candidates (every floor(M/2048)-th,
+              and the same from half a stride in) equal to the JAX
+              package's store of each sample; the spilled store equal to the in-RAM
               build of the tables the spill got; the store symmetric.
               Prints the stage's sub-walls, K1 on each launch (CUDA
               events) beside its bound, and the device memory peak over
@@ -120,7 +141,8 @@ Phases (each prints its results; any failure exits non-zero):
               parts (selection, DP, windows, vote fold, finalize, fetch,
               decode, the block files' writes, their concatenation and the
               re-read that counts the records), chunks, groups and jobs,
-              the jobs of each K4
+              the vote fold a chunk by CUDA events beside the first
+              chunk's bound (FOLD_ROW_OPS), the jobs of each K4
               launch, one chapter's launches and device busy share
               (torch.profiler; table in
               chiprun_out/profile_correct.txt) and the device memory peak
@@ -305,7 +327,12 @@ Phases (each prints its results; any failure exits non-zero):
               step's device memory peak, K1 per drive (obt, utg, adjust,
               align_links, judge) by CUDA events beside its bound, RED's
               and the polish's DP by CUDA events beside their summed
-              bounds
+              bounds, and each verify's profile (ops.align.LAST_PROFILE:
+              pre_s, extend_s, post_s, index_s beside dispatch_s)
+Every main-path run of phases 4-16 (4, 4b, 4c, 6, 7, 9, 10, 11, 14a, 14b,
+15, 16) must launch K7 and K8 and run neither plain version on the card;
+drive_stage drops the read set's cached index first, so that each drive
+builds its own.
 
 Each kernel's bound is the larger of its operations over the card's
 32-bit integer rate and its bytes over the memory rate (INT32_OPS_S,
@@ -317,7 +344,10 @@ row, after which its outputs are fixed, and the kernels line gives their
 bound under that count; vdp_bound the window cells at j <= e_len of the
 rows up to t_len, both passes; sketch_bound the kept (window, slot) pairs
 and the windows on the read, SKETCH_*_OPS; match_bound the (cell, slot)
-pairs a block pair needs, MATCH_*_OPS).  The bytes are each input the kernel needs read once
+pairs a block pair needs, MATCH_*_OPS; pre_bound each pair's three sorts,
+n log2 n compares each, and the elements written, VERIFY_PRE_OPS;
+syncmer_bound the s-mers and positions on the reads, the selected keys
+and their sort, SYNCMER_OPS).  The bytes are each input the kernel needs read once
 and each output written once.  The plain loops' own per-row counts
 (plain_row_ops) are printed beside, as a second figure.
 
@@ -406,6 +436,24 @@ SKETCH_PROBE_OPS = 3  # each probe of the frequent-mer binary search:
 MATCH_SLOT_OPS = 2  # each (cell, slot) needed, with SA's slot not
 #   UINT32_MAX: the compare 1, the add 1
 MATCH_CELL_OPS = 2  # each cell needed: the threshold test 1, the row's count 1
+# K7 (verify's anchor-and-inputs step, ops.align._verify_pre_plain's work):
+VERIFY_PRE_OPS = 1  # each compare of a pair's three sorts, n log2 n for n
+#   entries (the join of both reads' valid syncmers, the median of the
+#   hits of the pair's orientation, the posA sort of the inliers), and each
+#   element written (the base rows, the centres, the lengths, the pair's
+#   five outputs)
+# K8 (the syncmer read index, ops.minimizers._syncmer_kernel_plain's work):
+SYNCMER_OPS = 16  # each s-mer on the read: the rolling forward and reverse
+#   s-mers 6, the canonical min 1, the on-read test 1, mix32 8; besides it
+#   each k-mer position on the read k - s window compares, the middle
+#   compare and the on-read test; each selected position its key
+#   (SKETCH_KEY_OPS, or SKETCH_KEY2_OPS at k > 16) and its mix32 8; the
+#   sort of the selected keys n log2 n compares; each element written 1
+# the vote fold (ops.votepile._fold_chunk, PyTorch ops), for its bound:
+FOLD_ROW_OPS = 25  # each (job, row): the row's step, the live and active
+#   tests 4, three character gathers 3, four vote masks 8, the deletion run
+#   (new-run test, prefix count, run end, total, clamp) 6, the code's
+#   packing 4; and each (job, template column) its 15 channels 1 each
 
 
 def log(msg: str) -> None:
@@ -892,23 +940,28 @@ def profiled(busy: dict, tables: list):
 
 def reset_counts() -> None:
     """Set every kernel's launch count, the plain loops', the plain DP's, the
-    plain sketch's and the plain match's CUDA counts and the calls of the
-    host k-mer counter, the hash-join and the spill build to 0."""
+    plain sketch's, match's, anchor step's and syncmer selection's CUDA
+    counts and the calls of the host k-mer counter, the hash-join and the
+    spill build to 0."""
     from canu_tpu_torch.ops import align as AL
     from canu_tpu_torch.ops import kmer as KM
     from canu_tpu_torch.ops import minhash as MH
+    from canu_tpu_torch.ops import minimizers as MZ
     from canu_tpu_torch.ops import myers as MY
     from canu_tpu_torch.ops import trace as TT
     from canu_tpu_torch.ops.kernels import extend_cuda as EX
     from canu_tpu_torch.ops.kernels import minhash_cuda as MK
     from canu_tpu_torch.ops.kernels import myers_cuda as K1
     from canu_tpu_torch.ops.kernels import trace_cuda as K4
+    from canu_tpu_torch.ops.kernels import verify_cuda as VC
     from canu_tpu_torch.stores import overlaps as OV
 
     K1.LAUNCHES = EX.WARP_LAUNCHES = EX.BLOCK_LAUNCHES = K4.LAUNCHES = K4.JOBS_LAUNCHED = 0
     MK.SKETCH_LAUNCHES = MK.MATCH_LAUNCHES = MK.COMPACT_LAUNCHES = 0
+    VC.PRE_LAUNCHES = VC.SYNCMER_LAUNCHES = 0
     MY.PLAIN_CUDA_SEGMENTS = AL.PLAIN_CUDA_ROWS = TT.PLAIN_CUDA_CALLS = 0
     MH.PLAIN_CUDA_SKETCHES = MH.PLAIN_CUDA_MATCHES = 0
+    AL.PLAIN_CUDA_PRE = MZ.PLAIN_CUDA_SYNCMER = 0
     KM.HOST_COUNTS = MH.JOIN_CALLS = OV.SPILL_BUILDS = 0
 
 
@@ -916,28 +969,33 @@ def read_counts() -> dict:
     from canu_tpu_torch.ops import align as AL
     from canu_tpu_torch.ops import kmer as KM
     from canu_tpu_torch.ops import minhash as MH
+    from canu_tpu_torch.ops import minimizers as MZ
     from canu_tpu_torch.ops import myers as MY
     from canu_tpu_torch.ops import trace as TT
     from canu_tpu_torch.ops.kernels import extend_cuda as EX
     from canu_tpu_torch.ops.kernels import minhash_cuda as MK
     from canu_tpu_torch.ops.kernels import myers_cuda as K1
     from canu_tpu_torch.ops.kernels import trace_cuda as K4
+    from canu_tpu_torch.ops.kernels import verify_cuda as VC
     from canu_tpu_torch.stores import overlaps as OV
 
     return {"K1": K1.LAUNCHES, "K2": EX.WARP_LAUNCHES, "K3": EX.BLOCK_LAUNCHES,
             "K4": K4.LAUNCHES, "K5": MK.SKETCH_LAUNCHES, "K6": MK.MATCH_LAUNCHES,
-            "K6_compact": MK.COMPACT_LAUNCHES, "plain_myers_segments": MY.PLAIN_CUDA_SEGMENTS,
+            "K6_compact": MK.COMPACT_LAUNCHES, "K7": VC.PRE_LAUNCHES,
+            "K8": VC.SYNCMER_LAUNCHES, "plain_myers_segments": MY.PLAIN_CUDA_SEGMENTS,
             "plain_extend_rows": AL.PLAIN_CUDA_ROWS, "plain_dp": TT.PLAIN_CUDA_CALLS,
             "plain_sketch": MH.PLAIN_CUDA_SKETCHES, "plain_match": MH.PLAIN_CUDA_MATCHES,
+            "plain_pre": AL.PLAIN_CUDA_PRE, "plain_syncmer": MZ.PLAIN_CUDA_SYNCMER,
             "host_kmer_counts": KM.HOST_COUNTS, "join_calls": MH.JOIN_CALLS,
             "spill_builds": OV.SPILL_BUILDS}
 
 
 def no_plain(counts: dict) -> bool:
     """No plain loop (Myers segment, INF-walled row), no plain DP, no plain
-    sketch and no plain match ran on the card."""
+    sketch, match, anchor step or syncmer selection ran on the card."""
     return (counts["plain_myers_segments"] == counts["plain_extend_rows"] == counts["plain_dp"]
-            == counts["plain_sketch"] == counts["plain_match"] == 0)
+            == counts["plain_sketch"] == counts["plain_match"] == counts["plain_pre"]
+            == counts["plain_syncmer"] == 0)
 
 
 def check_minhash(phase: str, counts: dict, match: bool) -> None:
@@ -1161,6 +1219,298 @@ def minhash_timing(rs, fk, dev, card: str) -> dict:
     return {"K5": k5, "K6": k6, "err": err}
 
 
+PRE_ARGS = ("index", "a_idx", "b_idx", "flipped", "k", "band", "n_rows", "orient", "chunk")
+PRE_FIELDS = ("a", "a_len", "b", "b_len", "centers", "n_anchor", "flipped", "seedA", "seedB",
+              "n_minor")
+
+
+def capture_pre(every: int = 0, when=None):
+    """Wrap ops.align._verify_pre so that its first call, and with every=n
+    each n-th call after it, is kept by argument name (only the calls where
+    when() holds, if given); returns (the original, the kept calls).  The
+    caller restores the original."""
+    from canu_tpu_torch.ops import align as AL
+
+    real = AL._verify_pre
+    seen: list = []
+    n = [0]
+
+    def wrapper(*args, **kw):
+        if when is None or when():
+            if n[0] == 0 or (every and n[0] % every == 0):
+                seen.append({"orient": False, "chunk": None, **dict(zip(PRE_ARGS, args)), **kw})
+            n[0] += 1
+        return real(*args, **kw)
+
+    AL._verify_pre = wrapper
+    return real, seen
+
+
+def capture_syncmer(all_blocks: bool = False):
+    """Wrap ops.minimizers.build_read_index and _syncmer_kernel so that the
+    first block of each index built (every block, with all_blocks) is kept
+    as its (words, lengths, k, pm); returns (the originals, the kept
+    blocks).  The caller restores them with restore_syncmer."""
+    from canu_tpu_torch.ops import minimizers as MZ
+
+    real = (MZ.build_read_index, MZ._syncmer_kernel)
+    seen: list = []
+    first = [False]
+
+    def build(*args, **kw):
+        first[0] = True
+        return real[0](*args, **kw)
+
+    def block(*args, **kw):
+        if first[0] or all_blocks:
+            seen.append(args)
+            first[0] = False
+        return real[1](*args, **kw)
+
+    MZ.build_read_index, MZ._syncmer_kernel = build, block
+    return real, seen
+
+
+def restore_syncmer(real) -> None:
+    from canu_tpu_torch.ops import minimizers as MZ
+
+    MZ.build_read_index, MZ._syncmer_kernel = real
+
+
+def held_pre(name: str, d: dict) -> int:
+    """Kernel K7 bit for bit against the plain anchor step on a kept
+    _verify_pre call, on the card; returns the max |difference| (0)."""
+    import torch
+
+    from canu_tpu_torch.ops import align as AL
+
+    got = AL._verify_pre(**d)
+    ref = AL._verify_pre_plain(**d)
+    torch.cuda.synchronize()
+    err = 0
+    for field, r, g in zip(PRE_FIELDS, (*ref[0], *ref[1:]), (*got[0], *got[1:])):
+        check(g.shape == r.shape and g.dtype == r.dtype,
+              f"{name}: K7's {field} is {tuple(g.shape)} {g.dtype}, the plain step's "
+              f"{tuple(r.shape)} {r.dtype}")
+        dd = int((g.to(torch.int64) - r.to(torch.int64)).abs().max()) if r.numel() else 0
+        check(dd == 0, f"{name}: kernel K7 and the plain anchor step differ in {field} "
+              f"(max |diff| {dd})")
+        err = max(err, dd)
+    return err
+
+
+def held_syncmer(name: str, args) -> int:
+    """Kernel K8 bit for bit against the plain syncmer selection on one
+    block's (words, lengths, k, pm) on the card; returns the max
+    |difference| (0)."""
+    import torch
+
+    from canu_tpu_torch.ops import minimizers as MZ
+
+    got = MZ._syncmer_kernel(*args)
+    ref = MZ._syncmer_kernel_plain(*args)
+    torch.cuda.synchronize()
+    err = 0
+    for field, r, g in zip(("mker", "mpos", "mstr", "n_sel"), ref, got):
+        check(g.shape == r.shape and g.dtype == r.dtype,
+              f"{name}: K8's {field} is {tuple(g.shape)} {g.dtype}, the plain selection's "
+              f"{tuple(r.shape)} {r.dtype}")
+        dd = int((g.to(torch.int64) - r.to(torch.int64)).abs().max()) if r.numel() else 0
+        check(dd == 0, f"{name}: kernel K8 and the plain selection differ in {field} "
+              f"(max |diff| {dd})")
+        err = max(err, dd)
+    return err
+
+
+def held_verify_calls(phase: str, pre_calls: list, sync_blocks: list) -> int:
+    """Phase 3f on a run's kept calls: K7 on each kept _verify_pre group and
+    K8 on each kept block, bit for bit against the plain versions;
+    returns the max |difference| (0)."""
+    err = 0
+    for i, d in enumerate(pre_calls):
+        err = max(err, held_pre(f"3f {phase} K7 group {i}", d))
+    for i, args in enumerate(sync_blocks):
+        err = max(err, held_syncmer(f"3f {phase} K8 block {i}", args))
+    log(f"[3f kernel] {phase}: K7 bit-equal to the plain anchor step on {len(pre_calls)} groups ("
+        + ", ".join(f"{d['a_idx'].shape[0]} pairs, k {d['k']}, band {d['band']}, "
+                    f"{'orient' if d['orient'] else 'given flipped'}" for d in pre_calls[:2])
+        + f"{', ...' if len(pre_calls) > 2 else ''}); K8 bit-equal to the plain selection on "
+        f"{len(sync_blocks)} blocks ("
+        + ", ".join(f"{a[0].shape[0]} reads x {a[0].shape[1]} words, k {a[2]}, pm {a[3]}"
+                    for a in sync_blocks[:2]) + f"{', ...' if len(sync_blocks) > 2 else ''})")
+    return err
+
+
+def verify_edge_checks(dev) -> int:
+    """Phase 3f's edge cases (tests/torch_cases.py VERIFY_PRE_EDGE_CASES,
+    SYNCMER_EDGE_CASES, verify_pre_long_case): K7 and K8 bit for bit
+    against the plain versions; returns the max |difference| (0)."""
+    import torch
+
+    from canu_tpu_torch.convert import read_index_from_numpy
+    from canu_tpu_torch.ops.hashing import u32_tensor
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_cases import (LONG_READ_W, SYNCMER_EDGE_CASES, VERIFY_PRE_CHUNK,
+                             VERIFY_PRE_EDGE_CASES, syncmer_edge_case, verify_pre_edge_case,
+                             verify_pre_long_case)
+
+    def pre_call(case, k, band, orient, chunk):
+        pl, a, b, fl, n_rows = case
+        index = read_index_from_numpy(pl["words"], pl["length"], pl["mker"], pl["mpos"],
+                                      pl["mstr"], pl["n_reads"], k, pl["pm"], device=dev)
+        return {"index": index, "a_idx": torch.from_numpy(a).to(dev),
+                "b_idx": torch.from_numpy(b).to(dev), "flipped": torch.from_numpy(fl).to(dev),
+                "k": k, "band": band, "n_rows": n_rows, "orient": orient, "chunk": chunk}
+
+    err = 0
+    for k, W, band, orient in VERIFY_PRE_EDGE_CASES:
+        d = pre_call(verify_pre_edge_case(k, W, band, orient), k, band, orient, VERIFY_PRE_CHUNK)
+        err = max(err, held_pre(f"3f K7 edge case k={k} W={W} band {band}", d))
+    long_case = verify_pre_long_case()
+    for band, orient in ((128, True), (1024, False)):
+        d = pre_call(long_case, 16, band, orient, 4)
+        err = max(err, held_pre(f"3f K7 reads above 131,072 bases, band {band}", d))
+    pl = long_case[0]
+    err = max(err, held_syncmer("3f K8 reads above 131,072 bases",
+                                (u32_tensor(pl["words"], dev),
+                                 torch.from_numpy(pl["length"]).to(dev), 16, pl["pm"])))
+    log(f"[3f kernel] K7 and K8 bit-equal to the plain versions on reads of up to "
+        f"{int(pl['length'].max())} bases (W {LONG_READ_W}, n_rows {16 * LONG_READ_W}: 3 chunks "
+        "of 4 pairs, band 128 with the strand vote and band 1024 with the given flips; the "
+        "index block of those reads)")
+    log(f"[3f kernel] K7 bit-equal to the plain anchor step on {len(VERIFY_PRE_EDGE_CASES)} edge "
+        f"groups of 3 chunks of {VERIFY_PRE_CHUNK} pairs (one anchor, a tied strand vote, "
+        "repeated anchor positions, duplicate keys, the padding row, a read against itself; "
+        "k 16 and 22, W 64 and 96, bands 128, 256 and 1024, orient and given flipped)")
+    for k, W, pm in SYNCMER_EDGE_CASES:
+        words, lengths = syncmer_edge_case(k, W, pm)
+        args = (u32_tensor(words, dev), torch.from_numpy(lengths).to(dev), k, pm)
+        err = max(err, held_syncmer(f"3f K8 edge block k={k} W={W} pm {pm}", args))
+    log(f"[3f kernel] K8 bit-equal to the plain selection on {len(SYNCMER_EDGE_CASES)} edge blocks "
+        "(reads of 0, k-1, k and off-word lengths, a repeated motif, a selected k-mer whose "
+        "key's mix32 is UINT32_MAX; k 16 and 22; pm above and below n_sel)")
+    return err
+
+
+def pre_bound(d: dict, flipped) -> dict:
+    """Kernel K7's bound on one call: VERIFY_PRE_OPS a compare of each
+    pair's three sorts (the join of its reads' valid syncmers, the median
+    of the hits of its orientation -- `flipped`, K7's -- and the posA sort
+    of its inliers; n log2 n each) and an element written; its bytes the
+    distinct index rows the pairs read, each once, the pairs' rows and
+    orientation, and the outputs written once."""
+    import torch
+
+    from canu_tpu_torch.ops.kmer import INVALID_KMER
+    from canu_tpu_torch.ops.kmerjoin import masked_median, pair_matches
+
+    index, a, b, k = d["index"], d["a_idx"], d["b_idx"], d["k"]
+    n, n_rows, band = a.shape[0], d["n_rows"], d["band"]
+    mkA, mkB = index.mker[a], index.mker[b]
+    vA, vB = mkA != INVALID_KMER, mkB != INVALID_KMER
+    hit, pA, pB, agree = pair_matches(mkA, vA, index.mstr[a], index.mpos[a], mkB, vB,
+                                      index.mstr[b], index.mpos[b])
+    lenA, lenB = index.length[a], index.length[b]
+    pBm = torch.where(flipped[:, None], lenB[:, None] - k - pB, pB)
+    h2 = hit & (agree != flipped[:, None])
+    diag = pA - pBm
+    med = masked_median(diag, h2)
+    tol = torch.clamp((torch.minimum(lenA, lenB).to(torch.float32) * 0.30).to(torch.int32),
+                      min=100)
+    n_in = (h2 & ((diag - med[:, None]).abs() <= tol[:, None])).sum(1).double()
+
+    def nlogn(x):
+        return float((x * torch.log2(torch.clamp(x, min=1))).sum())
+
+    written = 2 * n * (n_rows + (n_rows + band) + (n_rows + 1) + 2) + 5 * n
+    ops = VERIFY_PRE_OPS * (nlogn((vA.sum(1) + vB.sum(1)).double()) + nlogn(h2.sum(1).double())
+                            + nlogn(n_in) + written)
+    rows = int(torch.unique(torch.cat([a, b])).numel())
+    W, Pm = index.words.shape[1], index.mker.shape[1]
+    nbytes = (rows * (8 * W + 4 + 16 * Pm) + 17 * n
+              + 2 * n * (n_rows + (n_rows + band) + 4 * (n_rows + 1) + 8) + 17 * n)
+    out = bound(ops, nbytes)
+    out.update(pairs=n, distinct_rows=rows)
+    return out
+
+
+def syncmer_bound(args, n_sel) -> dict:
+    """Kernel K8's bound on one block: SYNCMER_OPS an s-mer on the read,
+    k - s + 2 a k-mer position on the read, a selected position's key and
+    mix32, the sort of the selected keys (n_sel, K8's, n log2 n) and an
+    element written; its bytes the words (as the int64 they are passed in)
+    and lengths read once and the outputs written once."""
+    import torch
+
+    from canu_tpu_torch.ops.minimizers import syncmer_params
+
+    words, lengths, k, pm = args
+    B, W = words.shape
+    s, _t = syncmer_params(k)
+    lens = lengths.to(torch.int64)
+    n_smer = int(torch.clamp(lens - s + 1, min=0).sum())
+    n_pos = int(torch.clamp(lens - k + 1, min=0).sum())
+    sel = n_sel.double()
+    key = SKETCH_KEY_OPS if k <= 16 else SKETCH_KEY2_OPS
+    ops = (SYNCMER_OPS * n_smer + (k - s + 2) * n_pos + (key + 8) * float(sel.sum())
+           + float((sel * torch.log2(torch.clamp(sel, min=1))).sum()) + (3 * pm + 1) * B)
+    return bound(ops, 8 * B * W + 4 * B + 16 * B * pm + 4 * B)
+
+
+def verify_timing(pre_call: dict, sync_blocks: list, card: str) -> dict:
+    """Phase 5: K7 on phase 4's first verify group and K8 on every block of
+    phase 4's index by CUDA events, beside their bounds and the plain
+    versions' times (one run each)."""
+    from canu_tpu_torch.ops import align as AL
+    from canu_tpu_torch.ops import minimizers as MZ
+
+    d = pre_call
+    ms = cuda_ms(lambda: AL._verify_pre(**d), 10)
+    got = AL._verify_pre(**d)
+    bd = pre_bound(d, got[2])
+    del got
+    _, plain_ms = once_ms(lambda: AL._verify_pre_plain(**d))
+    n = d["a_idx"].shape[0]
+    log(f"[5 timing] {card}: K7 on phase 4's first verify group ({n} pairs, "
+        f"{n // (d['chunk'] or n)} chunks, {d['n_rows']} rows, band {d['band']}): {ms:.3f} ms "
+        f"(mean of 10); bound {bd['bound_ms']:.3f} ms ({bd['ops']:.3e} operations, "
+        f"{bd['bytes']:.3e} bytes, {bd['distinct_rows']} index rows; bound by {bd['bound_by']}; "
+        f"{100 * bd['bound_ms'] / ms:.1f}% of it); the plain step chunk by chunk {plain_ms:.1f} ms")
+    k8_ms, k8_plain, k8_bounds = [], [], []
+    for args in sync_blocks:
+        k8_ms.append(cuda_ms(lambda: MZ._syncmer_kernel(*args), 5))
+        k8_bounds.append(syncmer_bound(args, MZ._syncmer_kernel(*args)[3]))
+        k8_plain.append(once_ms(lambda: MZ._syncmer_kernel_plain(*args))[1])
+    k8b = sum_bounds(k8_bounds)
+    log(f"[5 timing] {card}: K8 on the {len(sync_blocks)} blocks of phase 4's index: "
+        f"{sum(k8_ms):.3f} ms (first {k8_ms[0]:.3f} ms, {sync_blocks[0][0].shape[0]} reads x "
+        f"{sync_blocks[0][0].shape[1]} words); bound {k8b['bound_ms']:.3f} ms ({k8b['ops']:.3e} "
+        f"operations, {k8b['bytes']:.3e} bytes; bound by {k8b['bound_by']}; "
+        f"{100 * k8b['bound_ms'] / sum(k8_ms):.1f}% of it); plain {sum(k8_plain):.1f} ms")
+    return {"K7": {"ms": ms, "plain_ms": plain_ms, "bound": bd},
+            "K8": {"ms": sum(k8_ms), "block_ms": k8_ms, "plain_ms": sum(k8_plain),
+                   "bound": k8b}}
+
+
+def verify_profiles(where):
+    """Wrap ops.align.verify_overlaps so that each call's profile
+    (LAST_PROFILE) is kept with where[0] at the call; returns (the
+    original, the kept (where, profile) pairs).  The caller restores it."""
+    from canu_tpu_torch.ops import align as AL
+
+    real = AL.verify_overlaps
+    seen: list = []
+
+    def wrapper(*args, **kw):
+        out = real(*args, **kw)
+        seen.append((where[0], dict(AL.LAST_PROFILE)))
+        return out
+
+    AL.verify_overlaps = wrapper
+    return real, seen
+
+
 FREQUENT_TAGS = ("cor", "obt")
 
 
@@ -1270,14 +1620,17 @@ def drive_stage(phase: str, tag: str, band: int, rs, dev, ref: dict, kernel: str
     rs, in a directory of its own, with the launch counts set to 0
     just before and read just after.  Only `kernel` may have launched and
     no plain loop may have run on the card; the store must equal `ref`.
-    Returns (stage record, every banded_extend call's (args, kwargs), the
-    store)."""
+    The read set's cached device index is dropped first, so that the run
+    builds its own (K8), as a run in a process of its own does.  Returns
+    (stage record, every banded_extend call's (args, kwargs), the store,
+    the first _verify_pre call and index block (phase 3f))."""
     import torch
 
     from canu_tpu_torch.config import Config
     from canu_tpu_torch.ops import align as AL
     from canu_tpu_torch.pipeline import stages
     from canu_tpu_torch.pipeline.driver import make_ctx
+    from canu_tpu_torch.stores.readset import drop_device_caches
 
     work = tempfile.mkdtemp(prefix=f"chip_smoke_{tag}{band}_")
     cfg = Config()
@@ -1286,7 +1639,10 @@ def drive_stage(phase: str, tag: str, band: int, rs, dev, ref: dict, kernel: str
     ctx = make_ctx(work, "bench", cfg)
     k = int(cfg.get(f"{tag}MerSize"))
     real_extend, calls = capture_calls(AL, "banded_extend")
+    real_pre, pre_calls = capture_pre()
+    real_sy, sy_blocks = capture_syncmer()
     try:
+        drop_device_caches()
         reset_counts()
         t = time.time()
         fk = stages.meryl(ctx, tag, rs, device=dev)
@@ -1296,7 +1652,8 @@ def drive_stage(phase: str, tag: str, band: int, rs, dev, ref: dict, kernel: str
         t_stage = time.time() - t
         counts = read_counts()
     finally:
-        AL.banded_extend = real_extend
+        AL.banded_extend, AL._verify_pre = real_extend, real_pre
+        restore_syncmer(real_sy)
     prof = dict(AL.LAST_PROFILE)
     with open(ctx.path("bench.stage-times.jsonl")) as fh:
         sub = [json.loads(ln) for ln in fh if f'"{tag}-overlap.sub"' in ln][-1]["sub_walls_s"]
@@ -1315,7 +1672,7 @@ def drive_stage(phase: str, tag: str, band: int, rs, dev, ref: dict, kernel: str
     check_store(phase, st, prof, fdig, ref)
     rec = {"meryl_s": t_meryl, "stage_s": t_stage, "sub_walls_s": sub, "verify_profile": prof,
            "rows": len(st), "launches": counts}
-    return rec, calls, st
+    return rec, calls, st, (pre_calls, sy_blocks)
 
 
 def extend_edge_cases(band: int, dev):
@@ -1596,6 +1953,9 @@ def ecoli_drive(dev, card: str) -> dict:
     MH.find_candidates_join = lambda *a, **kw: pairs_seen.append(real["join"](*a, **kw)) or \
         pairs_seen[-1]
     KM.count_readset_host, OV.OverlapSpill.append = host_timed, append
+    # the first K7 group and every 16th after it, the index's first block
+    real_pre, pre_kept = capture_pre(every=16)
+    real_sy, sy_kept = capture_syncmer()
     try:
         reset_counts()
         t = time.time()
@@ -1609,6 +1969,8 @@ def ecoli_drive(dev, card: str) -> dict:
         K1.myers_rows_cuda, AL.verify_overlaps = real["k1"], real["verify"]
         AL._verify_window, MH.find_candidates_join = real["window"], real["join"]
         KM.count_readset_host, OV.OverlapSpill.append = real["host"], real["append"]
+        AL._verify_pre = real_pre
+        restore_syncmer(real_sy)
     prof = dict(AL.LAST_PROFILE)
     with open(ctx.path("ecoli.stage-times.jsonl")) as fh:
         sub = [json.loads(ln) for ln in fh if '"obt-overlap.sub"' in ln][-1]["sub_walls_s"]
@@ -1641,21 +2003,25 @@ def ecoli_drive(dev, card: str) -> dict:
     check(len(st) > 0, "9 ecoli: empty overlap store")
     check(np.array_equal(np.unique(a << 32 | b), np.unique(b << 32 | a)),
           "9 ecoli: overlap store is not symmetric")
-    sample = candidate_sample(pairs, ECOLI_SAMPLE)
-    sdig = hashlib.sha256(np.ascontiguousarray(sample.astype("<i8")).tobytes()).hexdigest()
-    check(sdig == ref["sample"]["candidates_sha256"], "9 ecoli: the candidate sample differs")
-    rows = store_rows_of_pairs(st, sample)
-    rdig = OV.store_digest(rows)
-    log(f"[9 ecoli] store rows {len(st)}; the rows of the {len(sample)} sampled candidates "
-        f"{len(rows.a_id)} (reference {ref['sample']['rows']}), sha256 {rdig}")
-    check(len(rows.a_id) == ref["sample"]["rows"] and rdig == ref["sample"]["store_sha256"],
-          "9 ecoli: the sampled candidates' rows differ from the JAX package's store")
+    # two samples: every floor(M/2048)-th candidate, and the same from half
+    # a stride in
+    for key, second in (("sample", False), ("sample2", True)):
+        sample = candidate_sample(pairs, ECOLI_SAMPLE, second=second)
+        sdig = hashlib.sha256(np.ascontiguousarray(sample.astype("<i8")).tobytes()).hexdigest()
+        check(sdig == ref[key]["candidates_sha256"], f"9 ecoli: the candidate {key} differs")
+        rows = store_rows_of_pairs(st, sample)
+        rdig = OV.store_digest(rows)
+        log(f"[9 ecoli] store rows {len(st)}; {key}: the rows of the {len(sample)} sampled "
+            f"candidates ({ref[key]['rule']}) {len(rows.a_id)} (reference {ref[key]['rows']}), "
+            f"sha256 {rdig}")
+        check(len(rows.a_id) == ref[key]["rows"] and rdig == ref[key]["store_sha256"],
+              f"9 ecoli: the {key} candidates' rows differ from the JAX package's store")
     cat = AL.OverlapTable(**{c: np.concatenate([getattr(x, c) for x in spilled])
                              for c in ("a_id", "b_id", "flipped", "a_bgn", "a_end", "b_bgn",
                                        "b_end", "erate_q")})
     in_ram = OV.store_digest(OV.OverlapStore.build(cat, rs.n_reads))
     check(in_ram == OV.store_digest(st), "9 ecoli: the spilled store differs from the in-RAM build")
-    log(f"[9 ecoli] store symmetric; sampled rows equal the JAX package's; the spilled store "
+    log(f"[9 ecoli] store symmetric; both samples' rows equal the JAX package's; the spilled store "
         f"equals the in-RAM build of the {len(spilled)} tables the spill got ({len(cat)} rows)")
 
     # K1 on every launch of the drive, by CUDA events, beside its bound
@@ -1667,14 +2033,35 @@ def ecoli_drive(dev, card: str) -> dict:
         f"the {mem['start'] / 1e9:.3f} GB allocated at its start); _chunk_staging_bytes"
         f"{tuple(w_args)} x the window of {n_window} chunks = {est / 1e9:.3f} GB (groups of "
         f"{group}; {len(rest)} more window calls: {[w[1] for w in rest]})")
+    # K7 and K8 held to the plain versions on the kept groups and block
+    verify_err = held_verify_calls("phase 9", pre_kept, sy_kept)
+    del pre_kept, sy_kept
     log(f"[9 ecoli] phase wall {time.time() - t_phase:.1f} s")
-    return {"meryl_s": t_meryl, "host_count_s": sum(host_s), "stage_s": t_stage,
+    return {"verify_err": verify_err, "meryl_s": t_meryl, "host_count_s": sum(host_s),
+            "stage_s": t_stage,
             "sub_walls_s": sub, "verify_profile": prof, "rows": len(st),
             "n_candidates": len(pairs), "launches": counts, "k1_ms": k1_ms,
             "k1_ms_per_drive": sum(k1_ms), "k1_bounds": bd, "k1_bound_ms_per_drive": tb,
             "k1_bound_s": k1["bound_s"], "verify_peak_bytes": mem["peak"],
             "verify_start_bytes": mem["start"], "window": [list(w_args), group, n_window],
             "staging_estimate_bytes": est, "phase_s": time.time() - t_phase}
+
+
+def fold_bound(args) -> dict:
+    """The vote fold's bound on one chunk (ops.votepile._fold_chunk's
+    inputs): FOLD_ROW_OPS and one a channel (15) for each live (job, row);
+    its bytes the job paths, template and evidence windows and columns read
+    once, and the block's votes read and written once."""
+    import torch
+
+    votes, js, t_sub, e_sub, cols = args[:5]
+    n_rows = args[5]
+    live = int(torch.clamp(cols[3].to(torch.int64), 0, n_rows).sum())
+    ops = (FOLD_ROW_OPS + 15) * live
+    nbytes = sum(x.numel() * x.element_size() for x in (js, t_sub, e_sub, cols))
+    out = bound(ops, nbytes + 2 * votes.numel() * votes.element_size())
+    out["live_rows"] = live
+    return out
 
 
 def correct_drive(dev, card: str) -> dict:
@@ -1766,8 +2153,16 @@ def correct_drive(dev, card: str) -> dict:
         dp_jobs.append(K4.JOBS_LAUNCHED - j0)
         return out
 
+    fold_first: list = []  # the first two folds' inputs: the second's bound
+    fold_timed = timed("fold")
+
+    def fold(*args, **kw):
+        if len(fold_first) < 2:
+            fold_first.append(args)
+        return fold_timed(*args, **kw)
+
     F.correct_reads_blocks, VP.align_positions_lean = capture, dp
-    VP._group_paths, VP._fold_chunk = timed("group"), timed("fold")
+    VP._group_paths, VP._fold_chunk = timed("group"), fold
     F._finalize_plurality, F.pile_votes = timed("finalize"), chapter
     try:
         reset_counts()
@@ -1843,6 +2238,17 @@ def correct_drive(dev, card: str) -> dict:
         f"{k} {v:.3f}" for k, v in parts.items()) + f" (DP, windows, fold and finalize: CUDA "
         f"events; the rest host clock); {n_jobs} vote jobs in {n_chunks} chunks of {chunk_b}, "
         f"{n_groups} DP groups")
+    # the vote fold a chunk (PyTorch ops, the next kernel's groundwork): its
+    # time by CUDA events; the second chunk's (the first is the process's
+    # first fold) beside the bound of its work
+    fold_ms = [a.elapsed_time(b) for a, b in ev["fold"]]
+    fold_bd = fold_bound(fold_first[1])
+    log(f"[10 timing] {card}: vote fold (ops.votepile._fold_chunk, PyTorch ops) {len(fold_ms)} "
+        f"chunks, {sum(fold_ms) / len(fold_ms):.3f} ms a chunk (the first {fold_ms[0]:.3f} ms); "
+        f"the second chunk {fold_ms[1]:.3f} ms, its bound {fold_bd['bound_ms']:.4f} ms "
+        f"({fold_bd['ops']:.3e} operations over {fold_bd['live_rows']} live rows, "
+        f"{fold_bd['bytes']:.3e} bytes; bound by {fold_bd['bound_by']}; "
+        f"{100 * fold_bd['bound_ms'] / fold_ms[1]:.2f}% of it)")
 
     # the first chapter (pile_votes call): its launches and the device's busy share
     args, kw = first_chapter[0]
@@ -1876,7 +2282,9 @@ def correct_drive(dev, card: str) -> dict:
         f"{mem['peak'] / 1e9:.3f} GB ({(mem['peak'] - mem['start']) / 1e9:.3f} GB above the "
         f"{mem['start'] / 1e9:.3f} GB allocated at its start)")
     log(f"[10 correct] phase wall {time.time() - t_phase:.1f} s")
-    return {"run_s": t_run, "stage_walls_s": walls, "parts_s": parts, "chunks": n_chunks,
+    return {"fold_ms_a_chunk": sum(fold_ms) / len(fold_ms), "fold_ms": fold_ms[:2],
+            "fold_bound": fold_bd,
+            "run_s": t_run, "stage_walls_s": walls, "parts_s": parts, "chunks": n_chunks,
             "jobs": n_jobs, "groups": n_groups, "dp_calls": len(ev["dp"]), "dp_jobs": dp_jobs,
             "dp_chunks": dp_chunks, "chunk_jobs": chunk_b, "launches": counts,
             "chapter_chunks": ch_chunks, "chapter_wall_s": wall1,
@@ -1913,6 +2321,7 @@ def assemble_run(name: str, dev, card: str, genome_len: int, genome_seed: int, r
     from canu_tpu_torch.config import Config
     from canu_tpu_torch.io import gfa as GFA
     from canu_tpu_torch.io.fastx import read_fastx
+    from canu_tpu_torch.ops import align as AL
     from canu_tpu_torch.ops import consensus as CNS
     from canu_tpu_torch.ops import myers as MY
     from canu_tpu_torch.ops import oea as OEA
@@ -2023,6 +2432,8 @@ def assemble_run(name: str, dev, card: str, genome_len: int, genome_seed: int, r
     OEA.detect_read_errors, OEA.adjust_overlap_erates = red, counted("adjust", real["adjust"])
     CNS.polish_tig, GFA.align_links = counted("polish", real["polish"]), links
     VP.align_positions_lean, MY._rows_kernel = dp, rows
+    # the OEA adjust's first K7 group (orient=False, the store's flipped)
+    real_pre, adjust_pre = capture_pre(when=lambda: where[0] == "adjust")
     try:
         reset_counts()
         t = time.time()
@@ -2035,6 +2446,7 @@ def assemble_run(name: str, dev, card: str, genome_len: int, genome_seed: int, r
         OEA.detect_read_errors, OEA.adjust_overlap_erates = real["red"], real["adjust"]
         CNS.polish_tig, GFA.align_links = real["polish"], real["links"]
         VP.align_positions_lean, MY._rows_kernel = real["dp"], real["rows"]
+        AL._verify_pre = real_pre
     log(f"[{tag} assemble] {card}: run_pipeline from corrected reads: {t_run:.2f} s; launch "
         f"counts {counts}; K1 launches by step {k1_in}")
     check(counts["K2"] == counts["K3"] == 0, f"{tag}: kernel K2 or K3 launched off its path")
@@ -2044,6 +2456,10 @@ def assemble_run(name: str, dev, card: str, genome_len: int, genome_seed: int, r
     check_minhash(tag, counts, match=True)
     for step in ("obt-overlap", "utg-overlap", "adjust"):
         check(k1_in.get(step, 0) > 0, f"{tag}: kernel K1 never launched in {step}")
+    check(len(adjust_pre) == 1 and not adjust_pre[0]["orient"],
+          f"{tag}: the OEA adjust's verify made no K7 group of given orientations")
+    verify_err = held_verify_calls(f"phase {tag}'s OEA adjust", adjust_pre, [])
+    del adjust_pre
     if n_links[0]:
         check(k1_in.get("align_links", 0) > 0, f"{tag}: align_links never launched K1")
     check(os.path.exists(os.path.join(wd, "asm.contigs.fasta")), f"{tag}: no contigs FASTA")
@@ -2113,7 +2529,7 @@ def assemble_run(name: str, dev, card: str, genome_len: int, genome_seed: int, r
             "ng50": ng50(lens, genome_len), "identity": ident, "misjoins": breaks,
             "truth_met": ident >= TRUTH_IDENTITY,
             "digests": digests, "links_aligned": n_links[0], "work": wd, "fasta": fasta,
-            "genome_len": genome_len, "phase_s": time.time() - t_phase}
+            "genome_len": genome_len, "verify_err": verify_err, "phase_s": time.time() - t_phase}
 
 
 def gfa_link_check(dev) -> dict:
@@ -3251,6 +3667,9 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
     stages.meryl, F.correct_reads_blocks, F.run_vote_blocks = meryl, blocks, vote_blocks
     VP.align_positions_lean, VP._group_paths, VP._fold_chunk = dp, timed("group"), timed("fold")
     F._finalize_plurality = timed("finalize")
+    # the first K7 group and every 16th after it, the index's first block
+    real_pre, pre_kept = capture_pre(every=16)
+    real_sy, sy_kept = capture_syncmer()
     try:
         reset_counts()
         F.PROFILE.clear()
@@ -3267,6 +3686,10 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
         F.correct_reads_blocks, F.run_vote_blocks = real["blocks"], real["vote_blocks"]
         VP.align_positions_lean, VP._group_paths = real["dp"], real["group"]
         VP._fold_chunk, F._finalize_plurality = real["fold"], real["finalize"]
+        AL._verify_pre = real_pre
+        restore_syncmer(real_sy)
+    verify_err = held_verify_calls("phase 15", pre_kept, sy_kept)
+    del pre_kept, sy_kept
     chunk_b = VP.chunk_jobs(F.VOTE_SEG)
     route = "host" if counts["host_kmer_counts"] else "device"
     store_route = "spill" if counts["spill_builds"] else "in RAM"
@@ -3415,7 +3838,7 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
             "k1_bound_s": k1["bound_s"], "dp_err": err, "dp_plain_ms": plain_ms,
             "dp_s": dev_s["dp"], "dp_bound_s": dp_bound_s, "dp_bounds": vb,
             "k5_ms": k5_ms, "k5_bound": k5_bound, "minhash_err": err_mh,
-            "memory": mem, "phase_s": time.time() - t_phase}
+            "verify_err": verify_err, "memory": mem, "phase_s": time.time() - t_phase}
 
 
 # canu_tpu's own result on config 2's raw reads (BASELINE.md, run r5b):
@@ -3466,6 +3889,7 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
     from canu_tpu_torch.config import Config
     from canu_tpu_torch.io import fastx as FX
     from canu_tpu_torch.io import gfa as GFA
+    from canu_tpu_torch.ops import align as AL
     from canu_tpu_torch.ops import consensus as CNS
     from canu_tpu_torch.ops import falcon as F
     from canu_tpu_torch.ops import kmer as KM
@@ -3633,6 +4057,11 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
     OEA.detect_read_errors, OEA.adjust_overlap_erates = red, counted("adjust", real["adjust"])
     CNS.polish_tig, GFA.align_links = counted("polish", real["polish"]), links
     VP.align_positions_lean, FX.write_fasta = dp, write_fasta
+    # the first K7 group and every 16th after it, each index's first block,
+    # each verify's profile
+    real_pre, pre_kept = capture_pre(every=16)
+    real_sy, sy_kept = capture_syncmer()
+    real_vo, vprofs = verify_profiles(where)
     try:
         reset_counts()
         VP.CHUNKS = VP.JOBS = VP.GROUPS = 0
@@ -3654,6 +4083,8 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
     finally:
         logging.getLogger().removeHandler(lines_h)
         K1.myers_rows_cuda = real["k1"]
+        AL._verify_pre, AL.verify_overlaps = real_pre, real_vo
+        restore_syncmer(real_sy)
         stages.meryl, stages.overlap = real["meryl"], real["overlap"]
         MH.find_candidates_join = real["join"]
         OEA.detect_read_errors, OEA.adjust_overlap_erates = real["red"], real["adjust"]
@@ -3704,6 +4135,10 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
             f"{n_held} of them (dp_subset); plain {plain_ms:.1f} ms")
     dp_first.clear()
 
+    # K7 and K8 held to the plain versions on the kept groups and blocks
+    verify_err = held_verify_calls("phase 16", pre_kept, sy_kept)
+    del pre_kept, sy_kept
+
     # where the time went
     with open(os.path.join(work, "ecoli.stage-times.jsonl")) as fh:
         lines = [json.loads(ln) for ln in fh]
@@ -3712,6 +4147,7 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
     subs = {r["stage"]: r.get("sub_walls_s") for r in lines if r["stage"].endswith(".sub")}
     log(f"[16 timing] {card}: stage walls {walls} (sum {sum(walls.values()):.1f} s)")
     log(f"[16 timing] {card}: sub-walls {subs}; RED {len(corr)} reads changed")
+    log(f"[16 timing] {card}: verify profiles " + "; ".join(f"{w}: {p}" for w, p in vprofs))
     log(f"[16 timing] {card}: step walls (host clock around each call) " + ", ".join(
         f"{k} {v:.2f} s" for k, v in step_wall.items()))
     routes = {tg: ("host" if hosts_in.get(f"{tg}-meryl", 0) else "device") for tg in ("obt", "utg")}
@@ -3887,7 +4323,8 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
 
     log(f"[16 ecoliasm] phase wall {time.time() - t_phase:.1f} s")
     shutil.rmtree(work, ignore_errors=True)
-    return {"run_s": t_run, "stage_walls_s": walls, "sub_walls_s": subs, "step_walls_s": step_wall,
+    return {"verify_err": verify_err, "verify_profiles": vprofs,
+            "run_s": t_run, "stage_walls_s": walls, "sub_walls_s": subs, "step_walls_s": step_wall,
             "meryl_routes": routes, "launches": counts, "k1_by_step": k1_in, "judge_k1": judge_k1,
             "vote_chunks": chunks_in, "dp_calls": n_dp[0], "dp_s": dp_s, "dp_bound": dp_bound,
             "dp_err": dp_err, "held": held, "k1_ms": k1_ms, "k1_where": k1["where"],
@@ -3941,9 +4378,10 @@ def main() -> int:
     from canu_tpu_torch.ops.kernels import minhash_cuda as MK
     from canu_tpu_torch.ops.kernels import myers_cuda as K1
     from canu_tpu_torch.ops.kernels import trace_cuda as K4
+    from canu_tpu_torch.ops.kernels import verify_cuda as VC
 
     t = time.time()
-    sources = (K1.SOURCE, EX.SOURCE, K4.SOURCE, MK.SOURCE)
+    sources = (K1.SOURCE, EX.SOURCE, K4.SOURCE, MK.SOURCE, VC.SOURCE)
     built = _nvcc.build(*sources)
     log(f"[2 build] {len(sources)} libraries in {time.time() - t:.1f} s (one nvcc each, in "
         "parallel)")
@@ -3998,6 +4436,9 @@ def main() -> int:
     # ---- 3e: K5 and K6 vs the plain sketch and match, edge cases --------------
     err_mh = minhash_edge_checks(dev)
 
+    # ---- 3f: K7 and K8 vs the plain anchor step and syncmer selection --------
+    err_vp = verify_edge_checks(dev)
+
     # ---- 4: the slice ------------------------------------------------------
     from canu_tpu_torch.config import Config
     from canu_tpu_torch.ops import minhash as MH
@@ -4023,6 +4464,9 @@ def main() -> int:
     # and its sketch blocks and block pairs (phase 3e)
     real_sk, sk_calls = capture_calls(MH, "_sketch_kernel")
     real_mt, mt_calls = capture_calls(MH, "_match_kernel")
+    # and its first K7 group and every block of its index (phases 3f and 5)
+    real_pre, pre4 = capture_pre()
+    real_sy, sy4 = capture_syncmer(all_blocks=True)
     try:
         reset_counts()
         t = time.time()
@@ -4036,6 +4480,8 @@ def main() -> int:
     finally:
         MY.banded_extend_myers, MY._rows_kernel = real_extend, real_rows
         MH._sketch_kernel, MH._match_kernel = real_sk, real_mt
+        AL._verify_pre = real_pre
+        restore_syncmer(real_sy)
     check(counts["K2"] == counts["K3"] == counts["K4"] == 0 and no_plain(counts),
           f"the cor stage ran the INF-walled engine, the DP or a plain loop: {counts}")
     check_minhash("4 slice", counts, match=True)
@@ -4062,6 +4508,7 @@ def main() -> int:
                  held_minhash_calls("phase 4c", freq.pop("sketch_calls"),
                                     freq.pop("match_calls")))
     del sk_calls, mt_calls
+    err_vp = max(err_vp, held_verify_calls("phase 4", pre4, sy4))
 
     # ---- 3b: kernel vs plain on real extensions of the first group ----------
     check(len(groups) == 1, "the overlap stage never called banded_extend_myers")
@@ -4117,6 +4564,9 @@ def main() -> int:
     # K5 and K6 on every launch of the pass, beside their bounds and plain times
     record["minhash"] = mht = minhash_timing(rs, fk, dev, card)
     err_mh = max(err_mh, mht.pop("err"))
+    # K7 on phase 4's first verify group and K8 on its index's blocks
+    record["verify_kernels"] = vkt = verify_timing(pre4[0], sy4, card)
+    del pre4, sy4
 
     # K1 on every launch of the cor stage, and the stage's sum
     k1_launches = [k1_call(c) for c in k1_calls]
@@ -4158,8 +4608,9 @@ def main() -> int:
 
     # ---- 4b: the cor stage at corOvlBandWidth=256 (K2, with partial overlaps,
     # on reads whose extensions really fail) -----------------------------------
-    cor256, cor256_calls, st256 = drive_stage("4b cor256", "cor", 256, rs, dev,
-                                                  ref["cor256"], "K2")
+    cor256, cor256_calls, st256, held_k78 = drive_stage("4b cor256", "cor", 256, rs, dev,
+                                                        ref["cor256"], "K2")
+    err_vp = max(err_vp, held_verify_calls("phase 4b", *held_k78))
 
     def row_set(store):
         cols = [np.asarray(getattr(store, c)).tolist() for c in
@@ -4182,10 +4633,13 @@ def main() -> int:
     check(crs.n_reads == cref["n_reads"] and crs.total_bases == cref["total_bases"],
           "corrected read set differs from the reference's")
     drives, calls = {}, {}
-    drives["obt"] = drive_stage("6 obt", "obt", 128, crs, dev, cref["obt"], "K1")[0]
+    drives["obt"], _, _, held_k78 = drive_stage("6 obt", "obt", 128, crs, dev, cref["obt"], "K1")
+    err_vp = max(err_vp, held_verify_calls("phase 6", *held_k78))
     for name, band, kname in (("utg256", 256, "K2"), ("utg1024", 1024, "K3")):
-        drives[name], calls[name], _ = drive_stage(f"7 {name}", "utg", band, crs, dev,
-                                                       cref[name], kname)
+        drives[name], calls[name], _, held_k78 = drive_stage(f"7 {name}", "utg", band, crs, dev,
+                                                             cref[name], kname)
+        err_vp = max(err_vp, held_verify_calls(f"phase 7 {name}", *held_k78))
+    del held_k78
     record["corrected"] = drives
     drives["cor256"] = cor256
     calls["cor256"] = cor256_calls
@@ -4241,6 +4695,8 @@ def main() -> int:
     # ---- 16: raw reads to contigs at E. coli scale, correction resumed ------
     record["ecoliasm"] = ecoliasm = ecoliasm_drive(dev, card, ecolicor)
     err_dp = max(err_dp, ecoliasm["dp_err"])
+    err_vp = max(err_vp, ecoli["verify_err"], assemble["a"]["verify_err"],
+                 assemble["b"]["verify_err"], ecolicor["verify_err"], ecoliasm["verify_err"])
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
@@ -4249,17 +4705,29 @@ def main() -> int:
           "jax or canu_tpu was imported")
 
     # K5 and K6 launches in every main-path run: phases 4, 4b, 4c, 6, 7, 9, 10,
-    # 11, 14 (14a, and 14b's ranks with their allgather stages), 15 and 16
-    main_runs = [counts, freq["cor"]["launches"], freq["obt"]["launches"], ecoli["launches"],
-                 correct["launches"], assemble["a"]["launches"], assemble["b"]["launches"],
-                 grid["a"]["launches"], ecolicor["launches"], ecoliasm["launches"]]
-    main_runs += [d["launches"] for d in drives.values()]
-    main_runs += [x[key]["launches"] if key else x["launches"] for x in grid["b"]
-                  for key in (None, "allgather")]
+    # 11, 14 (14a, and 14b's ranks with their allgather stages), 15 and 16;
+    # K7 and K8 launched in each of them
+    named = {"4": counts, "4c cor": freq["cor"]["launches"], "4c obt": freq["obt"]["launches"],
+             "9": ecoli["launches"], "10": correct["launches"], "11a": assemble["a"]["launches"],
+             "11b": assemble["b"]["launches"], "14a": grid["a"]["launches"],
+             "15": ecolicor["launches"], "16": ecoliasm["launches"]}
+    named.update({f"drive {n}": d["launches"] for n, d in drives.items()})
+    for r, x in enumerate(grid["b"]):
+        named[f"14b rank {r}"] = x["launches"]
+        named[f"14b rank {r} allgather"] = x["allgather"]["launches"]
+    main_runs = list(named.values())
+    for name, c in named.items():
+        check(c["K7"] > 0 and c["K8"] > 0, f"phase {name}: kernel K7 or K8 never launched "
+              f"(K7 {c['K7']}, K8 {c['K8']})")
+        check(c["plain_pre"] == c["plain_syncmer"] == 0,
+              f"phase {name}: the plain anchor step or syncmer selection ran on the card")
     k5_launches = sum(c["K5"] for c in main_runs)
     k6_launches = sum(c["K6"] for c in main_runs)
-    log(f"[kernels] K5 launched {k5_launches} times and K6 {k6_launches} on the main path's runs "
-        "(phases 4-16)")
+    k7_launches = sum(c["K7"] for c in main_runs)
+    k8_launches = sum(c["K8"] for c in main_runs)
+    log(f"[kernels] K5 launched {k5_launches} times, K6 {k6_launches}, K7 {k7_launches} and K8 "
+        f"{k8_launches} on the main path's runs (phases 4-16; K7 and K8 in each of its "
+        f"{len(named)} runs)")
     src = "canu_tpu_torch/csrc/banded_extend.cu"
     k2, k3 = ext["utg256"], ext["utg1024"]
     k2b, k3b = k2["first_bound_exit"], k3["first_bound_exit"]
@@ -4304,6 +4772,16 @@ def main() -> int:
          "replaces": "canu_tpu/ops/minhash.py:111", "launches": k6_launches,
          "max_abs_err": err_mh, "ms": mht["K6"]["sum_ms"], "plain_ms": mht["K6"]["plain_sum_ms"],
          "bound_ms": mht["K6"]["bound"]["bound_ms"], "bound_by": mht["K6"]["bound"]["bound_by"],
+         "library_ms": None},
+        {"name": "verify_pre (K7)", "route": "cuda", "source": "canu_tpu_torch/csrc/verify.cu",
+         "replaces": "canu_tpu/ops/align.py:385", "launches": k7_launches, "max_abs_err": err_vp,
+         "ms": vkt["K7"]["ms"], "plain_ms": vkt["K7"]["plain_ms"],
+         "bound_ms": vkt["K7"]["bound"]["bound_ms"], "bound_by": vkt["K7"]["bound"]["bound_by"],
+         "library_ms": None},
+        {"name": "syncmer (K8)", "route": "cuda", "source": "canu_tpu_torch/csrc/verify.cu",
+         "replaces": "canu_tpu/ops/minimizers.py:90", "launches": k8_launches,
+         "max_abs_err": err_vp, "ms": vkt["K8"]["ms"], "plain_ms": vkt["K8"]["plain_ms"],
+         "bound_ms": vkt["K8"]["bound"]["bound_ms"], "bound_by": vkt["K8"]["bound"]["bound_by"],
          "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

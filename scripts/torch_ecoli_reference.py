@@ -14,7 +14,8 @@ Runs canu_tpu on the CPU (the JAX package is the reference):
              preset, as the overlap stage runs them above 5,000 reads;
   sample     every floor(M/2048)-th row of the sorted candidates, 2,048
              rows, verified with the obt arguments (band 128, partial,
-             palindromic pairs) and built into an OverlapStore.
+             palindromic pairs) and built into an OverlapStore;
+  sample2    the same from half a stride in: 2,048 other rows.
 A verify of every candidate on the CPU would take hours; the sample's
 rows equal the full store's rows for those pairs (verification is per
 pair; tests/test_torch_scale_stage.py checks it), so it stands in.
@@ -104,15 +105,26 @@ def main() -> int:
     lap("join", t)
     del sk
 
-    sample = candidate_sample(pairs, SAMPLE)
-    t = time.time()
     ms = int(cfg.get(tag + "MinShared"))
-    ov = AL.verify_overlaps(rs, sample, k=k, band=int(cfg.get(tag + "OvlBandWidth")),
-                            max_erate=float(cfg.get(tag + "OvlErrorRate")),
-                            min_overlap=int(cfg.get("minOverlapLength")), chunk=512,
-                            min_shared=ms, partial=True, palindromic_min=ms)
-    st = OverlapStore.build(ov, rs.n_reads)
-    lap("sample_verify_store", t)
+    samples = {}
+    for name, second in (("sample", False), ("sample2", True)):
+        sample = candidate_sample(pairs, SAMPLE, second=second)
+        t = time.time()
+        ov = AL.verify_overlaps(rs, sample, k=k, band=int(cfg.get(tag + "OvlBandWidth")),
+                                max_erate=float(cfg.get(tag + "OvlErrorRate")),
+                                min_overlap=int(cfg.get("minOverlapLength")), chunk=512,
+                                min_shared=ms, partial=True, palindromic_min=ms)
+        st = OverlapStore.build(ov, rs.n_reads)
+        lap(f"{name}_verify_store", t)
+        step = max(1, len(pairs) // SAMPLE)
+        samples[name] = {
+            "rule": f"candidates[{step // 2 if second else 0}::max(1, M // {SAMPLE})][:{SAMPLE}]",
+            "n": int(len(sample)),
+            "candidates_sha256": array_digest(sample),
+            "rows": int(len(st)),
+            "store_sha256_of": "canu_tpu_torch.stores.overlaps.store_digest",
+            "store_sha256": store_digest(st),
+        }
 
     ref = {
         "what": "canu_tpu (JAX, CPU) obt meryl + hash-join candidates at E. coli scale, and "
@@ -137,14 +149,7 @@ def main() -> int:
                                 "(a_id, b_id, slot_matches) rows, C order",
         "n_candidates": int(len(pairs)),
         "candidates_sha256": array_digest(pairs),
-        "sample": {
-            "rule": f"candidates[::max(1, M // {SAMPLE})][:{SAMPLE}]",
-            "n": int(len(sample)),
-            "candidates_sha256": array_digest(sample),
-            "rows": int(len(st)),
-            "store_sha256_of": "canu_tpu_torch.stores.overlaps.store_digest",
-            "store_sha256": store_digest(st),
-        },
+        **samples,
         "cpu_seconds": secs,
     }
     with open(args.out, "w") as fh:

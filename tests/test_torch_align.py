@@ -18,7 +18,8 @@ from canu_tpu_torch.convert import read_index_from_numpy
 from canu_tpu_torch.ops import align as TA
 from canu_tpu_torch.ops.minhash import OverlapCandidates
 from canu_tpu_torch.stores.readset import ReadSet as TorchReadSet
-from torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_cases import (LONG_READ_W, VERIFY_PRE_CHUNK, VERIFY_PRE_EDGE_CASES,  # noqa: F401
+                         one_torch_thread, verify_pre_edge_case, verify_pre_long_case)
 
 TABLE_COLS = ("a_id", "b_id", "flipped", "a_bgn", "a_end", "b_bgn", "b_end", "erate_q")
 
@@ -59,6 +60,20 @@ def test_shift_rows():
     for out_len in (16, 64, 100):
         _eq(JA._shift_rows(jnp.asarray(x), jnp.asarray(t), out_len),
             TA._shift_rows(torch.from_numpy(x), torch.from_numpy(t), out_len), out_len)
+
+
+@pytest.mark.parametrize("hi", [262_144, 1 << 21])
+def test_interp_centers_at_long_coordinates(hi):
+    """Centres of anchor chains up to `hi` rows, where a separate product
+    and sum round differently from canu_tpu's fused multiply-add."""
+    rng = np.random.default_rng(hi)
+    B, M = 64, 64
+    xa = np.sort(rng.integers(0, hi, (B, M)), axis=1).astype(np.int32)
+    xb = np.maximum.accumulate(xa + rng.integers(-3000, 3000, (B, M)), axis=1).astype(np.int32)
+    xa[:, 0] = xb[:, 0] = 0
+    xa[:, 50:] = xb[:, 50:] = (1 << 24) + np.arange(14)  # the slope-1 padding
+    _eq(JA._interp_centers(jnp.asarray(xa), jnp.asarray(xb), None, hi),
+        TA._interp_centers(torch.from_numpy(xa), torch.from_numpy(xb), hi))
 
 
 def test_interp_centers():
@@ -179,3 +194,87 @@ def test_tight_budget_shrinks_the_myers_group(sim, monkeypatch):
     roomy = TA.verify_overlaps(trs, pairs, **kw)
     assert len(calls) == -(-n_chunks // TA.MYERS_GROUP) < n_chunks
     _tables_equal(roomy, tight)
+
+
+def _edge_index(case):
+    k = case[0]
+    pl, a, b, fl, n_rows = verify_pre_edge_case(*case)
+    ti = read_index_from_numpy(pl["words"], pl["length"], pl["mker"], pl["mpos"], pl["mstr"],
+                               pl["n_reads"], k, pl["pm"], device="cpu")
+    return pl, ti, a, b, fl, n_rows
+
+
+@pytest.mark.parametrize("case", VERIFY_PRE_EDGE_CASES, ids=str)
+def test_verify_pre_edge_cases_equal_canu_tpu(case):
+    """The plain _verify_pre against canu_tpu's on torch_cases.py's edge
+    cases (the ones kernel K7 is held to on the card), as one chunk."""
+    k, _W, band, orient = case
+    pl, ti, a, b, fl, n_rows = _edge_index(case)
+    ref = JA._verify_pre(*(jnp.asarray(pl[n]) for n in ("words", "length", "mker", "mpos", "mstr")),
+                         jnp.asarray(a.astype(np.int32)), jnp.asarray(b.astype(np.int32)),
+                         jnp.asarray(fl), k, band, n_rows, orient)
+    got = TA._verify_pre(ti, torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(fl), k,
+                         band, n_rows, orient)
+    for name, r, t in zip(("a", "a_len", "b", "b_len", "centers"), ref[0], got[0]):
+        _eq(r, t, name)
+    for name, r, t in zip(("n_anchor", "flipped", "seedA", "seedB", "n_minor"), ref[1:], got[1:]):
+        _eq(r, t, name)
+    n_anchor = got[1].numpy()
+    # the planted pairs: one anchor, a tied strand vote, repeated positions;
+    # the padding row none; a read against itself more than MAX_ANCHORS
+    assert n_anchor[6] == 0 and n_anchor[7] == 0 and n_anchor[8] == 0
+    if orient:
+        assert list(n_anchor[:6]) == [1, 1, 2, 2, 3, 2] and got[5].numpy()[2] == 2
+        assert n_anchor[9] == TA.MAX_ANCHORS
+    assert n_anchor[11] == 5 and got[0][4][11, 16] == 15  # 14.5000005, not 14.5
+
+
+def test_verify_pre_long_reads_equal_canu_tpu():
+    """The plain _verify_pre against canu_tpu's on reads above 131,072
+    bases (index W = LONG_READ_W, n_rows 262,144), both orientations'
+    ways: the strand vote and the given flips."""
+    pl, a, b, fl, n_rows = verify_pre_long_case()
+    assert pl["words"].shape[1] == LONG_READ_W and n_rows == 16 * LONG_READ_W
+    ti = read_index_from_numpy(pl["words"], pl["length"], pl["mker"], pl["mpos"], pl["mstr"],
+                               pl["n_reads"], 16, pl["pm"], device="cpu")
+    planes = [jnp.asarray(pl[n]) for n in ("words", "length", "mker", "mpos", "mstr")]
+    for orient, band in ((True, 128), (False, 1024)):
+        ref = JA._verify_pre(*planes, jnp.asarray(a.astype(np.int32)),
+                             jnp.asarray(b.astype(np.int32)), jnp.asarray(fl), 16, band, n_rows,
+                             orient)
+        got = TA._verify_pre(ti, torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(fl),
+                             16, band, n_rows, orient)
+        for name, r, t in zip(("a", "a_len", "b", "b_len", "centers"), ref[0], got[0]):
+            _eq(r, t, f"{name} orient={orient}")
+        for name, r, t in zip(("n_anchor", "flipped", "seedA", "seedB", "n_minor"), ref[1:],
+                              got[1:]):
+            _eq(r, t, f"{name} orient={orient}")
+        n_anchor = got[1].numpy()
+        assert n_anchor[7] == 0 and (got[3].numpy() > 65_536).any()  # seeds past 2^16 bases
+        if orient:
+            assert (n_anchor[:6] == TA.MAX_ANCHORS).all()
+
+
+@pytest.mark.parametrize("case", VERIFY_PRE_EDGE_CASES[:3], ids=str)
+def test_group_pre_and_post_equal_the_chunks_one_by_one(case):
+    """_verify_pre and _verify_post over a group of 3 chunks: the
+    concatenation of the per-chunk plain calls in the group's layout
+    (chunk 0's forward rows, its backward rows, chunk 1's ...)."""
+    k, _W, band, orient = case
+    _pl, ti, a, b, fl, n_rows = _edge_index(case)
+    C = VERIFY_PRE_CHUNK
+    ta, tb, tf = torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(fl)
+    group = TA._verify_pre(ti, ta, tb, tf, k, band, n_rows, orient, C)
+    parts = [TA._verify_pre_plain(ti, ta[s:s + C], tb[s:s + C], tf[s:s + C], k, band, n_rows,
+                                  orient) for s in range(0, len(a), C)]
+    for i, name in enumerate(("a", "a_len", "b", "b_len", "centers")):
+        _eq(torch.cat([p[0][i] for p in parts]).numpy(), group[0][i], name)
+    for i, name in enumerate(("n_anchor", "flipped", "seedA", "seedB", "n_minor"), start=1):
+        _eq(torch.cat([p[i] for p in parts]).numpy(), group[i], name)
+    rng = np.random.default_rng(3)
+    res = [torch.from_numpy(rng.integers(0, 900, 2 * len(a)).astype(np.int32)) for _ in range(6)]
+    tile = TA._verify_post(*group[1:], *res, chunk=C)
+    for g, p in enumerate(parts):
+        rows = slice(2 * g * C, 2 * (g + 1) * C)
+        _eq(TA._verify_post(*p[1:], *(x[rows] for x in res)).numpy(),
+            tile[g * C:(g + 1) * C], f"post chunk {g}")

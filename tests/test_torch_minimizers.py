@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from canu_tpu.ops import minimizers as JMZ
@@ -14,7 +15,8 @@ from canu_tpu_torch.convert import read_index_from_numpy
 from canu_tpu_torch.ops import hashing as TH
 from canu_tpu_torch.ops import minimizers as TMZ
 from canu_tpu_torch.sim import simulate as torch_sim
-from torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_cases import (LONG_READ_W, SYNCMER_EDGE_CASES, one_torch_thread,  # noqa: F401
+                         syncmer_edge_case, umax_key_kmer, verify_pre_long_case)
 
 PLANES = ("words", "length", "mker", "mpos", "mstr")
 
@@ -75,3 +77,45 @@ def test_read_index_from_numpy_round_trip():
         assert a.dtype == getattr(own, name).dtype, name
         np.testing.assert_array_equal(_as_np(conv, name), _as_np(ref, name), err_msg=name)
         np.testing.assert_array_equal(a.numpy(), getattr(own, name).numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("case", [*SYNCMER_EDGE_CASES, "long reads"], ids=str)
+def test_syncmer_edge_cases_equal_canu_tpu(case):
+    """The port's _syncmer_kernel (the plain version on the CPU) against
+    canu_tpu's on torch_cases.py's edge blocks (the ones kernel K8 is held
+    to on the card), and on the block of verify_pre_long_case's reads
+    (W = LONG_READ_W; Pm 2,048 of ~27,000 selected a read: the cut at
+    pm)."""
+    if case == "long reads":
+        pl = verify_pre_long_case()[0]
+        case, words, lengths = (16, LONG_READ_W, pl["pm"]), pl["words"], pl["length"]
+    else:
+        words, lengths = syncmer_edge_case(*case)
+    k, _W, pm = case
+    ref = JMZ._syncmer_kernel(jnp.asarray(words), jnp.asarray(lengths), k, pm)
+    got = TMZ._syncmer_kernel(TH.u32_tensor(words, "cpu"), torch.from_numpy(lengths), k, pm)
+    np.testing.assert_array_equal(TH.u32_numpy(got[0]), np.asarray(ref[0]))
+    for r, g in zip(ref[1:], got[1:]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    if pm < 10:  # a small pm: n_sel above it on the longer reads
+        assert (got[3].numpy() == pm).sum() >= 3
+    if _W == LONG_READ_W:  # the four long reads select more than pm
+        assert (got[3].numpy()[:4] == pm).all()
+
+
+def test_syncmer_tie_rule_on_a_planted_umax_key():
+    """A selected k-mer whose mix32 key is UINT32_MAX ties with every
+    unselected position: its live slots take the first positions of key
+    UINT32_MAX in position order, which are unselected ones."""
+    planted = umax_key_kmer(22)
+    assert planted is not None and umax_key_kmer(16) is None
+    words, lengths = syncmer_edge_case(22, 64, 256)
+    mker, mpos, _mstr, n_sel = TMZ._syncmer_kernel(TH.u32_tensor(words, "cpu"),
+                                                   torch.from_numpy(lengths), 22, 256)
+    row = len(lengths) - 2  # the read with three planted copies at 30, 70 and 140
+    n = int(n_sel[row])
+    keys = TH.u32_numpy(TH.mix32(mker[row, :n]))
+    tail = int((keys == 0xFFFFFFFF).sum()) + int((mpos[row, :n] < 30).sum())
+    assert n > 3 and tail >= 3
+    assert list(mpos[row, n - 3:n].numpy()) == [0, 1, 2]
+

@@ -147,7 +147,8 @@ from canu_tpu_torch import graph, __main__
 from canu_tpu_torch.io import gfa
 from canu_tpu_torch.pipeline import driver, html, objectstore, splitreads
 from canu_tpu_torch.stores import tigs
-from canu_tpu_torch.ops.kernels import _nvcc, extend_cuda, myers_cuda
+from canu_tpu_torch.ops.kernels import _nvcc, extend_cuda, minhash_cuda, myers_cuda
+from canu_tpu_torch.ops.kernels import trace_cuda, verify_cuda
 from canu_tpu_torch.utils import intervals, quality
 from canu_tpu_torch.stores import overlaps
 from canu_tpu_torch.parallel import launch, mesh, shard_overlap, storesort
@@ -217,7 +218,7 @@ def test_make_ctx_and_meryl_leave_jax_unloaded(tmp_path):
 
 def _port_sources() -> list[Path]:
     files = sorted((ROOT / "canu_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"] + [
+    return files + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_verify_split.py"] + [
         ROOT / "tests" / f for f in ("torch_cases.py", "torch_parallel_worker.py",
                                      "torch_mp_worker.py")]
 

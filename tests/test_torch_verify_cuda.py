@@ -1,0 +1,224 @@
+"""Kernels K7 (verify's anchor-and-inputs step) and K8 (the syncmer read
+index) against their plain PyTorch versions, and the wrappers' device
+contract.  This file imports no jax, so it runs where jax is absent:
+
+    python -m pytest --noconftest tests/test_torch_verify_cuda.py
+
+(``--noconftest``: tests/conftest.py imports jax).  The ``cuda``-marked
+tests need a card and skip elsewhere; the others run anywhere.  The edge
+cases come from torch_cases.py, shared with test_torch_align.py and
+test_torch_minimizers.py (which hold the plain versions to canu_tpu on the
+CPU) and chip_smoke.py.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from canu_tpu_torch.convert import read_index_from_numpy
+from canu_tpu_torch.ops import align as AL
+from canu_tpu_torch.ops import minimizers as MZ
+from canu_tpu_torch.ops.hashing import u32_tensor
+from canu_tpu_torch.ops.kernels import verify_cuda as VC
+from canu_tpu_torch.sim.simulate import random_genome, simulate_reads
+from torch_cases import (LONG_READ_W, SYNCMER_EDGE_CASES, VERIFY_PRE_CHUNK,  # noqa: F401
+                         VERIFY_PRE_EDGE_CASES, one_torch_thread, syncmer_edge_case,
+                         verify_pre_edge_case, verify_pre_long_case)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: kernels K7 and K8 are CUDA C++ with no CPU mode")
+    return torch.device("cuda")
+
+
+def _counts():
+    return VC.PRE_LAUNCHES, VC.SYNCMER_LAUNCHES, AL.PLAIN_CUDA_PRE, MZ.PLAIN_CUDA_SYNCMER
+
+
+def _pre_args(case, dev="cpu"):
+    k, _W, band, orient = case
+    pl, a, b, fl, n_rows = verify_pre_edge_case(*case) if _W != LONG_READ_W else \
+        verify_pre_long_case()
+    index = read_index_from_numpy(pl["words"], pl["length"], pl["mker"], pl["mpos"], pl["mstr"],
+                                  pl["n_reads"], k, pl["pm"], device=dev)
+    return (index, torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev),
+            torch.from_numpy(fl).to(dev), k, band, n_rows, orient)
+
+
+def _sync_args(case, dev="cpu"):
+    k, _W, pm = case
+    words, lengths = syncmer_edge_case(*case)
+    return u32_tensor(words, dev), torch.from_numpy(lengths).to(dev), k, pm
+
+
+def _equal(ref, got, names):
+    for name, r, g in zip(names, ref, got):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        np.testing.assert_array_equal(g.cpu().numpy(), r.cpu().numpy(), err_msg=name)
+
+
+PRE_NAMES = ("a", "a_len", "b", "b_len", "centers")
+PER_PAIR = ("n_anchor", "flipped", "seedA", "seedB", "n_minor")
+
+
+def test_cpu_tensors_take_the_plain_versions_and_never_the_kernels():
+    args = _pre_args(VERIFY_PRE_EDGE_CASES[1])
+    before = _counts()
+    got = AL._verify_pre(*args, chunk=VERIFY_PRE_CHUNK)
+    ref = AL._verify_pre_plain(*args)  # one chunk of all 96 pairs: the same per-pair outputs
+    _equal(ref[1:], got[1:], PER_PAIR)
+    w, lengths, k, pm = _sync_args(SYNCMER_EDGE_CASES[2])
+    _equal(MZ._syncmer_kernel_plain(w, lengths, k, pm), MZ._syncmer_kernel(w, lengths, k, pm),
+           ("mker", "mpos", "mstr", "n_sel"))
+    assert _counts() == before
+
+
+def _pre_kwargs(dev):
+    index, a, b, fl, k, band, n_rows, orient = _pre_args(VERIFY_PRE_EDGE_CASES[0], dev)
+    return {"index": index, "a_idx": a, "b_idx": b, "flipped": fl, "k": k, "band": band,
+            "n_rows": n_rows, "orient": orient, "chunk": VERIFY_PRE_CHUNK}
+
+
+def _index_with(name, fn):
+    def change(kw):
+        ix = kw["index"]
+        return MZ.ReadIndex(**{**{f: getattr(ix, f) for f in ("words", "length", "mker", "mpos",
+                                                             "mstr", "n_reads", "k", "pm")},
+                              name: fn(getattr(ix, name))})
+    return {"index": change}
+
+
+# what K7's wrapper must refuse (a change to its keyword arguments, the
+# exception and the message it names), whatever the device
+PRE_REFUSALS = {
+    "chunk not dividing": ({"chunk": 40}, ValueError, "whole chunks"),
+    "a_idx 2-D": ({"a_idx": lambda a: a["a_idx"][None]}, ValueError, "1-D"),
+    "a_idx int32": ({"a_idx": lambda a: a["a_idx"].to(torch.int32)}, TypeError, "dtype"),
+    "b_idx short": ({"b_idx": lambda a: a["b_idx"][:5]}, ValueError, "shape"),
+    "flipped uint8": ({"flipped": lambda a: a["flipped"].to(torch.uint8)}, TypeError, "dtype"),
+    "n_rows 0": ({"n_rows": 0}, ValueError, "n_rows"),
+    "mker int32": (_index_with("mker", lambda x: x.to(torch.int32)), TypeError, "dtype"),
+    "mpos not contiguous": (_index_with("mpos", lambda x: x.t().contiguous().t()), ValueError,
+                            "contiguous"),
+    "Pm above 2048": (_index_with("mker", lambda x: x.repeat(1, 17)), ValueError, "1..2048"),
+}
+
+SYNC_REFUSALS = {
+    "k 33": ({"k": 33}, ValueError, "k in 2..32"),
+    "pm 0": ({"pm": 0}, ValueError, "pm >= 1"),
+    "words 1-D": ({"words": lambda a: a["words"][0]}, ValueError, "2-D"),
+    "words int32": ({"words": lambda a: a["words"].to(torch.int32)}, TypeError, "dtype"),
+    "lengths int64": ({"lengths": lambda a: a["lengths"].to(torch.int64)}, TypeError, "dtype"),
+    "too few words": ({"words": lambda a: a["words"][:, :1].contiguous(), "k": 22, "s": 16,
+                       "t": 3}, ValueError, "no 22-mer"),
+}
+
+
+def _sync_kwargs(dev):
+    words, lengths, k, pm = _sync_args(SYNCMER_EDGE_CASES[0], dev)
+    s, t = MZ.syncmer_params(k)
+    return {"words": words, "lengths": lengths, "k": k, "s": s, "t": t, "pm": pm}
+
+
+def _refused(fn, kwargs, refusals, case):
+    change, exc, msg = refusals[case]
+    kwargs.update({k: v(kwargs) if callable(v) else v for k, v in change.items()})
+    before = _counts()
+    with pytest.raises(exc, match=msg):
+        fn(**kwargs)
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("case", sorted(PRE_REFUSALS))
+def test_pre_wrapper_refuses_what_the_kernel_does_not_take(case):
+    _refused(VC.verify_pre, _pre_kwargs(torch.device("cpu")), PRE_REFUSALS, case)
+
+
+@pytest.mark.parametrize("case", sorted(SYNC_REFUSALS))
+def test_syncmer_wrapper_refuses_what_the_kernel_does_not_take(case):
+    _refused(VC.syncmer, _sync_kwargs(torch.device("cpu")), SYNC_REFUSALS, case)
+
+
+def test_wrappers_refuse_host_tensors_instead_of_falling_back():
+    before = _counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        VC.verify_pre(**_pre_kwargs(torch.device("cpu")))
+    with pytest.raises(ValueError, match="CUDA"):
+        VC.syncmer(**_sync_kwargs(torch.device("cpu")))
+    assert _counts() == before
+
+
+# the edge groups, and reads above 131,072 bases: W = LONG_READ_W, 4
+# pairs a chunk (K7's shared memory does not grow with the reads)
+PRE_CASES = [(c, VERIFY_PRE_CHUNK) for c in VERIFY_PRE_EDGE_CASES] + [
+    ((16, LONG_READ_W, 128, True), 4), ((16, LONG_READ_W, 1024, False), 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,chunk", PRE_CASES, ids=str)
+def test_pre_kernel_matches_plain_on_card(cuda_device, case, chunk):
+    args = _pre_args(case, cuda_device)
+    before = _counts()
+    got = AL._verify_pre(*args, chunk=chunk)
+    assert _counts()[0] == before[0] + 1 and _counts()[2] == before[2]
+    ref = AL._verify_pre_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    _equal(ref[0], got[0], PRE_NAMES)
+    _equal(ref[1:], got[1:], PER_PAIR)
+
+
+def _long_sync_args(dev):
+    pl = verify_pre_long_case()[0]
+    return u32_tensor(pl["words"], dev), torch.from_numpy(pl["length"]).to(dev), 16, pl["pm"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [*SYNCMER_EDGE_CASES, "long reads"], ids=str)
+def test_syncmer_kernel_matches_plain_on_card(cuda_device, case):
+    args = _long_sync_args(cuda_device) if case == "long reads" else _sync_args(case, cuda_device)
+    before = _counts()
+    got = MZ._syncmer_kernel(*args)
+    assert _counts()[1] == before[1] + 1 and _counts()[3] == before[3]
+    ref = MZ._syncmer_kernel_plain(*args)
+    torch.cuda.synchronize()
+    _equal(ref, got, ("mker", "mpos", "mstr", "n_sel"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PRE_REFUSALS))
+def test_pre_wrapper_refuses_on_card(cuda_device, case):
+    _refused(VC.verify_pre, _pre_kwargs(cuda_device), PRE_REFUSALS, case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SYNC_REFUSALS))
+def test_syncmer_wrapper_refuses_on_card(cuda_device, case):
+    _refused(VC.syncmer, _sync_kwargs(cuda_device), SYNC_REFUSALS, case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,band", [(16, 128), (22, 256)])
+def test_index_and_verify_on_card_equal_the_cpu(cuda_device, k, band):
+    from canu_tpu_torch.ops import minhash as MH
+
+    g = random_genome(12_000, seed=14, repeat_spec=[(300, 4)])
+    rs, _ = simulate_reads(g, coverage=6, mean_len=1500, min_len=800, max_len=2500,
+                           error_rate=0.06, seed=15)
+    idx = {dev: MZ.build_read_index(rs, k=k, block_size=32, device=dev)
+           for dev in ("cpu", cuda_device)}
+    for name in ("words", "length", "mker", "mpos", "mstr"):
+        np.testing.assert_array_equal(getattr(idx[cuda_device], name).cpu().numpy(),
+                                      getattr(idx["cpu"], name).numpy(), err_msg=name)
+    sk = MH.build_sketches(rs, k=k, n_hashes=256, block_size=64, device="cpu")
+    pairs = MH.find_candidates(sk, min_matches=2, device="cpu")
+    out = {dev: AL.verify_overlaps(rs, pairs, k=k, band=band, chunk=64, partial=True,
+                                   palindromic_min=2, index=idx[dev], device=dev)
+           for dev in ("cpu", cuda_device)}
+    assert len(out["cpu"]) > 0
+    for c in ("a_id", "b_id", "flipped", "a_bgn", "a_end", "b_bgn", "b_end", "erate_q"):
+        np.testing.assert_array_equal(getattr(out[cuda_device], c), getattr(out["cpu"], c),
+                                      err_msg=c)

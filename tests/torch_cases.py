@@ -434,10 +434,12 @@ def myers_edge_cases():
 STORE_COLS = ("a_id", "b_id", "flipped", "a_bgn", "a_end", "b_bgn", "b_end", "erate_q")
 
 
-def candidate_sample(pairs: np.ndarray, n: int = 2048) -> np.ndarray:
+def candidate_sample(pairs: np.ndarray, n: int = 2048, second: bool = False) -> np.ndarray:
     """Every floor(M/n)-th row of the sorted candidate rows, n of them
-    (all of them when M <= n)."""
-    return pairs[:: max(1, len(pairs) // n)][:n]
+    (all of them when M <= n); second=True starts half a stride in, so the
+    two samples share no row where the stride is 2 or more."""
+    step = max(1, len(pairs) // n)
+    return pairs[(step // 2 if second else 0) :: step][:n]
 
 
 def store_rows_of_pairs(st, pairs: np.ndarray) -> SimpleNamespace:
@@ -1242,3 +1244,213 @@ def candidates_digest(pairs: np.ndarray) -> str:
     """sha256 of a candidate list's int64 little-endian bytes, C order."""
     return hashlib.sha256(np.ascontiguousarray(np.asarray(pairs).astype("<i8")).tobytes()
                           ).hexdigest()
+
+
+# ---- verify's anchor-and-inputs step (K7) and the syncmer index (K8) --------
+
+# (k, index words a read W, band, orient): k 16 and 22, a power-of-two W and
+# one that is not (the shift masks of _shift_rows, the stride-16 centre grid
+# cut at n_rows + 1 = 16 W + 1), bands 128, 256 and 1024, the strand vote
+# and the given orientation
+VERIFY_PRE_EDGE_CASES = ((16, 64, 128, True), (16, 96, 256, False), (22, 64, 1024, True),
+                         (22, 96, 128, False), (16, 64, 1024, False), (22, 96, 256, True))
+VERIFY_PRE_CHUNK = 32  # pairs a chunk: each case is a group of 3 chunks
+
+
+def _plant(planes: dict, row: int, keys, pos, strands) -> None:
+    n = len(keys)
+    planes["mker"][row] = 0xFFFFFFFF
+    planes["mpos"][row] = -1
+    planes["mstr"][row] = 0
+    planes["mker"][row, :n] = keys
+    planes["mpos"][row, :n] = pos
+    planes["mstr"][row, :n] = strands
+
+
+def verify_pre_edge_case(k: int, W: int, band: int, orient: bool, seed: int = 9):
+    """(planes, a_idx int64[96], b_idx int64[96], flipped bool[96], n_rows)
+    for ops.align._verify_pre in 3 chunks of VERIFY_PRE_CHUNK pairs.  planes
+    (words, length, mker uint32 / int32 numpy, n_reads, pm) is the port's
+    read index of reads of 400-1,000 bases (the plain index on the CPU),
+    its words padded to W columns, with rows 0-5 replaced: reads 0 and 1
+    share one key (one anchor); 2 and 3 share four, two of them on
+    opposite strands (n_same == n_opp); 4 and 5 share four keys, one of
+    them twice in each read (only read 4's later copy and read 5's first
+    copy join), three of read 4's at one position (repeated anchor
+    positions: the dx == 0 branch of the centres); 10 and 11 share a
+    chain of five keys whose centre at row 16 rounds one way in
+    jnp.interp's order of operations and the other with the product taken
+    first.  The pairs: those planted (the first three both ways), the all-zero padding row against itself and a read
+    (zero anchors, length 0), two reads against themselves (more than
+    MAX_ANCHORS kept: the even subsample), true overlaps of the simulated
+    reads and random pairs; flipped drawn at random."""
+    from canu_tpu_torch.ops.minimizers import build_read_index
+    from canu_tpu_torch.sim.simulate import random_genome, simulate_reads, true_overlaps
+
+    rng = np.random.default_rng(seed + k + W + band)
+    g = random_genome(6000, seed=seed)
+    rs, truth = simulate_reads(g, coverage=8, mean_len=800, min_len=400, max_len=1000,
+                               error_rate=0.08, seed=seed + 1)
+    idx = build_read_index(rs, k=k, block_size=32, device="cpu")
+    words = idx.words.numpy().astype(np.uint32)
+    planes = {"words": np.zeros((words.shape[0], W), np.uint32),
+              "length": idx.length.numpy().copy(), "mker": idx.mker.numpy().astype(np.uint32),
+              "mpos": idx.mpos.numpy().copy(), "mstr": idx.mstr.numpy().copy(),
+              "n_reads": idx.n_reads, "pm": idx.pm}
+    planes["words"][:, : words.shape[1]] = words
+    used = set(planes["mker"].ravel().tolist())
+    fresh = iter(x for x in range(0x0100_0000, 0x0200_0000, 7919) if x not in used)
+    K = [next(fresh) for _ in range(40)]
+    K[:4] = sorted(K[:4])
+    _plant(planes, 0, [K[10], K[0], K[11]], [40, 300, 500], [0, 0, 1])
+    _plant(planes, 1, [K[12], K[13], K[0]], [10, 20, 250], [1, 0, 0])
+    _plant(planes, 2, K[:4] + [K[14]], [100, 200, 300, 400, 450], [0, 0, 0, 0, 1])
+    _plant(planes, 3, [K[15]] + K[:4], [5, 80, 190, 290, 380], [0, 0, 0, 1, 1])
+    _plant(planes, 4, [K[0], K[1], K[2], K[0], K[3], K[16]], [200, 200, 200, 300, 400, 420],
+           [0, 0, 0, 0, 0, 1])
+    _plant(planes, 5, [K[0], K[1], K[2], K[3], K[0], K[17]], [100, 110, 120, 300, 50, 310],
+           [0, 0, 0, 0, 0, 1])
+    # a chain whose forward centre at row 16 is 14.5000005 in jnp.interp's
+    # order, (16 - 4) / 40 * 45 + 1, and 14.5 (rounded to 14) with the
+    # product taken first
+    _plant(planes, 10, K[20:25], [280, 290, 300, 304, 344], [0, 0, 0, 0, 0])
+    _plant(planes, 11, K[20:25], [282, 291, 300, 301, 346], [0, 0, 0, 0, 0])
+    pad = idx.n_reads
+    pairs = [(0, 1), (1, 0), (2, 3), (3, 2), (4, 5), (5, 4), (pad, pad), (pad, 7), (7, pad),
+             (8, 8), (9, 9), (10, 11)]
+    ov = true_overlaps(truth, min_overlap=200)
+    ov = ov[(ov[:, 0] > 12) & (ov[:, 1] > 12)]
+    pick = rng.choice(len(ov), size=min(len(ov), 50), replace=False)
+    pairs += [(int(a) - 1, int(b) - 1) for a, b, _ in ov[pick]]
+    n = 3 * VERIFY_PRE_CHUNK
+    while len(pairs) < n:
+        pairs.append(tuple(int(x) for x in rng.integers(0, idx.n_reads, 2)))
+    a_idx = np.asarray([a for a, _ in pairs], np.int64)
+    b_idx = np.asarray([b for _, b in pairs], np.int64)
+    flipped = rng.random(n) < 0.5
+    flipped[11] = False
+    return planes, a_idx, b_idx, flipped, 16 * W
+
+
+# (k, words a read W, pm): k 16 and 22, pm above n_sel and a small pm below
+# it (n_sel > pm), reads shorter and longer than 16 words
+SYNCMER_EDGE_CASES = ((16, 8, 64), (16, 8, 6), (22, 8, 64), (22, 8, 6), (16, 64, 512),
+                      (22, 64, 256))
+
+
+def _mix32_inverse(y: int) -> int:
+    def unxorshift(x, s):
+        r = x
+        for _ in range(32 // s + 1):
+            r = x ^ (r >> s)
+        return r & 0xFFFFFFFF
+
+    y = unxorshift(y, 16)
+    y = (y * pow(0xC2B2AE35, -1, 1 << 32)) & 0xFFFFFFFF
+    y = unxorshift(y, 13)
+    y = (y * pow(0x85EBCA6B, -1, 1 << 32)) & 0xFFFFFFFF
+    return unxorshift(y, 16)
+
+
+def _kmer_bases(v: int, k: int) -> np.ndarray:
+    return np.asarray([(v >> (2 * (k - 1 - j))) & 3 for j in range(k)], np.uint8)
+
+
+def _pack_codes(codes: np.ndarray, W: int) -> np.ndarray:
+    out = np.zeros(W, np.uint32)
+    for i, c in enumerate(codes):
+        out[i // 16] |= np.uint32(int(c) << (2 * (i % 16)))
+    return out
+
+
+def umax_key_kmer(k: int, seed: int = 13):
+    """The bases of a canonical k-mer that open-syncmer selection keeps and
+    whose key's mix32 is UINT32_MAX (it ties with every unselected position
+    in ops.minimizers._syncmer_kernel's compaction), found by a seeded
+    search, or None where there is none: at k <= 16 the one k-mer with that
+    key, at 16 < k <= 32 every high lane with its low lane solved through
+    the inverse mix32."""
+    from canu_tpu_torch.ops.minimizers import _syncmer_kernel_plain
+
+    target = _mix32_inverse(0xFFFFFFFF)  # the key whose mix32 is UINT32_MAX
+    if k <= 16:
+        cands = [target] if target < 1 << (2 * k) else []
+    else:
+        y = _mix32_inverse(target)  # hi ^ mix32(lo) of the fold
+        his = np.random.default_rng(seed).permutation(1 << (2 * k - 32))
+        cands = [(int(h) << 32) | _mix32_inverse(y ^ int(h)) for h in his[:512]]
+    W = -(-k // 16)
+    for v in cands:
+        bases = _kmer_bases(v, k)
+        rc = int("".join(str(3 - b) for b in bases[::-1]), 4)
+        if v > rc:  # not canonical: its key is the reverse complement's
+            continue
+        words = torch.from_numpy(_pack_codes(bases, W).astype(np.int64))[None]
+        n_sel = _syncmer_kernel_plain(words, torch.tensor([k], dtype=torch.int32), k, 4)[3]
+        if int(n_sel[0]) == 1:
+            return bases
+    return None
+
+
+def syncmer_edge_case(k: int, W: int, pm: int, seed: int = 7):
+    """(words uint32[B, W], lengths int32[B]) of ops.minimizers
+    ._syncmer_kernel: random reads of 0, k - 1, k, 17, 33, 55 and 90 bases,
+    16 W - 5 and 16 W; a read of a repeated 37-base motif (repeated k-mers:
+    ties in key); and, where umax_key_kmer(k) finds one, a read holding
+    that k-mer three times (a selected position of key UINT32_MAX) and a
+    read of 16 W - 3 bases holding it once past its middle.  The words past
+    each read are zero, as ReadSet.block_words pads."""
+    rng = np.random.default_rng(seed + 31 * k + W)
+    L = 16 * W
+    lens = [0, k - 1, k, 17, 33, 55, 90, L - 5, L]
+    reads = [rng.integers(0, 4, n).astype(np.uint8) for n in lens]
+    motif = rng.integers(0, 4, 37).astype(np.uint8)
+    reads.append(np.tile(motif, -(-(L - 9) // 37))[: L - 9])
+    planted = umax_key_kmer(k)
+    if planted is not None:
+        r = rng.integers(0, 4, min(L, 200)).astype(np.uint8)
+        for p in (30, 70, 140):
+            if p + k <= len(r):
+                r[p : p + k] = planted
+        reads.append(r)
+        r = rng.integers(0, 4, L - 3).astype(np.uint8)
+        p = (L - 3) // 2 + 11
+        r[p : p + k] = planted
+        reads.append(r)
+    words = np.stack([_pack_codes(r, W) for r in reads])
+    return words, np.asarray([len(r) for r in reads], np.int32)
+
+
+LONG_READ_W = 16384  # index words a read once any read exceeds 131,072 bases
+
+
+def verify_pre_long_case(seed: int = 21):
+    """verify_pre_edge_case's (planes, a_idx, b_idx, flipped, n_rows) for a
+    read set whose reads exceed 131,072 bases, so the index's W is
+    LONG_READ_W (n_rows 262,144): four reads of 135-170 kb at 5% error from
+    one 200 kb genome (circular: they overlap) and a 2 kb read, their plain index at k 16 (Pm
+    2,048).  The pairs, 3 chunks of 4: overlapping long reads both ways,
+    the short read against long reads it overlaps and one it does not, a
+    long read against the short one, the padding row against a long read,
+    a long read against itself; flipped drawn at random (the strand vote
+    picks it, or it is given)."""
+    from canu_tpu_torch.ops.minimizers import build_read_index
+    from canu_tpu_torch.sim.simulate import random_genome, simulate_reads
+    from canu_tpu_torch.stores.readset import ReadSet
+
+    g = random_genome(200_000, seed=seed)
+    long_rs, _ = simulate_reads(g, coverage=2.6, mean_len=150_000, min_len=135_000,
+                                max_len=170_000, error_rate=0.05, seed=seed + 1)
+    reads = [long_rs.get_codes(i) for i in range(1, 5)] + [g[1000:3000].astype(np.uint8)]
+    rs = ReadSet.from_codes_list(reads)
+    idx = build_read_index(rs, k=16, device="cpu")
+    assert idx.words.shape[1] == LONG_READ_W, idx.words.shape
+    planes = {"words": idx.words.numpy().astype(np.uint32), "length": idx.length.numpy(),
+              "mker": idx.mker.numpy().astype(np.uint32), "mpos": idx.mpos.numpy(),
+              "mstr": idx.mstr.numpy(), "n_reads": idx.n_reads, "pm": idx.pm}
+    pad = idx.n_reads
+    pairs = [(0, 1), (1, 0), (0, 2), (2, 1), (1, 3), (3, 2), (4, 1), (pad, 3), (4, 0), (2, 4),
+             (4, 2), (3, 3)]
+    flipped = np.random.default_rng(seed).random(len(pairs)) < 0.5
+    return (planes, np.asarray([a for a, _ in pairs], np.int64),
+            np.asarray([b for _, b in pairs], np.int64), flipped, 16 * LONG_READ_W)
