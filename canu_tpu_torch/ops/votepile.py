@@ -13,15 +13,18 @@ then call a per-column plurality.
     call (one launch of kernel K4 on the card) for a group of chunks;
   * each job's votes are packed into one int32 code a template column,
     shifted to template coordinates, expanded to the 15 channels and
-    folded into the block's float32 accumulator [G, 15, Lt] with one
-    product (slot one-hot^T @ contributions);
+    folded into the block's float32 accumulator [G, 15, Lt]: on the card
+    by kernel K9, one launch a DP group (atomic adds in place,
+    ops/kernels/votepile_cuda.py), elsewhere by _fold_chunk, a chunk at a
+    time with one product (slot one-hot^T @ contributions);
   * the plurality / RED decision runs on the device and returns one
     packed value per template column.
 
 Counts are exact: a job's weight is rounded to bfloat16 (as canu_tpu's
-cast does), so every term of the fold has at most 12 significant bits
-and every sum stays below 2^24; float32 adds them exactly in any order,
-and the votes equal canu_tpu's.
+cast does), so every term of the fold is a multiple of 2^-7 with at most
+12 significant bits, and while a column's sum stays below 2^17 float32
+adds them exactly in any order: the votes equal canu_tpu's (K9's wrapper
+raises on weights that break this).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 
 from .hashing import u32_tensor
 from .kmer import unpack_bases
+from .kernels import votepile_cuda
 from .kernels.trace_cuda import group_jobs, scratch_bytes
 from .trace import align_positions_lean
 
@@ -135,7 +139,11 @@ def _fold_chunk(
     cols: torch.Tensor,  # int32[9, B]: the chunk's job columns, weight bitcast
     n_rows: int, Lt: int, G: int,
 ) -> torch.Tensor:
-    """Fold one chunk's votes into the block."""
+    """Fold one chunk's votes into the block: the CPU's fold, and the
+    reference kernel K9 is held to."""
+    global PLAIN_CUDA_FOLDS
+    if votes.is_cuda:
+        PLAIN_CUDA_FOLDS += 1
     B = js.shape[0]
     dev = votes.device
     i32 = torch.int32
@@ -199,6 +207,23 @@ def _fold_chunk(
     onehot = (slot[:, None] == torch.arange(G, dtype=i32, device=dev)[None, :]).to(torch.float32)
     delta = (onehot * w[:, None]).T @ contrib.reshape(B, N_CH * Lt)
     return votes + delta.reshape(G, N_CH, Lt)
+
+
+def _fold_group(votes, js, t_sub, e_sub, cols, host_cols, n_rows: int, Lt: int, G: int, B: int,
+                load) -> torch.Tensor:
+    """Fold a DP group's votes into the block (its chunks of B jobs in
+    order): one launch of kernel K9 on CUDA tensors, into votes in place
+    (host_cols the group's columns on the host, load the block's slot
+    bounds: ops/kernels/votepile_cuda.py), _fold_chunk chunk by chunk
+    elsewhere.  Returns the votes."""
+    if votes.is_cuda:
+        votepile_cuda.vote_fold(votes, js, t_sub, e_sub, cols.contiguous(), n_rows,
+                                (1 << _log_rounds(Lt)) - 1, host_cols, load)
+        return votes
+    for lo in range(0, cols.shape[1], B):
+        votes = _fold_chunk(votes, js[lo : lo + B], t_sub[lo : lo + B], e_sub[lo : lo + B],
+                            cols[:, lo : lo + B], n_rows, Lt, G)
+    return votes
 
 
 def _template_codes(t_words, t_lengths, t_idx, Lt: int):
@@ -352,8 +377,10 @@ def group_columns(packed: torch.Tensor, c0: int, k: int) -> torch.Tensor:
 _COL_FIELDS = ("t_idx", "e_idx", "t_bgn", "t_span", "e_lo", "e_span",
                "flipped", "slot", "weight")
 
-# chunks, jobs and DP groups run by pile_votes (counters the chip check reads)
-CHUNKS = JOBS = GROUPS = 0
+# chunks, jobs and DP groups run by pile_votes, and the plain fold's calls
+# on CUDA tensors (counters the chip check reads; the last stays 0 on the
+# path)
+CHUNKS = JOBS = GROUPS = PLAIN_CUDA_FOLDS = 0
 
 
 def pack_columns(jobs: VoteJobs, B: int) -> np.ndarray:
@@ -384,9 +411,9 @@ def pile_votes(
     """Run all evidence jobs of one template block; returns the device
     votes f32[G, 15, Lt].  Every job runs at n_rows = Lt, in chunks of
     chunk_jobs(Lt) jobs; the chunks' windows and DP run a group of
-    group_chunks of them at a time (one DP call), then each chunk of the
-    group is folded in, in order; the planes' device is the device of the
-    work."""
+    group_chunks of them at a time (one DP call), then the group is folded
+    in (_fold_group: one launch of kernel K9 on the card, its chunks in
+    order elsewhere); the planes' device is the device of the work."""
     global CHUNKS, JOBS, GROUPS
     dev = t_words.device
     votes = torch.zeros((G, N_CH, Lt), dtype=torch.float32, device=dev)
@@ -396,17 +423,18 @@ def pile_votes(
     B = chunk_jobs(n_rows)
     band_c = min(band if band is not None else 256, 256)
     k = group_chunks(band_c, n_rows, B, dev)
-    packed = torch.from_numpy(pack_columns(jobs, B)).to(dev)
+    host = torch.from_numpy(pack_columns(jobs, B))
+    packed = host.to(dev)
+    load = np.zeros(G)  # K9's bound on each slot's column sums (votepile_cuda.add_load)
     JOBS += len(jobs)
     for c0 in range(0, packed.shape[0], k):
         cols = group_columns(packed, c0, k)
         js, t_sub, e_sub = _group_paths(t_words, t_lengths, e_words, e_lengths, cols, band_c,
                                         n_rows, ends_free)
         GROUPS += 1
-        for lo in range(0, cols.shape[1], B):
-            votes = _fold_chunk(votes, js[lo : lo + B], t_sub[lo : lo + B], e_sub[lo : lo + B],
-                                cols[:, lo : lo + B], n_rows, Lt, G)
-            CHUNKS += 1
+        votes = _fold_group(votes, js, t_sub, e_sub, cols, group_columns(host, c0, k).numpy(),
+                            n_rows, Lt, G, B, load)
+        CHUNKS += cols.shape[1] // B
     return votes
 
 

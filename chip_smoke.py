@@ -8,8 +8,9 @@ Phases (each prints its results; any failure exits non-zero):
   1 device    require CUDA; print the card's name and power limit
   2 build     compile kernels K1 (csrc/myers_tile.cu), K2/K3
               (csrc/banded_extend.cu), K4 (csrc/vote_dp.cu), K5/K6
-              (csrc/minhash.cu) and K7/K8 (csrc/verify.cu) from this
-              checkout, one nvcc each, in parallel
+              (csrc/minhash.cu), K7/K8 (csrc/verify.cu) and K9
+              (csrc/vote_fold.cu) from this checkout, one nvcc each, in
+              parallel
   3 kernel    each kernel against its plain PyTorch loop on the card, bit
               for bit: (a) K1's six outputs on edge cases (every window
               edge of its A, B and shift streams), (b) K1 on 256 real
@@ -51,7 +52,18 @@ Phases (each prints its results; any failure exits non-zero):
               block of phases 4b, 6 and 7, the first group of 11a's and
               11b's OEA adjust (orient=False), and the first group, every
               16th after it and each index's first block of phases 9, 15
-              and 16
+              and 16, (g) K9's votes against the plain fold
+              (ops.votepile._fold_chunk, chunk by chunk) on
+              tests/torch_cases.py's fold cases (FOLD_CASES: t_bgn's high
+              bits, deleted runs over 15 rows and at the last row, dj >= 3,
+              paths at 0 and past e_span and W_e, rows past t_span, pad
+              jobs, a slot off the block, 64 to 8,192 rows;
+              fold_exact_case: 256 jobs voting one column at count 15 and
+              the largest weight) and a group of 17 chunks at the
+              correction's geometry, each one launch into votes already
+              holding votes; then on the groups the main path folded:
+              the first DP group of phases 10 and 15, and
+              phase 16's first RED and first polish group (held_fold)
   4 slice     meryl + overlap ("cor") stages on the bench.py read set
               (1,025 reads, 3.64 Mb) in a temporary directory; K1 must
               have launched and the plain loop must not have run on the
@@ -146,9 +158,10 @@ Phases (each prints its results; any failure exits non-zero):
               launch, one chapter's launches and device busy share
               (torch.profiler; table in
               chiprun_out/profile_correct.txt) and the device memory peak
-              over the correction.  The vote engine's DP is kernel K4 (the
-              JAX package's is a jitted XLA program, with no Pallas
-              kernel); its windows and fold are PyTorch ops
+              over the correction.  The vote engine's DP is kernel K4 and
+              its fold kernel K9, once per DP group (the JAX package's are
+              jitted XLA programs, with no Pallas kernel); its windows are
+              PyTorch ops
   11 assemble run_pipeline from a FASTA of simulated corrected reads (the
               bench shapes at 1.5% error), Config() + genomeSize, twice,
               each in a directory of its own with the counts set to 0
@@ -291,6 +304,7 @@ Phases (each prints its results; any failure exits non-zero):
               writes, their concatenation and the re-read that counts
               the records), templates, blocks, chunks, DP groups, the
               jobs of each K4 launch, K4's bound summed over the DP calls,
+              K9 on every group by CUDA events beside the summed bound,
               K5 over the whole sketch (CUDA events on each launch) beside
               its summed bound, and the device memory peak over meryl, the
               verify and the correction
@@ -303,9 +317,10 @@ Phases (each prints its results; any failure exits non-zero):
               consensus: the plurality polish, outputs) at E. coli scale.
               K1 must have launched in the obt and utg overlaps, the
               adjust, align_links (where the GFA has a link) and the judge,
-              K4 once per DP call, no K2 or K3 launch and no plain loop or
-              plain DP on the card; RED's and the polish's first DP calls
-              held to the plain DP on dp_subset's jobs.  Each stage is held
+              K4 once per DP call, K9 once per DP group (only in RED and
+              the polish), no K2 or K3 launch and no plain loop, plain DP
+              or plain fold on the card; RED's and the polish's first DP
+              calls held to the plain DP on dp_subset's jobs.  Each stage is held
               to ecoli_assembly_reference.json (the JAX package on the
               CPU, scripts/torch_ecoli_assembly_reference.py) on its own
               input as the card made it: each input's digest first (the
@@ -326,13 +341,16 @@ Phases (each prints its results; any failure exits non-zero):
               the overlaps' and oea's sub-walls, meryl's route, each
               step's device memory peak, K1 per drive (obt, utg, adjust,
               align_links, judge) by CUDA events beside its bound, RED's
-              and the polish's DP by CUDA events beside their summed
-              bounds, and each verify's profile (ops.align.LAST_PROFILE:
-              pre_s, extend_s, post_s, index_s beside dispatch_s)
+              and the polish's DP and K9 by CUDA events beside their summed
+              bounds, RED's host enqueue of the votes, and each verify's
+              profile (ops.align.LAST_PROFILE: pre_s, extend_s, post_s,
+              index_s beside dispatch_s)
 Every main-path run of phases 4-16 (4, 4b, 4c, 6, 7, 9, 10, 11, 14a, 14b,
 15, 16) must launch K7 and K8 and run neither plain version on the card;
 drive_stage drops the read set's cached index first, so that each drive
-builds its own.
+builds its own.  In each of them K9 launches once per DP group of the
+vote engine (none where it does not vote) and the plain fold never runs
+on the card.
 
 Each kernel's bound is the larger of its operations over the card's
 32-bit integer rate and its bytes over the memory rate (INT32_OPS_S,
@@ -347,7 +365,8 @@ and the windows on the read, SKETCH_*_OPS; match_bound the (cell, slot)
 pairs a block pair needs, MATCH_*_OPS; pre_bound each pair's three sorts,
 n log2 n compares each, and the elements written, VERIFY_PRE_OPS;
 syncmer_bound the s-mers and positions on the reads, the selected keys
-and their sort, SYNCMER_OPS).  The bytes are each input the kernel needs read once
+and their sort, SYNCMER_OPS; fold_bound the live rows of the jobs that
+vote, FOLD_ROW_OPS).  The bytes are each input the kernel needs read once
 and each output written once.  The plain loops' own per-row counts
 (plain_row_ops) are printed beside, as a second figure.
 
@@ -449,7 +468,7 @@ SYNCMER_OPS = 16  # each s-mer on the read: the rolling forward and reverse
 #   compare and the on-read test; each selected position its key
 #   (SKETCH_KEY_OPS, or SKETCH_KEY2_OPS at k > 16) and its mix32 8; the
 #   sort of the selected keys n log2 n compares; each element written 1
-# the vote fold (ops.votepile._fold_chunk, PyTorch ops), for its bound:
+# K9 (the vote fold, ops.votepile._fold_chunk's work), for its bound:
 FOLD_ROW_OPS = 25  # each (job, row): the row's step, the live and active
 #   tests 4, three character gathers 3, four vote masks 8, the deletion run
 #   (new-run test, prefix count, run end, total, clamp) 6, the code's
@@ -940,22 +959,25 @@ def profiled(busy: dict, tables: list):
 
 def reset_counts() -> None:
     """Set every kernel's launch count, the plain loops', the plain DP's, the
-    plain sketch's, match's, anchor step's and syncmer selection's CUDA
-    counts and the calls of the host k-mer counter, the hash-join and the
-    spill build to 0."""
+    plain sketch's, match's, anchor step's, syncmer selection's and fold's
+    CUDA counts, the vote engine's DP groups and the calls of the host
+    k-mer counter, the hash-join and the spill build to 0."""
     from canu_tpu_torch.ops import align as AL
     from canu_tpu_torch.ops import kmer as KM
     from canu_tpu_torch.ops import minhash as MH
     from canu_tpu_torch.ops import minimizers as MZ
     from canu_tpu_torch.ops import myers as MY
     from canu_tpu_torch.ops import trace as TT
+    from canu_tpu_torch.ops import votepile as VP
     from canu_tpu_torch.ops.kernels import extend_cuda as EX
     from canu_tpu_torch.ops.kernels import minhash_cuda as MK
     from canu_tpu_torch.ops.kernels import myers_cuda as K1
     from canu_tpu_torch.ops.kernels import trace_cuda as K4
     from canu_tpu_torch.ops.kernels import verify_cuda as VC
+    from canu_tpu_torch.ops.kernels import votepile_cuda as K9
     from canu_tpu_torch.stores import overlaps as OV
 
+    K9.LAUNCHES = VP.PLAIN_CUDA_FOLDS = VP.GROUPS = 0
     K1.LAUNCHES = EX.WARP_LAUNCHES = EX.BLOCK_LAUNCHES = K4.LAUNCHES = K4.JOBS_LAUNCHED = 0
     MK.SKETCH_LAUNCHES = MK.MATCH_LAUNCHES = MK.COMPACT_LAUNCHES = 0
     VC.PRE_LAUNCHES = VC.SYNCMER_LAUNCHES = 0
@@ -972,17 +994,20 @@ def read_counts() -> dict:
     from canu_tpu_torch.ops import minimizers as MZ
     from canu_tpu_torch.ops import myers as MY
     from canu_tpu_torch.ops import trace as TT
+    from canu_tpu_torch.ops import votepile as VP
     from canu_tpu_torch.ops.kernels import extend_cuda as EX
     from canu_tpu_torch.ops.kernels import minhash_cuda as MK
     from canu_tpu_torch.ops.kernels import myers_cuda as K1
     from canu_tpu_torch.ops.kernels import trace_cuda as K4
     from canu_tpu_torch.ops.kernels import verify_cuda as VC
+    from canu_tpu_torch.ops.kernels import votepile_cuda as K9
     from canu_tpu_torch.stores import overlaps as OV
 
     return {"K1": K1.LAUNCHES, "K2": EX.WARP_LAUNCHES, "K3": EX.BLOCK_LAUNCHES,
             "K4": K4.LAUNCHES, "K5": MK.SKETCH_LAUNCHES, "K6": MK.MATCH_LAUNCHES,
             "K6_compact": MK.COMPACT_LAUNCHES, "K7": VC.PRE_LAUNCHES,
-            "K8": VC.SYNCMER_LAUNCHES, "plain_myers_segments": MY.PLAIN_CUDA_SEGMENTS,
+            "K8": VC.SYNCMER_LAUNCHES, "K9": K9.LAUNCHES, "vote_groups": VP.GROUPS,
+            "plain_fold": VP.PLAIN_CUDA_FOLDS, "plain_myers_segments": MY.PLAIN_CUDA_SEGMENTS,
             "plain_extend_rows": AL.PLAIN_CUDA_ROWS, "plain_dp": TT.PLAIN_CUDA_CALLS,
             "plain_sketch": MH.PLAIN_CUDA_SKETCHES, "plain_match": MH.PLAIN_CUDA_MATCHES,
             "plain_pre": AL.PLAIN_CUDA_PRE, "plain_syncmer": MZ.PLAIN_CUDA_SYNCMER,
@@ -992,10 +1017,10 @@ def read_counts() -> dict:
 
 def no_plain(counts: dict) -> bool:
     """No plain loop (Myers segment, INF-walled row), no plain DP, no plain
-    sketch, match, anchor step or syncmer selection ran on the card."""
+    sketch, match, anchor step, syncmer selection or fold ran on the card."""
     return (counts["plain_myers_segments"] == counts["plain_extend_rows"] == counts["plain_dp"]
             == counts["plain_sketch"] == counts["plain_match"] == counts["plain_pre"]
-            == counts["plain_syncmer"] == 0)
+            == counts["plain_syncmer"] == counts["plain_fold"] == 0)
 
 
 def check_minhash(phase: str, counts: dict, match: bool) -> None:
@@ -1016,6 +1041,16 @@ def check_dp(phase: str, counts: dict, dp_calls: int) -> None:
     check(dp_calls > 0, f"{phase}: the vote engine's DP never ran")
     check(counts["K4"] == dp_calls, f"{phase}: kernel K4 launched {counts['K4']} times for "
           f"{dp_calls} DP calls")
+
+
+def check_fold(phase: str, counts: dict) -> None:
+    """The vote engine folded (a phase that votes): kernel K9 launched
+    exactly once per DP group of pile_votes, the plain fold never on the
+    card."""
+    check(counts["vote_groups"] > 0, f"{phase}: the vote engine folded no DP group")
+    check(counts["K9"] == counts["vote_groups"], f"{phase}: kernel K9 launched {counts['K9']} "
+          f"times for {counts['vote_groups']} DP groups")
+    check(counts["plain_fold"] == 0, f"{phase}: the plain fold ran on the card")
 
 
 def check_store(phase: str, st, prof: dict, fdig: str, ref: dict) -> None:
@@ -2047,36 +2082,163 @@ def ecoli_drive(dev, card: str) -> dict:
             "staging_estimate_bytes": est, "phase_s": time.time() - t_phase}
 
 
-def fold_bound(args) -> dict:
-    """The vote fold's bound on one chunk (ops.votepile._fold_chunk's
-    inputs): FOLD_ROW_OPS and one a channel (15) for each live (job, row);
-    its bytes the job paths, template and evidence windows and columns read
-    once, and the block's votes read and written once."""
-    import torch
+def fold_bound(G: int, Lt: int, n_rows: int, W_e: int, host_cols) -> dict:
+    """Kernel K9's bound on one launch (a DP group's fold), from its jobs'
+    host columns: FOLD_ROW_OPS and one a channel (15) for each live (job,
+    row), a row below min(t_span, n_rows) of a job that votes (weight not
+    0 in bfloat16, slot on the block); its bytes each such job's path up
+    to its last live row, its live template rows, its evidence window and
+    its five columns read once, and the block's votes read and written
+    once."""
+    import numpy as np
 
-    votes, js, t_sub, e_sub, cols = args[:5]
-    n_rows = args[5]
-    live = int(torch.clamp(cols[3].to(torch.int64), 0, n_rows).sum())
+    from canu_tpu_torch.ops.kernels import votepile_cuda as K9
+
+    w = K9.rounded_weights(host_cols[8])
+    slot = host_cols[7]
+    votes = (host_cols[3] > 0) & (w != 0) & (slot >= 0) & (slot < G)
+    rows = np.minimum(host_cols[3][votes].astype(np.int64), n_rows)
+    live = int(rows.sum())
     ops = (FOLD_ROW_OPS + 15) * live
-    nbytes = sum(x.numel() * x.element_size() for x in (js, t_sub, e_sub, cols))
-    out = bound(ops, nbytes + 2 * votes.numel() * votes.element_size())
+    nbytes = 4 * (live + len(rows)) + live + W_e * len(rows) + 20 * len(rows)
+    out = bound(ops, nbytes + 2 * 4 * G * 15 * Lt)
     out["live_rows"] = live
     return out
+
+
+def fold_metered(real, ev: list, keep: dict | None = None, key=lambda args: "first"):
+    """A stand-in for ops.votepile._fold_group that records CUDA events
+    around each call into ev with its geometry and host columns (for
+    fold_bound), and keeps, for each key(args) not yet in keep, the call's
+    inputs with the votes cloned before and after it (held_fold)."""
+    import torch
+
+    def call(*args):
+        votes, js, t_sub, e_sub, cols, host_cols, n_rows, Lt, G, B = args[:10]
+        k = key(args) if keep is not None else None
+        before = votes.clone() if k is not None and k not in keep else None
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real(*args)
+        e1.record()
+        ev.append((e0, e1, (G, Lt, n_rows, e_sub.shape[1], host_cols, -(-js.shape[0] // B))))
+        if before is not None:
+            keep[k] = (before, js, t_sub, e_sub, cols, host_cols, n_rows, Lt, G, B, out.clone())
+        return out
+
+    return call
+
+
+def fold_events(ev: list, card: str, tag: str, what: str) -> dict:
+    """K9 over a drive's launches by CUDA events (ms a launch, a chunk and
+    in all) beside the summed bound of every launch (fold_bound)."""
+    ms = [a.elapsed_time(b) for a, b, _ in ev]
+    chunks = sum(g[5] for _, _, g in ev)
+    bds = [fold_bound(*g[:5]) for _, _, g in ev]
+    tb = sum(b["bound_ms"] for b in bds)
+    out = {"launches": len(ms), "chunks": chunks, "ms": sum(ms),
+           "ms_a_launch": sum(ms) / max(len(ms), 1), "ms_a_chunk": sum(ms) / max(chunks, 1),
+           "bound_ms": tb, "bound_share": tb / max(sum(ms), 1e-9)}
+    log(f"[{tag} timing] {card}: K9 (the vote fold) over {what}: {len(ms)} launches, {chunks} "
+        f"chunks, {sum(ms):.3f} ms by CUDA events ({out['ms_a_launch']:.3f} ms a launch, "
+        f"{out['ms_a_chunk']:.4f} ms a chunk); bound {tb:.3f} ms summed over the launches "
+        f"(fold_bound: {sum(b['live_rows'] for b in bds)} live rows, "
+        f"{sum(b['bytes'] for b in bds):.3e} bytes), {100 * out['bound_share']:.1f}% of it")
+    return out
+
+
+def held_fold(name: str, kept, card: str, reps: int = 5) -> dict:
+    """Kernel K9 held bit for bit to the plain fold (ops.votepile
+    ._fold_chunk, chunk by chunk) on a group the main path folded, from the
+    votes it held before: the main path's result and a fresh launch both
+    equal the plain votes.  Then K9 by CUDA events (mean of reps launches
+    into a scratch copy) and the plain fold's one run, beside fold_bound."""
+    import numpy as np
+    import torch
+
+    from canu_tpu_torch.ops import votepile as VP
+    from canu_tpu_torch.ops.kernels import votepile_cuda as K9
+
+    before, js, t_sub, e_sub, cols, host_cols, n_rows, Lt, G, B, after = kept
+    plain = before.clone()
+
+    def fold_plain():
+        v = plain
+        for lo in range(0, js.shape[0], B):
+            v = VP._fold_chunk(v, js[lo : lo + B], t_sub[lo : lo + B], e_sub[lo : lo + B],
+                               cols[:, lo : lo + B], n_rows, Lt, G)
+        return v
+
+    plain, plain_ms = once_ms(fold_plain)
+    mask = (1 << VP._log_rounds(Lt)) - 1
+    fresh = before.clone()
+    l0 = K9.LAUNCHES
+    K9.vote_fold(fresh, js, t_sub, e_sub, cols.contiguous(), n_rows, mask, host_cols,
+                 np.zeros(G))
+    check(K9.LAUNCHES == l0 + 1, f"{name}: K9 launched {K9.LAUNCHES - l0} times for one group")
+    torch.cuda.synchronize()
+    err = max(float((plain - after).abs().max()), float((plain - fresh).abs().max()))
+    check(err == 0, f"{name}: kernel K9 and the plain fold differ (max |diff| {err})")
+    scratch = before.clone()
+    ms = cuda_ms(lambda: K9.vote_fold(scratch, js, t_sub, e_sub, cols.contiguous(), n_rows, mask,
+                                      host_cols, np.zeros(G)), reps)
+    chunks = -(-js.shape[0] // B)
+    bd = fold_bound(G, Lt, n_rows, e_sub.shape[1], host_cols)
+    log(f"[{name.split()[0]} fold] {card}: {name}: one K9 launch of {js.shape[0]} jobs ({chunks} "
+        f"chunks of {B}) x {n_rows} rows into votes [{G}, 15, {Lt}], bit-equal to the plain fold "
+        f"(the main path's votes and a fresh launch); K9 {ms:.3f} ms (mean of {reps}), "
+        f"{ms / chunks:.4f} ms a chunk; the plain fold {plain_ms:.1f} ms "
+        f"({plain_ms / chunks:.3f} ms a chunk); bound {bd['bound_ms']:.4f} ms "
+        f"({bd['ops']:.3e} operations over {bd['live_rows']} live rows, {bd['bytes']:.3e} bytes; "
+        f"bound by {bd['bound_by']}; {100 * bd['bound_ms'] / ms:.1f}% of it)")
+    return {"err": err, "jobs": int(js.shape[0]), "chunks": chunks, "ms": ms,
+            "ms_a_chunk": ms / chunks, "plain_ms": plain_ms, "bound": bd}
+
+
+def fold_edge_checks(dev, card: str) -> float:
+    """Phase 3g: K9 against the plain fold on tests/torch_cases.py's fold
+    cases (FOLD_CASES, fold_exact_case), one launch each into votes that
+    already hold votes, and at the correction's geometry (a group of 17
+    chunks of 256 jobs, 2,048 rows, G 256, W_e 3,072)."""
+    import numpy as np
+    import torch
+
+    from canu_tpu_torch.ops import votepile as VP
+    from torch_cases import FOLD_CASES, fold_case, fold_exact_case
+
+    cases = [(name, fold_case(sum(map(ord, name)), *c), c[1], c[3], 64)
+             for name, c in FOLD_CASES.items()]
+    cases.append(("exact", fold_exact_case(256, 256, 128), 256, 8, 64))
+    cases.append(("real 17 x 256 jobs", fold_case(117, 17 * 256, 2048, 256, 256), 2048, 256,
+                  256))
+    err = 0.0
+    for name, (js, t_sub, e_sub, cols), n_rows, G, B in cases:
+        before = torch.from_numpy((np.random.default_rng(3).integers(0, 4, (G, 15, n_rows))
+                                   * 0.25).astype(np.float32)).to(dev)
+        t = [torch.from_numpy(x).to(dev) for x in (js, t_sub, e_sub, cols)]
+        host = np.ascontiguousarray(cols)
+        after = VP._fold_group(before.clone(), *t, host, n_rows, n_rows, G, B, np.zeros(G))
+        r = held_fold(f"3g {name}", (before, *t, host, n_rows, n_rows, G, B, after), card,
+                      reps=1)
+        err = max(err, r["err"])
+    return err
 
 
 def correct_drive(dev, card: str) -> dict:
     """Phase 10: the port's correction_phase from a FASTA of the raw bench
     reads, Config() + genomeSize=300k, in a directory of its own, the
     counts set to 0 just before and read just after.  K1 must have launched
-    (the cor overlap stage), K4 once per DP call, and no other kernel, plain
-    loop or plain DP on the card, and at least one K4 launch of 4 chunks
-    or more (a DP call takes a group of chunks); the first three DP calls'
-    inputs are kept for phase 12c.  Holds the gatekeeper store, the cor
-    store and each of the nine blocks of corrected reads
+    (the cor overlap stage), K4 once per DP call and K9 once per DP group,
+    and no other kernel, plain loop, plain DP or plain fold on the card,
+    and at least one K4 launch of 4 chunks or more (a DP call takes a group
+    of chunks); the first three DP calls' inputs are kept for phase 12c,
+    and K9 is held to the plain fold on the first DP group (held_fold).
+    Holds the gatekeeper store, the cor store and each of the nine blocks
+    of corrected reads
     (correction_reference.json) against the JAX package's; the FASTA must be non-empty with
     every record <read>_corrN.  Prints the stage walls and the correction's
-    parts: selection and decode on the host clock, the DP, the windows of
-    each group and the fold of each chunk and the finalize by CUDA events,
+    parts: selection and decode on the host clock, the DP, the windows and
+    the fold (K9) of each group and the finalize by CUDA events,
     the fetch of the packed rows (host clock; it waits for the device); the
     chunks, groups and jobs and the jobs of each K4 launch; the first
     pile_votes call (a chapter of chunks) under torch.profiler (its
@@ -2113,15 +2275,18 @@ def correct_drive(dev, card: str) -> dict:
 
     # instrumentation, each undone below: every block's reads as the phase
     # gets them, CUDA events around the DP, each group's windows and DP,
-    # each chunk's fold and each finalize, the first chapter's inputs, the
-    # memory peak from the first block on
+    # each group's fold (K9) and each finalize, the first chapter's inputs,
+    # the first group's fold inputs, the memory peak from the first block
+    # on
     blocks: dict = {}
-    ev: dict = {"dp": [], "group": [], "fold": [], "finalize": []}
+    ev: dict = {"dp": [], "group": [], "finalize": []}
+    fold_ev: list = []
+    fold_kept: dict = {}
     first_chapter: list = []
     dp_jobs: list = []  # the jobs each DP call launched K4 on (K4.JOBS_LAUNCHED)
     mem: dict = {}
     real = {"blocks": F.correct_reads_blocks, "dp": VP.align_positions_lean,
-            "group": VP._group_paths, "fold": VP._fold_chunk, "finalize": F._finalize_plurality,
+            "group": VP._group_paths, "fold": VP._fold_group, "finalize": F._finalize_plurality,
             "chapter": F.pile_votes}
 
     def timed(name):
@@ -2153,16 +2318,9 @@ def correct_drive(dev, card: str) -> dict:
         dp_jobs.append(K4.JOBS_LAUNCHED - j0)
         return out
 
-    fold_first: list = []  # the first two folds' inputs: the second's bound
-    fold_timed = timed("fold")
-
-    def fold(*args, **kw):
-        if len(fold_first) < 2:
-            fold_first.append(args)
-        return fold_timed(*args, **kw)
-
     F.correct_reads_blocks, VP.align_positions_lean = capture, dp
-    VP._group_paths, VP._fold_chunk = timed("group"), fold
+    VP._group_paths = timed("group")
+    VP._fold_group = fold_metered(real["fold"], fold_ev, fold_kept)
     F._finalize_plurality, F.pile_votes = timed("finalize"), chapter
     try:
         reset_counts()
@@ -2175,7 +2333,7 @@ def correct_drive(dev, card: str) -> dict:
         counts = read_counts()
     finally:
         F.correct_reads_blocks, VP.align_positions_lean = real["blocks"], real["dp"]
-        VP._group_paths, VP._fold_chunk = real["group"], real["fold"]
+        VP._group_paths, VP._fold_group = real["group"], real["fold"]
         F._finalize_plurality, F.pile_votes = real["finalize"], real["chapter"]
     chunk_b = VP.chunk_jobs(F.VOTE_SEG)
     log(f"[10 correct] {card}: correction_phase from a FASTA of {raw.n_reads} reads: "
@@ -2188,6 +2346,8 @@ def correct_drive(dev, card: str) -> dict:
           f"10 correct: no K4 launch took 4 chunks or more (jobs a launch {dp_jobs})")
     check(no_plain(counts),
           "10 correct: a plain loop or the plain DP ran on the card during the phase")
+    check_fold("10 correct", counts)
+    check(len(fold_ev) == counts["K9"], "10 correct: K9 launches and timed calls differ")
     check_minhash("10 correct", counts, match=True)
 
     # the gatekeeper store and the cor store equal the JAX package's
@@ -2229,7 +2389,8 @@ def correct_drive(dev, card: str) -> dict:
     prof = dict(F.PROFILE)
     n_chunks, n_jobs, n_groups = VP.CHUNKS, VP.JOBS, VP.GROUPS
     parts = {"select_s": prof.get("select", 0.0), "dp_s": dev_s["dp"],
-             "windows_s": dev_s["group"] - dev_s["dp"], "fold_s": dev_s["fold"],
+             "windows_s": dev_s["group"] - dev_s["dp"],
+             "fold_s": sum(a.elapsed_time(b) for a, b, _ in fold_ev) / 1e3,
              "finalize_s": dev_s["finalize"], "fetch_s": prof.get("fetch", 0.0),
              "decode_s": prof.get("decode", 0.0), "enqueue_votes_s": prof.get("votes", 0.0),
              "block_write_s": prof.get("write", 0.0), "concat_s": prof.get("concat", 0.0),
@@ -2238,17 +2399,12 @@ def correct_drive(dev, card: str) -> dict:
         f"{k} {v:.3f}" for k, v in parts.items()) + f" (DP, windows, fold and finalize: CUDA "
         f"events; the rest host clock); {n_jobs} vote jobs in {n_chunks} chunks of {chunk_b}, "
         f"{n_groups} DP groups")
-    # the vote fold a chunk (PyTorch ops, the next kernel's groundwork): its
-    # time by CUDA events; the second chunk's (the first is the process's
-    # first fold) beside the bound of its work
-    fold_ms = [a.elapsed_time(b) for a, b in ev["fold"]]
-    fold_bd = fold_bound(fold_first[1])
-    log(f"[10 timing] {card}: vote fold (ops.votepile._fold_chunk, PyTorch ops) {len(fold_ms)} "
-        f"chunks, {sum(fold_ms) / len(fold_ms):.3f} ms a chunk (the first {fold_ms[0]:.3f} ms); "
-        f"the second chunk {fold_ms[1]:.3f} ms, its bound {fold_bd['bound_ms']:.4f} ms "
-        f"({fold_bd['ops']:.3e} operations over {fold_bd['live_rows']} live rows, "
-        f"{fold_bd['bytes']:.3e} bytes; bound by {fold_bd['bound_by']}; "
-        f"{100 * fold_bd['bound_ms'] / fold_ms[1]:.2f}% of it)")
+    # K9 over the phase's groups beside their bounds, then held bit for bit
+    # to the plain fold on the first group (12c's first full group) and
+    # timed there
+    fold = fold_events(fold_ev, card, "10", "the correction's DP groups")
+    del fold_ev
+    fold["held"] = held_fold("10 first DP group", fold_kept.pop("first"), card)
 
     # the first chapter (pile_votes call): its launches and the device's busy share
     args, kw = first_chapter[0]
@@ -2282,9 +2438,7 @@ def correct_drive(dev, card: str) -> dict:
         f"{mem['peak'] / 1e9:.3f} GB ({(mem['peak'] - mem['start']) / 1e9:.3f} GB above the "
         f"{mem['start'] / 1e9:.3f} GB allocated at its start)")
     log(f"[10 correct] phase wall {time.time() - t_phase:.1f} s")
-    return {"fold_ms_a_chunk": sum(fold_ms) / len(fold_ms), "fold_ms": fold_ms[:2],
-            "fold_bound": fold_bd,
-            "run_s": t_run, "stage_walls_s": walls, "parts_s": parts, "chunks": n_chunks,
+    return {"fold": fold, "run_s": t_run, "stage_walls_s": walls, "parts_s": parts, "chunks": n_chunks,
             "jobs": n_jobs, "groups": n_groups, "dp_calls": len(ev["dp"]), "dp_jobs": dp_jobs,
             "dp_chunks": dp_chunks, "chunk_jobs": chunk_b, "launches": counts,
             "chapter_chunks": ch_chunks, "chapter_wall_s": wall1,
@@ -2453,6 +2607,7 @@ def assemble_run(name: str, dev, card: str, genome_len: int, genome_seed: int, r
     check_dp(tag, counts, n_dp[0])
     check(no_plain(counts),
           f"{tag}: a plain loop or the plain DP ran on the card during the run")
+    check_fold(tag, counts)
     check_minhash(tag, counts, match=True)
     for step in ("obt-overlap", "utg-overlap", "adjust"):
         check(k1_in.get(step, 0) > 0, f"{tag}: kernel K1 never launched in {step}")
@@ -3488,6 +3643,7 @@ def grid_drive(dev, card: str, correct: dict) -> dict:
         check(c["K1"] > 0, f"14b: kernel K1 never launched on rank {r}")
         check_dp(f"14b rank {r}", c, x["dp_calls"])
         check(no_plain(c), f"14b: a plain loop or the plain DP ran on the card on rank {r}")
+        check_fold(f"14b rank {r}", c)
         check_minhash(f"14b rank {r}", c, match=True)
         c = x["allgather"]["launches"]
         check(c["K1"] > 0 and no_plain(c),
@@ -3537,7 +3693,8 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
     Config() + genomeSize=4.6 Mb, in a directory of its own, the counts set
     to 0 just before and read just after.  K1 must have launched (the cor
     overlap), K4 once per DP call with at least one launch of 4 chunks or
-    more, and no K2 or K3 launch, plain loop or plain DP on the card.  Holds
+    more, K9 once per DP group, and no K2 or K3 launch, plain loop, plain
+    DP or plain fold on the card.  Holds
     against ecoli_correction_reference.json: the gatekeeper store's reads
     and bases, the frequent table, the whole candidate set, the cor store's
     rows whose a_id is a sampled template (tests/torch_cases.py
@@ -3550,9 +3707,10 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
     as phase 10 prints them with the block files' writes, their
     concatenation and the re-read that counts the records, the templates,
     blocks, chunks, DP groups and the jobs of each K4 launch, the DP beside
-    projected_dp_s (phase 12c's projection from its full group), and the
-    device memory peak over meryl, over the verify and over the
-    correction."""
+    projected_dp_s (phase 12c's projection from its full group), K9 on
+    every group beside its summed bound (and held to the plain fold on the
+    first group), and the device memory peak over meryl, over the verify
+    and over the correction."""
     import numpy as np
     import torch
 
@@ -3598,17 +3756,19 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
     # instrumentation, each undone below: K1's events and bounds, the
     # memory peaks over meryl, the verify and the correction, the
     # candidates, the blocks' templates, CUDA events around the DP, each
-    # group's windows, each chunk's fold and each finalize, the first DP
-    # call's inputs
+    # group's windows, each group's fold (K9) and each finalize, the first
+    # DP call's inputs and the first group's fold inputs
     k1 = {"events": [], "bounds": [], "peak": 0, "bound_s": 0.0}
     mem: dict = {"verify": {}}
     pairs_seen, block_templates, dp_jobs, first_dp, dp_lens_seen = [], [], [], [], []
-    ev: dict = {"dp": [], "group": [], "fold": [], "finalize": []}
+    ev: dict = {"dp": [], "group": [], "finalize": []}
+    fold_ev: list = []
+    fold_kept: dict = {}
     sk_events, sk_args, join_args = [], [], []
     real = {"k1": K1.myers_rows_cuda, "verify": AL.verify_overlaps, "sketch": MK.sketch,
             "join": MH.find_candidates_join, "meryl": stages.meryl,
             "blocks": F.correct_reads_blocks, "vote_blocks": F.run_vote_blocks,
-            "dp": VP.align_positions_lean, "group": VP._group_paths, "fold": VP._fold_chunk,
+            "dp": VP.align_positions_lean, "group": VP._group_paths, "fold": VP._fold_group,
             "finalize": F._finalize_plurality}
 
     def peak_from_here() -> int:
@@ -3665,7 +3825,8 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
     AL.verify_overlaps = verify_metered(real["verify"], k1, mem["verify"], dev)
     MK.sketch, MH.find_candidates_join = sketch, join
     stages.meryl, F.correct_reads_blocks, F.run_vote_blocks = meryl, blocks, vote_blocks
-    VP.align_positions_lean, VP._group_paths, VP._fold_chunk = dp, timed("group"), timed("fold")
+    VP.align_positions_lean, VP._group_paths = dp, timed("group")
+    VP._fold_group = fold_metered(real["fold"], fold_ev, fold_kept)
     F._finalize_plurality = timed("finalize")
     # the first K7 group and every 16th after it, the index's first block
     real_pre, pre_kept = capture_pre(every=16)
@@ -3685,7 +3846,7 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
         MK.sketch = real["sketch"]
         F.correct_reads_blocks, F.run_vote_blocks = real["blocks"], real["vote_blocks"]
         VP.align_positions_lean, VP._group_paths = real["dp"], real["group"]
-        VP._fold_chunk, F._finalize_plurality = real["fold"], real["finalize"]
+        VP._fold_group, F._finalize_plurality = real["fold"], real["finalize"]
         AL._verify_pre = real_pre
         restore_syncmer(real_sy)
     verify_err = held_verify_calls("phase 15", pre_kept, sy_kept)
@@ -3702,6 +3863,8 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
           f"15 ecolicor: no K4 launch took 4 chunks or more (largest {max(dp_jobs)} jobs)")
     check(no_plain(counts),
           "15 ecolicor: a plain loop or the plain DP ran on the card during the phase")
+    check_fold("15 ecolicor", counts)
+    check(len(fold_ev) == counts["K9"], "15 ecolicor: K9 launches and timed calls differ")
     check_minhash("15 ecolicor", counts, match=False)
     check(counts["join_calls"] == 1, f"15 ecolicor: {counts['join_calls']} hash-joins, expected 1")
     check(len(k1["events"]) == counts["K1"], "15 ecolicor: K1 launches and timed calls differ")
@@ -3784,6 +3947,8 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
     log(f"[15 vote_dp] the first DP call: one K4 launch of {call[0][0].shape[0]} jobs, "
         f"bit-equal to the plain DP (j* and edits) on {n_held} of them (dp_subset); plain "
         f"{plain_ms:.1f} ms")
+    # K9 on the first DP group, held to the plain fold
+    fold_held = held_fold("15 first DP group", fold_kept.pop("first"), card)
 
     # where the time went
     with open(ctx.path("ecoli.stage-times.jsonl")) as fh:
@@ -3795,7 +3960,8 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
     prof = dict(F.PROFILE)
     parts = {"select_s": prof.get("select", 0.0), "setup_s": prof.get("setup", 0.0),
              "dp_s": dev_s["dp"], "windows_s": dev_s["group"] - dev_s["dp"],
-             "fold_s": dev_s["fold"], "finalize_s": dev_s["finalize"],
+             "fold_s": sum(a.elapsed_time(b) for a, b, _ in fold_ev) / 1e3,
+             "finalize_s": dev_s["finalize"],
              "enqueue_votes_s": prof.get("votes", 0.0), "fetch_s": prof.get("fetch", 0.0),
              "decode_s": prof.get("decode", 0.0), "block_write_s": prof.get("write", 0.0),
              "concat_s": prof.get("concat", 0.0), "count_s": prof.get("count", 0.0)}
@@ -3809,6 +3975,9 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
     vb = [vdp_bound_of(*x) for x in dp_lens_seen]
     del dp_lens_seen
     dp_bound_s = sum(b["bound_ms"] for b in vb) / 1e3
+    fold = fold_events(fold_ev, card, "15", "the correction's DP groups")
+    fold["held"] = fold_held
+    del fold_ev
     log(f"[15 timing] {card}: K4's bound summed over the {len(vb)} DP calls (vdp_bound): "
         f"{dp_bound_s:.3f} s ({sum(b['ops'] for b in vb):.3e} operations on "
         f"{sum(b['cells'] for b in vb)} cells, {sum(b['bytes'] for b in vb):.3e} bytes), "
@@ -3837,7 +4006,7 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
             "k1_bound_ms_per_drive": tb,
             "k1_bound_s": k1["bound_s"], "dp_err": err, "dp_plain_ms": plain_ms,
             "dp_s": dev_s["dp"], "dp_bound_s": dp_bound_s, "dp_bounds": vb,
-            "k5_ms": k5_ms, "k5_bound": k5_bound, "minhash_err": err_mh,
+            "k5_ms": k5_ms, "k5_bound": k5_bound, "minhash_err": err_mh, "fold": fold,
             "verify_err": verify_err, "memory": mem, "phase_s": time.time() - t_phase}
 
 
@@ -3959,7 +4128,7 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
             "join": MH.find_candidates_join, "red": OEA.detect_read_errors,
             "adjust": OEA.adjust_overlap_erates, "polish": CNS.polish_tig,
             "links": GFA.align_links, "dp": VP.align_positions_lean,
-            "bogus": BG._segment_identity, "write": FX.write_fasta}
+            "bogus": BG._segment_identity, "write": FX.write_fasta, "fold": VP._fold_group}
 
     def counted(key, fn):
         def call(*args, **kw):
@@ -4044,6 +4213,15 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
         dp_seen[where[0]].append(dp_lens(args))
         return out
 
+    # K9 by CUDA events in RED and in the polish, each one's first group kept
+    fold_ev: dict = {"red": [], "polish": []}
+    fold_kept: dict = {}
+    fold_in = {k: fold_metered(real["fold"], v, fold_kept, lambda args, k=k: k)
+               for k, v in fold_ev.items()}
+
+    def fold_where(*args):
+        return fold_in.get(where[0], real["fold"])(*args)
+
     class Lines(logging.Handler):
         def emit(self, rec):
             msgs.append(rec.getMessage())
@@ -4056,7 +4234,7 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
     stages.meryl, stages.overlap, MH.find_candidates_join = meryl, overlap, join
     OEA.detect_read_errors, OEA.adjust_overlap_erates = red, counted("adjust", real["adjust"])
     CNS.polish_tig, GFA.align_links = counted("polish", real["polish"]), links
-    VP.align_positions_lean, FX.write_fasta = dp, write_fasta
+    VP.align_positions_lean, FX.write_fasta, VP._fold_group = dp, write_fasta, fold_where
     # the first K7 group and every 16th after it, each index's first block,
     # each verify's profile
     real_pre, pre_kept = capture_pre(every=16)
@@ -4065,6 +4243,7 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
     try:
         reset_counts()
         VP.CHUNKS = VP.JOBS = VP.GROUPS = 0
+        F.PROFILE.clear()  # RED's block loop: its enqueue of the votes ("votes")
         t = time.time()
         run_pipeline(work, "ecoli", cfg, raw_reads=[fasta], device=dev)
         torch.cuda.synchronize()
@@ -4090,7 +4269,7 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
         OEA.detect_read_errors, OEA.adjust_overlap_erates = real["red"], real["adjust"]
         CNS.polish_tig, GFA.align_links = real["polish"], real["links"]
         VP.align_positions_lean, BG._segment_identity = real["dp"], real["bogus"]
-        FX.write_fasta = real["write"]
+        FX.write_fasta, VP._fold_group = real["write"], real["fold"]
     log(f"[16 ecoliasm] {card}: run_pipeline(raw_reads=...) in phase 15's directory: "
         f"{t_run:.2f} s; launch and call counts {counts}; K1 launches by step {k1_in}; "
         f"host k-mer counts by step {hosts_in}")
@@ -4104,6 +4283,9 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
     check_dp("16 ecoliasm", counts, n_dp[0])
     check(no_plain(counts),
           "16 ecoliasm: a plain loop or the plain DP ran on the card during the run")
+    check_fold("16 ecoliasm", counts)
+    check(len(fold_ev["red"]) + len(fold_ev["polish"]) == counts["K9"],
+          "16 ecoliasm: K9 launches outside RED and the polish, or untimed")
     check_minhash("16 ecoliasm", counts, match=False)
     for step in ("obt-overlap", "utg-overlap", "adjust"):
         check(k1_in.get(step, 0) > 0, f"16 ecoliasm: kernel K1 never launched in {step}")
@@ -4133,6 +4315,11 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
         log(f"[16 vote_dp] {key}'s first DP call: one K4 launch of "
             f"{dp_first[key][0][0].shape[0]} jobs, bit-equal to the plain DP (j* and edits) on "
             f"{n_held} of them (dp_subset); plain {plain_ms:.1f} ms")
+    # K9 on RED's and the polish's first DP groups, held to the plain fold
+    fold = {}
+    for key in ("red", "polish"):
+        check(key in fold_kept, f"16 ecoliasm: {key} folded no DP group")
+        fold[key] = {"held": held_fold(f"16 {key}'s first DP group", fold_kept.pop(key), card)}
     dp_first.clear()
 
     # K7 and K8 held to the plain versions on the kept groups and blocks
@@ -4183,7 +4370,14 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
             f"calls (one K4 launch each), DP {dp_s[key]:.3f} s by CUDA events; bound "
             f"{b['bound_s']:.3f} s ({b['ops']:.3e} operations on {b['cells']} cells, "
             f"{b['bytes']:.3e} bytes; {100 * b['bound_s'] / max(dp_s[key], 1e-9):.1f}% of it)")
+        fold[key].update(fold_events(fold_ev[key], card, "16", f"{key}'s DP groups"))
+    fold["red"]["enqueue_votes_s"] = F.PROFILE.get("votes", 0.0)
+    log(f"[16 timing] {card}: parts of RED: DP {dp_s['red']:.3f} s, fold_s "
+        f"{fold['red']['ms'] / 1e3:.3f}, enqueue_votes_s {fold['red']['enqueue_votes_s']:.3f} "
+        f"(the host's pile_votes calls, host clock); of the polish: DP {dp_s['polish']:.3f} s, "
+        f"fold_s {fold['polish']['ms'] / 1e3:.3f} (DP and fold: CUDA events)")
     dp_seen.clear()
+    fold_ev.clear()
     for k, v in step_peak.items():
         log(f"[16 memory] {card}: device peak over {k}: {v / 1e9:.3f} GB above its start")
 
@@ -4327,7 +4521,7 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
             "run_s": t_run, "stage_walls_s": walls, "sub_walls_s": subs, "step_walls_s": step_wall,
             "meryl_routes": routes, "launches": counts, "k1_by_step": k1_in, "judge_k1": judge_k1,
             "vote_chunks": chunks_in, "dp_calls": n_dp[0], "dp_s": dp_s, "dp_bound": dp_bound,
-            "dp_err": dp_err, "held": held, "k1_ms": k1_ms, "k1_where": k1["where"],
+            "dp_err": dp_err, "held": held, "fold": fold, "k1_ms": k1_ms, "k1_where": k1["where"],
             "k1_drive": k1_drive, "k1_bound_s": k1["bound_s"], "step_peak_bytes": step_peak,
             "inputs": inputs, "gates": got, "judge": judge, "judge_s": t_judge,
             "links_aligned": n_links[0], "cli_s": t_cli, "phase_s": time.time() - t_phase}
@@ -4379,9 +4573,10 @@ def main() -> int:
     from canu_tpu_torch.ops.kernels import myers_cuda as K1
     from canu_tpu_torch.ops.kernels import trace_cuda as K4
     from canu_tpu_torch.ops.kernels import verify_cuda as VC
+    from canu_tpu_torch.ops.kernels import votepile_cuda as K9
 
     t = time.time()
-    sources = (K1.SOURCE, EX.SOURCE, K4.SOURCE, MK.SOURCE, VC.SOURCE)
+    sources = (K1.SOURCE, EX.SOURCE, K4.SOURCE, MK.SOURCE, VC.SOURCE, K9.SOURCE)
     built = _nvcc.build(*sources)
     log(f"[2 build] {len(sources)} libraries in {time.time() - t:.1f} s (one nvcc each, in "
         "parallel)")
@@ -4438,6 +4633,9 @@ def main() -> int:
 
     # ---- 3f: K7 and K8 vs the plain anchor step and syncmer selection --------
     err_vp = verify_edge_checks(dev)
+
+    # ---- 3g: K9 vs the plain fold, the shared cases ---------------------------
+    err_fold = fold_edge_checks(dev, card)
 
     # ---- 4: the slice ------------------------------------------------------
     from canu_tpu_torch.config import Config
@@ -4719,15 +4917,23 @@ def main() -> int:
     for name, c in named.items():
         check(c["K7"] > 0 and c["K8"] > 0, f"phase {name}: kernel K7 or K8 never launched "
               f"(K7 {c['K7']}, K8 {c['K8']})")
+        check(c["K9"] == c["vote_groups"] and c["plain_fold"] == 0,
+              f"phase {name}: kernel K9 launched {c['K9']} times for {c['vote_groups']} DP "
+              "groups, or the plain fold ran on the card")
         check(c["plain_pre"] == c["plain_syncmer"] == 0,
               f"phase {name}: the plain anchor step or syncmer selection ran on the card")
     k5_launches = sum(c["K5"] for c in main_runs)
     k6_launches = sum(c["K6"] for c in main_runs)
     k7_launches = sum(c["K7"] for c in main_runs)
     k8_launches = sum(c["K8"] for c in main_runs)
-    log(f"[kernels] K5 launched {k5_launches} times, K6 {k6_launches}, K7 {k7_launches} and K8 "
-        f"{k8_launches} on the main path's runs (phases 4-16; K7 and K8 in each of its "
-        f"{len(named)} runs)")
+    k9_launches = sum(c["K9"] for c in main_runs)
+    log(f"[kernels] K5 launched {k5_launches} times, K6 {k6_launches}, K7 {k7_launches}, K8 "
+        f"{k8_launches} and K9 {k9_launches} on the main path's runs (phases 4-16; K7 and K8 "
+        f"in each of its {len(named)} runs, K9 once per DP group in each run that votes)")
+    k9 = correct["fold"]["held"]
+    err_fold = max(err_fold, k9["err"], ecolicor["fold"]["held"]["err"],
+                   ecoliasm["fold"]["red"]["held"]["err"],
+                   ecoliasm["fold"]["polish"]["held"]["err"])
     src = "canu_tpu_torch/csrc/banded_extend.cu"
     k2, k3 = ext["utg256"], ext["utg1024"]
     k2b, k3b = k2["first_bound_exit"], k3["first_bound_exit"]
@@ -4782,6 +4988,11 @@ def main() -> int:
          "replaces": "canu_tpu/ops/minimizers.py:90", "launches": k8_launches,
          "max_abs_err": err_vp, "ms": vkt["K8"]["ms"], "plain_ms": vkt["K8"]["plain_ms"],
          "bound_ms": vkt["K8"]["bound"]["bound_ms"], "bound_by": vkt["K8"]["bound"]["bound_by"],
+         "library_ms": None},
+        {"name": "vote_fold (K9)", "route": "cuda", "source": "canu_tpu_torch/csrc/vote_fold.cu",
+         "replaces": "canu_tpu/ops/votepile.py:125", "launches": k9_launches,
+         "max_abs_err": err_fold, "ms": k9["ms"], "plain_ms": k9["plain_ms"],
+         "bound_ms": k9["bound"]["bound_ms"], "bound_by": k9["bound"]["bound_by"],
          "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

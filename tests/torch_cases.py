@@ -13,7 +13,10 @@ DP's (ops.trace.align_positions_lean), held against canu_tpu's on the CPU
 and kernel K4 against the plain version on the card; ``dp_group_case``
 and ``DP_GROUP_CASES``: K4 launches of thousands of jobs whose t_len
 runs over every row (``mostly_short``: most of them short), held to the
-plain version on the card; ``k1_rows_plain``:
+plain version on the card; ``FOLD_CASES`` / ``fold_case`` and
+``fold_exact_case``: the vote fold's inputs as the DP leaves them, with
+every odd spot planted, held against canu_tpu's fold on the CPU and
+kernel K9 against the plain fold on the card; ``k1_rows_plain``:
 the plain rows of one K1 launch, cut into segments that run at once from
 given carries (a long launch held to the plain loop at the cost of one
 segment of it).
@@ -281,6 +284,104 @@ def dp_group_case(seed: int, B: int, n_rows: int, band: int, mostly_short: bool)
     odd = rng.random(B) < 0.125
     el[odd] = rng.integers(-2, LE + 10, int(odd.sum()))
     return t, tl, e, el
+
+
+# ---- the vote fold (kernel K9) ----------------------------------------------
+
+# fold cases: (jobs, n_rows = Lt, band, G); W_e = n_rows + max(band, n_rows // 2)
+# (8,192 rows: a deleted run of 16-40 rows can lie inside one thread's
+# 32-row segment of K9)
+FOLD_CASES = {"odd 300 x 256": (300, 256, 128, 8), "odd 600 x 512": (600, 512, 256, 16),
+              "odd 97 x 64": (97, 64, 32, 4), "odd 40 x 8192": (40, 8192, 256, 4)}
+FOLD_WEIGHT_MAX = 1.9921875  # the largest bfloat16 below 2 (a weight 1 + meanQV / 256)
+
+
+def fold_case(seed: int, n: int, n_rows: int, band: int, G: int):
+    """The vote fold's inputs for n jobs, as the DP leaves them, with every
+    odd spot planted: (js int32[n, n_rows + 1], t_sub uint8[n, n_rows],
+    e_sub uint8[n, W_e], cols int32[9, n]: t_idx = e_idx = the job, t_bgn,
+    t_span, e_lo 0, e_span, flipped 0, slot, the weight's float32 bits).
+
+    Templates with homopolymer runs (a base repeats with chance 0.35), and
+    in a third of the jobs a run of 16-40 rows whose rows all delete (dj
+    0), in one job the run ending at the last row; steps dj of 0-4 (dj >=
+    3 the second insertion); paths starting at 0 and idle there, running
+    to e_span and past W_e; e_span from W_e / 2 to past W_e; t_span from 0
+    to past n_rows (rows past it vote nothing); t_bgn mostly small, a
+    quarter with bits above log_rounds(n_rows) set, one negative; pad jobs
+    (t_span 0, weight 0); slots over 0..G-1, one off the block; weights 1
+    + q / 256 (q in 0..255) and the largest below 2."""
+    rng = np.random.default_rng(seed)
+    W_e = n_rows + max(band, n_rows // 2)
+    change = rng.random((n, n_rows)) >= 0.35
+    long_run = rng.random(n) < 1 / 3
+    long_run[0] = long_run[1] = True
+    run_len = rng.integers(16, 41, n)
+    run_at = rng.integers(0, max(1, n_rows - 41), n)
+    run_at[1] = n_rows - run_len[1]  # a deleted run reaching the last row
+    rows = np.arange(n_rows)[None, :]
+    in_run = long_run[:, None] & (rows >= run_at[:, None]) & (rows < (run_at + run_len)[:, None])
+    change[in_run & (rows > run_at[:, None])] = False  # one template run
+    change[:, 0] = True
+    t_sub = (np.cumsum(change * rng.integers(1, 4, (n, n_rows)), axis=1) % 4).astype(np.uint8)
+    dj = rng.choice(5, (n, n_rows), p=[0.12, 0.66, 0.12, 0.06, 0.04]).astype(np.int64)
+    dj[in_run] = 0
+    js0 = rng.integers(0, 12, n)
+    idle = rng.random(n) < 0.1  # paths idle at 0 for their first rows
+    js0[idle] = 0
+    dj[idle, : 6] = 0
+    js = np.concatenate([js0[:, None], js0[:, None] + np.cumsum(dj, axis=1)], axis=1)
+    runaway = rng.random(n) < 0.1  # paths running past the window
+    runaway[:2] = False
+    js[runaway] += W_e // 2
+    e_sub = rng.integers(0, 4, (n, W_e)).astype(np.uint8)
+    cols = np.zeros((9, n), np.int32)
+    cols[0] = cols[1] = np.arange(n)
+    t_bgn = rng.integers(0, max(1, n_rows // 4), n)
+    high = rng.random(n) < 0.25
+    t_bgn[high] += n_rows * rng.integers(1, 6, int(high.sum()))
+    t_bgn[2] = -3
+    cols[2] = t_bgn
+    t_span = rng.integers(0, n_rows + 11, n)
+    full = rng.random(n) < 0.4
+    t_span[full] = n_rows
+    t_span[:2] = n_rows
+    t_span[6] = n_rows + 7
+    cols[3] = t_span
+    cols[5] = rng.integers(W_e // 2, W_e + 51, n)
+    cols[5][:2] = W_e + 10  # the long deleted runs stay inside the evidence
+    cols[7] = rng.integers(0, G, n)
+    cols[7][3] = G  # off the block: votes nothing
+    w = (1.0 + rng.integers(0, 256, n) / 256.0).astype(np.float32)
+    w[4] = FOLD_WEIGHT_MAX
+    pad = rng.random(n) < 0.05
+    pad[:2] = False
+    pad[5] = True
+    cols[3][pad] = 0
+    w[pad] = 0.0
+    cols[8] = w.view(np.int32)
+    return js.astype(np.int32), t_sub, e_sub, cols
+
+
+def fold_exact_case(n: int, n_rows: int, band: int):
+    """n jobs of slot 0 voting one column with all they can: a template run
+    of 20 rows at row 0 that every job deletes (its count clamped to 15)
+    at the largest weight below 2, t_bgn 0: the column's deletion votes sum
+    to 15 x n x FOLD_WEIGHT_MAX (7,650 for 256 jobs), the exactness
+    condition's case."""
+    W_e = n_rows + max(band, n_rows // 2)
+    t_sub = np.tile((np.arange(n_rows) % 4).astype(np.uint8), (n, 1))
+    t_sub[:, :20] = 2
+    dj = np.ones((n, n_rows), np.int64)
+    dj[:, :20] = 0
+    js = np.concatenate([np.full((n, 1), 5), 5 + np.cumsum(dj, axis=1)], axis=1)
+    e_sub = np.tile((np.arange(W_e) % 4).astype(np.uint8), (n, 1))
+    cols = np.zeros((9, n), np.int32)
+    cols[0] = cols[1] = np.arange(n)
+    cols[3] = n_rows
+    cols[5] = W_e - 1
+    cols[8] = np.full(n, FOLD_WEIGHT_MAX, np.float32).view(np.int32)
+    return js.astype(np.int32), t_sub, e_sub, cols
 
 
 NAMES = ("edits", "a_used", "b_used", "p_edits", "p_a", "p_b")
