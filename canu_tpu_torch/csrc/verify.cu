@@ -16,8 +16,9 @@
 //      orientation is n_opp > n_same, else flipped[q];
 //   3. posB on the oriented B (lenB - k - posB when flipped); the hits that
 //      agree with the orientation; the lower median of their diagonals
-//      (2^30 with none); the inliers within tol = max(100, int(float32(
-//      min(lenA, lenB)) * 0.3f));
+//      among the 2 Pm - 1 join columns, the others 2^30 (2^30 with none);
+//      the inliers within tol = max(100, int(float32(min(lenA, lenB)) *
+//      0.3f));
 //   4. the inliers sorted by (posA, join position) -- the stable posA sort
 //      of the plain version -- and kept where posB exceeds every earlier
 //      posB (the first against -1);
@@ -39,19 +40,50 @@
 //
 // What bounds K7 on an H100: the bytes.  A pair writes 2 n_rows + 2 (n_rows
 // + band) bytes of bases and 8 (n_rows + 1) of centres (about 100 KB at
-// n_rows 8,192) against three sorts of at most 2 Pm entries.  This design
-// is the simple one: one block of 256 threads a pair, the pair's join in
-// shared memory (the keys of the join, the hits, the sorted inliers: 29 Pm
-// bytes, ~58 KB at Pm 2,048, whatever the reads' length), bitonic sorts in
-// shared memory, block scans for the running max and the compaction, the
-// 64 anchors of each direction in shared memory, each centre interpolated
-// where it is stored, and coalesced stores of 4 bases a thread read from
-// the index's words in global memory.
+// n_rows 8,192).  The design, one block of 256 threads a pair:
+//   - the join without a sort of the concatenation.  Since the join only
+//     groups equal keys, it may order them by mix32(key), which is a
+//     bijection of uint32: K8 writes each index row in (mix32(key),
+//     position) order with its valid entries first, so a row is already
+//     sorted.  Each read's mix32 keys and slots go to shared memory and one
+//     barrier-or checks that order; a row that breaks it (a hand-made row,
+//     or K8's rare tail of UINT32_MAX keys) is sorted there by (mix32,
+//     slot).  Then each first B entry of a run finds A's last entry of its
+//     key by a binary search: the hit.  Only hits and their count are
+//     kept (11 + 11 + 1 bits each);
+//   - the join position is only the tie-break of step 4, and among hits
+//     (one a key) it orders them as their keys do, so step 4 sorts the
+//     inliers by (posA, key): the same order;
+//   - the lower median by a radix select over the diagonals (a histogram
+//     of 8 bits a pass, one warp picking the digit), not a sort: only over
+//     the bits below the highest in which the least and greatest diagonal
+//     differ (2 passes for diagonals within +-32,768), over all 4 bytes
+//     with the 2^30 columns counted where a diagonal reaches 2^30;
+//   - the inliers' sort (posA, key) with a hit index carried, a bitonic
+//     sort whose stages inside a warp's segment of at least 64 entries
+//     synchronise the warp only (each warp pads its own segment): about 9
+//     block barriers at 2,048 entries, none up to 64;
+//   - warp-shuffle scans for the running max and the kept count, each
+//     kept entry writing its pick (if any) straight into the 64 anchors;
+//   - counts by warp reductions and per-warp partials, so a pair of reads
+//     of ~8 kb takes ~13 block barriers in all;
+//   - shared memory in phases: the hits (4 P2 bytes, P2 = pow2(Pm)), then
+//     the join (12 P2), the diagonals, inliers and carried indices (14
+//     P2) and the centre tiles in the same place: 36,864 B at Pm 2,048,
+//     so 6 blocks of 256 threads an SM, whatever the reads' length;
+//   - the band centres interpolated once a 16-row group (the x of a
+//     thread's consecutive groups walks the anchor list forward) into a
+//     shared tile, then stored 16 bytes a thread;
+//   - the base rows 16 bases a thread: the two index words a window
+//     straddles, shifted together, 2-bit fields reversed and complemented
+//     in registers where the row runs backwards, spread to 16 bytes and
+//     stored 16 bytes at a time (bytes at the row's unaligned ends).
 //
 // K8 (canu_syncmer) replaces canu_tpu/ops/minimizers.py:90 _syncmer_kernel,
 // a jax.jit XLA program with no pl.pallas_call, and computes exactly what
-// canu_tpu_torch/ops/minimizers.py:_syncmer_kernel_plain computes: for each
-// read b of a padded block and each position p < Pk = 16 W - k + 1,
+// canu_tpu_torch/ops/minimizers.py:_syncmer_kernel_plain computes on a
+// block of reads padded to Wb words: for each read and each position p < Pk
+// = 16 Wb - k + 1,
 //   sel(p) = hs(p + t) == min(hs(p .. p + k - s)) and p <= len - k, where
 //   hs(i) = mix32(canonical s-mer at i), UINT32_MAX where i > len - s;
 //   key(p) = sel(p) ? mix32(canonical k-mer key at p) : UINT32_MAX;
@@ -64,12 +96,30 @@
 // mix32(hi ^ mix32(lo)), moved off UINT32_MAX by ^ 1, for 16 < k <= 32
 // (ops/kmer.py extract_kmers_any); the strand is rc < fw.
 //
-// What bounds K8: the operations (the rolling k-mers and s-mer hashes of
-// every position) against 8 bytes of read a 16 positions.  One block of 256
-// threads a read: the s-mer hashes of a tile of 1,024 positions in shared
-// memory (the read's words from global memory), the selected (key,
-// position) pairs appended to the read's row of a device scratch buffer,
-// then one bitonic sort there and the stores.
+// One launch builds a whole index: block i takes read rows[i] with its own
+// bucket's Wb = wbs[i] (the W its length bucket of ops/kmer.py
+// length_bucketed_blocks pads to), reads its words from the index's word
+// plane (stride W >= Wb) and writes its rows of mker/mpos/mstr.  Each row
+// is then bit for bit what the call on its bucket's block gives.  What
+// bounds K8: the operations (the rolling k-mers and s-mer hashes of every
+// position) against 8 bytes of read a 16 positions.  The design, one block
+// of 256 threads a read:
+//   - tiles of 4,096 positions, 16 a thread (one index word): each thread
+//     builds the first s-mer and k-mer of its run from two or three words
+//     and rolls forward and reverse complement 2 bits a step; the tile's
+//     s-mer hashes (and a halo of k - s) in shared memory;
+//   - the selected (key, position) pairs in a shared buffer of pm entries
+//     (16 KB at pm 2,048; no scratch in device memory); a read that selects
+//     at most pm of key < UINT32_MAX (under ~10 kb at pm 2,048) sorts them
+//     there; a longer read finds the pm-th smallest key by a radix select
+//     (4 passes of 8 bits over recomputed tiles), keeps the keys below it
+//     and, at it, the first positions in order (a block scan a tile), and
+//     sorts those pm;
+//   - the rare tail pass of positions of key UINT32_MAX in position order.
+// A whole-index launch with a device scratch row a read for the sort (the
+// former design) would need N x pow2(16 W - k + 1) x 8 B: at E. coli's
+// 32,994 reads and global W of 512 words 32,994 x 8,192 x 8 B = 2.2 GB,
+// and 2 MB a read once reads exceed 131,072 bases (W 16,384).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC; bound through ctypes (plain C interface).
@@ -80,15 +130,19 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int NWARP = THREADS / 32;
+constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr uint32_t UMAX = 0xFFFFFFFFu;
 constexpr int64_t INVALID_KMER = 0xFFFFFFFFll;
 constexpr int MAX_ANCHORS = 64;
 constexpr int BIG = 1 << 30;
 constexpr int BIGF = 1 << 24;
-constexpr int MAX_PM = 2048;  // K7's join keeps (hit << 12 | slot) in 24 bits
-constexpr int SM_TILE = 1024;  // K8's positions a tile
-constexpr int SM_HALO = 32;    // k - s + 1 <= 18 s-mers past a tile's last position
+constexpr int MAX_PM = 2048;    // K7's hits keep a slot in 11 bits; K8's buffer is pm entries
+constexpr int SM_T = 4096;      // K8's positions a tile, 16 a thread
+constexpr int SM_HALO = 32;     // k - s <= 17 s-mers past a tile's last position, rounded up
 constexpr int INT_MIN32 = -2147483647 - 1;
+constexpr int K7_MIN_BLOCKS = 6;  // blocks an SM K7 is built for (40 registers a thread)
+constexpr int K8_MIN_BLOCKS = 6;
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 16;
@@ -99,7 +153,7 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x;
 }
 
-__device__ __forceinline__ int pow2_at_least(int n) {
+__host__ __device__ __forceinline__ int pow2_at_least(int n) {
   int p = 1;
   while (p < n) p <<= 1;
   return p;
@@ -113,83 +167,230 @@ __device__ __forceinline__ int64_t shift_mask(int L, int out_len) {
   return (int64_t(1) << r) - 1;
 }
 
-// Ascending bitonic sort of a[0, n), n a power of two, by the whole block;
-// the caller synchronised after writing a, and a is sorted for every
-// thread on return.
-template <typename T>
-__device__ void bitonic_sort(T* a, int n) {
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < (n >> 1); i += THREADS) {
-        const int lo = 2 * i - (i & (stride - 1));
-        const int hi = lo + stride;
-        const bool up = (lo & size) == 0;
-        const T x = a[lo], y = a[hi];
-        if ((x > y) == up) {
-          a[lo] = y;
-          a[hi] = x;
-        }
+// int32 arithmetic that wraps, as torch's int32 tensors do
+__device__ __forceinline__ int wsub(int a, int b) {
+  return static_cast<int>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
+}
+__device__ __forceinline__ int wabs(int a) {
+  return a < 0 ? static_cast<int>(0u - static_cast<uint32_t>(a)) : a;
+}
+
+// ---- block primitives ------------------------------------------------------
+
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL, v, o);
+  return v;
+}
+
+__device__ __forceinline__ int warp_min(int v) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const int y = __shfl_down_sync(FULL, v, o);
+    v = y < v ? y : v;
+  }
+  return v;
+}
+
+__device__ __forceinline__ uint32_t warp_umin(uint32_t v) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const uint32_t y = __shfl_down_sync(FULL, v, o);
+    v = y < v ? y : v;
+  }
+  return v;
+}
+
+__device__ __forceinline__ uint32_t warp_umax(uint32_t v) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const uint32_t y = __shfl_down_sync(FULL, v, o);
+    v = y > v ? y : v;
+  }
+  return v;
+}
+
+// Exclusive prefix sum of v over the block's threads in thread order (one
+// barrier); *total gets the block's sum.  s_w (NWARP ints) must not be
+// reused by another scan before a barrier.
+__device__ int block_excl_sum(int v, int* total, int* s_w) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) s_w[warp] = x;
+  __syncthreads();
+  int before = 0, tot = 0;
+  for (int w = 0; w < NWARP; ++w) {
+    const int t = s_w[w];
+    before += w < warp ? t : 0;
+    tot += t;
+  }
+  *total = tot;
+  return before + x - v;
+}
+
+// Exclusive prefix max (INT_MIN for thread 0), one barrier; as above.
+__device__ int block_excl_max(int v, int* s_w) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, x, o);
+    if (lane >= o) x = y > x ? y : x;
+  }
+  const int up = __shfl_up_sync(FULL, x, 1);
+  if (lane == 31) s_w[warp] = x;
+  __syncthreads();
+  int before = lane ? up : INT_MIN32;
+  for (int w = 0; w < warp; ++w) before = s_w[w] > before ? s_w[w] : before;
+  return before;
+}
+
+// compare-exchange of a[lo], a[hi] by (key, payload), ascending where up
+template <typename K>
+__device__ __forceinline__ void cmp_swap(K* a, uint16_t* pay, int lo, int hi, bool up) {
+  const K x = a[lo], y = a[hi];
+  if (pay != nullptr) {
+    const uint16_t px = pay[lo], py = pay[hi];
+    if ((x > y || (x == y && px > py)) == up) {
+      a[lo] = y;
+      a[hi] = x;
+      pay[lo] = py;
+      pay[hi] = px;
+    }
+  } else if ((x > y) == up) {
+    a[lo] = y;
+    a[hi] = x;
+  }
+}
+
+// Ascending bitonic sort of a[0, n) by (key, payload) (pay may be null), n
+// a power of two, by the whole block, entries from n_valid on taken as the
+// largest key (the sort writes them); the caller synchronised after
+// writing a[0, n_valid), and a is sorted for every thread on return.  A
+// stage whose pairs lie inside a warp's segment (max(n / 8, min(n, 64))
+// entries) synchronises that warp only; a wider stage runs over the block
+// between two barriers.
+template <typename K>
+__device__ void block_sort(K* a, uint16_t* pay, int n, int n_valid) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int seg = n / NWARP > (n < 64 ? n : 64) ? n / NWARP : (n < 64 ? n : 64);
+  const int half = seg >> 1, nseg = n / seg;
+  if (warp < nseg) {  // the first stages stay in a warp's segment: pad it there
+    for (int i = warp * seg + lane; i < (warp + 1) * seg; i += 32) {
+      if (i >= n_valid) {
+        a[i] = ~K(0);
+        if (pay != nullptr) pay[i] = 0xFFFF;
       }
-      __syncthreads();
     }
   }
-}
-
-// Block-wide exclusive scans of one value a thread, in thread order, over
-// s_scan[THREADS] (Hillis-Steele); every thread calls them.
-__device__ int block_excl_sum(int v, int* total, int* s_scan) {
-  const int tid = threadIdx.x;
-  s_scan[tid] = v;
-  __syncthreads();
-  for (int o = 1; o < THREADS; o <<= 1) {
-    const int y = tid >= o ? s_scan[tid - o] : 0;
-    __syncthreads();
-    s_scan[tid] += y;
-    __syncthreads();
+  __syncwarp();
+  bool wide = false;  // a block-wide stage wrote since the last barrier
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride >= seg) {
+        __syncthreads();
+        for (int i = threadIdx.x; i < (n >> 1); i += THREADS) {
+          const int lo = 2 * i - (i & (stride - 1));
+          cmp_swap(a, pay, lo, lo + stride, (lo & size) == 0);
+        }
+        wide = true;
+      } else {
+        if (wide) {
+          __syncthreads();
+          wide = false;
+        }
+        if (warp < nseg) {
+          for (int i = lane; i < half; i += 32) {
+            const int gi = warp * half + i;
+            const int lo = 2 * gi - (gi & (stride - 1));
+            cmp_swap(a, pay, lo, lo + stride, (lo & size) == 0);
+          }
+        }
+        __syncwarp();
+      }
+    }
   }
-  const int incl = s_scan[tid];
-  *total = s_scan[THREADS - 1];
   __syncthreads();
-  return incl - v;
-}
-
-__device__ int block_excl_max(int v, int* s_scan) {
-  const int tid = threadIdx.x;
-  s_scan[tid] = v;
-  __syncthreads();
-  for (int o = 1; o < THREADS; o <<= 1) {
-    const int y = tid >= o ? s_scan[tid - o] : INT_MIN32;
-    __syncthreads();
-    s_scan[tid] = s_scan[tid] > y ? s_scan[tid] : y;
-    __syncthreads();
-  }
-  const int excl = tid ? s_scan[tid - 1] : INT_MIN32;
-  __syncthreads();
-  return excl;
 }
 
 // ---- K7 -----------------------------------------------------------------------
 
-// base j of a read's words (int64 holding uint32 values, 16 bases a word)
-__device__ __forceinline__ int raw_base(const int64_t* __restrict__ w, int j) {
-  return (static_cast<uint32_t>(__ldg(w + (j >> 4))) >> (2 * (j & 15))) & 3;
+// the shared layout of K7 (bytes): the hits, then a region that holds in
+// turn the join, the diagonals + inliers + carried hit indices, the centre
+// tiles
+__host__ __device__ __forceinline__ int k7_hits_bytes(int P2) {
+  return 4 * P2 > 6 * 4 * MAX_ANCHORS ? 4 * P2 : 6 * 4 * MAX_ANCHORS;
+}
+__host__ __device__ __forceinline__ int k7_diag_bytes(int P2) { return (4 * P2 + 15) & ~15; }
+__host__ __device__ __forceinline__ int k7_region_bytes(int P2) {
+  return k7_diag_bytes(P2) + 10 * P2 > 8192 ? k7_diag_bytes(P2) + 10 * P2 : 8192;
 }
 
-// base j < L of the oriented B: the read, or its reverse complement shifted
-// back to column 0 by (L - lenB) & mask, zero from lenB on
-__device__ __forceinline__ int oriented_base(const int64_t* __restrict__ w, int j, int L, int lenB, bool fl,
-                                             int64_t te) {
-  if (j >= lenB) return 0;
-  if (!fl) return raw_base(w, j);
-  const int64_t i = j + te;
-  return i < L ? 3 - raw_base(w, static_cast<int>(L - 1 - i)) : 0;
+// 32 bits = 16 bases of a read's words (int64 holding uint32 values)
+// starting at base p (any p; words outside [0, W) read as zero)
+__device__ __forceinline__ uint32_t bases16_at(const int64_t* __restrict__ w, int W, int64_t p) {
+  const int64_t j = p >> 4;  // floor, also for p < 0
+  const int off = static_cast<int>(p & 15);
+  const uint32_t lo = j >= 0 && j < W ? static_cast<uint32_t>(__ldg(w + j)) : 0u;
+  if (off == 0) return lo;
+  const uint32_t hi = j + 1 >= 0 && j + 1 < W ? static_cast<uint32_t>(__ldg(w + j + 1)) : 0u;
+  return (lo >> (2 * off)) | (hi << (32 - 2 * off));
 }
 
-// float32 jnp.interp of x on (xp, fp)[64], xp non-decreasing, rounded half
-// to even (ops/align.py _interp_centers): explicit roundings, so nvcc
-// contracts nothing but the one fused multiply-add that is meant
-__device__ int interp_center(float x, const float* xp, const float* fp) {
-  int lo = 0, hi = MAX_ANCHORS;  // searchsorted(right=True): the count of xp <= x
+// reverse the order of the 16 2-bit fields of v
+__device__ __forceinline__ uint32_t rev2(uint32_t v) {
+  v = __brev(v);
+  return ((v & 0x55555555u) << 1) | ((v >> 1) & 0x55555555u);
+}
+
+// 16 output bases e = 0..15: raw(r0 + dir e) ^ cm where elo <= e < ehi, 0
+// elsewhere, as 4 words of 4 bytes
+__device__ __forceinline__ uint4 bases_out16(const int64_t* __restrict__ w, int W, int64_t r0,
+                                             bool rev, uint32_t cm, int64_t elo, int64_t ehi) {
+  uint32_t v = rev ? rev2(bases16_at(w, W, r0 - 15)) : bases16_at(w, W, r0);
+  v ^= cm;
+  const int lo = elo < 0 ? 0 : (elo > 16 ? 16 : static_cast<int>(elo));
+  const int hi = ehi < 0 ? 0 : (ehi > 16 ? 16 : static_cast<int>(ehi));
+  uint32_t m = hi >= 16 ? FULL : (1u << (2 * hi)) - 1u;
+  m &= lo >= 16 ? 0u : ~((1u << (2 * lo)) - 1u);
+  if (hi <= lo) m = 0u;
+  v &= m;
+  uint32_t o[4];
+  for (int qd = 0; qd < 4; ++qd) {
+    uint32_t x = (v >> (8 * qd)) & 0xFFu;
+    x = (x | (x << 12)) & 0x000F000Fu;
+    x = (x | (x << 6)) & 0x03030303u;
+    o[qd] = x;
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// one base row of `width` bytes: out[i] = base (16 at a time) from
+// bases_out16(r0(i0), ...) through `spec`, stored 16 bytes a thread where
+// the row is 16-byte aligned, bytewise at its ends
+template <typename S>
+__device__ __forceinline__ void store_row(uint8_t* row, int width, S spec) {
+  const int head = static_cast<int>((16 - (reinterpret_cast<uintptr_t>(row) & 15)) & 15);
+  const int h = head < width ? head : width;
+  const int nq = (width - h) >> 4;
+  for (int c = threadIdx.x; c < nq; c += THREADS) {
+    const int i0 = h + 16 * c;
+    *reinterpret_cast<uint4*>(row + i0) = spec(i0);
+  }
+  // the head [0, h) and the tail [h + 16 nq, width): at most 15 bytes each
+  const int tail0 = h + 16 * nq;
+  const int e = threadIdx.x;
+  int i = -1;
+  if (e < h) i = e;
+  else if (e >= 16 && e - 16 < width - tail0) i = tail0 + e - 16;
+  if (i >= 0) {
+    const uint4 v = spec(i);
+    row[i] = static_cast<uint8_t>(v.x & 3u);
+  }
+}
+
+// the first xp entry above x (searchsorted right) among MAX_ANCHORS
+__device__ __forceinline__ int search_right(float x, const float* xp) {
+  int lo = 0, hi = MAX_ANCHORS;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
     if (xp[mid] <= x)
@@ -197,6 +398,14 @@ __device__ int interp_center(float x, const float* xp, const float* fp) {
     else
       hi = mid;
   }
+  return lo;
+}
+
+// float32 jnp.interp of x on (xp, fp)[64] given lo = searchsorted(xp, x,
+// right), rounded half to even (ops/align.py _interp_centers): explicit
+// roundings, so nvcc contracts nothing but the one fused multiply-add
+// that is meant
+__device__ __forceinline__ int interp_at(float x, int lo, const float* xp, const float* fp) {
   const int i = lo < 1 ? 1 : (lo > MAX_ANCHORS - 1 ? MAX_ANCHORS - 1 : lo);
   const float df = __fsub_rn(fp[i], fp[i - 1]);
   const float dx = __fsub_rn(xp[i], xp[i - 1]);
@@ -208,21 +417,28 @@ __device__ int interp_center(float x, const float* xp, const float* fp) {
   return __float2int_rn(f);
 }
 
-// 4 output bases from column i4 of a row `width` wide, stored as one word
-// where the row allows it
-template <typename F>
-__device__ __forceinline__ void store4(uint8_t* row, int width, int i4, F base) {
-  uint32_t v = 0;
-  const int n = width - i4 < 4 ? width - i4 : 4;
-  for (int e = 0; e < n; ++e) v |= static_cast<uint32_t>(base(i4 + e)) << (8 * e);
-  if (n == 4 && (width & 3) == 0) {
-    *reinterpret_cast<uint32_t*>(row + i4) = v;
-  } else {
-    for (int e = 0; e < n; ++e) row[i4 + e] = static_cast<uint8_t>(v >> (8 * e));
+// columns [c0, c1) of a centres row, column c = tile[(c >> 4) - j0]: 16
+// bytes a thread on 16-byte boundaries, single ints at the ends
+__device__ __forceinline__ void store_centres(int32_t* row, int c0, int c1, const int* tile,
+                                              int j0) {
+  const int head0 = static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(row + c0) & 15)) & 15) >> 2);
+  const int h = head0 < c1 - c0 ? head0 : c1 - c0;
+  const int nq = (c1 - c0 - h) >> 2;
+  for (int qd = threadIdx.x; qd < nq; qd += THREADS) {
+    const int c = c0 + h + 4 * qd;
+    *reinterpret_cast<int4*>(row + c) =
+        make_int4(tile[(c >> 4) - j0], tile[((c + 1) >> 4) - j0], tile[((c + 2) >> 4) - j0],
+                  tile[((c + 3) >> 4) - j0]);
   }
+  const int tail0 = c0 + h + 4 * nq;
+  const int e = threadIdx.x;
+  int c = -1;
+  if (e < h) c = c0 + e;
+  else if (e >= 4 && e - 4 < c1 - tail0) c = tail0 + e - 4;
+  if (c >= 0) row[c] = tile[(c >> 4) - j0];
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, K7_MIN_BLOCKS)
 verify_pre_kernel(const int64_t* __restrict__ words, int W, const int32_t* __restrict__ length,
                   const int64_t* __restrict__ mker, const int32_t* __restrict__ mpos,
                   const int32_t* __restrict__ mstr, int Pm, const int64_t* __restrict__ a_idx,
@@ -234,199 +450,330 @@ verify_pre_kernel(const int64_t* __restrict__ words, int W, const int32_t* __res
                   int32_t* __restrict__ out_seedA, int32_t* __restrict__ out_seedB,
                   int32_t* __restrict__ out_nminor) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_scan[THREADS];
-  __shared__ int s_n, s_nh, s_n2, s_ni, s_same, s_opp, s_med, s_keep;
-  __shared__ bool s_fl;
-  __shared__ int s_aA[MAX_ANCHORS], s_aB[MAX_ANCHORS];
-  __shared__ float s_xf[MAX_ANCHORS], s_ff[MAX_ANCHORS], s_xb[MAX_ANCHORS], s_fb[MAX_ANCHORS];
+  __shared__ int s_w1[NWARP], s_w2[NWARP];
+  // each warp's valid entries and first invalid slot of A and B, and its
+  // unsorted-row bits (bit 0 A, bit 1 B)
+  __shared__ int s_part[5][NWARP];
+  // counters: hits, same, opp, diagonals, inliers, the radix select's
+  // prefix and rank, the least and greatest diagonal (as ordered unsigned)
+  __shared__ int s_c[9];
+  enum { NH, SAME, OPP, N2, NI, PFX, RNK, UMN, UMX };
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q = blockIdx.x, g = q / C, p = q - g * C;
   const int P2 = pow2_at_least(Pm);
-  const int NJ = 2 * P2;
-  // shared layout: the join's keys (reused by the median, the inlier sort
-  // and the sorted inliers), the hits (at most one a key: a key's A
-  // entries sort before its B entries, so at most Pm)
-  uint64_t* s_join = reinterpret_cast<uint64_t*>(smem);
-  int* h_posA = reinterpret_cast<int*>(s_join + NJ);
-  int* h_posB = h_posA + Pm;
-  int* h_j = h_posB + Pm;
-  unsigned char* h_agree = reinterpret_cast<unsigned char*>(h_j + Pm);
+  uint32_t* hits = reinterpret_cast<uint32_t*>(smem);
+  unsigned char* r2 = smem + k7_hits_bytes(P2);
+  // the join
+  uint32_t* kA = reinterpret_cast<uint32_t*>(r2);
+  uint32_t* kB = kA + P2;
+  uint16_t* sA = reinterpret_cast<uint16_t*>(kB + P2);
+  uint16_t* sB = sA + P2;
+  // then the diagonals, the histograms (in the inliers' place), the
+  // inliers and the hit index each carries
+  int* D = reinterpret_cast<int*>(r2);
+  int* hist = reinterpret_cast<int*>(r2 + k7_diag_bytes(P2));
+  uint64_t* comp = reinterpret_cast<uint64_t*>(r2 + k7_diag_bytes(P2));
+  uint16_t* pay = reinterpret_cast<uint16_t*>(r2 + k7_diag_bytes(P2) + 8 * P2);
+  // the picks and anchor lists, in the hits' place once they are read
+  int* pkA = reinterpret_cast<int*>(smem);
+  int* pkB = pkA + MAX_ANCHORS;
+  float* xf = reinterpret_cast<float*>(pkB + MAX_ANCHORS);
+  float* ff = xf + MAX_ANCHORS;
+  float* xb = ff + MAX_ANCHORS;
+  float* fb = xb + MAX_ANCHORS;
+  // the centre tiles, in the region's place once the picks are made
+  int* tile = reinterpret_cast<int*>(r2);
+  const int tile_half = k7_region_bytes(P2) / 8;
 
   const int64_t ra = a_idx[q], rb = b_idx[q];
   const int lenA = length[ra], lenB = length[rb];
   const int L = 16 * W;
   const int64_t* wA = words + ra * W;
   const int64_t* wB = words + rb * W;
-  if (tid == 0) s_n = s_nh = s_n2 = s_ni = s_same = s_opp = 0;
-  __syncthreads();
-
-  // 1. the join: (key, slot of the concatenation), the valid keys only
   const int64_t* mkA = mker + ra * Pm;
   const int64_t* mkB = mker + rb * Pm;
-  for (int i = tid; i < 2 * Pm; i += THREADS) {
-    const int64_t key = i < Pm ? mkA[i] : mkB[i - Pm];
-    if (key != INVALID_KMER) {
-      const int slot = atomicAdd(&s_n, 1);
-      s_join[slot] = (static_cast<uint64_t>(static_cast<uint32_t>(key)) << 32) |
-                     static_cast<uint32_t>(i);
-    }
-  }
-  __syncthreads();
-  const int nv = s_n;
-  const int n_sort = pow2_at_least(nv > 1 ? nv : 1);
-  for (int i = nv + tid; i < n_sort; i += THREADS) s_join[i] = ~0ull;
-  __syncthreads();
-  bitonic_sort(s_join, n_sort);
-
-  // 2. hits at adjacent equal keys of the two reads, and the strand vote
   const int32_t *mpA = mpos + ra * Pm, *mpB = mpos + rb * Pm;
   const int32_t *msA = mstr + ra * Pm, *msB = mstr + rb * Pm;
-  for (int j = tid; j + 1 < nv; j += THREADS) {
-    const uint64_t x = s_join[j], y = s_join[j + 1];
-    if ((x >> 32) != (y >> 32)) continue;
-    const int ix = static_cast<int>(static_cast<uint32_t>(x));
-    const int iy = static_cast<int>(static_cast<uint32_t>(y));
-    const bool bx = ix >= Pm, by = iy >= Pm;
-    if (bx == by) continue;
-    const int ia = bx ? iy : ix, ib = bx ? ix - Pm : iy - Pm;
-    const bool agree = (msA[ia] & 1) == (msB[ib] & 1);
-    const int h = atomicAdd(&s_nh, 1);
-    h_posA[h] = mpA[ia];
-    h_posB[h] = mpB[ib];
-    h_j[h] = j;
-    h_agree[h] = agree;
-    atomicAdd(agree ? &s_same : &s_opp, 1);
-  }
-  __syncthreads();
-  const int nh = s_nh;
-  if (tid == 0) s_fl = orient ? s_opp > s_same : flipped_in[q] != 0;
-  __syncthreads();
-  const bool fl = s_fl;
+  if (tid < 9) s_c[tid] = tid == UMN ? -1 : 0;  // read after the first barrier
 
-  // 3. the lower median of the diagonals of the hits of this orientation
-  int* s_medv = reinterpret_cast<int*>(s_join);
-  const int n_med = pow2_at_least(nh > 1 ? nh : 1);
-  for (int h = tid; h < n_med; h += THREADS) {
-    int v = BIG;
-    if (h < nh && (h_agree[h] != 0) != fl) {
-      v = h_posA[h] - (fl ? lenB - k - h_posB[h] : h_posB[h]);
-      atomicAdd(&s_n2, 1);
+  // 1. each read's (mix32(key), slot), invalid entries (UINT32_MAX, slot |
+  // 0x8000) after every valid one, padded to P2
+  {
+    int nvA = 0, nvB = 0, fiA = Pm, fiB = Pm;
+    for (int i = tid; i < P2; i += THREADS) {
+      uint32_t xa = UMAX, xb2 = UMAX;
+      uint16_t ya = 0xFFFF, yb = 0xFFFF;
+      if (i < Pm) {
+        const int64_t ka = mkA[i], kb = mkB[i];
+        const bool va = ka != INVALID_KMER, vb = kb != INVALID_KMER;
+        xa = va ? mix32(static_cast<uint32_t>(ka)) : UMAX;
+        xb2 = vb ? mix32(static_cast<uint32_t>(kb)) : UMAX;
+        ya = static_cast<uint16_t>(va ? i : (0x8000 | i));
+        yb = static_cast<uint16_t>(vb ? i : (0x8000 | i));
+        nvA += va;
+        nvB += vb;
+        if (!va && i < fiA) fiA = i;
+        if (!vb && i < fiB) fiB = i;
+      }
+      kA[i] = xa;
+      sA[i] = ya;
+      kB[i] = xb2;
+      sB[i] = yb;
     }
-    s_medv[h] = v;
+    nvA = warp_sum(nvA);
+    nvB = warp_sum(nvB);
+    fiA = warp_min(fiA);
+    fiB = warp_min(fiB);
+    if (lane == 0) {
+      s_part[0][warp] = nvA;
+      s_part[1][warp] = nvB;
+      s_part[2][warp] = fiA;
+      s_part[3][warp] = fiB;
+    }
   }
   __syncthreads();
-  bitonic_sort(s_medv, n_med);
-  if (tid == 0) s_med = s_n2 > 0 ? s_medv[(s_n2 - 1) / 2] : BIG;
+  int nA = 0, nB = 0, fA = Pm, fB = Pm;
+  for (int w = 0; w < NWARP; ++w) {
+    nA += s_part[0][w];
+    nB += s_part[1][w];
+    fA = s_part[2][w] < fA ? s_part[2][w] : fA;
+    fB = s_part[3][w] < fB ? s_part[3][w] : fB;
+  }
+  {
+    // a row is in order where its valid entries come first, their mix32
+    // keys non-decreasing (ties are in slot order by construction)
+    int bad = (nA != fA) | ((nB != fB) << 1);
+    for (int i = tid + 1; i < nA; i += THREADS) bad |= kA[i - 1] > kA[i];
+    for (int i = tid + 1; i < nB; i += THREADS) bad |= (kB[i - 1] > kB[i]) << 1;
+    bad = (__ballot_sync(FULL, bad & 1) != 0u) | ((__ballot_sync(FULL, bad & 2) != 0u) << 1);
+    if (lane == 0) s_part[4][warp] = bad;
+  }
   __syncthreads();
-  const int med = s_med;
+  int bad = 0;
+  for (int w = 0; w < NWARP; ++w) bad |= s_part[4][w];
+  if (bad & 1) block_sort(kA, sA, P2, P2);
+  if (bad & 2) block_sort(kB, sB, P2, P2);
+
+  // 2. hits: each first B entry of a run against A's last entry of its key
+  {
+    int same = 0, opp = 0;
+    for (int i = tid; i < nB; i += THREADS) {
+      const uint32_t x = kB[i];
+      if (i > 0 && kB[i - 1] == x) continue;
+      int lo = 0, hi = nA;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (kA[mid] <= x)
+          lo = mid + 1;
+        else
+          hi = mid;
+      }
+      if (lo == 0 || kA[lo - 1] != x) continue;
+      const int ia = sA[lo - 1], ib = sB[i];
+      const bool agree = (__ldg(msA + ia) & 1) == (__ldg(msB + ib) & 1);
+      same += agree;
+      opp += !agree;
+      const int h = atomicAdd(&s_c[NH], 1);
+      hits[h] = static_cast<uint32_t>(ia) | (static_cast<uint32_t>(ib) << 11) |
+                (static_cast<uint32_t>(agree) << 22);
+    }
+    same = warp_sum(same);
+    opp = warp_sum(opp);
+    if (lane == 0) {
+      atomicAdd(&s_c[SAME], same);
+      atomicAdd(&s_c[OPP], opp);
+    }
+  }
+  __syncthreads();
+  const int nh = s_c[NH], n_same = s_c[SAME], n_opp = s_c[OPP];
+  const bool fl = orient ? n_opp > n_same : flipped_in[q] != 0;
+
+  // 3. the diagonals of the hits of this orientation, the lower median
+  {
+    int n2 = 0;
+    uint32_t umn = UMAX, umx = 0;
+    for (int h = tid; h < nh; h += THREADS) {
+      const uint32_t hv = hits[h];
+      if (((hv >> 22) & 1u) == static_cast<uint32_t>(fl)) continue;
+      const int pa = __ldg(mpA + (hv & 0x7FFu)), pb = __ldg(mpB + ((hv >> 11) & 0x7FFu));
+      const int dg = wsub(pa, fl ? wsub(wsub(lenB, k), pb) : pb);
+      D[h] = dg;
+      const uint32_t u = static_cast<uint32_t>(dg) ^ 0x80000000u;
+      umn = u < umn ? u : umn;
+      umx = u > umx ? u : umx;
+      ++n2;
+    }
+    for (int i = tid; i < 512; i += THREADS) hist[i] = 0;
+    n2 = warp_sum(n2);
+    umn = warp_umin(umn);
+    umx = warp_umax(umx);
+    if (lane == 0) {
+      atomicAdd(&s_c[N2], n2);
+      atomicMin(reinterpret_cast<unsigned int*>(&s_c[UMN]), umn);
+      atomicMax(reinterpret_cast<unsigned int*>(&s_c[UMX]), umx);
+    }
+  }
+  __syncthreads();
+  const int n2 = s_c[N2];
+  int med = BIG;
+  if (n2 > 0) {
+    // the (n2 - 1) / 2-th smallest of the 2 Pm - 1 join columns, the
+    // columns off this orientation's hits being 2^30.  Where every
+    // diagonal lies below 2^30 the answer is one of them, and the radix
+    // select runs over the bits below the highest one in which the least
+    // and the greatest differ (2 passes for diagonals within +-32,768);
+    // else over all 32 bits with the 2^30 columns counted.
+    const uint32_t umn = static_cast<uint32_t>(s_c[UMN]), umx = static_cast<uint32_t>(s_c[UMX]);
+    const uint32_t ubig = static_cast<uint32_t>(BIG) ^ 0x80000000u;
+    const bool virt = umx >= ubig;
+    const int nvirt = virt ? 2 * Pm - 1 - n2 : 0;
+    const int hb = virt ? 31 : (umn == umx ? -1 : 31 - __clz(umn ^ umx));
+    uint32_t prefix = hb >= 31 ? 0u : (umn >> (hb + 1)) << (hb + 1);
+    int r = (n2 - 1) / 2;
+    for (int pass = 0, shift = hb < 0 ? -8 : 8 * (hb >> 3); shift >= 0; ++pass, shift -= 8) {
+      int* hs = hist + 256 * (pass & 1);
+      if (pass >= 1)
+        for (int i = tid; i < 256; i += THREADS) hist[256 * ((pass + 1) & 1) + i] = 0;
+      for (int h = tid; h < nh; h += THREADS) {
+        if (((hits[h] >> 22) & 1u) == static_cast<uint32_t>(fl)) continue;
+        const uint32_t u = static_cast<uint32_t>(D[h]) ^ 0x80000000u;
+        if (shift == 24 || ((u ^ prefix) >> (shift + 8)) == 0u)
+          atomicAdd(&hs[(u >> shift) & 255u], 1);
+      }
+      if (tid == 0 && nvirt > 0 && (shift == 24 || ((ubig ^ prefix) >> (shift + 8)) == 0u))
+        atomicAdd(&hs[(ubig >> shift) & 255u], nvirt);
+      __syncthreads();
+      if (warp == 0) {
+        int c[8], sum = 0;
+        for (int j = 0; j < 8; ++j) {
+          c[j] = hs[8 * lane + j];
+          sum += c[j];
+        }
+        int incl = sum;
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(FULL, incl, o);
+          if (lane >= o) incl += y;
+        }
+        int before = incl - sum;
+        if (before <= r && r < incl) {
+          int d = 8 * lane;
+          for (int j = 0; j < 8; ++j) {
+            if (r < before + c[j]) {
+              d = 8 * lane + j;
+              break;
+            }
+            before += c[j];
+          }
+          s_c[PFX] = static_cast<int>(prefix | (static_cast<uint32_t>(d) << shift));
+          s_c[RNK] = r - before;
+        }
+      }
+      __syncthreads();
+      prefix = static_cast<uint32_t>(s_c[PFX]);
+      r = s_c[RNK];
+    }
+    med = static_cast<int>(prefix ^ 0x80000000u);
+  }
   const int min_len = lenA < lenB ? lenA : lenB;
   const int tol_f = static_cast<int>(__fmul_rn(__int2float_rn(min_len), 0.3f));
   const int tol = tol_f > 100 ? tol_f : 100;
 
-  // 4. the inliers, sorted by (posA, join position); posA as an ordered
-  // unsigned key
-  uint64_t* s_ins = s_join;
+  // 4. the inliers by (posA, key), posA as an ordered unsigned, carrying
+  // the hit index
   for (int h = tid; h < nh; h += THREADS) {
-    if ((h_agree[h] != 0) == fl) continue;
-    const int pa = h_posA[h];
-    const int diag = pa - (fl ? lenB - k - h_posB[h] : h_posB[h]);
-    const int dev = diag - med;
-    if ((dev < 0 ? -dev : dev) > tol || pa == BIG) continue;
-    const int slot = atomicAdd(&s_ni, 1);
-    s_ins[slot] = (static_cast<uint64_t>(static_cast<uint32_t>(pa) ^ 0x80000000u) << 32) |
-                  (static_cast<uint32_t>(h_j[h]) << 12) | static_cast<uint32_t>(h);
+    const uint32_t hv = hits[h];
+    if (((hv >> 22) & 1u) == static_cast<uint32_t>(fl)) continue;
+    if (wabs(wsub(D[h], med)) > tol) continue;
+    const int pa = __ldg(mpA + (hv & 0x7FFu));
+    if (pa == BIG) continue;
+    const uint32_t key = static_cast<uint32_t>(__ldg(mkA + (hv & 0x7FFu)));
+    const int slot = atomicAdd(&s_c[NI], 1);
+    comp[slot] = (static_cast<uint64_t>(static_cast<uint32_t>(pa) ^ 0x80000000u) << 32) | key;
+    pay[slot] = static_cast<uint16_t>(h);
   }
   __syncthreads();
-  const int ni = s_ni;
+  const int ni = s_c[NI];
   const int n_ins = pow2_at_least(ni > 1 ? ni : 1);
-  for (int i = ni + tid; i < n_ins; i += THREADS) s_ins[i] = ~0ull;
-  __syncthreads();
-  bitonic_sort(s_ins, n_ins);
-  int* s_pas = reinterpret_cast<int*>(s_join + P2);
-  int* s_pbs = s_pas + Pm;
-  for (int i = tid; i < ni; i += THREADS) {
-    const int h = static_cast<int>(s_ins[i] & 0xFFFu);
-    s_pas[i] = h_posA[h];
-    s_pbs[i] = fl ? lenB - k - h_posB[h] : h_posB[h];
-  }
-  __syncthreads();
+  block_sort(comp, pay, n_ins, ni);
 
-  // the running max: entry i is kept where its posB exceeds the max of the
-  // entries before it (-1 before the first); kept entries compacted in
-  // order into h_posA / h_posB
+  // the running max over the sorted inliers' posB (posA - diagonal):
+  // entry i is kept where its posB exceeds the max of the entries before
+  // it (-1 before the first); each kept entry that is a pick writes it
   const int per = (ni + THREADS - 1) / THREADS;
-  const int lo = tid * per < ni ? tid * per : ni;
-  const int hi = lo + per < ni ? lo + per : ni;
+  const int i_lo = tid * per < ni ? tid * per : ni;
+  const int i_hi = i_lo + per < ni ? i_lo + per : ni;
+  auto pos_a = [&](int i) {
+    return static_cast<int>(static_cast<uint32_t>(comp[i] >> 32) ^ 0x80000000u);
+  };
+  auto pos_b = [&](int i) { return wsub(pos_a(i), D[pay[i]]); };
   int m_loc = INT_MIN32;
-  for (int i = lo; i < hi; ++i) m_loc = s_pbs[i] > m_loc ? s_pbs[i] : m_loc;
-  const int before = block_excl_max(m_loc, s_scan);
+  for (int i = i_lo; i < i_hi; ++i) {
+    const int pb = pos_b(i);
+    m_loc = pb > m_loc ? pb : m_loc;
+  }
+  const int before = block_excl_max(m_loc, s_w1);
   int run = before, n_kept_loc = 0;
-  for (int i = lo; i < hi; ++i) {
-    const int pb = s_pbs[i];
+  for (int i = i_lo; i < i_hi; ++i) {
+    const int pb = pos_b(i);
     n_kept_loc += pb > (i == 0 ? -1 : run);
     run = pb > run ? pb : run;
   }
   int n_keep = 0;
-  int rank = block_excl_sum(n_kept_loc, &n_keep, s_scan);
+  int rank = block_excl_sum(n_kept_loc, &n_keep, s_w2);
+  // 5. the picks: pick m is kept entry m where n_keep <= 64, else entry
+  // m (n_keep - 1) / 63, a strictly increasing map
   run = before;
-  for (int i = lo; i < hi; ++i) {
-    const int pb = s_pbs[i];
+  for (int i = i_lo; i < i_hi; ++i) {
+    const int pb = pos_b(i);
     if (pb > (i == 0 ? -1 : run)) {
-      h_posA[rank] = s_pas[i];
-      h_posB[rank] = pb;
+      int m = -1;
+      if (n_keep <= MAX_ANCHORS) {
+        m = rank;
+      } else {
+        const int d = n_keep - 1;
+        const int mm = (63 * rank + d - 1) / d;
+        if (mm < MAX_ANCHORS && (mm * d) / 63 == rank) m = mm;
+      }
+      if (m >= 0) {
+        pkA[m] = pos_a(i);
+        pkB[m] = pb;
+      }
       ++rank;
     }
     run = pb > run ? pb : run;
   }
-  if (tid == 0) s_keep = n_keep;
-  __syncthreads();
-  n_keep = s_keep;
-
-  // 5. the picks, the seed, the anchor lists
-  if (tid < MAX_ANCHORS) {
-    const int m = tid;
-    const int denom = n_keep - 1 > 1 ? n_keep - 1 : 1;
-    int pick = n_keep <= MAX_ANCHORS ? m : (m * denom) / (MAX_ANCHORS - 1);
-    const int last = n_keep - 1 > 0 ? n_keep - 1 : 0;
-    pick = pick < last ? pick : last;
-    const bool va = m < n_keep;
-    s_aA[m] = va ? h_posA[pick] : -1;
-    s_aB[m] = va ? h_posB[pick] : -1;
-  }
+  if (tid < MAX_ANCHORS && tid >= n_keep) pkA[tid] = pkB[tid] = -1;
   __syncthreads();
   const int n_anchor = n_keep < MAX_ANCHORS ? n_keep : MAX_ANCHORS;
   const int seed_m = (n_anchor - 1 > 0 ? n_anchor - 1 : 0) / 2;
-  const int seedA = s_aA[seed_m] > 0 ? s_aA[seed_m] : 0;
-  const int seedB = s_aB[seed_m] > 0 ? s_aB[seed_m] : 0;
+  const int seedA = pkA[seed_m] > 0 ? pkA[seed_m] : 0;
+  const int seedB = pkB[seed_m] > 0 ? pkB[seed_m] : 0;
   if (tid < MAX_ANCHORS) {
     const int m = tid;
     const int i_f = seed_m + m < MAX_ANCHORS - 1 ? seed_m + m : MAX_ANCHORS - 1;
-    int fa = s_aA[i_f] - seedA, fb = s_aB[i_f] - seedB;
+    int fa = pkA[i_f] - seedA, fbv = pkB[i_f] - seedB;
     const bool vf = seed_m + m < n_anchor && fa >= 0;
     fa = vf ? fa : BIGF + m;
-    fb = vf ? fb : BIGF + m;
-    s_xf[m] = __int2float_rn(fa);
-    s_ff[m] = __int2float_rn(fb);
+    fbv = vf ? fbv : BIGF + m;
     const int i_b = seed_m - m > 0 ? seed_m - m : 0;
-    const int aAb = s_aA[i_b];
-    int ba = seedA - aAb, bb = seedB - s_aB[i_b];
+    const int aAb = pkA[i_b];
+    int ba = seedA - aAb, bbv = seedB - pkB[i_b];
     const bool vb = m <= seed_m && aAb >= 0;
     ba = vb ? ba : BIGF + m;
-    bb = vb ? bb : BIGF + m;
-    s_xb[m] = __int2float_rn(ba);
-    s_fb[m] = __int2float_rn(bb);
+    bbv = vb ? bbv : BIGF + m;
+    // the picks are read by every thread above: the lists go after them
+    xf[m] = __int2float_rn(fa);
+    ff[m] = __int2float_rn(fbv);
+    xb[m] = __int2float_rn(ba);
+    fb[m] = __int2float_rn(bbv);
   }
-  __syncthreads();
-
-  // 6. the centres on the stride-16 grid, repeated to n_rows + 1 columns,
-  // then the rows
   if (tid == 0) {
     out_nanchor[q] = n_anchor;
     out_flipped[q] = fl;
     out_seedA[q] = seedA;
     out_seedB[q] = seedB;
-    out_nminor[q] = s_same < s_opp ? s_same : s_opp;
+    out_nminor[q] = n_same < n_opp ? n_same : n_opp;
     const int64_t rf = 2 * static_cast<int64_t>(g) * C + p, rbk = rf + C;
     out_alen[rf] = lenA - seedA;
     out_alen[rbk] = seedA;
@@ -434,203 +781,323 @@ verify_pre_kernel(const int64_t* __restrict__ words, int W, const int32_t* __res
     out_blen[rbk] = seedB;
   }
   __syncthreads();
+
+  // 6. the centres: one interpolation a 16-row group into a shared tile
+  // (threads 0-127 the forward list, 128-255 the backward one, each a run
+  // of consecutive groups, walking the anchors forward), then the rows
   const int64_t row_f = 2 * static_cast<int64_t>(g) * C + p, row_b = row_f + C;
   const int wc = n_rows + 1;
+  const int ns = (n_rows >> 4) + 1;
   int32_t* cf = out_cen + row_f * wc;
   int32_t* cb = out_cen + row_b * wc;
-  for (int r = tid; r < wc; r += THREADS) {
-    const float x = __int2float_rn(r & ~15);
-    cf[r] = interp_center(x, s_xf, s_ff);
-    cb[r] = interp_center(x, s_xb, s_fb);
+  for (int j0 = 0; j0 < ns; j0 += tile_half) {
+    const int nt = ns - j0 < tile_half ? ns - j0 : tile_half;
+    const int dir = tid >> 7, t = tid & 127;
+    const float* xp = dir ? xb : xf;
+    const float* fp = dir ? fb : ff;
+    const int tper = (nt + 127) >> 7;
+    const int s0 = t * tper, s1 = s0 + tper < nt ? s0 + tper : nt;
+    if (s0 < s1) {
+      int lo = search_right(__int2float_rn(16 * (j0 + s0)), xp);
+      for (int j = s0; j < s1; ++j) {
+        const float x = __int2float_rn(16 * (j0 + j));
+        while (lo < MAX_ANCHORS && xp[lo] <= x) ++lo;
+        tile[dir * tile_half + j] = interp_at(x, lo, xp, fp);
+      }
+    }
+    __syncthreads();
+    const int c0 = 16 * j0, c1 = 16 * (j0 + nt) < wc ? 16 * (j0 + nt) : wc;
+    store_centres(cf, c0, c1, tile, j0);
+    store_centres(cb, c0, c1, tile + tile_half, j0);
+    if (j0 + tile_half < ns) __syncthreads();  // the next tile overwrites this one
   }
 
-  // 7. the base rows
+  // 7. the base rows, 16 bases a thread
   const int wb = n_rows + band;
   const int64_t te_af = seedA & shift_mask(L, n_rows);
   const int64_t te_ab = (L - seedA) & shift_mask(L, n_rows);
   const int64_t te_bf = seedB & shift_mask(L, wb);
   const int64_t te_bb = (L - seedB) & shift_mask(L, wb);
   const int64_t te_o = (fl ? L - lenB : 0) & shift_mask(L, L);
-  uint8_t* af = out_a + row_f * n_rows;
-  uint8_t* ab = out_a + row_b * n_rows;
-  uint8_t* bf = out_b + row_f * wb;
-  uint8_t* bbk = out_b + row_b * wb;
-  for (int i4 = 4 * tid; i4 < n_rows; i4 += 4 * THREADS) {
-    store4(af, n_rows, i4, [&](int i) {
-      const int64_t s = i + te_af;
-      return s < L ? raw_base(wA, static_cast<int>(s)) : 0;
-    });
-    store4(ab, n_rows, i4, [&](int i) {
-      const int64_t s = i + te_ab;
-      return s < L ? raw_base(wA, static_cast<int>(L - 1 - s)) : 0;
-    });
-  }
-  for (int i4 = 4 * tid; i4 < wb; i4 += 4 * THREADS) {
-    store4(bf, wb, i4, [&](int i) {
-      const int64_t s = i + te_bf;
-      return s < L ? oriented_base(wB, static_cast<int>(s), L, lenB, fl, te_o) : 0;
-    });
-    store4(bbk, wb, i4, [&](int i) {
-      const int64_t s = i + te_bb;
-      return s < L ? oriented_base(wB, static_cast<int>(L - 1 - s), L, lenB, fl, te_o) : 0;
-    });
-  }
-}
-
-// the join (2 P2 keys), the hits' posA, posB, join position and strand
-size_t verify_pre_smem(int Pm) {
-  int P2 = 1;
-  while (P2 < Pm) P2 <<= 1;
-  return 16 * static_cast<size_t>(P2) + 13 * static_cast<size_t>(Pm);
+  const int64_t lim_b = L < lenB ? L : lenB;  // forward B: s < L and s < lenB
+  store_row(out_a + row_f * n_rows, n_rows, [&](int i0) {
+    const int64_t s0 = i0 + te_af;  // out[i] = raw(s), s = i + te < L
+    return bases_out16(wA, W, s0, false, 0u, 0, L - s0);
+  });
+  store_row(out_a + row_b * n_rows, n_rows, [&](int i0) {
+    const int64_t s0 = i0 + te_ab;  // out[i] = raw(L - 1 - s), s < L
+    return bases_out16(wA, W, L - 1 - s0, true, 0u, 0, L - s0);
+  });
+  store_row(out_b + row_f * wb, wb, [&](int i0) {
+    const int64_t s0 = i0 + te_bf;  // out[i] = oriented(s), s < L
+    if (!fl) return bases_out16(wB, W, s0, false, 0u, 0, lim_b - s0);
+    // oriented(s) = 3 - raw(L - 1 - te_o - s) where s < lenB, s + te_o < L
+    const int64_t lim = lim_b < L - te_o ? lim_b : L - te_o;
+    return bases_out16(wB, W, L - 1 - te_o - s0, true, 3u * 0x55555555u, 0, lim - s0);
+  });
+  store_row(out_b + row_b * wb, wb, [&](int i0) {
+    const int64_t s0 = i0 + te_bb;  // out[i] = oriented(L - 1 - s), s < L
+    // L - 1 - s < lenB: s >= L - lenB
+    if (!fl) return bases_out16(wB, W, L - 1 - s0, true, 0u, L - lenB - s0, L - s0);
+    // oriented(L - 1 - s) = 3 - raw(s - te_o) where also s >= te_o
+    const int64_t first = L - lenB > te_o ? L - lenB : te_o;
+    return bases_out16(wB, W, s0 - te_o, false, 3u * 0x55555555u, first - s0, L - s0);
+  });
 }
 
 // ---- K8 -----------------------------------------------------------------------
 
-// forward and reverse-complement k-mers (k <= 32) at position p of a read
-// of W words, p + k <= 16 W
-__device__ __forceinline__ uint64_t word_at(const int64_t* __restrict__ w, int i) {
-  return static_cast<uint32_t>(__ldg(w + i));
+__device__ __forceinline__ uint64_t word_at(const int64_t* __restrict__ w, int Wr, int j) {
+  return j < Wr ? static_cast<uint64_t>(static_cast<uint32_t>(__ldg(w + j))) : 0ull;
 }
 
-__device__ __forceinline__ void kmer_at(const int64_t* __restrict__ w, int W, int p, int k,
-                                        uint64_t& fw, uint64_t& rc) {
-  const int w0 = p >> 4, off = p & 15;
-  uint64_t lo = word_at(w, w0);
-  if (w0 + 1 < W) lo |= word_at(w, w0 + 1) << 32;
-  const uint64_t hi = w0 + 2 < W ? word_at(w, w0 + 2) : 0u;
-  const uint64_t v = off ? (lo >> (2 * off)) | (hi << (64 - 2 * off)) : lo;
-  fw = 0;
-  rc = 0;
-  const int top = 2 * k - 2;
-  for (int j = 0; j < k; ++j) {
-    const uint64_t b = (v >> (2 * j)) & 3u;
-    fw = (fw << 2) | b;
-    rc = (rc >> 2) | ((3u - b) << top);
-  }
+// reverse the order of the 32 2-bit fields of v
+__device__ __forceinline__ uint64_t rev2_64(uint64_t v) {
+  v = __brevll(v);
+  return ((v & 0x5555555555555555ull) << 1) | ((v >> 1) & 0x5555555555555555ull);
 }
 
-// the canonical key of a k-mer (ops/kmer.py extract_kmers_any) and its strand
-__device__ __forceinline__ uint32_t canonical_key(const int64_t* __restrict__ w, int W, int p, int k,
-                                                  bool* strand) {
-  uint64_t fw, rc;
-  kmer_at(w, W, p, k, fw, rc);
-  *strand = rc < fw;
+__device__ __forceinline__ uint64_t field_mask(int n) {
+  return n >= 32 ? ~0ull : (1ull << (2 * n)) - 1ull;
+}
+
+// the forward and reverse-complement n-mers (n <= 32) of the first n bases
+// of v (base j at bits 2j)
+__device__ __forceinline__ void nmer_of(uint64_t v, int n, uint64_t& fw, uint64_t& rc) {
+  const uint64_t m = field_mask(n);
+  rc = ~v & m;
+  fw = rev2_64(v & m) >> (64 - 2 * n);
+}
+
+// the canonical key of a k-mer (ops/kmer.py extract_kmers_any) from its
+// forward and reverse complement
+__device__ __forceinline__ uint32_t canonical_key(uint64_t fw, uint64_t rc, int k) {
   const uint64_t c = rc < fw ? rc : fw;
   if (k <= 16) return static_cast<uint32_t>(c);
   const uint32_t key = mix32(static_cast<uint32_t>(c >> 32) ^ mix32(static_cast<uint32_t>(c)));
   return key == UMAX ? key ^ 1u : key;
 }
 
-// hs(i) for the s-mers [i0, i0 + n) into s_hs (UINT32_MAX off the read or
-// past Ps), then each position of [p0, p0 + SM_TILE) gets its key
-__device__ __forceinline__ void smer_tile(const int64_t* __restrict__ w, int W, int len, int s, int Ps,
-                                          int i0, int n, uint32_t* s_hs) {
-  for (int i = threadIdx.x; i < n; i += THREADS) {
-    const int si = i0 + i;
-    uint32_t hv = UMAX;
-    if (si < Ps && si <= len - s) {
-      bool st;
-      hv = mix32(canonical_key(w, W, si, s, &st));
+struct SyncRead {
+  const int64_t* w;
+  int Wr, len, k, s, t, nw, Pk, Ps;
+};
+
+// One tile of positions [p0, p0 + SM_T): the s-mer hashes into s_hs, then
+// f(p, key, selected) for each of the thread's 16 positions p0 + 16 tid +
+// e < Pk in order.  Starts with a barrier (the previous tile's readers)
+// and has one between the hashes and the keys.
+template <typename F>
+__device__ __forceinline__ void syncmer_tile(const SyncRead& R, int p0, uint32_t* s_hs, F f) {
+  __syncthreads();
+  const int nruns = (SM_T + R.nw - 1 + 15) >> 4;
+  const uint64_t ms = field_mask(R.s);
+  for (int run = threadIdx.x; run < nruns; run += THREADS) {
+    const int q = p0 + 16 * run, j = q >> 4;
+    const uint64_t lo = word_at(R.w, R.Wr, j) | (word_at(R.w, R.Wr, j + 1) << 32);
+    uint64_t fw, rc;
+    nmer_of(lo, R.s, fw, rc);
+    for (int e = 0; e < 16; ++e) {
+      const int qi = q + e;
+      uint32_t hv = UMAX;
+      if (qi < R.Ps && qi <= R.len - R.s) hv = mix32(static_cast<uint32_t>(rc < fw ? rc : fw));
+      s_hs[16 * run + e] = hv;
+      const uint64_t b = (lo >> (2 * (e + R.s))) & 3u;  // e + s <= 31
+      fw = ((fw << 2) | b) & ms;
+      rc = (rc >> 2) | ((3u - b) << (2 * R.s - 2));
     }
-    s_hs[i] = hv;
+  }
+  __syncthreads();
+  const int q = p0 + 16 * threadIdx.x;
+  if (q >= R.Pk) return;
+  const int j = q >> 4;
+  const uint64_t lo = word_at(R.w, R.Wr, j) | (word_at(R.w, R.Wr, j + 1) << 32);
+  const uint64_t hi = word_at(R.w, R.Wr, j + 2);
+  const uint64_t mk = field_mask(R.k);
+  uint64_t fw, rc;
+  nmer_of(lo, R.k, fw, rc);
+  const uint32_t* hs = s_hs + 16 * threadIdx.x;
+  for (int e = 0; e < 16; ++e) {
+    const int p = q + e;
+    if (p >= R.Pk) break;
+    uint32_t wm = UMAX;
+    for (int jj = 0; jj < R.nw; ++jj) wm = hs[e + jj] < wm ? hs[e + jj] : wm;
+    const bool sel = p <= R.len - R.k && hs[e + R.t] == wm;
+    f(p, sel ? mix32(canonical_key(fw, rc, R.k)) : UMAX, sel);
+    const int nb = e + R.k;  // the base entering the next k-mer: <= 46
+    const uint64_t b = (nb < 32 ? lo >> (2 * nb) : hi >> (2 * (nb - 32))) & 3u;
+    fw = ((fw << 2) | b) & mk;
+    rc = (rc >> 2) | ((3u - b) << (2 * R.k - 2));
   }
 }
 
-__device__ __forceinline__ uint32_t syncmer_key(const int64_t* __restrict__ w, int W, int len, int k, int t,
-                                                int nw, int p, int p0, const uint32_t* s_hs,
-                                                bool* selected) {
-  uint32_t wm = UMAX;
-  for (int j = 0; j < nw; ++j) {
-    const uint32_t h = s_hs[p - p0 + j];
-    wm = h < wm ? h : wm;
-  }
-  *selected = p <= len - k && s_hs[p - p0 + t] == wm;
-  if (!*selected) return UMAX;
-  bool st;
-  return mix32(canonical_key(w, W, p, k, &st));
-}
-
-__device__ __forceinline__ void write_slot(const int64_t* __restrict__ w, int W, int len, int k, int pm,
-                                           int b, int c, int pos, int64_t* out_mk,
-                                           int32_t* out_pos, int32_t* out_str) {
-  bool st;
-  const uint32_t key = canonical_key(w, W, pos, k, &st);
-  const size_t o = static_cast<size_t>(b) * pm + c;
-  out_mk[o] = pos <= len - k ? static_cast<int64_t>(key) : INVALID_KMER;
+// slot c of the read's output rows: position pos's canonical key (INVALID
+// past len - k), pos and strand
+__device__ __forceinline__ void write_slot(const SyncRead& R, int64_t o, int pos,
+                                           int64_t* out_mk, int32_t* out_pos, int32_t* out_str) {
+  const int j = pos >> 4, off = pos & 15;
+  const uint64_t lo = word_at(R.w, R.Wr, j) | (word_at(R.w, R.Wr, j + 1) << 32);
+  const uint64_t hi = word_at(R.w, R.Wr, j + 2);
+  const uint64_t v = off ? (lo >> (2 * off)) | (hi << (64 - 2 * off)) : lo;
+  uint64_t fw, rc;
+  nmer_of(v, R.k, fw, rc);
+  out_mk[o] = pos <= R.len - R.k ? static_cast<int64_t>(canonical_key(fw, rc, R.k)) : INVALID_KMER;
   out_pos[o] = pos;
-  out_str[o] = st;
+  out_str[o] = rc < fw;
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, K8_MIN_BLOCKS)
 syncmer_kernel(const int64_t* __restrict__ words, int W, const int32_t* __restrict__ lengths,
-               int k, int s, int t, int pm, uint64_t* __restrict__ scratch, int cap,
-               int64_t* __restrict__ out_mk, int32_t* __restrict__ out_pos,
+               const int32_t* __restrict__ rows, const int32_t* __restrict__ wbs, int k, int s,
+               int t, int pm, int64_t* __restrict__ out_mk, int32_t* __restrict__ out_pos,
                int32_t* __restrict__ out_str, int32_t* __restrict__ out_nsel) {
-  __shared__ int s_scan[THREADS];
-  __shared__ int s_nsel, s_nlt;
-  __shared__ uint32_t s_hs[SM_TILE + SM_HALO];  // the tile's s-mer hashes
-  const int b = blockIdx.x, tid = threadIdx.x;
-  uint64_t* buf = scratch + static_cast<size_t>(b) * cap;
-  const int64_t* w = words + static_cast<int64_t>(b) * W;
-  const int len = lengths[b];
-  const int Pk = 16 * W - k + 1, Ps = 16 * W - s + 1, nw = k - s + 1;
-  if (tid == 0) s_nsel = s_nlt = 0;
-  __syncthreads();
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint32_t s_hs[SM_T + SM_HALO];  // the tile's s-mer hashes
+  __shared__ int s_hist[512];
+  __shared__ int s_w[NWARP];
+  __shared__ int s_c[4];  // selected, kept (key < UINT32_MAX), the select's prefix and rank
+  uint64_t* buf = reinterpret_cast<uint64_t*>(smem);  // (key << 32 | position), pow2(pm)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row = rows[blockIdx.x];
+  SyncRead R;
+  R.Wr = wbs[blockIdx.x];
+  R.w = words + static_cast<int64_t>(row) * W;
+  R.len = lengths[row];
+  R.k = k;
+  R.s = s;
+  R.t = t;
+  R.nw = k - s + 1;
+  R.Pk = 16 * R.Wr - k + 1;
+  R.Ps = 16 * R.Wr - s + 1;
+  if (tid < 4) s_c[tid] = 0;
+  // (the first tile's barrier orders these stores before any use)
 
-  // the selected positions; those of key < UINT32_MAX into buf
-  for (int p0 = 0; p0 < Pk; p0 += SM_TILE) {
-    smer_tile(w, W, len, s, Ps, p0, SM_TILE + nw - 1, s_hs);
-    __syncthreads();
-    for (int p = p0 + tid; p < p0 + SM_TILE && p < Pk; p += THREADS) {
-      bool sel;
-      const uint32_t key = syncmer_key(w, W, len, k, t, nw, p, p0, s_hs, &sel);
-      if (sel) atomicAdd(&s_nsel, 1);
+  // pass 1: count the selected; keep the pairs of key < UINT32_MAX while
+  // they fit
+  int n_sel_loc = 0;
+  for (int p0 = 0; p0 < R.Pk; p0 += SM_T) {
+    syncmer_tile(R, p0, s_hs, [&](int p, uint32_t key, bool sel) {
+      n_sel_loc += sel;
       if (key != UMAX) {
-        const int slot = atomicAdd(&s_nlt, 1);
-        buf[slot] = (static_cast<uint64_t>(key) << 32) | static_cast<uint32_t>(p);
+        const int slot = atomicAdd(&s_c[1], 1);
+        if (slot < pm) buf[slot] = (static_cast<uint64_t>(key) << 32) | static_cast<uint32_t>(p);
       }
-    }
-    __syncthreads();
+    });
   }
-  const int n_sel = s_nsel, n_lt = s_nlt;
-  const int n_out = n_sel < pm ? n_sel : pm;
-  const int n_sort = pow2_at_least(n_lt > 1 ? n_lt : 1);
-  for (int i = n_lt + tid; i < n_sort; i += THREADS) buf[i] = ~0ull;
+  n_sel_loc = warp_sum(n_sel_loc);
+  if (lane == 0) atomicAdd(&s_c[0], n_sel_loc);
   __syncthreads();
-  bitonic_sort(buf, n_sort);
+  const int n_sel = s_c[0], n_lt = s_c[1];
+  const int n_out = n_sel < pm ? n_sel : pm;
   const int n_head = n_lt < n_out ? n_lt : n_out;
+  int n_keep = n_lt;
+  if (n_lt > pm) {
+    // the pm smallest (key, position): the pm-th smallest key T by a radix
+    // select, every key below it, and at T the first positions in order
+    uint32_t prefix = 0;
+    int r = pm - 1;
+    for (int pass = 0; pass < 4; ++pass) {
+      const int shift = 24 - 8 * pass;
+      int* hs = s_hist + 256 * (pass & 1);
+      for (int i = tid; i < 256; i += THREADS) hs[i] = 0;
+      for (int p0 = 0; p0 < R.Pk; p0 += SM_T) {
+        syncmer_tile(R, p0, s_hs, [&](int, uint32_t key, bool) {
+          if (key != UMAX && (pass == 0 || ((key ^ prefix) >> (shift + 8)) == 0u))
+            atomicAdd(&hs[(key >> shift) & 255u], 1);
+        });
+      }
+      __syncthreads();
+      if (warp == 0) {
+        int c[8], sum = 0;
+        for (int j = 0; j < 8; ++j) {
+          c[j] = hs[8 * lane + j];
+          sum += c[j];
+        }
+        int incl = sum;
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(FULL, incl, o);
+          if (lane >= o) incl += y;
+        }
+        int before = incl - sum;
+        if (before <= r && r < incl) {
+          int d = 8 * lane;
+          for (int j = 0; j < 8; ++j) {
+            if (r < before + c[j]) {
+              d = 8 * lane + j;
+              break;
+            }
+            before += c[j];
+          }
+          s_c[2] = static_cast<int>(prefix | (static_cast<uint32_t>(d) << shift));
+          s_c[3] = r - before;
+        }
+      }
+      __syncthreads();
+      prefix = static_cast<uint32_t>(s_c[2]);
+      r = s_c[3];
+    }
+    const uint32_t T = prefix;
+    const int need_eq = r + 1;  // entries of key T among the pm smallest
+    if (tid == 0) s_c[1] = 0;
+    int eq_taken = 0;
+    for (int p0 = 0; p0 < R.Pk; p0 += SM_T) {
+      uint32_t eqmask = 0;
+      const int q = p0 + 16 * tid;
+      syncmer_tile(R, p0, s_hs, [&](int p, uint32_t key, bool) {
+        if (key < T) {
+          const int slot = atomicAdd(&s_c[1], 1);
+          buf[slot] = (static_cast<uint64_t>(key) << 32) | static_cast<uint32_t>(p);
+        } else if (key == T) {
+          eqmask |= 1u << (p - q);
+        }
+      });
+      int tot = 0;
+      int rk = eq_taken + block_excl_sum(__popc(eqmask), &tot, s_w);
+      for (uint32_t m = eqmask; m; m &= m - 1) {
+        if (rk < need_eq) {
+          const int slot = atomicAdd(&s_c[1], 1);
+          buf[slot] = (static_cast<uint64_t>(T) << 32) |
+                      static_cast<uint32_t>(q + __ffs(m) - 1);
+        }
+        ++rk;
+      }
+      eq_taken += tot;
+    }
+    n_keep = pm;
+  }
+  __syncthreads();
+  const int n_sort = pow2_at_least(n_keep > 1 ? n_keep : 1);
+  block_sort(buf, static_cast<uint16_t*>(nullptr), n_sort, n_keep);
+  const int64_t base = static_cast<int64_t>(row) * pm;
   for (int c = tid; c < pm; c += THREADS) {
-    const size_t o = static_cast<size_t>(b) * pm + c;
     if (c < n_head) {
-      write_slot(w, W, len, k, pm, b, c, static_cast<int>(static_cast<uint32_t>(buf[c])),
-                 out_mk, out_pos, out_str);
+      write_slot(R, base + c, static_cast<int>(static_cast<uint32_t>(buf[c])), out_mk, out_pos,
+                 out_str);
     } else if (c >= n_out) {
-      out_mk[o] = INVALID_KMER;
-      out_pos[o] = -1;
-      out_str[o] = 0;
+      out_mk[base + c] = INVALID_KMER;
+      out_pos[base + c] = -1;
+      out_str[base + c] = 0;
     }
   }
-  if (tid == 0) out_nsel[b] = n_out;
+  if (tid == 0 && out_nsel != nullptr) out_nsel[row] = n_out;
 
-  // slots [n_lt, n_out): the positions of key UINT32_MAX in position order
-  // (only where a selected k-mer's mix32 is UINT32_MAX)
+  // slots [n_head, n_out): the positions of key UINT32_MAX in position
+  // order (only where a selected k-mer's mix32 is UINT32_MAX)
   const int need = n_out - n_head;
   int taken = 0;
-  for (int p0 = 0; p0 < Pk && taken < need; p0 += SM_TILE) {
-    __syncthreads();
-    smer_tile(w, W, len, s, Ps, p0, SM_TILE + nw - 1, s_hs);
-    __syncthreads();
-    for (int q0 = p0; q0 < p0 + SM_TILE && q0 < Pk && taken < need; q0 += THREADS) {
-      const int p = q0 + tid;
-      bool sel;
-      const int flag = p < Pk && p < p0 + SM_TILE &&
-                       syncmer_key(w, W, len, k, t, nw, p, p0, s_hs, &sel) == UMAX;
-      int total = 0;
-      const int r = taken + block_excl_sum(flag, &total, s_scan);
-      if (flag && r < need)
-        write_slot(w, W, len, k, pm, b, n_head + r, p, out_mk, out_pos, out_str);
-      taken += total;
+  for (int p0 = 0; p0 < R.Pk && taken < need; p0 += SM_T) {
+    uint32_t umask = 0;
+    const int q = p0 + 16 * tid;
+    syncmer_tile(R, p0, s_hs, [&](int p, uint32_t key, bool) {
+      if (key == UMAX) umask |= 1u << (p - q);
+    });
+    int tot = 0;
+    int rk = taken + block_excl_sum(__popc(umask), &tot, s_w);
+    for (uint32_t m = umask; m; m &= m - 1) {
+      if (rk < need) write_slot(R, base + n_head + rk, q + __ffs(m) - 1, out_mk, out_pos, out_str);
+      ++rk;
     }
+    taken += tot;
   }
 }
 
@@ -656,7 +1123,8 @@ extern "C" int canu_verify_pre(const void* words, int W, const void* length, con
   if (W < 1 || n_pairs < 0 || C < 1 || band < 0 || n_rows < 1) return -3;
   if (n_pairs % C) return -4;
   if (n_pairs == 0) return 0;
-  const size_t smem = verify_pre_smem(Pm);
+  const int P2 = pow2_at_least(Pm);
+  const size_t smem = static_cast<size_t>(k7_hits_bytes(P2)) + k7_region_bytes(P2);
   cudaError_t err = cudaFuncSetAttribute(verify_pre_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -674,26 +1142,53 @@ extern "C" int canu_verify_pre(const void* words, int W, const void* length, con
   return static_cast<int>(cudaGetLastError());
 }
 
-// words int64[B, W] (uint32 values), lengths int32[B], k in 2..32 with its
-// syncmer (s, t), pm >= 1; scratch uint64[B, cap], cap at least the power
-// of two at least 16 W - k + 1 (a read's selected positions and their
-// sort).  Outputs mker int64[B, pm], mpos, mstr int32[B, pm], n_sel
-// int32[B].  Returns cudaGetLastError() of the launch, -1 for k, s or t out
-// of range, -3 for a bad size or a missing scratch buffer.
-extern "C" int canu_syncmer(const void* words, int B, int W, const void* lengths, int k, int s,
-                            int t, int pm, void* scratch, int cap, void* mker, void* mpos,
-                            void* mstr, void* n_sel, void* stream) {
-  if (k < 2 || k > 32 || s < 2 || s > 16 || s > k || k - s + 1 > SM_HALO || t < 0 || t > k - s)
+// words int64[*, W] (uint32 values) and lengths int32[*]: a word plane and
+// its lengths; n reads, read i at row rows[i] (int32) padded to wbs[i] <= W
+// words, 16 wbs[i] >= k - 1; k in 2..32 with its syncmer (s, t), pm in
+// 1..2048.  Writes rows rows[i] of mker int64[*, pm], mpos, mstr int32[*,
+// pm] and, unless null, n_sel int32[*].  Returns cudaGetLastError() of the
+// launch, -1 for k, s, t or pm out of range, -3 for a bad size.
+extern "C" int canu_syncmer(const void* words, int W, const void* lengths, const void* rows,
+                            const void* wbs, int n, int k, int s, int t, int pm, void* mker,
+                            void* mpos, void* mstr, void* n_sel, void* stream) {
+  if (k < 2 || k > 32 || s < 2 || s > 16 || s > k || k - s + 1 > SM_HALO || t < 0 ||
+      t > k - s || pm < 1 || pm > MAX_PM)
     return -1;
-  if (B < 0 || W < 1 || pm < 1 || 16 * W < k - 1) return -3;
-  if (B == 0) return 0;
-  const int Pk = 16 * W - k + 1;
-  int need = 1;
-  while (need < Pk) need <<= 1;
-  if (scratch == nullptr || cap < need) return -3;
-  syncmer_kernel<<<B, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(words), W, static_cast<const int32_t*>(lengths), k, s, t, pm,
-      static_cast<uint64_t*>(scratch), cap, static_cast<int64_t*>(mker),
-      static_cast<int32_t*>(mpos), static_cast<int32_t*>(mstr), static_cast<int32_t*>(n_sel));
+  if (n < 0 || W < 1) return -3;
+  if (n == 0) return 0;
+  const size_t smem = 8 * static_cast<size_t>(pow2_at_least(pm));
+  syncmer_kernel<<<n, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(words), W, static_cast<const int32_t*>(lengths),
+      static_cast<const int32_t*>(rows), static_cast<const int32_t*>(wbs), k, s, t, pm,
+      static_cast<int64_t*>(mker), static_cast<int32_t*>(mpos), static_cast<int32_t*>(mstr),
+      static_cast<int32_t*>(n_sel));
   return static_cast<int>(cudaGetLastError());
+}
+
+// What the card gives each kernel at index rows of Pm (K7) and pm (K8)
+// entries: out[0..3] K7's resident blocks an SM, registers a thread,
+// dynamic and static shared bytes a block; out[4..7] the same for K8.
+// Returns the first CUDA error, else 0.
+extern "C" int canu_verify_resources(int Pm, int pm, int* out) {
+  if (Pm < 1 || Pm > MAX_PM || pm < 1 || pm > MAX_PM) return -1;
+  const int P2 = pow2_at_least(Pm);
+  const int smem7 = k7_hits_bytes(P2) + k7_region_bytes(P2);
+  const int smem8 = 8 * pow2_at_least(pm);
+  cudaError_t err = cudaFuncSetAttribute(verify_pre_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem7);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes fa;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], verify_pre_kernel, THREADS, smem7);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, verify_pre_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[1] = fa.numRegs;
+  out[2] = smem7;
+  out[3] = static_cast<int>(fa.sharedSizeBytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], syncmer_kernel, THREADS, smem8);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, syncmer_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[5] = fa.numRegs;
+  out[6] = smem8;
+  out[7] = static_cast<int>(fa.sharedSizeBytes);
+  return 0;
 }

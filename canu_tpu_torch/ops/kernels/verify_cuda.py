@@ -2,19 +2,24 @@
 
 K7 (``verify_pre``) is verify's anchor-and-inputs step for a group of
 chunks in one launch, one block of 256 threads a pair: the syncmer join
-of the pair's two index rows, the strand vote, the median diagonal and
-its inliers, the running-max chain and the MAX_ANCHORS picks, the seed,
-the interpolated band centres and the four shifted, oriented base rows,
+of the pair's two index rows (a binary search of each first B entry of a
+key in A's row, both rows in mix32 order as K8 writes them, a row out of
+that order sorted first), the strand vote, the median diagonal by a radix
+select and its inliers, their (posA, key) sort, the running-max chain
+and the MAX_ANCHORS picks, the seed, the band centres interpolated once a
+16-row group and the four shifted, oriented base rows 16 bases a thread,
 written straight into the group's wide extension inputs (chunk g's
 forward rows, then its backward rows, then chunk g + 1's).
 ops.align._verify_pre launches it on CUDA tensors; it is held against
 ops.align._verify_pre_plain.
 
-K8 (``syncmer``) is the open-syncmer selection and compaction of a padded
-read block, one block of 256 threads a read, its selected positions
-sorted in a device scratch row of the read.  ops.minimizers
-._syncmer_kernel launches it on CUDA tensors; it is held against
-ops.minimizers._syncmer_kernel_plain.
+K8 is the open-syncmer selection and compaction, one block of 256
+threads a read, its selected (key, position) pairs in shared memory
+(sorted there, or cut to pm by a radix select first).  ``syncmer_index``
+builds a whole read index in one launch, each read at its length
+bucket's width; ops.minimizers.build_read_index calls it on the card.
+``syncmer`` runs one padded block (ops.minimizers._syncmer_kernel on CUDA
+tensors).  Both are held against ops.minimizers._syncmer_kernel_plain.
 
 The library is built by ops/kernels/_nvcc.py and loaded with ctypes;
 nothing here falls back to the plain versions: a failed build, a tensor
@@ -34,7 +39,8 @@ SOURCE = _nvcc.CSRC / "verify.cu"
 # launches since the last reset (read by chip_smoke.py): K7, K8
 PRE_LAUNCHES = SYNCMER_LAUNCHES = 0
 
-# K7 keeps a hit's join position and slot in 24 bits of its sort key
+# K7 keeps each hit's two slots in 11 bits each; K8 holds pm (key,
+# position) pairs in shared memory
 MAX_PM = 2048
 
 _lib = None
@@ -49,8 +55,9 @@ def _load():
         i = ctypes.c_int
         lib.canu_verify_pre.argtypes = [p, i, p, p, p, p, i, p, p, p, i, i, i, i, i, i,
                                         p, p, p, p, p, p, p, p, p, p, p]
-        lib.canu_syncmer.argtypes = [p, i, i, p, i, i, i, i, p, i, p, p, p, p, p]
-        for fn in (lib.canu_verify_pre, lib.canu_syncmer):
+        lib.canu_syncmer.argtypes = [p, i, p, p, p, i, i, i, i, i, p, p, p, p, p]
+        lib.canu_verify_resources.argtypes = [i, i, p]
+        for fn in (lib.canu_verify_pre, lib.canu_syncmer, lib.canu_verify_resources):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -128,20 +135,37 @@ def verify_pre(index, a_idx, b_idx, flipped, k: int, band: int, n_rows: int, ori
     return (a, a_len, b, b_len, centers), n_anchor, fl_out, seedA, seedB, n_minor
 
 
-def syncmer(words, lengths, k: int, s: int, t: int, pm: int):
-    """Kernel K8: (mker int64[B, pm], mpos int32[B, pm], mstr int32[B, pm],
-    n_sel int32[B]) of ops.minimizers._syncmer_kernel for words int64[B, W]
-    (uint32 values, 16 bases a word) and lengths int32[B] on the card, with
-    the syncmer parameters (s, t) of k."""
-    global SYNCMER_LAUNCHES
+def _syncmer_checks(words, k: int, pm: int):
     if words.dim() != 2:
         raise ValueError("words must be 2-D")
-    if not 2 <= k <= 32 or pm < 1:
-        raise ValueError(f"kernel K8 takes k in 2..32 and pm >= 1, got {k}, {pm}")
+    if not 2 <= k <= 32 or not 1 <= pm <= MAX_PM:
+        raise ValueError(f"kernel K8 takes k in 2..32 and pm >= 1 (at most {MAX_PM}), "
+                         f"got {k}, {pm}")
+
+
+def _syncmer_launch(words, lengths, rows, wbs, k, s, t, pm, mker, mpos, mstr, n_sel) -> None:
+    global SYNCMER_LAUNCHES
+    dev = words.device
+    fn = _load().canu_syncmer
+    with torch.cuda.device(dev):
+        rc = fn(words.data_ptr(), int(words.shape[1]), lengths.data_ptr(), rows.data_ptr(),
+                wbs.data_ptr(), int(rows.shape[0]), int(k), int(s), int(t), int(pm),
+                mker.data_ptr(), mpos.data_ptr(), mstr.data_ptr(),
+                n_sel.data_ptr() if n_sel is not None else None, _stream(dev))
+    _raise_on(rc, "K8")
+    SYNCMER_LAUNCHES += 1
+
+
+def syncmer(words, lengths, k: int, s: int, t: int, pm: int):
+    """Kernel K8 on one padded block: (mker int64[B, pm], mpos int32[B,
+    pm], mstr int32[B, pm], n_sel int32[B]) of ops.minimizers
+    ._syncmer_kernel for words int64[B, W] (uint32 values, 16 bases a word)
+    and lengths int32[B] on the card, with the syncmer parameters (s, t) of
+    k."""
+    _syncmer_checks(words, k, pm)
     dev = words.device
     B, W = words.shape
-    Pk = 16 * W - k + 1
-    if W < 1 or Pk < 0:
+    if W < 1 or 16 * W - k + 1 < 0:
         raise ValueError(f"kernel K8: {W} words a read hold no {k}-mer window")
     _nvcc.check_tensor("words", words, torch.int64, (B, W), dev)
     _nvcc.check_tensor("lengths", lengths, torch.int32, (B,), dev)
@@ -150,16 +174,48 @@ def syncmer(words, lengths, k: int, s: int, t: int, pm: int):
     mpos = torch.empty((B, pm), dtype=torch.int32, device=dev)
     mstr = torch.empty((B, pm), dtype=torch.int32, device=dev)
     n_sel = torch.empty(B, dtype=torch.int32, device=dev)
-    if B == 0:
-        return mker, mpos, mstr, n_sel
-    cap = 1 << max(0, (max(Pk, 1) - 1).bit_length())
-    scratch = torch.empty((B, cap), dtype=torch.int64, device=dev)
-    fn = _load().canu_syncmer
-    with torch.cuda.device(dev):
-        rc = fn(words.data_ptr(), int(B), int(W), lengths.data_ptr(), int(k), int(s), int(t),
-                int(pm), scratch.data_ptr(), int(cap),
-                mker.data_ptr(), mpos.data_ptr(), mstr.data_ptr(), n_sel.data_ptr(),
-                _stream(dev))
-    _raise_on(rc, "K8")
-    SYNCMER_LAUNCHES += 1
+    if B:
+        rows = torch.arange(B, dtype=torch.int32, device=dev)
+        wbs = torch.full((B,), W, dtype=torch.int32, device=dev)
+        _syncmer_launch(words, lengths, rows, wbs, k, s, t, pm, mker, mpos, mstr, n_sel)
     return mker, mpos, mstr, n_sel
+
+
+def syncmer_index(words, lengths, rows, wbs, min_wb: int, k: int, s: int, t: int, mker, mpos,
+                  mstr, n_sel=None) -> None:
+    """Kernel K8 over a whole read index in one launch: read rows[i] (int32,
+    a row of the word plane words int64[N, W] and lengths int32[N]) padded
+    to wbs[i] <= W words (int32, its length bucket's width; min_wb the
+    smallest, checked on the host) gets rows rows[i] of mker int64[N, pm],
+    mpos and mstr int32[N, pm] (written in place) bit for bit as
+    ``syncmer`` gives them on the block of its bucket; n_sel (int32[N], or
+    None) gets their n_sel at the same rows."""
+    _syncmer_checks(words, k, mker.shape[1] if mker.dim() == 2 else 0)
+    dev = words.device
+    N, W = words.shape
+    pm = mker.shape[1]
+    n = rows.shape[0] if rows.dim() == 1 else -1
+    if min_wb < 1 or 16 * min_wb - k + 1 < 0:
+        raise ValueError(f"kernel K8: {min_wb} words a read hold no {k}-mer window")
+    _nvcc.check_tensor("words", words, torch.int64, (N, W), dev)
+    _nvcc.check_tensor("lengths", lengths, torch.int32, (N,), dev)
+    _nvcc.check_tensor("rows", rows, torch.int32, (n,), dev)
+    _nvcc.check_tensor("wbs", wbs, torch.int32, (n,), dev)
+    for name, plane, dtype in (("mker", mker, torch.int64), ("mpos", mpos, torch.int32),
+                               ("mstr", mstr, torch.int32)):
+        _nvcc.check_tensor(name, plane, dtype, (N, pm), dev)
+    if n_sel is not None:
+        _nvcc.check_tensor("n_sel", n_sel, torch.int32, (N,), dev)
+    _on_card("K8", dev)
+    if n:
+        _syncmer_launch(words, lengths, rows, wbs, k, s, t, pm, mker, mpos, mstr, n_sel)
+
+
+def resources(Pm: int, pm: int) -> dict:
+    """What the card gives K7 at index rows of Pm entries and K8 at pm:
+    resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    registers a thread, dynamic and static shared bytes a block."""
+    out = (ctypes.c_int * 8)()
+    _raise_on(_load().canu_verify_resources(int(Pm), int(pm), out), "K7/K8 resources")
+    keys = ("blocks_per_sm", "registers", "dynamic_smem", "static_smem")
+    return {"K7": dict(zip(keys, out[:4])), "K8": dict(zip(keys, out[4:]))}

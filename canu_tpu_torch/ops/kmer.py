@@ -229,6 +229,18 @@ def length_bucketed_blocks(readset: ReadSet, block_size: int) -> Iterator[tuple[
         yield chunk, _pow2_at_least(max(1, wmax))
 
 
+def bucket_widths(readset: ReadSet, block_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """(ids int32[N], pad_words int32[N]): the reads in the order
+    length_bucketed_blocks yields them, each with its block's pad_words."""
+    ids, wbs = [], []
+    for chunk, W in length_bucketed_blocks(readset, block_size):
+        ids.append(chunk)
+        wbs.append(np.full(len(chunk), W, np.int32))
+    if not ids:
+        return np.zeros(0, np.int32), np.zeros(0, np.int32)
+    return np.concatenate(ids).astype(np.int32), np.concatenate(wbs)
+
+
 def block_tensors(readset: ReadSet, ids: np.ndarray, W: int, device: torch.device):
     """(words int64[B, W], lengths int32[B]) of reads ``ids`` on ``device``."""
     words, lengths = readset.block_words(ids, W)

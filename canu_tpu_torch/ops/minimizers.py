@@ -22,12 +22,16 @@ from ..device import resolve_device
 from ..stores.readset import ReadSet, device_cache
 from ..utils.bitpack import n_words
 from .hashing import mix32, u32_tensor
-from .kmer import INVALID_KMER, block_tensors, extract_kmers, extract_kmers_any, length_bucketed_blocks
+from .kmer import (INVALID_KMER, block_tensors, bucket_widths, extract_kmers, extract_kmers_any,
+                   length_bucketed_blocks)
 
 UINT32_MAX = 0xFFFFFFFF
 # blocks the plain selection ran on CUDA tensors; the pipeline must leave
 # it 0 (kernel K8 runs there)
 PLAIN_CUDA_SYNCMER = 0
+# read index builds of at least one read, on either device (on the card
+# kernel K8 launches once for each)
+INDEX_BUILDS = 0
 # k-mer window over s-mers: s = k - SYNC_DELTA, density 1/(SYNC_DELTA+1).
 # SYNC_DELTA must be even so the middle offset is strand-symmetric.
 SYNC_DELTA = 4
@@ -146,13 +150,19 @@ class ReadIndex:
 
 def build_read_index(readset: ReadSet, k: int = 16, pm: int | None = None,
                      block_size: int = 128, device=None) -> ReadIndex:
-    """Build the device index of a read set in one pass: _syncmer_kernel
-    on each length-bucketed block (kernel K8 on the card).
+    """Build the device index of a read set in one pass.  On the card
+    kernel K8 in one launch for every read, each at its length bucket's
+    width (ops.kmer.bucket_widths), from the word plane uploaded once; on
+    the CPU _syncmer_kernel on each length-bucketed block.  Either way a
+    read's rows are what its bucket's block gives.
 
     pm defaults to P/4 (syncmer density 1/5), capped at 2048.
     """
+    global INDEX_BUILDS
     dev = resolve_device(device)
     N = readset.n_reads
+    if N:
+        INDEX_BUILDS += 1
     max_len = int(readset.length.max()) if N else 1
     W = 1 << max(0, int(n_words(max_len) - 1).bit_length())
     if pm is None:
@@ -162,22 +172,33 @@ def build_read_index(readset: ReadSet, k: int = 16, pm: int | None = None,
     host_words, host_len = readset.block_words(ids_all, W)
     host_words = np.vstack([host_words, np.zeros((1, W), np.uint32)])
     host_len = np.concatenate([host_len, np.zeros(1, np.int32)])
+    words = u32_tensor(host_words, dev)
+    length = torch.from_numpy(host_len.astype(np.int32)).to(dev)
 
     mker = torch.full((N + 1, pm), INVALID_KMER, dtype=torch.int64, device=dev)
     mpos = torch.full((N + 1, pm), -1, dtype=torch.int32, device=dev)
     mstr = torch.zeros((N + 1, pm), dtype=torch.int32, device=dev)
-    for ids, Wb in length_bucketed_blocks(readset, block_size):
-        wb, lb = block_tensors(readset, ids, Wb, dev)
-        mk, mp, ms, _ = _syncmer_kernel(wb, lb, k, pm)
-        rows = torch.from_numpy(ids.astype(np.int64) - 1).to(dev)
-        mker[rows] = mk
-        mpos[rows] = mp
-        mstr[rows] = ms
-    return ReadIndex(
-        words=u32_tensor(host_words, dev),
-        length=torch.from_numpy(host_len.astype(np.int32)).to(dev),
-        mker=mker, mpos=mpos, mstr=mstr, n_reads=N, k=k, pm=pm,
-    )
+    if dev.type == "cuda":
+        from .kernels import verify_cuda as K8
+
+        s, t = syncmer_params(k)
+        if s < 2:
+            raise ValueError(f"k={k} too small for syncmer selection")
+        ids, wbs = bucket_widths(readset, block_size)
+        if N:
+            K8.syncmer_index(words, length, torch.from_numpy(ids - 1).to(dev),
+                             torch.from_numpy(wbs).to(dev), int(wbs.min()), k, s, t, mker,
+                             mpos, mstr)
+    else:
+        for ids, Wb in length_bucketed_blocks(readset, block_size):
+            wb, lb = block_tensors(readset, ids, Wb, dev)
+            mk, mp, ms, _ = _syncmer_kernel(wb, lb, k, pm)
+            rows = torch.from_numpy(ids.astype(np.int64) - 1).to(dev)
+            mker[rows] = mk
+            mpos[rows] = mp
+            mstr[rows] = ms
+    return ReadIndex(words=words, length=length, mker=mker, mpos=mpos, mstr=mstr, n_reads=N,
+                     k=k, pm=pm)
 
 
 def get_read_index(readset: ReadSet, k: int, device=None) -> ReadIndex:

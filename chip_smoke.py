@@ -960,8 +960,9 @@ def profiled(busy: dict, tables: list):
 def reset_counts() -> None:
     """Set every kernel's launch count, the plain loops', the plain DP's, the
     plain sketch's, match's, anchor step's, syncmer selection's and fold's
-    CUDA counts, the vote engine's DP groups and the calls of the host
-    k-mer counter, the hash-join and the spill build to 0."""
+    CUDA counts, the vote engine's DP groups, the read index builds and the
+    calls of the host k-mer counter, the hash-join and the spill build to
+    0."""
     from canu_tpu_torch.ops import align as AL
     from canu_tpu_torch.ops import kmer as KM
     from canu_tpu_torch.ops import minhash as MH
@@ -983,7 +984,7 @@ def reset_counts() -> None:
     VC.PRE_LAUNCHES = VC.SYNCMER_LAUNCHES = 0
     MY.PLAIN_CUDA_SEGMENTS = AL.PLAIN_CUDA_ROWS = TT.PLAIN_CUDA_CALLS = 0
     MH.PLAIN_CUDA_SKETCHES = MH.PLAIN_CUDA_MATCHES = 0
-    AL.PLAIN_CUDA_PRE = MZ.PLAIN_CUDA_SYNCMER = 0
+    AL.PLAIN_CUDA_PRE = MZ.PLAIN_CUDA_SYNCMER = MZ.INDEX_BUILDS = 0
     KM.HOST_COUNTS = MH.JOIN_CALLS = OV.SPILL_BUILDS = 0
 
 
@@ -1011,7 +1012,8 @@ def read_counts() -> dict:
             "plain_extend_rows": AL.PLAIN_CUDA_ROWS, "plain_dp": TT.PLAIN_CUDA_CALLS,
             "plain_sketch": MH.PLAIN_CUDA_SKETCHES, "plain_match": MH.PLAIN_CUDA_MATCHES,
             "plain_pre": AL.PLAIN_CUDA_PRE, "plain_syncmer": MZ.PLAIN_CUDA_SYNCMER,
-            "host_kmer_counts": KM.HOST_COUNTS, "join_calls": MH.JOIN_CALLS,
+            "index_builds": MZ.INDEX_BUILDS, "host_kmer_counts": KM.HOST_COUNTS,
+            "join_calls": MH.JOIN_CALLS,
             "spill_builds": OV.SPILL_BUILDS}
 
 
@@ -1259,57 +1261,121 @@ PRE_FIELDS = ("a", "a_len", "b", "b_len", "centers", "n_anchor", "flipped", "see
               "n_minor")
 
 
+class KeptCalls(list):
+    """The kept _verify_pre calls (by argument name), and for the bound and
+    the times: .events, the CUDA events around every call (kept or not),
+    .kept_at, the index into .events of each kept call, .flipped, the
+    orientation K7 gave each kept call."""
+
+    def __init__(self):
+        super().__init__()
+        self.events, self.kept_at, self.flipped = [], [], []
+
+
 def capture_pre(every: int = 0, when=None):
     """Wrap ops.align._verify_pre so that its first call, and with every=n
     each n-th call after it, is kept by argument name (only the calls where
-    when() holds, if given); returns (the original, the kept calls).  The
-    caller restores the original."""
+    when() holds, if given), and every such call is timed by CUDA events;
+    returns (the original, the kept calls).  The caller restores the
+    original."""
+    import torch
+
     from canu_tpu_torch.ops import align as AL
 
     real = AL._verify_pre
-    seen: list = []
+    seen = KeptCalls()
     n = [0]
 
     def wrapper(*args, **kw):
-        if when is None or when():
-            if n[0] == 0 or (every and n[0] % every == 0):
-                seen.append({"orient": False, "chunk": None, **dict(zip(PRE_ARGS, args)), **kw})
-            n[0] += 1
-        return real(*args, **kw)
+        if when is not None and not when():
+            return real(*args, **kw)
+        keep = n[0] == 0 or (every and n[0] % every == 0)
+        n[0] += 1
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = real(*args, **kw)
+        ev[1].record()
+        if keep:
+            seen.append({"orient": False, "chunk": None, **dict(zip(PRE_ARGS, args)), **kw})
+            seen.kept_at.append(len(seen.events))
+            seen.flipped.append(out[2])
+        seen.events.append(ev)
+        return out
 
     AL._verify_pre = wrapper
     return real, seen
 
 
-def capture_syncmer(all_blocks: bool = False):
-    """Wrap ops.minimizers.build_read_index and _syncmer_kernel so that the
-    first block of each index built (every block, with all_blocks) is kept
-    as its (words, lengths, k, pm); returns (the originals, the kept
-    blocks).  The caller restores them with restore_syncmer."""
+class KeptIndex(list):
+    """The kept length buckets of the index builds (held_index_block's
+    inputs), and .builds: each build's one K8 launch (CUDA events, its n_sel
+    plane, the arrays of its bound, with keep_args its arguments) and the
+    build's host seconds (host_s: packing, uploads and the launch; K8 runs
+    after it returns, on the stream)."""
+
+    def __init__(self):
+        super().__init__()
+        self.builds = []
+
+
+def capture_syncmer(all_blocks: bool = False, keep_args: bool = False):
+    """Wrap ops.minimizers.build_read_index and verify_cuda.syncmer_index so
+    that each build's K8 launch is timed by CUDA events and writes an n_sel
+    plane (for its bound), and the first length bucket of each build (every
+    bucket, with all_blocks) is kept: the index's rows of it and the
+    bucket's block inputs (words, lengths, k, pm) for the plain selection.
+    Returns (the originals, the kept buckets with .builds).  The caller
+    restores them with restore_syncmer."""
+    import numpy as np
+    import torch
+
     from canu_tpu_torch.ops import minimizers as MZ
+    from canu_tpu_torch.ops.kernels import verify_cuda as VC
+    from canu_tpu_torch.ops.kmer import block_tensors, length_bucketed_blocks
 
-    real = (MZ.build_read_index, MZ._syncmer_kernel)
-    seen: list = []
-    first = [False]
+    real = (MZ.build_read_index, VC.syncmer_index)
+    kept = KeptIndex()
 
-    def build(*args, **kw):
-        first[0] = True
-        return real[0](*args, **kw)
+    def launch(words, lengths, rows, wbs, min_wb, k, s, t, mker, mpos, mstr, n_sel=None):
+        if n_sel is None:
+            n_sel = torch.full((words.shape[0],), -1, dtype=torch.int32, device=words.device)
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        real[1](words, lengths, rows, wbs, min_wb, k, s, t, mker, mpos, mstr, n_sel)
+        ev[1].record()
+        b = {"events": ev, "n_sel": n_sel, "rows": rows, "wbs": wbs, "lengths": lengths,
+             "k": k, "s": s, "pm": mker.shape[1], "n": int(rows.shape[0])}
+        if keep_args:
+            b["args"] = (words, lengths, rows, wbs, min_wb, k, s, t, mker, mpos, mstr)
+        kept.builds.append(b)
 
-    def block(*args, **kw):
-        if first[0] or all_blocks:
-            seen.append(args)
-            first[0] = False
-        return real[1](*args, **kw)
+    def build(readset, k=16, pm=None, block_size=128, device=None):
+        n0 = len(kept.builds)
+        t0 = time.perf_counter()
+        idx = real[0](readset, k=k, pm=pm, block_size=block_size, device=device)
+        host_s = time.perf_counter() - t0
+        b = kept.builds[-1] if len(kept.builds) > n0 else None
+        if b is not None:
+            b["host_s"] = host_s
+        blocks = list(length_bucketed_blocks(readset, block_size))
+        for ids, Wb in (blocks if all_blocks else blocks[:1]):
+            rows = torch.from_numpy(ids.astype(np.int64) - 1).to(idx.mker.device)
+            words, lengths = block_tensors(readset, ids, Wb, idx.mker.device)
+            kept.append({"planes": (idx.mker[rows].clone(), idx.mpos[rows].clone(),
+                                    idx.mstr[rows].clone()),
+                         "n_sel": b["n_sel"][rows].clone() if b is not None else None,
+                         "block": (words, lengths, k, idx.pm)})
+        return idx
 
-    MZ.build_read_index, MZ._syncmer_kernel = build, block
-    return real, seen
+    MZ.build_read_index, VC.syncmer_index = build, launch
+    return real, kept
 
 
 def restore_syncmer(real) -> None:
     from canu_tpu_torch.ops import minimizers as MZ
+    from canu_tpu_torch.ops.kernels import verify_cuda as VC
 
-    MZ.build_read_index, MZ._syncmer_kernel = real
+    MZ.build_read_index, VC.syncmer_index = real
 
 
 def held_pre(name: str, d: dict) -> int:
@@ -1357,22 +1423,46 @@ def held_syncmer(name: str, args) -> int:
     return err
 
 
+def held_index_block(name: str, kept: dict) -> int:
+    """The rows a one-launch index build (K8) gave one length bucket, bit
+    for bit against the plain syncmer selection on that bucket's block (and
+    n_sel where the build wrote it); returns the max |difference| (0)."""
+    import torch
+
+    from canu_tpu_torch.ops import minimizers as MZ
+
+    ref = MZ._syncmer_kernel_plain(*kept["block"])
+    torch.cuda.synchronize()
+    got = list(kept["planes"]) + ([kept["n_sel"]] if kept["n_sel"] is not None else [])
+    err = 0
+    for field, r, g in zip(("mker", "mpos", "mstr", "n_sel"), ref, got):
+        check(g.shape == r.shape and g.dtype == r.dtype,
+              f"{name}: K8's {field} is {tuple(g.shape)} {g.dtype}, the plain selection's "
+              f"{tuple(r.shape)} {r.dtype}")
+        dd = int((g.to(torch.int64) - r.to(torch.int64)).abs().max()) if r.numel() else 0
+        check(dd == 0, f"{name}: kernel K8 and the plain selection differ in {field} "
+              f"(max |diff| {dd})")
+        err = max(err, dd)
+    return err
+
+
 def held_verify_calls(phase: str, pre_calls: list, sync_blocks: list) -> int:
     """Phase 3f on a run's kept calls: K7 on each kept _verify_pre group and
-    K8 on each kept block, bit for bit against the plain versions;
-    returns the max |difference| (0)."""
+    K8's rows of each kept length bucket of an index build, bit for bit
+    against the plain versions; returns the max |difference| (0)."""
     err = 0
     for i, d in enumerate(pre_calls):
         err = max(err, held_pre(f"3f {phase} K7 group {i}", d))
-    for i, args in enumerate(sync_blocks):
-        err = max(err, held_syncmer(f"3f {phase} K8 block {i}", args))
+    for i, kept in enumerate(sync_blocks):
+        err = max(err, held_index_block(f"3f {phase} K8 bucket {i}", kept))
     log(f"[3f kernel] {phase}: K7 bit-equal to the plain anchor step on {len(pre_calls)} groups ("
         + ", ".join(f"{d['a_idx'].shape[0]} pairs, k {d['k']}, band {d['band']}, "
                     f"{'orient' if d['orient'] else 'given flipped'}" for d in pre_calls[:2])
-        + f"{', ...' if len(pre_calls) > 2 else ''}); K8 bit-equal to the plain selection on "
-        f"{len(sync_blocks)} blocks ("
-        + ", ".join(f"{a[0].shape[0]} reads x {a[0].shape[1]} words, k {a[2]}, pm {a[3]}"
-                    for a in sync_blocks[:2]) + f"{', ...' if len(sync_blocks) > 2 else ''})")
+        + f"{', ...' if len(pre_calls) > 2 else ''}); K8's one-launch index bit-equal to the "
+        f"plain selection on {len(sync_blocks)} length buckets ("
+        + ", ".join(f"{b['block'][0].shape[0]} reads x {b['block'][0].shape[1]} words, k "
+                    f"{b['block'][2]}, pm {b['block'][3]}" for b in sync_blocks[:2])
+        + f"{', ...' if len(sync_blocks) > 2 else ''})")
     return err
 
 
@@ -1384,11 +1474,14 @@ def verify_edge_checks(dev) -> int:
 
     from canu_tpu_torch.convert import read_index_from_numpy
     from canu_tpu_torch.ops.hashing import u32_tensor
+    from canu_tpu_torch.ops.kernels import verify_cuda as VC
 
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from torch_cases import (LONG_READ_W, SYNCMER_EDGE_CASES, VERIFY_PRE_CHUNK,
-                             VERIFY_PRE_EDGE_CASES, syncmer_edge_case, verify_pre_edge_case,
-                             verify_pre_long_case)
+                             VERIFY_PRE_EDGE_CASES, VERIFY_PRE_ODD_CASES, VERIFY_PRE_SIZE_CHUNK,
+                             bucket_reads,
+                             syncmer_cut_case, syncmer_edge_case, verify_pre_edge_case,
+                             verify_pre_long_case, verify_pre_size_case)
 
     def pre_call(case, k, band, orient, chunk):
         pl, a, b, fl, n_rows = case
@@ -1402,6 +1495,10 @@ def verify_edge_checks(dev) -> int:
     for k, W, band, orient in VERIFY_PRE_EDGE_CASES:
         d = pre_call(verify_pre_edge_case(k, W, band, orient), k, band, orient, VERIFY_PRE_CHUNK)
         err = max(err, held_pre(f"3f K7 edge case k={k} W={W} band {band}", d))
+    for k, W, band, orient, n_rows in VERIFY_PRE_ODD_CASES:
+        pl, a, b, fl, _ = verify_pre_edge_case(k, W, band, orient)
+        d = pre_call((pl, a, b, fl, n_rows), k, band, orient, VERIFY_PRE_CHUNK)
+        err = max(err, held_pre(f"3f K7 edge case k={k} W={W} band {band}, {n_rows} rows", d))
     long_case = verify_pre_long_case()
     for band, orient in ((128, True), (1024, False)):
         d = pre_call(long_case, 16, band, orient, 4)
@@ -1425,6 +1522,40 @@ def verify_edge_checks(dev) -> int:
     log(f"[3f kernel] K8 bit-equal to the plain selection on {len(SYNCMER_EDGE_CASES)} edge blocks "
         "(reads of 0, k-1, k and off-word lengths, a repeated motif, a selected k-mer whose "
         "key's mix32 is UINT32_MAX; k 16 and 22; pm above and below n_sel)")
+    # K7 at its sorts' edge sizes, K8 at its cut at pm and over length
+    # buckets of different widths in one launch
+    size_case = verify_pre_size_case()
+    for orient, band in ((True, 128), (False, 256)):
+        d = pre_call(size_case, 16, band, orient, VERIFY_PRE_SIZE_CHUNK)
+        err = max(err, held_pre(f"3f K7 size cases, band {band}", d))
+    for k in (16, 22):
+        words, lengths, pm = syncmer_cut_case(k)
+        err = max(err, held_syncmer(f"3f K8 cut at pm {pm}, k={k}",
+                                    (u32_tensor(words, dev), torch.from_numpy(lengths).to(dev),
+                                     k, pm)))
+    from canu_tpu_torch.ops import minimizers as MZ
+    from canu_tpu_torch.sim import simulate as SIM
+    from canu_tpu_torch.stores.readset import ReadSet
+
+    codes = bucket_reads(SIM)
+    brs = ReadSet.from_codes_list(codes, [f"r{i}" for i in range(len(codes))])
+    for k in (16, 22):
+        real, kept = capture_syncmer(all_blocks=True)
+        try:
+            l0 = VC.SYNCMER_LAUNCHES
+            MZ.build_read_index(brs, k=k, block_size=4, device=dev)
+            check(VC.SYNCMER_LAUNCHES == l0 + 1,
+                  f"3f: an index build launched K8 {VC.SYNCMER_LAUNCHES - l0} times")
+        finally:
+            restore_syncmer(real)
+        for i, b in enumerate(kept):
+            err = max(err, held_index_block(f"3f K8 bucket read set k={k}, bucket {i}", b))
+    log("[3f kernel] K7 bit-equal to the plain anchor step on joins of 1, 2, 2,048 and 4,096 "
+        "valid entries, 4,096 of one key and a read with itself (Pm 2,048; the strand vote at "
+        "band 128, the given flips at 256); K8 bit-equal where reads select pm - 1, pm, pm + 1 "
+        "and 2 pm keys with equal keys across the cut (k 16 and 22), and its one launch for an "
+        f"index of {brs.n_reads} reads in buckets of 8 to 1,024 words bit-equal to the plain "
+        "selection bucket by bucket")
     return err
 
 
@@ -1493,12 +1624,38 @@ def syncmer_bound(args, n_sel) -> dict:
     return bound(ops, 8 * B * W + 4 * B + 16 * B * pm + 4 * B)
 
 
-def verify_timing(pre_call: dict, sync_blocks: list, card: str) -> dict:
-    """Phase 5: K7 on phase 4's first verify group and K8 on every block of
-    phase 4's index by CUDA events, beside their bounds and the plain
-    versions' times (one run each)."""
+def index_bound(b: dict) -> dict:
+    """Kernel K8's bound on one index build's launch (capture_syncmer's
+    record): syncmer_bound's count over every read at its bucket's width,
+    with the n_sel the launch wrote; its bytes each read's words (int64) at
+    that width, its length, row and width read once, its pm slots and n_sel
+    written once."""
+    import torch
+
+    from canu_tpu_torch.ops.minimizers import syncmer_params
+
+    k, pm, n = b["k"], b["pm"], b["n"]
+    s, _t = syncmer_params(k)
+    rows = b["rows"].to(torch.int64)
+    lens = b["lengths"][rows].to(torch.int64)
+    sel = b["n_sel"][rows].double()
+    n_smer = int(torch.clamp(lens - s + 1, min=0).sum())
+    n_pos = int(torch.clamp(lens - k + 1, min=0).sum())
+    key = SKETCH_KEY_OPS if k <= 16 else SKETCH_KEY2_OPS
+    ops = (SYNCMER_OPS * n_smer + (k - s + 2) * n_pos + (key + 8) * float(sel.sum())
+           + float((sel * torch.log2(torch.clamp(sel, min=1))).sum()) + (3 * pm + 1) * n)
+    return bound(ops, 8 * float(b["wbs"].to(torch.int64).sum()) + 12 * n + 16 * n * pm + 4 * n)
+
+
+def verify_timing(pre_call: dict, sync_kept, card: str) -> dict:
+    """Phase 5: K7 on phase 4's first verify group and K8's one launch of
+    phase 4's index build by CUDA events, beside their bounds and the plain
+    versions' times (one run each; the plain selection bucket by bucket)."""
+    import torch
+
     from canu_tpu_torch.ops import align as AL
     from canu_tpu_torch.ops import minimizers as MZ
+    from canu_tpu_torch.ops.kernels import verify_cuda as VC
 
     d = pre_call
     ms = cuda_ms(lambda: AL._verify_pre(**d), 10)
@@ -1512,20 +1669,59 @@ def verify_timing(pre_call: dict, sync_blocks: list, card: str) -> dict:
         f"(mean of 10); bound {bd['bound_ms']:.3f} ms ({bd['ops']:.3e} operations, "
         f"{bd['bytes']:.3e} bytes, {bd['distinct_rows']} index rows; bound by {bd['bound_by']}; "
         f"{100 * bd['bound_ms'] / ms:.1f}% of it); the plain step chunk by chunk {plain_ms:.1f} ms")
-    k8_ms, k8_plain, k8_bounds = [], [], []
-    for args in sync_blocks:
-        k8_ms.append(cuda_ms(lambda: MZ._syncmer_kernel(*args), 5))
-        k8_bounds.append(syncmer_bound(args, MZ._syncmer_kernel(*args)[3]))
-        k8_plain.append(once_ms(lambda: MZ._syncmer_kernel_plain(*args))[1])
-    k8b = sum_bounds(k8_bounds)
-    log(f"[5 timing] {card}: K8 on the {len(sync_blocks)} blocks of phase 4's index: "
-        f"{sum(k8_ms):.3f} ms (first {k8_ms[0]:.3f} ms, {sync_blocks[0][0].shape[0]} reads x "
-        f"{sync_blocks[0][0].shape[1]} words); bound {k8b['bound_ms']:.3f} ms ({k8b['ops']:.3e} "
-        f"operations, {k8b['bytes']:.3e} bytes; bound by {k8b['bound_by']}; "
-        f"{100 * k8b['bound_ms'] / sum(k8_ms):.1f}% of it); plain {sum(k8_plain):.1f} ms")
+    (b,) = sync_kept.builds
+    args = b["args"]
+    planes = [x.clone() for x in args[8:11]]
+    k8_ms = cuda_ms(lambda: VC.syncmer_index(*args[:8], *planes), 5)
+    k8b = index_bound(b)
+    k8_plain = sum(once_ms(lambda: MZ._syncmer_kernel_plain(*kb["block"]))[1] for kb in sync_kept)
+    log(f"[5 timing] {card}: K8 on phase 4's index, one launch of {b['n']} reads in "
+        f"{len(sync_kept)} length buckets: {k8_ms:.3f} ms (mean of 5; the build's own launch "
+        f"{b['events'][0].elapsed_time(b['events'][1]):.3f} ms); bound {k8b['bound_ms']:.3f} ms "
+        f"({k8b['ops']:.3e} operations, {k8b['bytes']:.3e} bytes; bound by {k8b['bound_by']}; "
+        f"{100 * k8b['bound_ms'] / k8_ms:.1f}% of it); the plain selection bucket by bucket "
+        f"{k8_plain:.1f} ms")
+    res = VC.resources(d["index"].mker.shape[1], b["pm"])
+    log(f"[5 timing] {card}: resources at Pm {d['index'].mker.shape[1]}: K7 {res['K7']}, K8 "
+        f"{res['K8']} (cudaOccupancyMaxActiveBlocksPerMultiprocessor, cudaFuncGetAttributes)")
     return {"K7": {"ms": ms, "plain_ms": plain_ms, "bound": bd},
-            "K8": {"ms": sum(k8_ms), "block_ms": k8_ms, "plain_ms": sum(k8_plain),
-                   "bound": k8b}}
+            "K8": {"ms": k8_ms, "launch_ms": b["events"][0].elapsed_time(b["events"][1]),
+                   "plain_ms": k8_plain, "bound": k8b, "reads": b["n"],
+                   "buckets": len(sync_kept)},
+            "resources": res}
+
+
+def verify_kernel_split(phase: str, card: str, pre_kept, sync_kept) -> dict:
+    """A drive's K7 and K8 by CUDA events (capture_pre's and
+    capture_syncmer's records): K7 over every group (its pre_device_s) and
+    over the kept groups beside their summed bound; K8 per index build
+    beside its bound, and each build's host seconds (index_s's host part)
+    beside its K8 milliseconds.  Call after a synchronize."""
+    k7_all = sum(e0.elapsed_time(e1) for e0, e1 in pre_kept.events)
+    k7_kept = sum(pre_kept.events[i][0].elapsed_time(pre_kept.events[i][1])
+                  for i in pre_kept.kept_at)
+    k7b = sum_bounds([pre_bound(d, f) for d, f in zip(pre_kept, pre_kept.flipped)])
+    builds = []
+    for b in sync_kept.builds:
+        bd = index_bound(b)
+        builds.append({"reads": b["n"], "k": b["k"], "pm": b["pm"],
+                       "k8_ms": b["events"][0].elapsed_time(b["events"][1]),
+                       "host_s": b.get("host_s"), "bound": bd})
+    k8_ms = sum(x["k8_ms"] for x in builds)
+    k8b = sum_bounds([x["bound"] for x in builds]) if builds else bound(0, 0)
+    log(f"[{phase} verify] {card}: K7 {k7_all:.3f} ms over {len(pre_kept.events)} groups "
+        f"(pre_device_s {k7_all / 1e3:.4f}); its {len(pre_kept)} kept groups {k7_kept:.3f} ms "
+        f"against a summed bound of {k7b['bound_ms']:.3f} ms ({k7b['bytes']:.3e} bytes; "
+        f"{100 * k7b['bound_ms'] / max(k7_kept, 1e-9):.1f}% of it)")
+    log(f"[{phase} verify] {card}: K8 {k8_ms:.3f} ms in {len(builds)} launches, one per index "
+        f"build (" + ", ".join(f"{x['reads']} reads k {x['k']}: {x['k8_ms']:.3f} ms, bound "
+                               f"{x['bound']['bound_ms']:.3f} ms, the build's host part "
+                               f"{x['host_s'] or 0:.3f} s" for x in builds)
+        + f"); summed bound {k8b['bound_ms']:.3f} ms ({k8b['ops']:.3e} operations, "
+        f"{k8b['bytes']:.3e} bytes; bound by {k8b['bound_by']}; "
+        f"{100 * k8b['bound_ms'] / max(k8_ms, 1e-9):.1f}% of it)")
+    return {"k7_ms": k7_all, "k7_groups": len(pre_kept.events), "k7_kept_ms": k7_kept,
+            "k7_kept_bound": k7b, "k8_ms": k8_ms, "k8_bound": k8b, "builds": builds}
 
 
 def verify_profiles(where):
@@ -2070,9 +2266,11 @@ def ecoli_drive(dev, card: str) -> dict:
         f"{group}; {len(rest)} more window calls: {[w[1] for w in rest]})")
     # K7 and K8 held to the plain versions on the kept groups and block
     verify_err = held_verify_calls("phase 9", pre_kept, sy_kept)
+    vsplit = verify_kernel_split("9", card, pre_kept, sy_kept)
     del pre_kept, sy_kept
     log(f"[9 ecoli] phase wall {time.time() - t_phase:.1f} s")
-    return {"verify_err": verify_err, "meryl_s": t_meryl, "host_count_s": sum(host_s),
+    return {"verify_err": verify_err, "verify_split": vsplit, "meryl_s": t_meryl,
+            "host_count_s": sum(host_s),
             "stage_s": t_stage,
             "sub_walls_s": sub, "verify_profile": prof, "rows": len(st),
             "n_candidates": len(pairs), "launches": counts, "k1_ms": k1_ms,
@@ -3850,6 +4048,7 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
         AL._verify_pre = real_pre
         restore_syncmer(real_sy)
     verify_err = held_verify_calls("phase 15", pre_kept, sy_kept)
+    vsplit = verify_kernel_split("15", card, pre_kept, sy_kept)
     del pre_kept, sy_kept
     chunk_b = VP.chunk_jobs(F.VOTE_SEG)
     route = "host" if counts["host_kmer_counts"] else "device"
@@ -4007,7 +4206,8 @@ def ecolicor_drive(dev, card: str, projected_dp_s: float | None = None) -> dict:
             "k1_bound_s": k1["bound_s"], "dp_err": err, "dp_plain_ms": plain_ms,
             "dp_s": dev_s["dp"], "dp_bound_s": dp_bound_s, "dp_bounds": vb,
             "k5_ms": k5_ms, "k5_bound": k5_bound, "minhash_err": err_mh, "fold": fold,
-            "verify_err": verify_err, "memory": mem, "phase_s": time.time() - t_phase}
+            "verify_err": verify_err, "verify_split": vsplit, "memory": mem,
+            "phase_s": time.time() - t_phase}
 
 
 # canu_tpu's own result on config 2's raw reads (BASELINE.md, run r5b):
@@ -4324,6 +4524,7 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
 
     # K7 and K8 held to the plain versions on the kept groups and blocks
     verify_err = held_verify_calls("phase 16", pre_kept, sy_kept)
+    vsplit = verify_kernel_split("16", card, pre_kept, sy_kept)
     del pre_kept, sy_kept
 
     # where the time went
@@ -4517,7 +4718,7 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
 
     log(f"[16 ecoliasm] phase wall {time.time() - t_phase:.1f} s")
     shutil.rmtree(work, ignore_errors=True)
-    return {"verify_err": verify_err, "verify_profiles": vprofs,
+    return {"verify_err": verify_err, "verify_split": vsplit, "verify_profiles": vprofs,
             "run_s": t_run, "stage_walls_s": walls, "sub_walls_s": subs, "step_walls_s": step_wall,
             "meryl_routes": routes, "launches": counts, "k1_by_step": k1_in, "judge_k1": judge_k1,
             "vote_chunks": chunks_in, "dp_calls": n_dp[0], "dp_s": dp_s, "dp_bound": dp_bound,
@@ -4525,6 +4726,42 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
             "k1_drive": k1_drive, "k1_bound_s": k1["bound_s"], "step_peak_bytes": step_peak,
             "inputs": inputs, "gates": got, "judge": judge, "judge_s": t_judge,
             "links_aligned": n_links[0], "cli_s": t_cli, "phase_s": time.time() - t_phase}
+
+
+def longread_drive(dev, card: str) -> dict:
+    """Phase 17: the cor meryl + overlap stages on reads above 131,072 bases
+    (tests/torch_cases.py longread_reads, the port's simulator), so the
+    read index is 16,384 words wide, the verify runs 262,144 rows a pair
+    and K8 cuts every read's syncmers at pm: the read set's digest, the
+    frequent table, the candidate count and the store row for row against
+    the JAX package's (longread_overlap_reference.json,
+    scripts/torch_longread_reference.py); K7 on the stage's verify group and
+    K8's rows of the index, bit for bit against the plain versions."""
+    from canu_tpu_torch.sim import simulate as SIM
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_cases import LONG_READ_W, longread_reads, readset_digest
+
+    with open(os.path.join(ROOT, "canu_tpu_torch", "longread_overlap_reference.json")) as fh:
+        ref = json.load(fh)
+    t = time.time()
+    rs = longread_reads(SIM)
+    dig = readset_digest(rs)
+    log(f"[17 longread] {rs.n_reads} reads of {int(rs.length.min())}-{int(rs.length.max())} "
+        f"bases, {rs.total_bases} in all, sha256 {dig} (reference {ref['reads_sha256']})")
+    check(dig == ref["reads_sha256"] and rs.n_reads == ref["n_reads"],
+          "17 longread: the read set differs from the reference's")
+    check(int(rs.length.min()) > 16 * LONG_READ_W // 2,
+          "17 longread: a read is not above 131,072 bases")
+    rec, _calls, _st, held = drive_stage("17 longread", "cor", 128, rs, dev, ref, "K1")
+    check(rec["launches"]["K8"] == rec["launches"]["index_builds"] == 1,
+          f"17 longread: {rec['launches']['K8']} K8 launches for "
+          f"{rec['launches']['index_builds']} index builds")
+    rec["verify_err"] = held_verify_calls("phase 17", *held)
+    rec["phase_s"] = time.time() - t
+    log(f"[17 longread] {card}: the store equals the JAX package's on reads of up to "
+        f"{int(rs.length.max())} bases; phase wall {rec['phase_s']:.1f} s")
+    return rec
 
 
 def main() -> int:
@@ -4664,7 +4901,7 @@ def main() -> int:
     real_mt, mt_calls = capture_calls(MH, "_match_kernel")
     # and its first K7 group and every block of its index (phases 3f and 5)
     real_pre, pre4 = capture_pre()
-    real_sy, sy4 = capture_syncmer(all_blocks=True)
+    real_sy, sy4 = capture_syncmer(all_blocks=True, keep_args=True)
     try:
         reset_counts()
         t = time.time()
@@ -4762,7 +4999,7 @@ def main() -> int:
     # K5 and K6 on every launch of the pass, beside their bounds and plain times
     record["minhash"] = mht = minhash_timing(rs, fk, dev, card)
     err_mh = max(err_mh, mht.pop("err"))
-    # K7 on phase 4's first verify group and K8 on its index's blocks
+    # K7 on phase 4's first verify group and K8's one launch of its index
     record["verify_kernels"] = vkt = verify_timing(pre4[0], sy4, card)
     del pre4, sy4
 
@@ -4893,8 +5130,11 @@ def main() -> int:
     # ---- 16: raw reads to contigs at E. coli scale, correction resumed ------
     record["ecoliasm"] = ecoliasm = ecoliasm_drive(dev, card, ecolicor)
     err_dp = max(err_dp, ecoliasm["dp_err"])
+    # ---- 17: reads above 131,072 bases through the cor overlap stage --------
+    record["longread"] = longread = longread_drive(dev, card)
     err_vp = max(err_vp, ecoli["verify_err"], assemble["a"]["verify_err"],
-                 assemble["b"]["verify_err"], ecolicor["verify_err"], ecoliasm["verify_err"])
+                 assemble["b"]["verify_err"], ecolicor["verify_err"], ecoliasm["verify_err"],
+                 longread["verify_err"])
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
@@ -4903,12 +5143,13 @@ def main() -> int:
           "jax or canu_tpu was imported")
 
     # K5 and K6 launches in every main-path run: phases 4, 4b, 4c, 6, 7, 9, 10,
-    # 11, 14 (14a, and 14b's ranks with their allgather stages), 15 and 16;
-    # K7 and K8 launched in each of them
+    # 11, 14 (14a, and 14b's ranks with their allgather stages), 15, 16 and
+    # 17; K7 and K8 launched in each of them, K8 once per index build
     named = {"4": counts, "4c cor": freq["cor"]["launches"], "4c obt": freq["obt"]["launches"],
              "9": ecoli["launches"], "10": correct["launches"], "11a": assemble["a"]["launches"],
              "11b": assemble["b"]["launches"], "14a": grid["a"]["launches"],
-             "15": ecolicor["launches"], "16": ecoliasm["launches"]}
+             "15": ecolicor["launches"], "16": ecoliasm["launches"],
+             "17": longread["launches"]}
     named.update({f"drive {n}": d["launches"] for n, d in drives.items()})
     for r, x in enumerate(grid["b"]):
         named[f"14b rank {r}"] = x["launches"]
@@ -4922,14 +5163,19 @@ def main() -> int:
               "groups, or the plain fold ran on the card")
         check(c["plain_pre"] == c["plain_syncmer"] == 0,
               f"phase {name}: the plain anchor step or syncmer selection ran on the card")
+        check(c["K8"] == c["index_builds"],
+              f"phase {name}: kernel K8 launched {c['K8']} times for {c['index_builds']} "
+              "read index builds (one launch a build)")
     k5_launches = sum(c["K5"] for c in main_runs)
     k6_launches = sum(c["K6"] for c in main_runs)
     k7_launches = sum(c["K7"] for c in main_runs)
     k8_launches = sum(c["K8"] for c in main_runs)
     k9_launches = sum(c["K9"] for c in main_runs)
+    builds = sum(c["index_builds"] for c in main_runs)
     log(f"[kernels] K5 launched {k5_launches} times, K6 {k6_launches}, K7 {k7_launches}, K8 "
-        f"{k8_launches} and K9 {k9_launches} on the main path's runs (phases 4-16; K7 and K8 "
-        f"in each of its {len(named)} runs, K9 once per DP group in each run that votes)")
+        f"{k8_launches} and K9 {k9_launches} on the main path's runs (phases 4-17; K7 and K8 "
+        f"in each of its {len(named)} runs, K8 once per read index build ({builds} builds), K9 "
+        "once per DP group in each run that votes)")
     k9 = correct["fold"]["held"]
     err_fold = max(err_fold, k9["err"], ecolicor["fold"]["held"]["err"],
                    ecoliasm["fold"]["red"]["held"]["err"],
@@ -4945,7 +5191,7 @@ def main() -> int:
          + correct["launches"]["K1"] + assemble["a"]["launches"]["K1"]
          + assemble["b"]["launches"]["K1"] + record["dag"]["polish"]["launches"]["K1"]
          + tools["k1_launches"] + grid["k1_launches"] + ecolicor["launches"]["K1"]
-         + ecoliasm["launches"]["K1"] + ecoliasm["judge_k1"],
+         + ecoliasm["launches"]["K1"] + ecoliasm["judge_k1"] + longread["launches"]["K1"],
          "max_abs_err": max(err, tools["k1_err"]),
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bd1["bound_ms"],
          "bound_by": bd1["bound_by"], "library_ms": None},

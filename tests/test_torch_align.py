@@ -19,7 +19,8 @@ from canu_tpu_torch.ops import align as TA
 from canu_tpu_torch.ops.minhash import OverlapCandidates
 from canu_tpu_torch.stores.readset import ReadSet as TorchReadSet
 from torch_cases import (LONG_READ_W, VERIFY_PRE_CHUNK, VERIFY_PRE_EDGE_CASES,  # noqa: F401
-                         one_torch_thread, verify_pre_edge_case, verify_pre_long_case)
+                         VERIFY_PRE_ODD_CASES, VERIFY_PRE_SIZE_PAIRS, one_torch_thread,
+                         verify_pre_edge_case, verify_pre_long_case, verify_pre_size_case)
 
 TABLE_COLS = ("a_id", "b_id", "flipped", "a_bgn", "a_end", "b_bgn", "b_end", "erate_q")
 
@@ -229,6 +230,25 @@ def test_verify_pre_edge_cases_equal_canu_tpu(case):
     assert n_anchor[11] == 5 and got[0][4][11, 16] == 15  # 14.5000005, not 14.5
 
 
+@pytest.mark.parametrize("case", VERIFY_PRE_ODD_CASES, ids=str)
+def test_verify_pre_rows_off_16_bytes_equal_canu_tpu(case):
+    """The plain _verify_pre against canu_tpu's where n_rows and the band
+    are no multiple of 16 (rows K7 stores with unaligned heads and
+    tails)."""
+    k, W, band, orient, n_rows = case
+    pl, ti, a, b, fl, _ = _edge_index((k, W, band, orient))
+    ref = JA._verify_pre(*(jnp.asarray(pl[n]) for n in ("words", "length", "mker", "mpos", "mstr")),
+                         jnp.asarray(a.astype(np.int32)), jnp.asarray(b.astype(np.int32)),
+                         jnp.asarray(fl), k, band, n_rows, orient)
+    got = TA._verify_pre(ti, torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(fl), k,
+                         band, n_rows, orient)
+    assert got[0][0].shape[1] == n_rows and got[0][2].shape[1] == n_rows + band
+    for name, r, t in zip(("a", "a_len", "b", "b_len", "centers"), ref[0], got[0]):
+        _eq(r, t, name)
+    for name, r, t in zip(("n_anchor", "flipped", "seedA", "seedB", "n_minor"), ref[1:], got[1:]):
+        _eq(r, t, name)
+
+
 def test_verify_pre_long_reads_equal_canu_tpu():
     """The plain _verify_pre against canu_tpu's on reads above 131,072
     bases (index W = LONG_READ_W, n_rows 262,144), both orientations'
@@ -253,6 +273,44 @@ def test_verify_pre_long_reads_equal_canu_tpu():
         assert n_anchor[7] == 0 and (got[3].numpy() > 65_536).any()  # seeds past 2^16 bases
         if orient:
             assert (n_anchor[:6] == TA.MAX_ANCHORS).all()
+
+
+@pytest.fixture(scope="module")
+def size_case():
+    return verify_pre_size_case()
+
+
+@pytest.mark.parametrize("orient,band", [(True, 128), (False, 256)])
+def test_verify_pre_size_cases_equal_canu_tpu(size_case, orient, band):
+    """The plain _verify_pre, as one chunk, against canu_tpu's on pairs
+    whose join holds 1, 2, 2,048 and 4,096 valid entries (the edge sizes of
+    a sort of K7's), 4,096 entries of one key, a read with itself, a chain
+    whose first inlier lies before B's start and a tol set by the shorter
+    read, at Pm 2,048 (tests/torch_cases.py verify_pre_size_case)."""
+    pl, a, b, fl, n_rows = size_case
+    ti = read_index_from_numpy(pl["words"], pl["length"], pl["mker"], pl["mpos"], pl["mstr"],
+                               pl["n_reads"], 16, pl["pm"], device="cpu")
+    ref = JA._verify_pre(*(jnp.asarray(pl[n]) for n in ("words", "length", "mker", "mpos", "mstr")),
+                         jnp.asarray(a.astype(np.int32)), jnp.asarray(b.astype(np.int32)),
+                         jnp.asarray(fl), 16, band, n_rows, orient)
+    got = TA._verify_pre_plain(ti, torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(fl),
+                               16, band, n_rows, orient)
+    for name, r, t in zip(("a", "a_len", "b", "b_len", "centers"), ref[0], got[0]):
+        _eq(r, t, name)
+    for name, r, t in zip(("n_anchor", "flipped", "seedA", "seedB", "n_minor"), ref[1:], got[1:]):
+        _eq(r, t, name)
+    valid = (pl["mker"] != 0xFFFFFFFF).sum(axis=1)
+    sizes = [int(valid[ra] + valid[rb]) for _name, ra, rb in VERIFY_PRE_SIZE_PAIRS]
+    assert sizes[:5] == [1, 2, 2048, 4096, 4096] and sizes[5] > 200
+    n_anchor, n_minor = got[1].numpy(), got[5].numpy()
+    assert n_anchor[0] == n_anchor[1] == 0 and n_minor[8] == 0  # one key: one hit
+    if orient:
+        assert list(n_anchor[2:4]) == list(n_anchor[8:10]) == [1, 1]
+        assert (n_anchor[4:8] == TA.MAX_ANCHORS).all() and n_anchor[10] == TA.MAX_ANCHORS
+        assert n_minor[6] == 200
+        assert got[2].numpy()[12] and n_anchor[12] == 4  # the hit at posB -5 starts no chain
+        assert n_anchor[14] == 4  # the hit 800 off the diagonal is outside tol 180
+        assert n_anchor[16] == n_anchor[18] == 2  # row 18's second x joins nothing
 
 
 @pytest.mark.parametrize("case", VERIFY_PRE_EDGE_CASES[:3], ids=str)

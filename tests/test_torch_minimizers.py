@@ -15,8 +15,9 @@ from canu_tpu_torch.convert import read_index_from_numpy
 from canu_tpu_torch.ops import hashing as TH
 from canu_tpu_torch.ops import minimizers as TMZ
 from canu_tpu_torch.sim import simulate as torch_sim
-from torch_cases import (LONG_READ_W, SYNCMER_EDGE_CASES, one_torch_thread,  # noqa: F401
-                         syncmer_edge_case, umax_key_kmer, verify_pre_long_case)
+from torch_cases import (LONG_READ_W, SYNCMER_EDGE_CASES, bucket_reads,  # noqa: F401
+                         one_torch_thread, syncmer_cut_case, syncmer_edge_case, umax_key_kmer,
+                         verify_pre_long_case)
 
 PLANES = ("words", "length", "mker", "mpos", "mstr")
 
@@ -119,3 +120,66 @@ def test_syncmer_tie_rule_on_a_planted_umax_key():
     assert n > 3 and tail >= 3
     assert list(mpos[row, n - 3:n].numpy()) == [0, 1, 2]
 
+
+
+@pytest.mark.parametrize("k", [16, 22])
+def test_syncmer_cut_at_pm_equals_canu_tpu(k):
+    """The plain selection against canu_tpu's where reads select pm - 1, pm,
+    pm + 1 and 2 pm keys, and where equal keys straddle the pm-th entry
+    (tests/torch_cases.py syncmer_cut_case): the rows kernel K8 cuts by its
+    radix select on the card."""
+    words, lengths, pm = syncmer_cut_case(k)
+    ref = JMZ._syncmer_kernel(jnp.asarray(words), jnp.asarray(lengths), k, pm)
+    got = TMZ._syncmer_kernel(TH.u32_tensor(words, "cpu"), torch.from_numpy(lengths), k, pm)
+    np.testing.assert_array_equal(TH.u32_numpy(got[0]), np.asarray(ref[0]))
+    for r, g in zip(ref[1:], got[1:]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    full = TMZ._syncmer_kernel(TH.u32_tensor(words, "cpu"), torch.from_numpy(lengths), k, 16 * 256)
+    assert list(full[3].numpy()[1:]) == [pm - 1, pm, pm + 1, 2 * pm]
+    assert list(got[3].numpy()) == [pm, pm - 1, pm, pm, pm]
+    keys = TH.mix32(full[0][0]).numpy()
+    assert keys[pm - 1] == keys[pm]  # the cut falls inside a run of one key
+
+
+def _bucket_sets():
+    codes = bucket_reads(torch_sim)
+    names = [f"r{i}" for i in range(len(codes))]
+    from canu_tpu.stores.readset import ReadSet
+    from canu_tpu_torch.stores.readset import ReadSet as TorchReadSet
+
+    return ReadSet.from_codes_list(codes, names), TorchReadSet.from_codes_list(codes, names)
+
+
+def test_read_index_of_buckets_of_different_widths_equals_canu_tpu():
+    """A read set whose length buckets pad to 4-1,024 words (block_size
+    4): each read's rows at its bucket's width, as the one launch of
+    kernel K8 gives them on the card."""
+    rs, trs = _bucket_sets()
+    from canu_tpu_torch.ops.kmer import bucket_widths
+
+    assert len(set(bucket_widths(trs, 4)[1].tolist())) >= 5
+    for k in (16, 22):
+        ref = JMZ.build_read_index(rs, k=k, block_size=4)
+        got = TMZ.build_read_index(trs, k=k, block_size=4, device="cpu")
+        assert (got.n_reads, got.k, got.pm, got.n_rows) == (ref.n_reads, ref.k, ref.pm,
+                                                            ref.n_rows)
+        for name in PLANES:
+            np.testing.assert_array_equal(_as_np(got, name), _as_np(ref, name), err_msg=name)
+
+
+def test_bucket_widths_follow_length_bucketed_blocks():
+    """ops.kmer.bucket_widths: the reads in length_bucketed_blocks' order,
+    each with its block's width, for the port's and canu_tpu's bucketing."""
+    from canu_tpu.ops.kmer import length_bucketed_blocks as jax_blocks
+    from canu_tpu_torch.ops.kmer import bucket_widths, length_bucketed_blocks
+
+    rs, trs = _bucket_sets()
+    for bs in (1, 3, 4, 64):
+        ids, wbs = bucket_widths(trs, bs)
+        assert ids.dtype == wbs.dtype == np.int32 and len(ids) == trs.n_reads
+        for blocks in (list(length_bucketed_blocks(trs, bs)), list(jax_blocks(rs, bs))):
+            np.testing.assert_array_equal(ids, np.concatenate([b for b, _ in blocks]))
+            np.testing.assert_array_equal(wbs, np.concatenate([np.full(len(b), w)
+                                                               for b, w in blocks]))
+    ids, wbs = bucket_widths(trs.sliced(np.zeros(trs.n_reads), np.zeros(trs.n_reads)), 4)
+    assert len(ids) == len(wbs) == 0

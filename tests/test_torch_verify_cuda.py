@@ -23,9 +23,14 @@ from canu_tpu_torch.ops import minimizers as MZ
 from canu_tpu_torch.ops.hashing import u32_tensor
 from canu_tpu_torch.ops.kernels import verify_cuda as VC
 from canu_tpu_torch.sim.simulate import random_genome, simulate_reads
+from canu_tpu_torch.ops.kmer import bucket_widths
+from canu_tpu_torch.sim import simulate as SIM
+from canu_tpu_torch.stores.readset import ReadSet
 from torch_cases import (LONG_READ_W, SYNCMER_EDGE_CASES, VERIFY_PRE_CHUNK,  # noqa: F401
-                         VERIFY_PRE_EDGE_CASES, one_torch_thread, syncmer_edge_case,
-                         verify_pre_edge_case, verify_pre_long_case)
+                         VERIFY_PRE_EDGE_CASES, VERIFY_PRE_ODD_CASES, VERIFY_PRE_SIZE_CHUNK,
+                         bucket_reads,
+                         one_torch_thread, syncmer_cut_case, syncmer_edge_case,
+                         verify_pre_edge_case, verify_pre_long_case, verify_pre_size_case)
 
 
 @pytest.fixture
@@ -40,9 +45,10 @@ def _counts():
 
 
 def _pre_args(case, dev="cpu"):
-    k, _W, band, orient = case
-    pl, a, b, fl, n_rows = verify_pre_edge_case(*case) if _W != LONG_READ_W else \
+    k, _W, band, orient, *odd = case
+    pl, a, b, fl, n_rows = verify_pre_edge_case(k, _W, band, orient) if _W != LONG_READ_W else \
         verify_pre_long_case()
+    n_rows = odd[0] if odd else n_rows
     index = read_index_from_numpy(pl["words"], pl["length"], pl["mker"], pl["mpos"], pl["mstr"],
                                   pl["n_reads"], k, pl["pm"], device=dev)
     return (index, torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev),
@@ -143,18 +149,59 @@ def test_syncmer_wrapper_refuses_what_the_kernel_does_not_take(case):
     _refused(VC.syncmer, _sync_kwargs(torch.device("cpu")), SYNC_REFUSALS, case)
 
 
+def _bucket_set():
+    codes = bucket_reads(SIM)
+    return ReadSet.from_codes_list(codes, [f"r{i}" for i in range(len(codes))])
+
+
+def _index_kwargs(dev, k=16):
+    """syncmer_index's arguments for the bucket read set's one launch, into
+    fresh planes shaped as its plain index's."""
+    rs = _bucket_set()
+    ref = MZ.build_read_index(rs, k=k, block_size=4, device="cpu")
+    ids, wbs = bucket_widths(rs, 4)
+    s, t = MZ.syncmer_params(k)
+    kw = {"words": ref.words, "lengths": ref.length, "rows": torch.from_numpy(ids - 1),
+          "wbs": torch.from_numpy(wbs), "min_wb": int(wbs.min()), "k": k, "s": s, "t": t,
+          "mker": torch.full_like(ref.mker, 7), "mpos": torch.full_like(ref.mpos, 7),
+          "mstr": torch.full_like(ref.mstr, 7)}
+    return {n: v.to(dev) if isinstance(v, torch.Tensor) else v for n, v in kw.items()}, ref
+
+
 def test_wrappers_refuse_host_tensors_instead_of_falling_back():
     before = _counts()
     with pytest.raises(ValueError, match="CUDA"):
         VC.verify_pre(**_pre_kwargs(torch.device("cpu")))
     with pytest.raises(ValueError, match="CUDA"):
         VC.syncmer(**_sync_kwargs(torch.device("cpu")))
+    with pytest.raises(ValueError, match="CUDA"):
+        VC.syncmer_index(**_index_kwargs(torch.device("cpu"))[0])
     assert _counts() == before
 
 
-# the edge groups, and reads above 131,072 bases: W = LONG_READ_W, 4
-# pairs a chunk (K7's shared memory does not grow with the reads)
-PRE_CASES = [(c, VERIFY_PRE_CHUNK) for c in VERIFY_PRE_EDGE_CASES] + [
+# what the whole-index launch must refuse, whatever the device
+INDEX_REFUSALS = {
+    "rows int64": ({"rows": lambda a: a["rows"].to(torch.int64)}, TypeError, "dtype"),
+    "wbs short": ({"wbs": lambda a: a["wbs"][:3]}, ValueError, "shape"),
+    "mpos narrower": ({"mpos": lambda a: a["mpos"][:, :5].contiguous()}, ValueError, "shape"),
+    "pm 4096": ({n: (lambda a, n=n: a[n].repeat(1, 2)) for n in ("mker", "mpos", "mstr")},
+                ValueError, "at most 2048"),
+    "min_wb below a k-mer": ({"min_wb": 1, "k": 22, "s": 16, "t": 3}, ValueError, "no 22-mer"),
+    "n_sel int64": ({"n_sel": lambda a: torch.zeros(a["words"].shape[0], dtype=torch.int64,
+                                                     device=a["words"].device)},
+                    TypeError, "dtype"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(INDEX_REFUSALS))
+def test_index_wrapper_refuses_what_the_kernel_does_not_take(case):
+    _refused(VC.syncmer_index, _index_kwargs(torch.device("cpu"))[0], INDEX_REFUSALS, case)
+
+
+# the edge groups (also with rows off 16-byte boundaries), and reads above
+# 131,072 bases: W = LONG_READ_W, 4 pairs a chunk (K7's shared memory does
+# not grow with the reads)
+PRE_CASES = [(c, VERIFY_PRE_CHUNK) for c in VERIFY_PRE_EDGE_CASES + VERIFY_PRE_ODD_CASES] + [
     ((16, LONG_READ_W, 128, True), 4), ((16, LONG_READ_W, 1024, False), 4)]
 
 
@@ -222,3 +269,65 @@ def test_index_and_verify_on_card_equal_the_cpu(cuda_device, k, band):
     for c in ("a_id", "b_id", "flipped", "a_bgn", "a_end", "b_bgn", "b_end", "erate_q"):
         np.testing.assert_array_equal(getattr(out[cuda_device], c), getattr(out["cpu"], c),
                                       err_msg=c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("orient,band", [(True, 128), (False, 256)])
+def test_pre_kernel_matches_plain_at_the_sort_sizes_on_card(cuda_device, orient, band):
+    """K7 on joins of 1, 2, 2,048 and 4,096 valid entries, 4,096 of one key
+    and a read with itself (tests/torch_cases.py verify_pre_size_case, Pm
+    2,048), one launch for its 3 chunks."""
+    pl, a, b, fl, n_rows = verify_pre_size_case()
+    index = read_index_from_numpy(pl["words"], pl["length"], pl["mker"], pl["mpos"], pl["mstr"],
+                                  pl["n_reads"], 16, pl["pm"], device=cuda_device)
+    args = (index, *(torch.from_numpy(x).to(cuda_device) for x in (a, b, fl)), 16, band, n_rows,
+            orient)
+    before = _counts()
+    got = AL._verify_pre(*args, chunk=VERIFY_PRE_SIZE_CHUNK)
+    assert _counts()[0] == before[0] + 1 and _counts()[2] == before[2]
+    ref = AL._verify_pre_plain(*args, chunk=VERIFY_PRE_SIZE_CHUNK)
+    torch.cuda.synchronize()
+    _equal(ref[0], got[0], PRE_NAMES)
+    _equal(ref[1:], got[1:], PER_PAIR)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 22])
+def test_syncmer_kernel_matches_plain_at_the_cut_on_card(cuda_device, k):
+    """K8 where reads select pm - 1, pm, pm + 1 and 2 pm keys and equal
+    keys straddle the pm-th entry (its radix select's cut)."""
+    words, lengths, pm = syncmer_cut_case(k)
+    args = (u32_tensor(words, cuda_device), torch.from_numpy(lengths).to(cuda_device), k, pm)
+    got = MZ._syncmer_kernel(*args)
+    ref = MZ._syncmer_kernel_plain(*args)
+    torch.cuda.synchronize()
+    _equal(ref, got, ("mker", "mpos", "mstr", "n_sel"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 22])
+def test_index_is_one_launch_equal_to_the_plain_blocks_on_card(cuda_device, k):
+    """build_read_index on the card: one K8 launch a build (SYNCMER_LAUNCHES
+    up by 1, the plain selection never on the card), every plane equal to
+    the plain index built block by block on the CPU, over buckets of 8 to
+    1,024 words; and syncmer_index alone writes the same rows and n_sel."""
+    rs = _bucket_set()
+    before = _counts()
+    got = MZ.build_read_index(rs, k=k, block_size=4, device=cuda_device)
+    after = _counts()
+    assert after[1] == before[1] + 1 and after[3] == before[3]
+    kw, ref = _index_kwargs(cuda_device, k)
+    for name in ("words", "length", "mker", "mpos", "mstr"):
+        np.testing.assert_array_equal(getattr(got, name).cpu().numpy(),
+                                      getattr(ref, name).numpy(), err_msg=name)
+    n_sel = torch.full((ref.n_rows,), -7, dtype=torch.int32, device=cuda_device)
+    VC.syncmer_index(**kw, n_sel=n_sel)
+    N = ref.n_reads
+    for name in ("mker", "mpos", "mstr"):
+        np.testing.assert_array_equal(kw[name][:N].cpu().numpy(), getattr(ref, name)[:N].numpy(),
+                                      err_msg=name)
+    assert int(n_sel[N]) == -7  # the padding row is no read's
+    for ids, Wb in MZ.length_bucketed_blocks(rs, 4):
+        words, lengths = MZ.block_tensors(rs, ids, Wb, "cpu")
+        np.testing.assert_array_equal(n_sel[ids - 1].cpu().numpy(),
+                                      MZ._syncmer_kernel_plain(words, lengths, k, ref.pm)[3].numpy())

@@ -1356,6 +1356,10 @@ def candidates_digest(pairs: np.ndarray) -> str:
 VERIFY_PRE_EDGE_CASES = ((16, 64, 128, True), (16, 96, 256, False), (22, 64, 1024, True),
                          (22, 96, 128, False), (16, 64, 1024, False), (22, 96, 256, True))
 VERIFY_PRE_CHUNK = 32  # pairs a chunk: each case is a group of 3 chunks
+# (k, W, band, orient, n_rows): verify_pre_edge_case's pairs with base and
+# centre rows whose widths are no multiple of 16 bytes (rows that start and
+# end off 16-byte boundaries)
+VERIFY_PRE_ODD_CASES = ((16, 64, 200, True, 16 * 64 - 5), (22, 96, 136, False, 16 * 96 - 9))
 
 
 def _plant(planes: dict, row: int, keys, pos, strands) -> None:
@@ -1555,3 +1559,193 @@ def verify_pre_long_case(seed: int = 21):
     flipped = np.random.default_rng(seed).random(len(pairs)) < 0.5
     return (planes, np.asarray([a for a, _ in pairs], np.int64),
             np.asarray([b for _, b in pairs], np.int64), flipped, 16 * LONG_READ_W)
+
+
+# ---- the long-read stage gate: reads above 131,072 bases through `cor` ------
+
+# a circular genome and raw reads of 132-170 kb at 10% error: every read
+# exceeds 131,072 bases, so the read index's W is LONG_READ_W and the
+# verify runs 16 W = 262,144 rows a pair (the long-read coordinates of the
+# band centres and the syncmer cut at pm)
+LONGREAD_GENOME = (300_000, 23)
+LONGREAD_SIM = {"coverage": 3, "mean_len": 150_000, "min_len": 132_000, "max_len": 170_000,
+                "error_rate": 0.10, "seed": 24}
+
+
+def longread_reads(sim):
+    """The long-read gate's read set from a simulator module (canu_tpu's or
+    the port's: the same reads)."""
+    length, seed = LONGREAD_GENOME
+    rs, _ = sim.simulate_reads(sim.random_genome(length, seed=seed), **LONGREAD_SIM)
+    return rs
+
+
+def readset_digest(rs) -> str:
+    """sha256 of a read set's lengths (int64) and its 2-bit bases, read by
+    read (uint8 codes), little-endian, C order."""
+    h = hashlib.sha256()
+    h.update(np.ascontiguousarray(np.asarray(rs.length).astype("<i8")).tobytes())
+    for i in range(1, rs.n_reads + 1):
+        h.update(np.ascontiguousarray(rs.get_codes(i).astype(np.uint8)).tobytes())
+    return h.hexdigest()
+
+
+# ---- K7 at the sizes of its sorts, K8 at its cut at pm ------------------------
+
+# (name, a row, b row) of verify_pre_size_case's planted pairs
+VERIFY_PRE_SIZE_PAIRS = (("1 entry", 0, 1), ("2 entries", 2, 3), ("2,048 entries", 4, 5),
+                         ("4,096 entries", 6, 7), ("one key", 8, 9), ("a read with itself", 10, 10),
+                         ("the first inlier before B's start", 11, 12),
+                         ("a short B read", 13, 14), ("diagonals across 256", 15, 16),
+                         ("a B row out of order with a key twice", 17, 18))
+
+
+def verify_pre_size_case(k: int = 16, seed: int = 19):
+    """verify_pre_edge_case's (planes, a_idx, b_idx, flipped, n_rows) at Pm
+    2,048 (reads of 6-8 kb, W 512) with rows 0-9 replaced so that the
+    planted pairs' join holds 1 valid entry (0: one, 1: none), 2 (one key
+    shared), 2,048 (1,024 a read, half of them shared, row 4 in K8's
+    mix32 order and row 5 shuffled), 4,096 (2,048 a read, most shared,
+    along a diagonal with strays, both strands) and 4,096 entries of one
+    key (rows 8 and 9: the join's one hit is row 8's last entry and row
+    9's first); row 10 is a read's own row, joined with itself; rows 11
+    and 12 share five keys on opposite strands whose first (smallest posA)
+    lies at posB lenB - k + 5, so at -5 on the flipped B (not kept: the
+    chain starts against -1); row 14 is cut to 600 bases, so its tol with
+    row 13 is 180, not 0.3 lenA, and a hit 800 off the diagonal is no
+    inlier; rows 15 and 16 share five keys on diagonals 10, 20, 300, 310
+    and 320 (the median's radix select starts at bit 8); row 18 holds
+    row 17's two keys out of mix32 order, the first of them twice (only
+    its first copy joins).  The pairs, 5 chunks of 4: each planted pair
+    both ways (the read with itself once) and the padding row against row
+    6; flipped drawn at random."""
+    from canu_tpu_torch.ops.hashing import mix32
+    from canu_tpu_torch.ops.minimizers import build_read_index
+    from canu_tpu_torch.sim.simulate import random_genome, simulate_reads
+
+    rng = np.random.default_rng(seed + k)
+    g = random_genome(30_000, seed=seed)
+    rs, _ = simulate_reads(g, coverage=5, mean_len=7000, min_len=6000, max_len=8000,
+                           error_rate=0.08, seed=seed + 1)
+    idx = build_read_index(rs, k=k, device="cpu")
+    assert idx.pm == 2048 and rs.n_reads > 18, (idx.pm, rs.n_reads)
+    planes = {"words": idx.words.numpy().astype(np.uint32), "length": idx.length.numpy().copy(),
+              "mker": idx.mker.numpy().astype(np.uint32), "mpos": idx.mpos.numpy().copy(),
+              "mstr": idx.mstr.numpy().copy(), "n_reads": idx.n_reads, "pm": idx.pm}
+    keys = rng.choice(0xFFFFFFFE, size=8192, replace=False).astype(np.int64)
+
+    def mix_order(ks):
+        return np.argsort(mix32(torch.from_numpy(ks)).numpy(), kind="stable")
+
+    _plant(planes, 0, [keys[0]], [100], [0])
+    _plant(planes, 1, [], [], [])
+    _plant(planes, 2, [keys[1]], [300], [1])
+    _plant(planes, 3, [keys[1]], [250], [0])
+    # 1,024 a read, 512 shared, on a diagonal 60 apart with a jitter
+    shared = keys[2:514]
+    ka = np.concatenate([shared, keys[514:1026]])
+    kb = np.concatenate([shared, keys[1026:1538]])
+    pa = np.concatenate([np.arange(512) * 12 + rng.integers(0, 6, 512),
+                         rng.integers(0, 6500, 512)]).astype(np.int32)
+    pb = np.concatenate([np.arange(512) * 12 + 60 + rng.integers(0, 6, 512),
+                         rng.integers(0, 6500, 512)]).astype(np.int32)
+    o = mix_order(ka)
+    _plant(planes, 4, ka[o], pa[o], rng.integers(0, 2, 1024)[o])
+    o = rng.permutation(1024)
+    _plant(planes, 5, kb[o], pb[o], rng.integers(0, 2, 1024)[o])
+    # 2,048 a read, 1,800 shared: a diagonal with strays, both strands
+    shared = keys[1538:3338]
+    ka = np.concatenate([shared, keys[3338:3586]])
+    kb = np.concatenate([shared, keys[3586:3834]])
+    pa = np.concatenate([np.sort(rng.integers(0, 7000, 1800)), rng.integers(0, 7000, 248)])
+    pb = pa.copy()
+    pb[:1800] = np.clip(pa[:1800] - 300 + rng.integers(-4, 5, 1800), 0, None)
+    pb[1500:1600] = rng.integers(0, 7000, 100)  # strays off the diagonal
+    sa = rng.integers(0, 2, 2048)
+    sb = sa.copy()
+    sb[:200] ^= 1  # the minority orientation
+    o = mix_order(ka)
+    _plant(planes, 6, ka[o], pa[o].astype(np.int32), sa[o])
+    o = mix_order(kb)
+    _plant(planes, 7, kb[o], pb[o].astype(np.int32), sb[o])
+    # one key throughout both reads
+    _plant(planes, 8, np.full(2048, keys[4000]), rng.integers(0, 7000, 2048).astype(np.int32),
+           rng.integers(0, 2, 2048))
+    _plant(planes, 9, np.full(2048, keys[4000]), rng.integers(0, 7000, 2048).astype(np.int32),
+           rng.integers(0, 2, 2048))
+    lenB = int(planes["length"][12])
+    _plant(planes, 11, keys[4001:4006], [10, 20, 30, 40, 50], [0, 0, 0, 0, 0])
+    _plant(planes, 12, keys[4001:4006], [lenB - k + 5, lenB - k - 15, lenB - k - 25,
+                                          lenB - k - 35, lenB - k - 45], [1, 1, 1, 1, 1])
+    planes["length"][14] = 600
+    _plant(planes, 13, keys[4006:4011], [100, 200, 300, 400, 1300], [0, 0, 0, 0, 0])
+    _plant(planes, 14, keys[4006:4011], [100, 200, 300, 400, 500], [0, 0, 0, 0, 0])
+    _plant(planes, 15, keys[4011:4016], [1000, 1100, 1200, 1300, 1400], [0, 0, 0, 0, 0])
+    _plant(planes, 16, keys[4011:4016], [990, 1080, 900, 990, 1080], [0, 0, 0, 0, 0])
+    x, y = keys[4016], keys[4017]
+    _plant(planes, 17, [x, y], [100, 200], [0, 0])
+    _plant(planes, 18, [x, y, x], [100, 200, 150], [0, 0, 0])
+    pad = idx.n_reads
+    pairs = [(0, 1), (1, 0), (2, 3), (3, 2), (4, 5), (5, 4), (6, 7), (7, 6), (8, 9), (9, 8),
+             (10, 10), (pad, 6), (11, 12), (12, 11), (13, 14), (14, 13), (15, 16), (16, 15),
+             (17, 18), (18, 17)]
+    flipped = rng.random(len(pairs)) < 0.5
+    return (planes, np.asarray([a for a, _ in pairs], np.int64),
+            np.asarray([b for _, b in pairs], np.int64), flipped, 16 * planes["words"].shape[1])
+
+
+VERIFY_PRE_SIZE_CHUNK = 4  # pairs a chunk: verify_pre_size_case is 5 chunks
+
+
+def syncmer_cut_case(k: int, seed: int = 29):
+    """(words uint32[5, W], lengths int32[5], pm) for
+    ops.minimizers._syncmer_kernel at its cut at pm: a read of a repeated
+    41-base motif whose (key, position) order has equal keys at slots pm -
+    1 and pm (pm chosen so), then random reads cut so that they select pm -
+    1, pm and pm + 1 positions, and one that selects 2 pm (the cut inside
+    its keys).  Words past each read are zero."""
+    from canu_tpu_torch.ops.minimizers import _syncmer_kernel_plain
+
+    rng = np.random.default_rng(seed + k)
+    W = 256
+    L = 16 * W
+
+    def selected(codes):
+        words = torch.from_numpy(_pack_codes(codes, W).astype(np.int64))[None]
+        mk, mp, _ms, n = _syncmer_kernel_plain(words, torch.tensor([len(codes)], dtype=torch.int32),
+                                               k, L)
+        return mk[0, : int(n[0])].numpy(), mp[0, : int(n[0])].numpy()
+
+    motif = rng.integers(0, 4, 41).astype(np.uint8)
+    rep = np.tile(motif, -(-(L - 7) // 41))[: L - 7]
+    rep[::97] = rng.integers(0, 4, len(rep[::97]))  # a few changes: runs of equal keys
+    mk, _ = selected(rep)
+    from canu_tpu_torch.ops.hashing import mix32
+
+    mx = mix32(torch.from_numpy(mk.astype(np.int64))).numpy()
+    ties = [i for i in range(40, len(mx)) if mx[i - 1] == mx[i]]
+    assert ties, "the motif read has no tie to cut at"
+    pm = ties[0]
+    reads = [rep]
+    base = rng.integers(0, 4, L).astype(np.uint8)
+    pos = np.sort(selected(base)[1])
+    assert len(pos) > 2 * pm, (len(pos), pm)
+    for n in (pm - 1, pm, pm + 1):
+        reads.append(base[: int(pos[n - 1]) + k])
+    reads.append(base[: int(pos[2 * pm - 1]) + k])
+    words = np.stack([_pack_codes(r, W) for r in reads])
+    return words, np.asarray([len(r) for r in reads], np.int32), pm
+
+
+def bucket_reads(sim, seed: int = 33):
+    """The codes of reads whose length buckets (block_size 4) pad to
+    different widths: 16 bases to 9 kb, so the buckets' W runs from 8 to
+    1,024 words and the index's global W is 1,024 (pm 2,048)."""
+    g = sim.random_genome(40_000, seed=seed)
+    rng = np.random.default_rng(seed)
+    codes = []
+    for n in (40, 60, 120, 200, 310, 500, 700, 1000, 1500, 2100, 3000, 4100, 5000, 6500, 8200,
+              9000, 90, 2600, 16, 7000):
+        s = int(rng.integers(0, len(g) - n))
+        codes.append(g[s : s + n].astype(np.uint8))
+    return codes
