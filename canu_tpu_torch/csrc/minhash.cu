@@ -42,20 +42,24 @@
 //   cnt[i, j] = #{h : SA[i, h] == SB[j, h] != UINT32_MAX},
 //   set(i, j) = cnt[i, j] >= min_matches (and i < j for a self block),
 //   n_found   = #set, and the first max_out set cells in row-major order
-//   as (ii, jj, c) (the fixed-size nonzero; the wrapper pre-fills the
-//   padding with Na, Na, 0).
+//   as (ii, jj, c), padded with (Na, Na, 0) (the fixed-size nonzero).
 // What bounds it: the operations, 2 a (cell, slot) against 8 bytes a
-// slot read once.  The count launch tiles the output like a matrix
-// product: 64 x 64 cells a block of 256 threads, a 4 x 4 register tile a
-// thread, the slots walked in stages of 32 through shared memory (stored
-// slot-major, so a thread reads its 4 rows or 4 columns as one 16-byte
-// load).  It writes cnt (the sharded ring reads it, parallel/mesh.py) and
-// adds each row's set cells into row_set (integer atomics: the sum is
-// exact in any order).  The wrapper turns row_set into each row's first
-// output index (one exclusive scan of at most a few thousand totals); the
-// compact launch, one block a row with set cells, writes them in column
-// order through a block-wide ballot scan.
-//
+// slot read once.  A block pair is two launches and nothing else on the
+// stream (the wrapper allocates, and zeroes nothing):
+//   - the count launch tiles the output like a matrix product: 64 x 64
+//     cells a block of 256 threads, a 4 x 4 register tile a thread, the
+//     slots walked in stages of 32 through shared memory (stored
+//     slot-major, so a thread reads its 4 rows or 4 columns as one 16-byte
+//     load).  It writes cnt (the sharded ring reads it, parallel/mesh.py)
+//     and each row's set cells in the block's 64 columns, with plain
+//     stores; in a self block it skips the blocks whose cells all have
+//     i >= j, and it resets the compact launch's scan state;
+//   - the compact launch takes each row's first output index from a scan
+//     of the row totals inside the launch (a decoupled look-back over
+//     64-row blocks ordered by a ticket, right for any Na), visits only
+//     the 64-column tiles with set cells, writes them in row-major order
+//     through warp ballots, writes n_found, and pads the rest of max_out
+//     from blocks of its own that wait for n_found.
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC; bound through ctypes (plain C interface).
 
@@ -181,25 +185,57 @@ sketch_kernel(const int64_t* __restrict__ words, int W, const int32_t* __restric
 
 // ---- K6 ----------------------------------------------------------------------
 
-constexpr int MT = 64;       // output rows and columns a block
-constexpr int MS = 32;       // slots a stage
-constexpr int MPAD = MT + 4;  // a staged slot's row stride (16-byte aligned, fewer conflicts)
-constexpr int M_THREADS = 256;
-constexpr int CM_THREADS = 256;
+constexpr int MT = 32;        // output rows and columns a count block, and a tile_set column
+constexpr int MS = 32;        // slots a stage
+constexpr int MPAD = MT + 4;  // a staged slot's row stride (8-byte aligned, fewer conflicts)
+constexpr int M_THREADS = 256;  // 16 x 16 threads, 2 x 2 cells each
+constexpr int CM_THREADS = 256;  // tile_set entries a scan block, one a thread
+constexpr int CM_PAD = 4096;     // padding entries a pad block of the compact launch
+// the compact launch's scan state: a word a scan block, its flag in the
+// top two bits (0 not yet published, the block's own total, or the total
+// of every entry up to the block's last) and the value below them
+constexpr unsigned long long ST_AGG = 1ull << 62;
+constexpr unsigned long long ST_PREFIX = 2ull << 62;
+constexpr unsigned long long ST_VAL = ST_AGG - 1;
 
+__device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* p, unsigned long long v) {
+  __threadfence();
+  *reinterpret_cast<volatile unsigned long long*>(p) = v;
+}
+
+__device__ __forceinline__ long long warp_sum(long long v) {
+#pragma unroll
+  for (int o = 16; o >= 1; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+// The count launch: cnt[i, j] for every cell of the block pair, 32 x 32
+// cells a block; with tile_set, each row's number of set cells in the
+// block's 32 columns, tile_set[i, blockIdx.x], a plain store.  In a self
+// block a block whose cells all have i >= j writes nothing (no cell is
+// set there, and the compact launch reads neither cnt nor tile_set of
+// it).  With scan, its n_scan words (the compact launch's ticket and
+// scan state) are reset first, strided over every thread of the grid.
 __global__ void __launch_bounds__(M_THREADS)
 match_count_kernel(const int64_t* __restrict__ SA, int Na, const int64_t* __restrict__ SB,
                    int Nb, int H, int min_matches, int self_block, int32_t* __restrict__ cnt,
-                   int32_t* __restrict__ row_set) {
+                   int32_t* __restrict__ tile_set, unsigned long long* __restrict__ scan,
+                   int n_scan) {
   __shared__ __align__(16) uint32_t As[MS][MPAD];
   __shared__ __align__(16) uint32_t Bs[MS][MPAD];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  if (scan != nullptr) {
+    const int stride = gridDim.x * gridDim.y * M_THREADS;
+    for (int w = (blockIdx.y * gridDim.x + blockIdx.x) * M_THREADS + tid; w < n_scan; w += stride)
+      scan[w] = 0;
+  }
   const int i0 = blockIdx.y * MT, j0 = blockIdx.x * MT;
-  int acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0;
+  if (i0 >= Na || j0 >= Nb || (self_block && blockIdx.y > blockIdx.x)) return;  // the whole block
+  int acc[2][2] = {{0, 0}, {0, 0}};
   for (int hs = 0; hs < H; hs += MS) {
     for (int e = tid; e < MT * MS; e += M_THREADS) {
       const int r = e / MS, h = e % MS, gh = hs + h;
@@ -213,72 +249,156 @@ match_count_kernel(const int64_t* __restrict__ SA, int Na, const int64_t* __rest
     __syncthreads();
 #pragma unroll 8
     for (int h = 0; h < MS; ++h) {
-      const uint4 a4 = *reinterpret_cast<const uint4*>(&As[h][ty * 4]);
-      const uint4 b4 = *reinterpret_cast<const uint4*>(&Bs[h][tx * 4]);
-      const uint32_t a[4] = {a4.x, a4.y, a4.z, a4.w};
-      const uint32_t bv[4] = {b4.x, b4.y, b4.z, b4.w};
+      const uint2 a2 = *reinterpret_cast<const uint2*>(&As[h][ty * 2]);
+      const uint2 b2 = *reinterpret_cast<const uint2*>(&Bs[h][tx * 2]);
+      const uint32_t a[2] = {a2.x, a2.y};
+      const uint32_t bv[2] = {b2.x, b2.y};
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
+      for (int r = 0; r < 2; ++r) {
         const bool ok = a[r] != UMAX;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] += (ok && a[r] == bv[c]) ? 1 : 0;
+        for (int c = 0; c < 2; ++c) acc[r][c] += (ok && a[r] == bv[c]) ? 1 : 0;
       }
     }
     __syncthreads();
   }
+  const int n_tiles = (Nb + MT - 1) / MT;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int gi = i0 + ty * 4 + r;
+  for (int r = 0; r < 2; ++r) {
+    const int gi = i0 + ty * 2 + r;
     int n_set = 0;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int gj = j0 + tx * 4 + c;
+    for (int c = 0; c < 2; ++c) {
+      const int gj = j0 + tx * 2 + c;
       if (gi < Na && gj < Nb) {
         cnt[static_cast<size_t>(gi) * Nb + gj] = acc[r][c];
         n_set += acc[r][c] >= min_matches && (!self_block || gi < gj);
       }
     }
-    // the 16 threads of a half-warp share ty, so the row's total is a
+    // the 16 threads of a half-warp share ty, so the row's count is a
     // 16-lane sum
 #pragma unroll
     for (int o = 8; o >= 1; o >>= 1) n_set += __shfl_xor_sync(FULL, n_set, o);
-    if (tx == 0 && gi < Na && n_set) atomicAdd(&row_set[gi], n_set);
+    if (tile_set != nullptr && tx == 0 && gi < Na)
+      tile_set[static_cast<size_t>(gi) * n_tiles + blockIdx.x] = n_set;
   }
 }
 
+// The compact launch: n_scan_blocks blocks of CM_THREADS tile_set entries
+// (row-major: the order of the output), then the pad blocks, in the order
+// a ticket gives them (so a block only ever waits for blocks that already
+// run).  A scan block takes its entries' counts (0 for a self block's
+// tiles wholly at or below the diagonal, which it does not read), scans
+// them, publishes its total, takes the total of the entries before it by
+// a decoupled look-back (a warp reads 32 earlier words at a time and stops
+// at the nearest prefix) and publishes its prefix; then each thread
+// writes its entry's set cells (i < j tested before cnt is read) in
+// column order at output index prefix + the cells before them, where
+// that is below max_out.  The last scan block writes n_found.  A pad block
+// waits for the last scan block's prefix (n_found) and writes (Na, Na, 0)
+// on its share of [n_found, max_out).
 __global__ void __launch_bounds__(CM_THREADS)
-match_compact_kernel(const int32_t* __restrict__ cnt, int Nb, int min_matches, int self_block,
-                     const int32_t* __restrict__ row_set, const int64_t* __restrict__ row_start,
-                     int max_out, int64_t* __restrict__ ii, int64_t* __restrict__ jj,
-                     int32_t* __restrict__ cc) {
-  __shared__ int warp_set[CM_THREADS / 32];
-  const int i = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (row_set[i] == 0) return;
-  int64_t base = row_start[i];
-  for (int js = 0; js < Nb && base < max_out; js += CM_THREADS) {
-    const int j = js + tid;
-    const int v = j < Nb ? cnt[static_cast<size_t>(i) * Nb + j] : 0;
-    const bool set = j < Nb && v >= min_matches && (!self_block || i < j);
-    const unsigned bal = __ballot_sync(FULL, set);
-    if (lane == 0) warp_set[warp] = __popc(bal);
-    __syncthreads();
-    int before = 0, total = 0;
-#pragma unroll
-    for (int w = 0; w < CM_THREADS / 32; ++w) {
-      const int t = warp_set[w];
-      before += w < warp ? t : 0;
-      total += t;
-    }
-    if (set) {
-      const int64_t pos = base + before + __popc(bal & ((1u << lane) - 1u));
-      if (pos < max_out) {
-        ii[pos] = i;
-        jj[pos] = j;
-        cc[pos] = v;
+match_compact_kernel(const int32_t* __restrict__ cnt, const int32_t* __restrict__ tile_set,
+                     int Na, int Nb, int min_matches, int self_block,
+                     unsigned long long* __restrict__ scan, int n_scan_blocks, int max_out,
+                     int64_t* __restrict__ ii, int64_t* __restrict__ jj, int32_t* __restrict__ cc,
+                     int64_t* __restrict__ n_found) {
+  __shared__ int ticket;
+  __shared__ long long warp_total[CM_THREADS / 32];
+  __shared__ long long before;  // the set cells of every entry before the block's
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) ticket = static_cast<int>(atomicAdd(scan, 1ull));
+  __syncthreads();
+  const int t = ticket;
+
+  if (t >= n_scan_blocks) {  // a pad block
+    if (tid == 0) {
+      unsigned long long s = ST_PREFIX;  // no entries: n_found 0
+      if (n_scan_blocks > 0) {
+        do s = load_status(&scan[n_scan_blocks]); while (!(s & ST_PREFIX));
+      } else if (t == 0) {
+        *n_found = 0;
       }
+      before = static_cast<long long>(s & ST_VAL);
     }
-    base += total;
-    __syncthreads();  // warp_set is rewritten by the next stage
+    __syncthreads();
+    const long long p0 = static_cast<long long>(t - n_scan_blocks) * CM_PAD;
+    const long long lo = before > p0 ? before : p0;
+    const long long hi = p0 + CM_PAD < max_out ? p0 + CM_PAD : max_out;
+    for (long long q = lo + tid; q < hi; q += CM_THREADS) {
+      ii[q] = Na;
+      jj[q] = Na;
+      cc[q] = 0;
+    }
+    return;
+  }
+
+  // this thread's entry: row i, 32-column tile tt
+  const int n_tiles = (Nb + MT - 1) / MT;
+  const long long e = static_cast<long long>(t) * CM_THREADS + tid;
+  const int i = static_cast<int>(e / (n_tiles > 0 ? n_tiles : 1));
+  const int tt = static_cast<int>(e - static_cast<long long>(i) * n_tiles);
+  const bool entry = e < static_cast<long long>(Na) * n_tiles && (!self_block || tt >= i / MT);
+  const int v = entry ? tile_set[e] : 0;
+  // the block's exclusive scan of the counts
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) warp_total[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const long long wt = lane < CM_THREADS / 32 ? warp_total[lane] : 0;
+    long long wincl = wt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long y = __shfl_up_sync(FULL, wincl, o);
+      if (lane >= o) wincl += y;
+    }
+    if (lane < CM_THREADS / 32) warp_total[lane] = wincl - wt;  // each warp's first entry's offset
+    const long long agg = __shfl_sync(FULL, wincl, 31);
+    if (lane == 0) store_status(&scan[1 + t], (t == 0 ? ST_PREFIX : ST_AGG) | agg);
+    // look back: lane l reads the word of block j - l
+    long long sum = 0;
+    for (int j = t - 1; j >= 0; j -= 32) {
+      const int k = j - lane;
+      unsigned long long s = k >= 0 ? load_status(&scan[1 + k]) : ST_PREFIX;
+      while (__ballot_sync(FULL, (s >> 62) != 0) != FULL)
+        if (!(s >> 62)) s = load_status(&scan[1 + k]);
+      const unsigned pre = __ballot_sync(FULL, (s & ST_PREFIX) != 0);
+      const int stop = pre ? __ffs(pre) - 1 : 31;
+      sum += warp_sum(lane <= stop ? static_cast<long long>(s & ST_VAL) : 0);
+      if (pre) break;
+    }
+    if (lane == 0) {
+      if (t > 0) store_status(&scan[1 + t], ST_PREFIX | (sum + agg));
+      if (t == n_scan_blocks - 1) *n_found = sum + agg;
+      before = sum;
+    }
+  }
+  __syncthreads();
+
+  // the entry's set cells, in column order
+  long long pos = before + warp_total[warp] + incl - v;
+  if (v == 0 || pos >= max_out) return;
+  const int32_t* crow = cnt + static_cast<size_t>(i) * Nb;
+  const int jt = tt * MT;
+  int c[MT];
+#pragma unroll
+  for (int x = 0; x < MT; ++x) {
+    const int j = jt + x;
+    c[x] = j < Nb && (!self_block || i < j) ? crow[j] : min_matches - 1;
+  }
+#pragma unroll
+  for (int x = 0; x < MT; ++x) {
+    if (c[x] >= min_matches && pos < max_out) {
+      ii[pos] = i;
+      jj[pos] = jt + x;
+      cc[pos] = c[x];
+      ++pos;
+    }
   }
 }
 
@@ -304,35 +424,44 @@ extern "C" int canu_minhash_sketch(const void* words, int B, int W, const void* 
 }
 
 // SA int64[Na, H], SB int64[Nb, H] (uint32 values); out cnt int32[Na, Nb]
-// and row_set int32[Na], which must hold zeros: each row's count of set
-// cells is added to it.  Returns cudaGetLastError() of the launch, -3 for
-// a negative size.
+// and, unless null, tile_set int32[Na, ceil(Nb / 32)] (each row's set
+// cells a 32-column tile) and the compact launch's scan state int64[n_scan]
+// (n_scan = ceil(Na * ceil(Nb / 32) / 256) + 1), which it resets.  In a
+// self block (SA is SB) only the cells of tiles that hold an i < j are
+// written.  Returns cudaGetLastError() of the launch, -3 for a negative
+// size; with no scan state and no cell, 0 at once.
 extern "C" int canu_slot_match_count(const void* SA, int Na, const void* SB, int Nb, int H,
-                                     int min_matches, int self_block, void* cnt, void* row_set,
-                                     void* stream) {
-  if (Na < 0 || Nb < 0 || H < 0) return -3;
-  if (Na == 0 || Nb == 0) return 0;
-  const dim3 grid((Nb + MT - 1) / MT, (Na + MT - 1) / MT);
+                                     int min_matches, int self_block, void* cnt, void* tile_set,
+                                     void* scan, int n_scan, void* stream) {
+  if (Na < 0 || Nb < 0 || H < 0 || n_scan < 0) return -3;
+  if (scan == nullptr && (Na == 0 || Nb == 0)) return 0;
+  const int gx = (Nb + MT - 1) / MT, gy = (Na + MT - 1) / MT;
+  const dim3 grid(gx > 0 ? gx : 1, gy > 0 ? gy : 1);
   match_count_kernel<<<grid, M_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(SA), Na, static_cast<const int64_t*>(SB), Nb, H, min_matches,
-      self_block, static_cast<int32_t*>(cnt), static_cast<int32_t*>(row_set));
+      self_block, static_cast<int32_t*>(cnt), static_cast<int32_t*>(tile_set),
+      static_cast<unsigned long long*>(scan), n_scan);
   return static_cast<int>(cudaGetLastError());
 }
 
-// cnt int32[Na, Nb] and row_set int32[Na] from canu_slot_match_count,
-// row_start int64[Na] (the exclusive sum of row_set); writes the set cells
-// of output index < max_out into ii, jj (int64) and cc (int32), each
-// [max_out].  Returns cudaGetLastError() of the launch, -3 for a negative
-// size.
-extern "C" int canu_slot_match_compact(const void* cnt, int Na, int Nb, int min_matches,
-                                       int self_block, const void* row_set,
-                                       const void* row_start, int max_out, void* ii, void* jj,
-                                       void* cc, void* stream) {
+// cnt, tile_set and scan from canu_slot_match_count on the same stream;
+// writes the first max_out set cells in row-major order into ii, jj
+// (int64) and cc (int32), each [max_out], (Na, Na, 0) after them, and the
+// number of set cells into n_found (int64, counting cells past max_out
+// too).  Returns cudaGetLastError() of the launch, -3 for a negative size.
+extern "C" int canu_slot_match_compact(const void* cnt, const void* tile_set, int Na, int Nb,
+                                       int min_matches, int self_block, void* scan, int max_out,
+                                       void* ii, void* jj, void* cc, void* n_found,
+                                       void* stream) {
   if (Na < 0 || Nb < 0 || max_out < 0) return -3;
-  if (Na == 0 || Nb == 0 || max_out == 0) return 0;
-  match_compact_kernel<<<Na, CM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(cnt), Nb, min_matches, self_block,
-      static_cast<const int32_t*>(row_set), static_cast<const int64_t*>(row_start), max_out,
-      static_cast<int64_t*>(ii), static_cast<int64_t*>(jj), static_cast<int32_t*>(cc));
+  const long long entries = static_cast<long long>(Na) * ((Nb + MT - 1) / MT);
+  const int n_scan_blocks = static_cast<int>((entries + CM_THREADS - 1) / CM_THREADS);
+  const int n_pad = max_out > 0 ? (max_out + CM_PAD - 1) / CM_PAD : 1;
+  match_compact_kernel<<<n_scan_blocks + n_pad, CM_THREADS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(cnt), static_cast<const int32_t*>(tile_set), Na, Nb,
+      min_matches, self_block, static_cast<unsigned long long*>(scan), n_scan_blocks, max_out,
+      static_cast<int64_t*>(ii), static_cast<int64_t*>(jj), static_cast<int32_t*>(cc),
+      static_cast<int64_t*>(n_found));
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,14 +9,14 @@ launches it on CUDA tensors; it is held against
 ops.minhash._sketch_kernel_plain.
 
 K6 is the block matcher's two launches: ``slot_counts`` (the count
-launch: the slot agreements of every (i, j) of a block pair, 64 x 64
-cells a block, and each row's number of cells at or above min_matches)
-and ``match_block`` (the count launch, an exclusive scan of the row
-totals, then the compact launch: the set cells in row-major order, the
-fixed-size nonzero of canu_tpu).  ops.minhash._match_kernel launches
-match_block and ops.minhash.slot_counts (the sharded ring's count) the
-count launch; they are held against ops.minhash._match_kernel_plain and
-_slot_counts_plain.
+launch alone: the slot agreements of every (i, j) of a block pair, 32 x 32
+cells a block) and ``match_block`` (the count launch, which also writes
+each row's set cells a 32-column tile, then the compact launch: the scan
+of those counts, the set cells in row-major order, the fixed-size nonzero
+of canu_tpu, its padding and n_found), with nothing else enqueued between
+or around them.  ops.minhash._match_kernel launches match_block and
+ops.minhash.slot_counts (the sharded ring's count) the count launch; they
+are held against ops.minhash._match_kernel_plain and _slot_counts_plain.
 
 The library is built by ops/kernels/_nvcc.py and loaded with ctypes;
 nothing here falls back to the plain versions: a failed build, a tensor
@@ -32,6 +32,8 @@ import torch
 from . import _nvcc
 
 SOURCE = _nvcc.CSRC / "minhash.cu"
+TILE = 32  # csrc/minhash.cu MT: the count launch's 32 x 32 cells a block, a tile_set column
+SCAN_BLOCK = 256  # csrc/minhash.cu CM_THREADS: tile_set entries a block of the compact's scan
 
 # launches since the last reset (read by chip_smoke.py): K5, K6's count
 # launch (one a block pair or ring step) and its compact launch
@@ -48,8 +50,8 @@ def _load():
         p = ctypes.c_void_p
         i = ctypes.c_int
         lib.canu_minhash_sketch.argtypes = [p, i, i, p, p, i, p, i, i, p, p]
-        lib.canu_slot_match_count.argtypes = [p, i, p, i, i, i, i, p, p, p]
-        lib.canu_slot_match_compact.argtypes = [p, i, i, i, i, p, p, i, p, p, p, p]
+        lib.canu_slot_match_count.argtypes = [p, i, p, i, i, i, i, p, p, p, i, p]
+        lib.canu_slot_match_compact.argtypes = [p, p, i, i, i, i, p, i, p, p, p, p, p]
         for fn in (lib.canu_minhash_sketch, lib.canu_slot_match_count,
                    lib.canu_slot_match_compact):
             fn.restype = ctypes.c_int
@@ -104,9 +106,8 @@ def sketch(words, lengths, seeds, fk, k: int) -> torch.Tensor:
     return out
 
 
-def _count(SA, SB, min_matches: int, self_block: bool):
-    """K6's count launch: (cnt int32[Na, Nb], row_set int32[Na])."""
-    global MATCH_LAUNCHES
+def _blocks(SA, SB):
+    """(Na, Nb, H) of two sketch blocks on the card, checked."""
     if SA.dim() != 2 or SB.dim() != 2:
         raise ValueError("SA and SB must be 2-D")
     dev = SA.device
@@ -115,23 +116,24 @@ def _count(SA, SB, min_matches: int, self_block: bool):
     _nvcc.check_tensor("SA", SA, torch.int64, (Na, H), dev)
     _nvcc.check_tensor("SB", SB, torch.int64, (Nb, H), dev)
     _on_card("K6", dev)
-    cnt = torch.empty((Na, Nb), dtype=torch.int32, device=dev)
-    row_set = torch.zeros(Na, dtype=torch.int32, device=dev)
-    if Na == 0 or Nb == 0:
-        return cnt, row_set
-    fn = _load().canu_slot_match_count
-    with torch.cuda.device(dev):
-        rc = fn(SA.data_ptr(), int(Na), SB.data_ptr(), int(Nb), int(H), int(min_matches),
-                int(bool(self_block)), cnt.data_ptr(), row_set.data_ptr(), _stream(dev))
-    _raise_on(rc, "K6")
-    MATCH_LAUNCHES += 1
-    return cnt, row_set
+    return Na, Nb, H
 
 
 def slot_counts(SA, SB) -> torch.Tensor:
     """K6's count launch alone: int32[Na, Nb] slot agreements of SA
     int64[Na, H] and SB int64[Nb, H] (uint32 values) on the card."""
-    return _count(SA, SB, 0, False)[0]
+    global MATCH_LAUNCHES
+    Na, Nb, H = _blocks(SA, SB)
+    dev = SA.device
+    cnt = torch.empty((Na, Nb), dtype=torch.int32, device=dev)
+    if Na == 0 or Nb == 0:
+        return cnt
+    with torch.cuda.device(dev):
+        rc = _load().canu_slot_match_count(SA.data_ptr(), Na, SB.data_ptr(), Nb, H, 0, 0,
+                                           cnt.data_ptr(), None, None, 0, _stream(dev))
+    _raise_on(rc, "K6")
+    MATCH_LAUNCHES += 1
+    return cnt
 
 
 def match_block(SA, SB, min_matches: int, self_block: bool, max_out: int):
@@ -139,26 +141,37 @@ def match_block(SA, SB, min_matches: int, self_block: bool, max_out: int):
     n_found int64 0-d) for SA int64[Na, H], SB int64[Nb, H] on the card:
     the first max_out cells with at least min_matches agreeing slots (i <
     j in a self block) in row-major order, padded with Na, Na and 0;
-    n_found counts every set cell, also past max_out.  Nothing leaves the
-    card."""
-    global COMPACT_LAUNCHES
+    n_found counts every set cell, also past max_out.  Two launches, the
+    count and the compact; the outputs and one scratch buffer (the scan
+    state, each row's set cells a 32-column tile, the counts) are
+    torch.empty, nothing else is enqueued and nothing leaves the card."""
+    global MATCH_LAUNCHES, COMPACT_LAUNCHES
     if max_out < 0:
         raise ValueError(f"max_out must be >= 0, got {max_out}")
-    cnt, row_set = _count(SA, SB, min_matches, self_block)
+    Na, Nb, H = _blocks(SA, SB)
     dev = SA.device
-    Na, Nb = cnt.shape
-    row_start = torch.cumsum(row_set, 0, dtype=torch.int64) - row_set
-    n_found = row_set.sum(dtype=torch.int64)
-    ii = torch.full((max_out,), Na, dtype=torch.int64, device=dev)
-    jj = torch.full((max_out,), Na, dtype=torch.int64, device=dev)
-    c = torch.zeros(max_out, dtype=torch.int32, device=dev)
-    if Na == 0 or Nb == 0 or max_out == 0:
-        return ii, jj, c, n_found
-    fn = _load().canu_slot_match_compact
+    n_tiles = -(-Nb // TILE)
+    n_scan = -(-Na * n_tiles // SCAN_BLOCK) + 1
+    # int32 words: the scan state (int64[n_scan]), tile_set [Na, n_tiles], cnt [Na, Nb]
+    scratch = torch.empty(2 * n_scan + Na * n_tiles + Na * Nb, dtype=torch.int32, device=dev)
+    scan = scratch.data_ptr()
+    tile_set = scan + 8 * n_scan
+    cnt = tile_set + 4 * Na * n_tiles
+    ii = torch.empty(max_out, dtype=torch.int64, device=dev)
+    jj = torch.empty(max_out, dtype=torch.int64, device=dev)
+    c = torch.empty(max_out, dtype=torch.int32, device=dev)
+    n_found = torch.empty((), dtype=torch.int64, device=dev)
+    lib = _load()
+    self_block = int(bool(self_block))
     with torch.cuda.device(dev):
-        rc = fn(cnt.data_ptr(), int(Na), int(Nb), int(min_matches), int(bool(self_block)),
-                row_set.data_ptr(), row_start.data_ptr(), int(max_out), ii.data_ptr(),
-                jj.data_ptr(), c.data_ptr(), _stream(dev))
+        stream = _stream(dev)
+        rc = lib.canu_slot_match_count(SA.data_ptr(), Na, SB.data_ptr(), Nb, H, int(min_matches),
+                                       self_block, cnt, tile_set, scan, n_scan, stream)
+        _raise_on(rc, "K6")
+        MATCH_LAUNCHES += 1
+        rc = lib.canu_slot_match_compact(cnt, tile_set, Na, Nb, int(min_matches), self_block, scan,
+                                         int(max_out), ii.data_ptr(), jj.data_ptr(), c.data_ptr(),
+                                         n_found.data_ptr(), stream)
     _raise_on(rc, "K6 (compact)")
     COMPACT_LAUNCHES += 1
     return ii, jj, c, n_found

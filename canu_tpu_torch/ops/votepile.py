@@ -14,9 +14,10 @@ then call a per-column plurality.
   * each job's votes are packed into one int32 code a template column,
     shifted to template coordinates, expanded to the 15 channels and
     folded into the block's float32 accumulator [G, 15, Lt]: on the card
-    by kernel K9, one launch a DP group (atomic adds in place,
-    ops/kernels/votepile_cuda.py), elsewhere by _fold_chunk, a chunk at a
-    time with one product (slot one-hot^T @ contributions);
+    by kernel K9, one launch a DP group (a block a slot's tile of columns,
+    added in place, ops/kernels/votepile_cuda.py), elsewhere by
+    _fold_chunk, a chunk at a time with one product (slot one-hot^T @
+    contributions);
   * the plurality / RED decision runs on the device and returns one
     packed value per template column.
 

@@ -31,7 +31,11 @@ Phases (each prints its results; any failure exits non-zero):
               64 and 768, the sentinel table and ~3,000 frequent keys,
               most >= 2^31, holding every key of one read;
               MATCH_EDGE_CASES: self and cross blocks, Na != Nb, an empty
-              read's row, max_out above and below n_found), then on the
+              read's row, max_out above and below n_found;
+              MATCH_PAIR_CASES: 1 x 1 to 1,024 x 1, a self block's set
+              cells in one tile row, Na past 1,024 and 2,048, Nb past 32
+              column tiles, max_out 0), each pair two launches
+              (the count and the compact), then on the
               sketch blocks and block pairs phases 4 and 4c ran, the
               first block of phase 15's sketch and block pairs of its
               sketches, (f) K7's ten outputs (the base rows, lengths and
@@ -59,7 +63,11 @@ Phases (each prints its results; any failure exits non-zero):
               paths at 0 and past e_span and W_e, rows past t_span, pad
               jobs, a slot off the block, 64 to 8,192 rows;
               fold_exact_case: 256 jobs voting one column at count 15 and
-              the largest weight) and a group of 17 chunks at the
+              the largest weight; FOLD_TILE_CASES: K9's tile edges,
+              deleted runs across them, an undeleted run longer
+              than a tile, runs past Lt, one slot or interleaved slots,
+              pads and off-block slots, Lt below the tile width) and a
+              group of 17 chunks at the
               correction's geometry, each one launch into votes already
               holding votes; then on the groups the main path folded:
               the first DP group of phases 10 and 15, and
@@ -1141,15 +1149,23 @@ def held_sketch(name: str, args) -> int:
 
 def held_match(name: str, SA, SB, min_matches: int, self_block: bool, max_out: int) -> tuple:
     """Kernel K6 (both launches, and its count launch alone) bit for bit
-    against the plain match on one block pair on the card; returns (max
-    |difference| (0), n_found)."""
+    against the plain match on one block pair on the card, a pair exactly
+    two launches (the count and the compact); returns (max |difference|
+    (0), n_found)."""
     import torch
 
     from canu_tpu_torch.ops import minhash as MH
+    from canu_tpu_torch.ops.kernels import minhash_cuda as MK
 
     ref = MH._match_kernel_plain(SA, SB, min_matches, self_block, max_out)
+    l0 = (MK.MATCH_LAUNCHES, MK.COMPACT_LAUNCHES)
     got = MH._match_kernel(SA, SB, min_matches, self_block, max_out)
+    l1 = (MK.MATCH_LAUNCHES, MK.COMPACT_LAUNCHES)
     cnt = (MH._slot_counts_plain(SA, SB), MH.slot_counts(SA, SB))
+    check(l1 == (l0[0] + 1, l0[1] + 1) and MK.MATCH_LAUNCHES == l1[0] + 1
+          and MK.COMPACT_LAUNCHES == l1[1],
+          f"{name}: K6 took {l1[0] - l0[0]} count and {l1[1] - l0[1]} compact launches for a "
+          f"block pair, {MK.MATCH_LAUNCHES - l1[0]} for the count alone")
     torch.cuda.synchronize()
     err = 0
     for field, r, g in zip(("ii", "jj", "c", "n_found", "cnt"), (*ref, cnt[0]), (*got, cnt[1])):
@@ -1164,12 +1180,13 @@ def held_match(name: str, SA, SB, min_matches: int, self_block: bool, max_out: i
 
 def minhash_edge_checks(dev) -> int:
     """Phase 3e's edge cases (tests/torch_cases.py SKETCH_EDGE_CASES,
-    MATCH_EDGE_CASES): K5 and K6 bit for bit against the plain versions;
-    returns the max |difference| (0)."""
+    MATCH_EDGE_CASES, MATCH_PAIR_CASES): K5 and K6 bit for bit against the
+    plain versions; returns the max |difference| (0)."""
     import torch
 
     from canu_tpu_torch.ops.hashing import u32_tensor
-    from torch_cases import MATCH_EDGE_CASES, SKETCH_EDGE_CASES, match_edge_case, sketch_edge_case
+    from torch_cases import (MATCH_EDGE_CASES, MATCH_PAIR_CASES, SKETCH_EDGE_CASES,
+                             match_edge_case, match_pair_case, sketch_edge_case)
 
     err = 0
     for case in SKETCH_EDGE_CASES:
@@ -1189,6 +1206,14 @@ def minhash_edge_checks(dev) -> int:
         log(f"[3e kernel] K6 bit-equal to the plain match on {Na} x {Nb} x {H} slots "
             f"({'self' if self_block else 'cross'} block, min_matches {mm}, an empty read's "
             f"row): n_found {n}, max_out {max_out}")
+    found = []
+    for name in MATCH_PAIR_CASES:
+        SA, SB, mm, self_block, max_out = match_pair_case(name)
+        e, n = held_match(f"3e K6 {name}", u32_tensor(SA, dev), u32_tensor(SB, dev), mm,
+                          self_block, max_out)
+        err, found = max(err, e), found + [f"{name}: {n}"]
+    log(f"[3e kernel] K6 bit-equal to the plain match on {len(MATCH_PAIR_CASES)} block pairs, "
+        f"two launches each (n_found {'; '.join(found)})")
     return err
 
 
@@ -2350,7 +2375,8 @@ def held_fold(name: str, kept, card: str, reps: int = 5) -> dict:
     ._fold_chunk, chunk by chunk) on a group the main path folded, from the
     votes it held before: the main path's result and a fresh launch both
     equal the plain votes.  Then K9 by CUDA events (mean of reps launches
-    into a scratch copy) and the plain fold's one run, beside fold_bound."""
+    into a scratch copy: the launch alone, and the wrapper's whole call)
+    and the plain fold's one run, beside fold_bound."""
     import numpy as np
     import torch
 
@@ -2378,45 +2404,53 @@ def held_fold(name: str, kept, card: str, reps: int = 5) -> dict:
     err = max(float((plain - after).abs().max()), float((plain - fresh).abs().max()))
     check(err == 0, f"{name}: kernel K9 and the plain fold differ (max |diff| {err})")
     scratch = before.clone()
-    ms = cuda_ms(lambda: K9.vote_fold(scratch, js, t_sub, e_sub, cols.contiguous(), n_rows, mask,
-                                      host_cols, np.zeros(G)), reps)
+    call_ms = cuda_ms(lambda: K9.vote_fold(scratch, js, t_sub, e_sub, cols.contiguous(), n_rows,
+                                           mask, host_cols, np.zeros(G)), reps)
+    by_slot = torch.from_numpy(K9.slot_order(host_cols, G)).to(before.device)
+    ms = cuda_ms(lambda: K9.launch(scratch, js, t_sub, e_sub, cols.contiguous(), n_rows, mask,
+                                   by_slot), reps)
     chunks = -(-js.shape[0] // B)
     bd = fold_bound(G, Lt, n_rows, e_sub.shape[1], host_cols)
     log(f"[{name.split()[0]} fold] {card}: {name}: one K9 launch of {js.shape[0]} jobs ({chunks} "
         f"chunks of {B}) x {n_rows} rows into votes [{G}, 15, {Lt}], bit-equal to the plain fold "
-        f"(the main path's votes and a fresh launch); K9 {ms:.3f} ms (mean of {reps}), "
+        f"(the main path's votes and a fresh launch); K9 {ms:.3f} ms (the launch alone, mean of "
+        f"{reps}; {call_ms:.3f} ms the wrapper's call with its host part: the weights' check, "
+        f"the slot order and its upload), "
         f"{ms / chunks:.4f} ms a chunk; the plain fold {plain_ms:.1f} ms "
         f"({plain_ms / chunks:.3f} ms a chunk); bound {bd['bound_ms']:.4f} ms "
         f"({bd['ops']:.3e} operations over {bd['live_rows']} live rows, {bd['bytes']:.3e} bytes; "
         f"bound by {bd['bound_by']}; {100 * bd['bound_ms'] / ms:.1f}% of it)")
     return {"err": err, "jobs": int(js.shape[0]), "chunks": chunks, "ms": ms,
-            "ms_a_chunk": ms / chunks, "plain_ms": plain_ms, "bound": bd}
+            "call_ms": call_ms, "ms_a_chunk": ms / chunks, "plain_ms": plain_ms, "bound": bd}
 
 
 def fold_edge_checks(dev, card: str) -> float:
     """Phase 3g: K9 against the plain fold on tests/torch_cases.py's fold
-    cases (FOLD_CASES, fold_exact_case), one launch each into votes that
-    already hold votes, and at the correction's geometry (a group of 17
-    chunks of 256 jobs, 2,048 rows, G 256, W_e 3,072)."""
+    cases (FOLD_CASES, fold_exact_case, FOLD_TILE_CASES), one launch each
+    into votes that already hold votes, and at the correction's geometry
+    (a group of 17 chunks of 256 jobs, 2,048 rows, G 256, W_e 3,072)."""
     import numpy as np
     import torch
 
     from canu_tpu_torch.ops import votepile as VP
-    from torch_cases import FOLD_CASES, fold_case, fold_exact_case
+    from torch_cases import FOLD_CASES, FOLD_TILE_CASES, fold_case, fold_exact_case, fold_tile_case
 
-    cases = [(name, fold_case(sum(map(ord, name)), *c), c[1], c[3], 64)
+    cases = [(name, fold_case(sum(map(ord, name)), *c), c[1], c[1], c[3], 64)
              for name, c in FOLD_CASES.items()]
-    cases.append(("exact", fold_exact_case(256, 256, 128), 256, 8, 64))
-    cases.append(("real 17 x 256 jobs", fold_case(117, 17 * 256, 2048, 256, 256), 2048, 256,
-                  256))
+    cases.append(("exact", fold_exact_case(256, 256, 128), 256, 256, 8, 64))
+    for name in FOLD_TILE_CASES:
+        js, t_sub, e_sub, cols, n_rows, Lt, G = fold_tile_case(name)
+        cases.append((name, (js, t_sub, e_sub, cols), n_rows, Lt, G, 32))
+    cases.append(("real 17 x 256 jobs", fold_case(117, 17 * 256, 2048, 256, 256), 2048, 2048,
+                  256, 256))
     err = 0.0
-    for name, (js, t_sub, e_sub, cols), n_rows, G, B in cases:
-        before = torch.from_numpy((np.random.default_rng(3).integers(0, 4, (G, 15, n_rows))
+    for name, (js, t_sub, e_sub, cols), n_rows, Lt, G, B in cases:
+        before = torch.from_numpy((np.random.default_rng(3).integers(0, 4, (G, 15, Lt))
                                    * 0.25).astype(np.float32)).to(dev)
         t = [torch.from_numpy(x).to(dev) for x in (js, t_sub, e_sub, cols)]
         host = np.ascontiguousarray(cols)
-        after = VP._fold_group(before.clone(), *t, host, n_rows, n_rows, G, B, np.zeros(G))
-        r = held_fold(f"3g {name}", (before, *t, host, n_rows, n_rows, G, B, after), card,
+        after = VP._fold_group(before.clone(), *t, host, n_rows, Lt, G, B, np.zeros(G))
+        r = held_fold(f"3g {name}", (before, *t, host, n_rows, Lt, G, B, after), card,
                       reps=1)
         err = max(err, r["err"])
     return err

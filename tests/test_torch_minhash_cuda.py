@@ -20,8 +20,8 @@ from canu_tpu_torch.ops import minhash as MH
 from canu_tpu_torch.ops.hashing import u32_tensor
 from canu_tpu_torch.ops.kernels import minhash_cuda as MK
 from canu_tpu_torch.sim.simulate import random_genome, simulate_reads
-from torch_cases import (MATCH_EDGE_CASES, SKETCH_EDGE_CASES, match_edge_case,  # noqa: F401
-                         one_torch_thread, sketch_edge_case)
+from torch_cases import (MATCH_EDGE_CASES, MATCH_PAIR_CASES, SKETCH_EDGE_CASES,  # noqa: F401
+                         match_edge_case, match_pair_case, one_torch_thread, sketch_edge_case)
 
 
 @pytest.fixture
@@ -62,6 +62,29 @@ def test_the_sharded_ring_counts_through_slot_counts():
     SA, SB = (u32_tensor(x, "cpu") for x in match_edge_case(129, 129, 65))
     np.testing.assert_array_equal(mesh._count_matches(SA, SB, 2).numpy(),
                                   MH._slot_counts_plain(SA, SB).numpy())
+
+
+@pytest.mark.parametrize("name", sorted(MATCH_PAIR_CASES))
+def test_match_pair_cases_hold_what_they_name(name):
+    """Each K6 block pair, through the plain match on the CPU, has the
+    spot its name plants: set cells at all, n_found past max_out or
+    max_out 0, every set cell of the one-tile-row self block in rows
+    64-95, blocks past 1,024 or 2,048 rows or 32 column tiles of 32."""
+    SA, SB, mm, self_block, max_out = match_pair_case(name)
+    Na, Nb = len(SA), len(SB)
+    ii, jj, c, n_found = MH._match_kernel_plain(u32_tensor(SA, "cpu"), u32_tensor(SB, "cpu"),
+                                                mm, self_block, max_out)
+    n, take = int(n_found), min(int(n_found), max_out)
+    assert (n > 0) == (name != "1 x 1 self")
+    assert (ii[take:] == Na).all() and (jj[take:] == Na).all() and (c[take:] == 0).all()
+    assert (c[:take] >= mm).all() and (not self_block or (ii[:take] < jj[:take]).all())
+    checks = {"n_found above max_out": n > max_out, "max_out 0": max_out == 0 and n > 0,
+              "self, set cells in one tile row": n == 64 and set((ii[:n] // 32).tolist()) == {2},
+              "Na above 1024": Na > 1024, "self, Na above 1024": Na > 1024 and self_block,
+              "Na above 2,048, Nb 3": Na > 2048, "Nb above 32 column tiles": Nb > 32 * 32,
+              "1 x 1024": (Na, Nb) == (1, 1024) and n > 512,
+              "1024 x 1": (Na, Nb) == (1024, 1) and n > 512}
+    assert checks.get(name, (Na, Nb) == (1, 1))
 
 
 def _sketch_kwargs(dev):
@@ -159,6 +182,27 @@ def test_match_kernel_matches_plain_on_card(cuda_device, Na, Nb, H, min_matches,
         np.testing.assert_array_equal(g.cpu().numpy(), r.cpu().numpy(), err_msg=name)
     np.testing.assert_array_equal(MH.slot_counts(SA, SB).cpu().numpy(),
                                   MH._slot_counts_plain(SA, SB).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(MATCH_PAIR_CASES))
+def test_match_kernel_matches_plain_on_block_pairs(cuda_device, name):
+    """K6 on MATCH_PAIR_CASES: two launches a pair (the count and the
+    compact), no plain match, outputs bit-equal to the plain version's,
+    and a second call on the scratch the first one left gives the same."""
+    SA, SB, mm, self_block, max_out = match_pair_case(name)
+    SA, SB = u32_tensor(SA, cuda_device), u32_tensor(SB, cuda_device)
+    SB = SA if self_block else SB
+    ref = MH._match_kernel_plain(SA, SB, mm, self_block, max_out)
+    for _ in range(2):
+        before = _counts()
+        got = MH._match_kernel(SA, SB, mm, self_block, max_out)
+        after = _counts()
+        assert (after[1] - before[1], after[2] - before[2], after[4] - before[4]) == (1, 1, 0)
+        torch.cuda.synchronize()
+        for field, r, g in zip(("ii", "jj", "c", "n_found"), ref, got):
+            assert g.dtype == r.dtype and g.shape == r.shape, field
+            np.testing.assert_array_equal(g.cpu().numpy(), r.cpu().numpy(), err_msg=field)
 
 
 @pytest.mark.cuda

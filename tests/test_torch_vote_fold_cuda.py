@@ -19,8 +19,8 @@ import torch
 from canu_tpu_torch.ops import votepile as VP
 from canu_tpu_torch.ops.kernels import votepile_cuda as K9
 from canu_tpu_torch.sim.simulate import mutate_read
-from torch_cases import (FOLD_CASES, FOLD_WEIGHT_MAX, fold_case, fold_exact_case,  # noqa: F401
-                         one_torch_thread)
+from torch_cases import (FOLD_CASES, FOLD_TILE_CASES, FOLD_WEIGHT_MAX, fold_case,  # noqa: F401
+                         fold_exact_case, fold_tile_case, fold_tiles, one_torch_thread)
 
 CPU = torch.device("cpu")
 
@@ -91,7 +91,6 @@ def _weights(args, w, slot=None):
 # exception and the message it names), whatever the device
 REFUSALS = {
     "n_rows 0": ({"n_rows": 0}, ValueError, "rows"),
-    "n_rows past the shared bytes": ({"n_rows": K9.MAX_ROWS + 1}, ValueError, "rows"),
     "votes 2-D": ({"votes": lambda a: a["votes"][:, 0]}, ValueError, "votes must be"),
     "votes 14 channels": ({"votes": lambda a: a["votes"][:, :14]}, ValueError, "votes must be"),
     "votes float64": ({"votes": lambda a: a["votes"].double()}, TypeError, "dtype"),
@@ -161,6 +160,55 @@ def test_exact_weights_pass_and_count_their_bound():
     np.testing.assert_array_equal(load, [30 * r[slot == s].sum() for s in range(4)])
 
 
+def _case(name: str):
+    """(js, t_sub, e_sub, cols, n_rows, Lt, G) of a FOLD_CASES or
+    FOLD_TILE_CASES entry."""
+    if name in FOLD_CASES:
+        n, n_rows, band, G = FOLD_CASES[name]
+        return (*fold_case(sum(map(ord, name)), n, n_rows, band, G), n_rows, n_rows, G)
+    return fold_tile_case(name)
+
+
+@pytest.mark.parametrize("name", [*FOLD_CASES, *FOLD_TILE_CASES])
+def test_slot_order_lists_the_voting_jobs_by_slot(name):
+    """slot_order: G + 1 offsets, then every job that votes (t_span above
+    0, a bfloat16 weight other than 0, its slot on the block) and no
+    other, by slot and, within a slot, in group order; a slot with no
+    voting job keeps an empty range."""
+    _, _, _, cols, _, _, G = _case(name)
+    G2 = 2 * G  # the cases' slots lie in -1..G: slots G + 1 .. 2G - 1 hold no job
+    order = K9.slot_order(cols, G2)
+    assert order.dtype == np.int32
+    offsets, jobs = order[: G2 + 1], order[G2 + 1 :]
+    w = K9.rounded_weights(cols[8])
+    votes = (cols[3] > 0) & (w != 0) & (cols[7] >= 0) & (cols[7] < G2)
+    assert offsets[0] == 0 and offsets[-1] == len(jobs) == votes.sum()
+    for s in range(G2):
+        mine = jobs[offsets[s] : offsets[s + 1]]
+        np.testing.assert_array_equal(mine, np.flatnonzero(votes & (cols[7] == s)))
+    assert (offsets[G + 1 :] == len(jobs)).all()
+    if name == "pads and slots off the block":
+        assert (~votes).sum() > 20  # pads, weights of 0 and -0, slots -1 and G left out
+
+
+@pytest.mark.parametrize("tile", [128, 32])
+@pytest.mark.parametrize("name", [*FOLD_CASES, *FOLD_TILE_CASES])
+def test_tile_model_equals_the_plain_fold(name, tile):
+    """fold_tiles, the numpy model of K9's tiling (a slot's tile of columns
+    from its jobs' rows on the tile, the deletion counts inside it and the
+    run open at its right end carried past it), equals _fold_chunk chunk
+    by chunk, at the kernel's tile width and at one that cuts more runs."""
+    js, t_sub, e_sub, cols, n_rows, Lt, G = _case(name)
+    (votes, *t), _, _ = _fold_args((js, t_sub, e_sub, cols), G, Lt, CPU)
+    ref = votes.clone()
+    for lo in range(0, js.shape[0], 256):
+        ref = VP._fold_chunk(ref, *(x[lo : lo + 256] for x in t[:3]), t[3][:, lo : lo + 256],
+                             n_rows, Lt, G)
+    got = fold_tiles(votes.numpy(), js, t_sub, e_sub, cols, n_rows, Lt, G, tile)
+    np.testing.assert_array_equal(got, ref.numpy())
+    assert (got != votes.numpy()).sum() > 1000
+
+
 # ---- K9 on the card ----------------------------------------------------------
 
 @pytest.mark.cuda
@@ -175,6 +223,18 @@ def test_kernel_matches_plain_on_cases(cuda_device, name):
     np.testing.assert_array_equal(got, ref)
     if name == "exact":
         assert got[0, VP.CH_DEL, 0] - ref[0, VP.CH_DEL, 0] == 0 and ref[0, VP.CH_DEL, 0] >= 7650
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FOLD_TILE_CASES))
+def test_kernel_matches_plain_on_tile_edges(cuda_device, name):
+    """Runs of deletions across a tile's edge and past 15, an undeleted
+    run longer than a tile, a run past Lt, one slot for every job, slots
+    interleaved, pads and off-block slots, Lt below the tile width, t_bgn
+    bits above t_mask: one launch each."""
+    js, t_sub, e_sub, cols, n_rows, Lt, G = fold_tile_case(name)
+    ref, got = _held((js, t_sub, e_sub, cols), n_rows, G, Lt, cuda_device, B=32)
+    np.testing.assert_array_equal(got, ref)
 
 
 @pytest.mark.cuda

@@ -16,7 +16,10 @@ runs over every row (``mostly_short``: most of them short), held to the
 plain version on the card; ``FOLD_CASES`` / ``fold_case`` and
 ``fold_exact_case``: the vote fold's inputs as the DP leaves them, with
 every odd spot planted, held against canu_tpu's fold on the CPU and
-kernel K9 against the plain fold on the card; ``k1_rows_plain``:
+kernel K9 against the plain fold on the card; ``FOLD_TILE_CASES`` /
+``fold_tile_case``: K9's tile edges planted on them, and ``fold_tiles``:
+a numpy model of K9's tiling, held to the plain fold on the CPU;
+``k1_rows_plain``:
 the plain rows of one K1 launch, cut into segments that run at once from
 given carries (a long launch held to the plain loop at the cost of one
 segment of it).
@@ -47,6 +50,9 @@ parity tests and chip_smoke.py's card check of write_gfa share.
 ``match_edge_case``: the MinHash sketch's and block matcher's edge
 blocks, held against canu_tpu on the CPU and kernels K5 and K6 against
 the plain versions on the card (chip_smoke.py's phase 3e too);
+``MATCH_PAIR_CASES`` / ``match_pair_case``: K6's block pairs at the
+pipeline's edges (1 x 1 to 1,024 x 1, Na above 1,024 and 2,048, Nb past
+32 column tiles, max_out 0 and below n_found);
 ``frequent_reads`` and ``candidates_digest``: the read sets of
 chip_smoke.py's frequent-mer phase (4c) and
 scripts/torch_frequent_reference.py, and the digest of their candidates.
@@ -382,6 +388,180 @@ def fold_exact_case(n: int, n_rows: int, band: int):
     cols[5] = W_e - 1
     cols[8] = np.full(n, FOLD_WEIGHT_MAX, np.float32).view(np.int32)
     return js.astype(np.int32), t_sub, e_sub, cols
+
+
+# kernel K9's tile edges (a block owns one slot's tile of 64 template
+# columns; the planted edges sit at 32, 64, 128 and 256): name -> (seed,
+# jobs, n_rows, band, G, Lt) of fold_tile_case
+FOLD_TILE_CASES = {
+    "deleted runs across tile edges": (21, 64, 512, 128, 4, 512),
+    "undeleted run longer than a tile": (22, 48, 512, 128, 4, 512),
+    "run past Lt": (23, 64, 256, 128, 4, 200),
+    "every job in one slot": (24, 90, 256, 128, 8, 256),
+    "slots interleaved in job order": (25, 96, 256, 128, 8, 256),
+    "pads and slots off the block": (26, 80, 256, 128, 8, 256),
+    "Lt below the tile, not a multiple of it": (27, 60, 128, 64, 4, 100),
+    "t_bgn bits above t_mask": (28, 70, 256, 128, 4, 300),
+}
+
+
+def fold_tile_case(name: str):
+    """FOLD_TILE_CASES[name]'s fold inputs: fold_case's jobs with the named
+    spot planted.  Returns (js, t_sub, e_sub, cols, n_rows, Lt, G)."""
+    seed, n, n_rows, band, G, Lt = FOLD_TILE_CASES[name]
+    js, t_sub, e_sub, cols = fold_case(seed, n, n_rows, band, G)
+    rng = np.random.default_rng(seed)
+    W_e = e_sub.shape[1]
+
+    def plant(b, t_bgn, runs, dels, slot=0, t_span=n_rows):
+        """Job b at t_bgn: template runs [lo, hi) of one base each, deletion
+        rows (dj 0) at `dels`, dj 1 elsewhere, inside the evidence."""
+        t = (np.arange(n_rows) % 4).astype(np.uint8)
+        for lo, hi in runs:
+            t[lo:hi] = t[lo - 1] ^ 1 if lo else 1
+            if hi < n_rows:
+                t[hi] = t[hi - 1] ^ 2
+        t_sub[b] = t
+        dj = np.ones(n_rows, np.int64)
+        dj[list(dels)] = 0
+        js[b] = np.concatenate([[2], 2 + np.cumsum(dj)]).astype(np.int32)
+        cols[2, b], cols[3, b], cols[5, b], cols[7, b] = t_bgn, t_span, W_e - 1, slot
+        cols[8, b] = np.float32(1.0 + b / 256.0).view(np.int32)
+
+    if name == "deleted runs across tile edges":
+        # columns = rows (t_bgn 0): runs over the edges at 32, 64, 128, 256
+        plant(0, 0, [(100, 140)], range(100, 140))  # 40 deleted rows over 128: clamped
+        plant(1, 0, [(120, 136)], range(120, 136))  # 16 over 128, from 8 rows before it
+        plant(2, 0, [(128, 150)], range(130, 140))  # a run starting on the edge
+        plant(3, 0, [(127, 150)], range(128, 131))  # a run starting on a tile's last row
+        plant(4, 0, [(250, 270)], [252, 260])  # two deletions across 256
+        plant(5, 7, [(60, 70), (121, 140)], list(range(60, 68)) + list(range(121, 138)),
+              slot=1)  # shifted: the run at 121 crosses column 128 at row 121
+    elif name == "undeleted run longer than a tile":
+        plant(0, 0, [(10, 310)], [])  # 300 rows, no deletion
+        plant(1, 0, [(10, 310)], range(250, 261))  # its deletions 2 tiles past its start
+        plant(2, 5, [(0, 400)], range(390, 420))  # from row 0; the last rows past the run
+        plant(3, 0, [(100, 400)], [399])  # one deletion on its last row
+        # deletions on the rows a walk past a tile of 32, 64, 128 or 256 starts at
+        plant(4, 0, [(10, 310)], [64, 96, 128, 160, 161, 224, 256, 288])
+        plant(5, 0, [(100, 300)], range(225, 261), t_span=230)  # rows from T on do not count
+    elif name == "run past Lt":
+        # Lt 200: rows from Lt - t_bgn on land past the block, yet count
+        plant(0, 150, [(40, 80)], range(45, 80))  # the run's start at column 190
+        plant(1, 150, [(49, 60)], range(50, 60))  # starts on the block's last column
+        plant(2, 199, [(0, 30)], range(0, 30))  # only row 0 lands on the block
+        plant(3, 0, [(190, 256)], range(195, 256))  # to the path's last row
+    elif name == "every job in one slot":
+        cols[7] = 0
+    elif name == "slots interleaved in job order":
+        cols[7] = np.arange(n) % G
+    elif name == "pads and slots off the block":
+        pad = rng.random(n) < 0.3
+        cols[3][pad] = 0
+        cols[8][pad] = np.float32(0.0).view(np.int32)
+        cols[7][rng.random(n) < 0.15] = G
+        cols[7][rng.random(n) < 0.1] = -1
+        cols[8][7] = np.float32(-0.0).view(np.int32)  # a weight of -0: votes nothing
+        cols[3][8] = 40  # t_span > 0 at weight 0
+        cols[8][8] = 0
+    elif name == "t_bgn bits above t_mask":
+        # Lt 300: t_mask 511; t_bgn's bits above it dropped, as the plain shift drops them
+        cols[2] = rng.integers(0, 512, n) + 512 * rng.integers(-4, 5, n)
+        cols[2][:4] = [511 + 1024, 299 + 512, 256 - 2048, -1]
+    return js, t_sub, e_sub, cols, n_rows, Lt, G
+
+
+def fold_tiles(votes, js, t_sub, e_sub, cols, n_rows: int, Lt: int, G: int, tile: int):
+    """A numpy model of kernel K9's tiling: the fold (ops.votepile
+    ._fold_chunk's votes) added into votes float32[G, 15, Lt], computed
+    for each (slot, tile of `tile` columns) from the jobs of that slot in
+    group order, their rows that land on the tile, the deletion counts at
+    each run start inside the tile, and the run open at the tile's right
+    end carried by a walk past it, 32 rows a step, that stops at a run
+    start, at min(t_span, n_rows) or at 15 deletion rows."""
+    out = votes.copy()
+    W_e = e_sub.shape[1]
+    t_mask = (1 << max(0, int(Lt - 1).bit_length())) - 1
+    w_all = torch.from_numpy(np.ascontiguousarray(cols[8])).view(torch.float32)
+    w_all = w_all.to(torch.bfloat16).to(torch.float32).numpy()
+    slot = cols[7].astype(np.int64)
+    votes_of = (cols[3] > 0) & (w_all != 0) & (slot >= 0) & (slot < G)
+    order = np.flatnonzero(votes_of)
+    order = order[np.argsort(slot[order], kind="stable")]
+
+    def deleted(b, rows, e_span):
+        j0, j1 = js[b, rows].astype(np.int64), js[b, rows + 1].astype(np.int64)
+        return (j1 > 0) & (j0 < e_span) & (j1 == j0)
+
+    for s in range(G):
+        jobs = order[slot[order] == s]
+        for c0 in range(0, Lt, tile):
+            acc = np.zeros((15, tile), np.float32)
+            met = False
+            for b in jobs:
+                T = min(int(cols[3, b]), n_rows)
+                tm = int(np.int64(cols[2, b]) & t_mask)
+                lim, r0 = min(Lt - tm, T), c0 - tm
+                if r0 >= lim or r0 + tile <= 0:
+                    continue
+                met = True
+                e_span = min(int(cols[5, b]), W_e - 1)
+                rows = r0 + np.arange(tile)
+                ok = (rows >= 0) & (rows < T)
+                r = rows[ok]
+                start = np.ones(tile, bool)
+                start[ok] = (r == 0) | (t_sub[b, r] != t_sub[b, np.maximum(r - 1, 0)])
+                d = np.zeros(tile, np.int64)
+                d[ok] = deleted(b, r, e_span)
+                carry = 0
+                last = rows[start].max() if start.any() else -1
+                if r0 + tile < T and 0 <= last < lim:
+                    p0 = r0 + tile
+                    while True:
+                        p = p0 + np.arange(32)
+                        on = p < T
+                        q = p[on]
+                        st = np.ones(32, bool)
+                        st[on] = t_sub[b, q] != t_sub[b, q - 1]
+                        dd = np.zeros(32, bool)
+                        dd[on] = deleted(b, q, e_span)
+                        first = int(np.argmax(st)) if st.any() else 32
+                        carry += int(dd[:first].sum())
+                        if st.any() or carry >= 15:
+                            break
+                        p0 += 32
+                seg = np.cumsum(start) - 1  # each row's run, counted from the tile's first start
+                del_at = np.zeros(tile, np.int64)
+                if start.any():
+                    live = seg >= 0
+                    per = np.bincount(seg[live], weights=d[live], minlength=int(seg[-1]) + 1)
+                    per = per.astype(np.int64)
+                    per[-1] += carry
+                    del_at[start] = np.minimum(per[seg[start]], 15)
+                vis = (rows >= 0) & (rows < lim)
+                i = rows[vis]
+                k = np.flatnonzero(vis)
+                j0, j1 = js[b, i].astype(np.int64), js[b, i + 1].astype(np.int64)
+                dj = j1 - j0
+                active = (j1 > 0) & (j0 < e_span)
+
+                def chr_at(pos):
+                    return e_sub[b, np.clip(pos, 0, W_e - 1)]
+
+                bchr, ichr, i2chr = chr_at(j1 - 1), chr_at(j0), chr_at(j0 + 1)
+                base, ins, ins2 = active & (dj >= 1), active & (dj >= 2), active & (dj >= 3)
+                w = np.float32(w_all[b])
+                for c in range(4):
+                    acc[c, k] += np.where(base & (bchr == c), w, np.float32(0))
+                    acc[6 + c, k] += np.where(ins & (ichr == c), w, np.float32(0))
+                    acc[11 + c, k] += np.where(ins2 & (i2chr == c), w, np.float32(0))
+                acc[4, k] += del_at[vis].astype(np.float32) * w
+                acc[5, k] += np.where(ins, w, np.float32(0))
+                acc[10, k] += np.where(ins2, w, np.float32(0))
+            if met:
+                hi = min(c0 + tile, Lt)
+                out[s, :, c0:hi] += acc[:, : hi - c0]
+    return out
 
 
 NAMES = ("edits", "a_used", "b_used", "p_edits", "p_a", "p_b")
@@ -1312,6 +1492,58 @@ def match_edge_case(Na: int, Nb: int, H: int, seed: int = 5):
     SA[0] = rng.integers(2**31, 2**32, H, dtype=np.uint64).astype(np.uint32)
     SB[0 % Nb] = SA[0, :]
     return SA, SB
+
+
+# kernel K6's block pairs (a count launch and a compact launch each):
+# name -> (Na, Nb, H, min_matches, self_block, max_out, alphabet) of
+# match_pair_case; the pipeline's blocks are 1,024 reads, H 512
+MATCH_PAIR_CASES = {
+    "1 x 1": (1, 1, 512, 2, False, 1 << 17, 6),
+    "1 x 1 self": (1, 1, 512, 2, True, 1 << 17, 6),
+    "1 x 1024": (1, 1024, 512, 2, False, 1 << 17, 6),
+    "1024 x 1": (1024, 1, 512, 2, False, 1 << 17, 6),
+    "self, set cells in one tile row": (300, 300, 64, 3, True, 5000, 0),
+    "n_found above max_out": (200, 150, 40, 2, False, 100, 6),
+    "max_out 0": (130, 70, 33, 2, True, 0, 6),
+    "Na above 1024": (1100, 70, 48, 3, False, 1 << 17, 6),
+    "self, Na above 1024": (1300, 1300, 24, 4, True, 1 << 17, 16),
+    "Na above 2,048, Nb 3": (2200, 3, 16, 2, False, 1 << 13, 6),
+    "Nb above 32 column tiles": (5, 2100, 16, 2, False, 20_000, 6),
+}
+
+
+def match_pair_case(name: str):
+    """MATCH_PAIR_CASES[name]'s block pair: (SA uint32[Na, H], SB
+    uint32[Nb, H], min_matches, self_block, max_out), SB SA itself for a
+    self block.  Values from a small alphabet whose last letter is
+    UINT32_MAX (an empty slot); in blocks of more than 3 reads SA's row 3
+    an empty read's and row 0 values >= 2^31 that SB's row 0 repeats
+    (match_edge_case's rows); alphabet 0:
+    distinct values but for rows 64-95 of a self block, each sharing 3-9
+    slots with two rows past 127 (other slots for each), so every set cell
+    lies in one tile row (of K6's 32 rows, and of 64)."""
+    Na, Nb, H, mm, self_block, max_out, alphabet = MATCH_PAIR_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if alphabet:
+        SA = rng.integers(0, alphabet, (Na, H)).astype(np.uint32)
+        SB = rng.integers(0, alphabet, (Nb, H)).astype(np.uint32)
+        SA[SA == alphabet - 1] = 0xFFFFFFFF
+        SB[SB == alphabet - 1] = 0xFFFFFFFF
+        if min(Na, Nb) > 3:
+            SA[3] = 0xFFFFFFFF
+            SA[0] = rng.integers(2**31, 2**32, H, dtype=np.uint64).astype(np.uint32)
+            SB[0] = SA[0]
+    else:
+        SA = (np.arange(Na * H, dtype=np.uint32) * 7 + 11).reshape(Na, H)  # no two equal
+        SB = SA
+        later = rng.permutation(np.arange(128, Na))
+        for i in range(64, 96):  # two rows past 127 share slots with row i
+            h = rng.permutation(H)
+            j1, j2 = later[2 * (i - 64)], later[2 * (i - 64) + 1]
+            n1, n2 = rng.integers(3, 10, 2)
+            SA[j1, h[:n1]] = SA[i, h[:n1]]
+            SA[j2, h[n1 : n1 + n2]] = SA[i, h[n1 : n1 + n2]]
+    return SA, (SA if self_block else SB), mm, self_block, max_out
 
 
 # ---- chip_smoke.py's frequent-mer drive (phase 4c) --------------------------
