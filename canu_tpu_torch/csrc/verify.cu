@@ -121,6 +121,37 @@
 // 32,994 reads and global W of 512 words 32,994 x 8,192 x 8 B = 2.2 GB,
 // and 2 MB a read once reads exceed 131,072 bases (W 16,384).
 //
+// K12 (canu_pair_stats) replaces canu_tpu/ops/minhash.py:296
+// _pair_stats_kernel, a jax.jit XLA program with no pl.pallas_call (stage
+// C of the MinHash path: place_candidates), and computes exactly what
+// canu_tpu_torch/ops/minhash.py:_pair_stats_kernel computes for a chunk of
+// C pairs of reads padded to W words (P = 16 W - k + 1 positions):
+//   1. the join of both reads' canonical k-mers (ops/kmer.py
+//      extract_kmers_any; positions p <= len - k): the stable sort of the
+//      concatenation gives one hit a key present in both reads, A's last
+//      entry (its largest position) against B's first (its smallest), and
+//      B's entries of a key in the frequent table are dropped;
+//   2. the strand vote: flipped = n_opp > n_same;
+//   3. the diagonals posA - posB_eff (posB_eff = lenB - k - posB where
+//      flipped) of the hits that agree with it, their lower median (index
+//      (n - 1) // 2; 2^30 with none), the inliers within tol = max(100,
+//      int(float32(min(lenA, lenB)) * 0.3f)), their count, the lower median
+//      of their diagonals and their spans (posA, and posB in forward-B
+//      coordinates; + k at the high ends; 2^30 / -1 when empty).
+// A pair's 2 P keys do not fit in shared memory at long reads (W 16,384:
+// 524,288 keys), so the join runs through a hash table in a device
+// scratch the wrapper sizes: one block of 256 threads a pair (a block
+// strides over the chunk's pairs where the scratch allows fewer blocks),
+// the table pow2(2 (nA + nB)) slots of (key, A's max of 2 pos + strand,
+// B's min), filled by atomicCAS / atomicMax / atomicMin (a result that is
+// the same in any order), then scanned: a slot with both sides is a hit,
+// unless its key is frequent (a binary search of the table, which equals
+// dropping B's entries: frequency is a property of the key).  The hits are
+// compacted into the scratch; the medians are radix selects over the
+// bits in which the least and greatest diagonal differ (8 bits a pass,
+// shared histograms), not sorts.  What bounds K12: the bytes of the two
+// reads' words a pair against the k-mers built, hashed and probed.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC; bound through ctypes (plain C interface).
 
@@ -1101,6 +1132,271 @@ syncmer_kernel(const int64_t* __restrict__ words, int W, const int32_t* __restri
   }
 }
 
+// ---- K12 -----------------------------------------------------------------------
+
+constexpr int EMPTY_A = -1;          // a table slot's A side before any entry
+constexpr int EMPTY_B = 0x7FFFFFFF;  // and its B side
+
+// the canonical key and strand of the k-mer at position pos of a read
+__device__ __forceinline__ uint32_t kmer_at(const int64_t* __restrict__ w, int W, int pos, int k,
+                                            bool& strand) {
+  const int j = pos >> 4, off = pos & 15;
+  const uint64_t lo = word_at(w, W, j) | (word_at(w, W, j + 1) << 32);
+  const uint64_t hi = word_at(w, W, j + 2);
+  const uint64_t v = off ? (lo >> (2 * off)) | (hi << (64 - 2 * off)) : lo;
+  uint64_t fw, rc;
+  nmer_of(v, k, fw, rc);
+  strand = rc < fw;
+  return canonical_key(fw, rc, k);
+}
+
+// the table slot of key (inserted where absent); S a power of two
+__device__ __forceinline__ int table_slot(uint32_t* keys, int S, uint32_t key) {
+  int h = static_cast<int>(mix32(key) & static_cast<uint32_t>(S - 1));
+  while (true) {
+    const uint32_t prev = atomicCAS(keys + h, UMAX, key);
+    if (prev == UMAX || prev == key) return h;
+    h = (h + 1) & (S - 1);
+  }
+}
+
+// torch.searchsorted(fk, key) (left) clamped to F - 1, then fk[idx] == key
+__device__ __forceinline__ bool is_frequent(const int64_t* __restrict__ fk, int F, uint32_t key) {
+  int lo = 0, hi = F;
+  const int64_t x = key;
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (__ldg(fk + mid) < x)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return __ldg(fk + (lo < F - 1 ? lo : F - 1)) == x;
+}
+
+// a hit: posA, posB, agree (A's strand == B's), packed as (posA, 2 posB +
+// agree)
+struct PairCtx {
+  int lenB, k, flipped, med, tol;
+  // the hit's diagonal on the oriented B, and whether it counts: mode 0
+  // the hits that agree with the vote, mode 1 those within tol of med
+  __device__ __forceinline__ bool take(int2 h, int mode, int& d) const {
+    const int pa = h.x, pb = h.y >> 1, agree = h.y & 1;
+    if (agree == flipped) return false;
+    d = wsub(pa, flipped ? wsub(wsub(lenB, k), pb) : pb);
+    return mode == 0 || wabs(wsub(d, med)) <= tol;
+  }
+};
+
+// The r-th smallest diagonal (r < n) of the hits ctx.take(h, mode) keeps,
+// their least and greatest as ordered unsigned umn, umx: a radix select
+// over the bits below the highest in which umn and umx differ, 8 a pass.
+// Every thread returns it; hist holds 256 ints, s_sel 2.
+__device__ int select_diag(const int2* __restrict__ hits, int nh, const PairCtx& ctx, int mode,
+                           int r, uint32_t umn, uint32_t umx, int* hist, int* s_sel) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int hb = umn == umx ? -1 : 31 - __clz(umn ^ umx);
+  uint32_t prefix = hb >= 31 ? 0u : (umn >> (hb + 1)) << (hb + 1);
+  for (int shift = hb < 0 ? -8 : 8 * (hb >> 3); shift >= 0; shift -= 8) {
+    for (int i = tid; i < 256; i += THREADS) hist[i] = 0;
+    __syncthreads();
+    for (int h = tid; h < nh; h += THREADS) {
+      int d;
+      if (!ctx.take(__ldcg(hits + h), mode, d)) continue;
+      const uint32_t u = static_cast<uint32_t>(d) ^ 0x80000000u;
+      if (shift == 24 || ((u ^ prefix) >> (shift + 8)) == 0u) atomicAdd(&hist[(u >> shift) & 255u], 1);
+    }
+    __syncthreads();
+    if (warp == 0) {
+      int c[8], sum = 0;
+      for (int j = 0; j < 8; ++j) {
+        c[j] = hist[8 * lane + j];
+        sum += c[j];
+      }
+      int incl = sum;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(FULL, incl, o);
+        if (lane >= o) incl += y;
+      }
+      int before = incl - sum;
+      if (before <= r && r < incl) {
+        int d = 8 * lane;
+        for (int j = 0; j < 8; ++j) {
+          if (r < before + c[j]) {
+            d = 8 * lane + j;
+            break;
+          }
+          before += c[j];
+        }
+        s_sel[0] = static_cast<int>(prefix | (static_cast<uint32_t>(d) << shift));
+        s_sel[1] = r - before;
+      }
+    }
+    __syncthreads();
+    prefix = static_cast<uint32_t>(s_sel[0]);
+    r = s_sel[1];
+    __syncthreads();  // s_sel read by all before the next pass writes it
+  }
+  return static_cast<int>(prefix ^ 0x80000000u);
+}
+
+__global__ void __launch_bounds__(THREADS) pair_stats_kernel(
+    const int64_t* __restrict__ wordsA, const int32_t* __restrict__ lenA,
+    const int64_t* __restrict__ wordsB, const int32_t* __restrict__ lenB, int W, int C,
+    const int64_t* __restrict__ fk, int F, int k, int S_max, int H_max,
+    uint32_t* __restrict__ tkey, int* __restrict__ tA, int* __restrict__ tB,
+    int2* __restrict__ hits_all, int32_t* __restrict__ out) {
+  __shared__ int s_hist[256];
+  __shared__ int s_sel[2];
+  // hits, same, opp, the agreeing hits and their least and greatest
+  // diagonal (ordered unsigned), then the inliers' count, spans and least
+  // and greatest diagonal
+  __shared__ int s_c[13];
+  enum { NH, SAME, OPP, N2, UMN, UMX, NI, ALO, AHI, BLO, BHI, UMN2, UMX2 };
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int P = 16 * W - k + 1;
+  uint32_t* keys = tkey + static_cast<long long>(blockIdx.x) * S_max;
+  int* sideA = tA + static_cast<long long>(blockIdx.x) * S_max;
+  int* sideB = tB + static_cast<long long>(blockIdx.x) * S_max;
+  int2* hits = hits_all + static_cast<long long>(blockIdx.x) * H_max;
+
+  for (int q = blockIdx.x; q < C; q += gridDim.x) {
+    const int la = lenA[q], lb = lenB[q];
+    const int64_t* wA = wordsA + static_cast<long long>(q) * W;
+    const int64_t* wB = wordsB + static_cast<long long>(q) * W;
+    int nA = la - k + 1, nB = lb - k + 1;
+    nA = nA < 0 ? 0 : (nA > P ? P : nA);
+    nB = nB < 0 ? 0 : (nB > P ? P : nB);
+    int S = pow2_at_least(2 * (nA + nB));
+    S = S < 32 ? 32 : S;
+    for (int i = tid; i < S; i += THREADS) {
+      __stcg(keys + i, UMAX);
+      __stcg(sideA + i, EMPTY_A);
+      __stcg(sideB + i, EMPTY_B);
+    }
+    if (tid < 13)  // counts 0; least UINT32_MAX (unsigned) or 2^30; greatest 0 or -1
+      s_c[tid] = tid == UMN || tid == UMN2 || tid == AHI || tid == BHI ? -1
+                 : (tid == ALO || tid == BLO ? BIG : 0);
+    __syncthreads();
+    // the join: A's largest and B's smallest 2 pos + strand of each key
+    for (int p = tid; p < nA + nB; p += THREADS) {
+      const bool isA = p < nA;
+      const int pos = isA ? p : p - nA;
+      bool strand;
+      const uint32_t key = kmer_at(isA ? wA : wB, W, pos, k, strand);
+      const int h = table_slot(keys, S, key);
+      const int v = 2 * pos + strand;
+      if (isA)
+        atomicMax(sideA + h, v);
+      else
+        atomicMin(sideB + h, v);
+    }
+    __syncthreads();
+    // the hits, compacted into the scratch, and the strand vote
+    int same = 0, opp = 0;
+    for (int i = tid; i < S; i += THREADS) {
+      const int va = __ldcg(sideA + i), vb = __ldcg(sideB + i);
+      if (va == EMPTY_A || vb == EMPTY_B) continue;
+      if (is_frequent(fk, F, __ldcg(keys + i))) continue;
+      const int agree = (va & 1) == (vb & 1);
+      same += agree;
+      opp += !agree;
+      const int slot = atomicAdd(&s_c[NH], 1);
+      __stcg(hits + slot, make_int2(va >> 1, ((vb >> 1) << 1) | agree));
+    }
+    same = warp_sum(same);
+    opp = warp_sum(opp);
+    if (lane == 0) {
+      atomicAdd(&s_c[SAME], same);
+      atomicAdd(&s_c[OPP], opp);
+    }
+    __syncthreads();
+    const int nh = s_c[NH];
+    PairCtx ctx{lb, k, s_c[OPP] > s_c[SAME] ? 1 : 0, 0, 0};
+    // the agreeing hits' count and diagonal range
+    {
+      int n2 = 0;
+      uint32_t umn = UMAX, umx = 0u;
+      for (int h = tid; h < nh; h += THREADS) {
+        int d;
+        if (!ctx.take(__ldcg(hits + h), 0, d)) continue;
+        const uint32_t u = static_cast<uint32_t>(d) ^ 0x80000000u;
+        umn = u < umn ? u : umn;
+        umx = u > umx ? u : umx;
+        ++n2;
+      }
+      n2 = warp_sum(n2);
+      umn = warp_umin(umn);
+      umx = warp_umax(umx);
+      if (lane == 0) {
+        atomicAdd(&s_c[N2], n2);
+        atomicMin(reinterpret_cast<unsigned int*>(&s_c[UMN]), umn);
+        atomicMax(reinterpret_cast<unsigned int*>(&s_c[UMX]), umx);
+      }
+    }
+    __syncthreads();
+    const int n2 = s_c[N2];
+    ctx.med = n2 > 0 ? select_diag(hits, nh, ctx, 0, (n2 - 1) / 2, static_cast<uint32_t>(s_c[UMN]),
+                                   static_cast<uint32_t>(s_c[UMX]), s_hist, s_sel)
+                     : BIG;
+    const int min_len = la < lb ? la : lb;
+    const int tol_f = static_cast<int>(__fmul_rn(__int2float_rn(min_len), 0.3f));
+    ctx.tol = tol_f > 100 ? tol_f : 100;
+    // the inliers: count, spans, diagonal range
+    {
+      int ni = 0, alo = BIG, ahi = -1, blo = BIG, bhi = -1;
+      uint32_t umn = UMAX, umx = 0u;
+      for (int h = tid; h < nh; h += THREADS) {
+        const int2 hv = __ldcg(hits + h);
+        int d;
+        if (!ctx.take(hv, 1, d)) continue;
+        const uint32_t u = static_cast<uint32_t>(d) ^ 0x80000000u;
+        umn = u < umn ? u : umn;
+        umx = u > umx ? u : umx;
+        const int pa = hv.x, pb = hv.y >> 1;
+        alo = pa < alo ? pa : alo;
+        ahi = pa + k > ahi ? pa + k : ahi;
+        blo = pb < blo ? pb : blo;
+        bhi = pb + k > bhi ? pb + k : bhi;
+        ++ni;
+      }
+      ni = warp_sum(ni);
+      alo = warp_min(alo);
+      blo = warp_min(blo);
+      ahi = -warp_min(-ahi);
+      bhi = -warp_min(-bhi);
+      umn = warp_umin(umn);
+      umx = warp_umax(umx);
+      if (lane == 0) {
+        atomicAdd(&s_c[NI], ni);
+        atomicMin(&s_c[ALO], alo);
+        atomicMax(&s_c[AHI], ahi);
+        atomicMin(&s_c[BLO], blo);
+        atomicMax(&s_c[BHI], bhi);
+        atomicMin(reinterpret_cast<unsigned int*>(&s_c[UMN2]), umn);
+        atomicMax(reinterpret_cast<unsigned int*>(&s_c[UMX2]), umx);
+      }
+    }
+    __syncthreads();
+    const int ni = s_c[NI];
+    const int med2 = ni > 0 ? select_diag(hits, nh, ctx, 1, (ni - 1) / 2,
+                                          static_cast<uint32_t>(s_c[UMN2]),
+                                          static_cast<uint32_t>(s_c[UMX2]), s_hist, s_sel)
+                            : BIG;
+    if (tid == 0) {
+      out[q] = ctx.flipped;
+      out[C + q] = med2;
+      out[2 * C + q] = ni;
+      out[3 * C + q] = s_c[ALO];
+      out[4 * C + q] = s_c[AHI];
+      out[5 * C + q] = s_c[BLO];
+      out[6 * C + q] = s_c[BHI];
+    }
+    __syncthreads();  // the counters and the table are the next pair's
+  }
+}
+
 }  // namespace
 
 // words int64[Npad, W] (uint32 values), length int32[Npad], mker int64[Npad,
@@ -1162,6 +1458,32 @@ extern "C" int canu_syncmer(const void* words, int W, const void* lengths, const
       static_cast<const int32_t*>(rows), static_cast<const int32_t*>(wbs), k, s, t, pm,
       static_cast<int64_t*>(mker), static_cast<int32_t*>(mpos), static_cast<int32_t*>(mstr),
       static_cast<int32_t*>(n_sel));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// wordsA, wordsB int64[C, W] (uint32 values, 16 bases a word), lenA, lenB
+// int32[C]: the chunk's pairs; fk int64[F >= 1] (uint32 values, sorted): the
+// frequent k-mers; k in 2..32.  The scratch for `blocks` blocks: keys
+// uint32, sides int32 x 2, each [blocks, S_max] with S_max >= pow2(4 P),
+// and hits int2[blocks, H_max >= P] (P = 16 W - k + 1).  out int32[7, C]:
+// flipped, the second median, n_inliers, a_lo, a_hi, b_lo, b_hi.  Returns
+// cudaGetLastError() of the launch, -1 for k out of range, -3 for a bad
+// size.
+extern "C" int canu_pair_stats(const void* wordsA, const void* lenA, const void* wordsB,
+                               const void* lenB, int W, int C, const void* fk, int F, int k,
+                               int blocks, int S_max, int H_max, void* keys, void* sideA,
+                               void* sideB, void* hits, void* out, void* stream) {
+  if (k < 2 || k > 32) return -1;
+  if (W < 1 || C < 0 || F < 1 || blocks < 1) return -3;
+  const int P = 16 * W - k + 1;
+  if (P < 1 || H_max < P || S_max < pow2_at_least(4 * P)) return -3;
+  if (C == 0) return 0;
+  pair_stats_kernel<<<blocks < C ? blocks : C, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(wordsA), static_cast<const int32_t*>(lenA),
+      static_cast<const int64_t*>(wordsB), static_cast<const int32_t*>(lenB), W, C,
+      static_cast<const int64_t*>(fk), F, k, S_max, H_max, static_cast<uint32_t*>(keys),
+      static_cast<int*>(sideA), static_cast<int*>(sideB), static_cast<int2*>(hits),
+      static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -471,20 +471,29 @@ INFLIGHT_FREE_FRACTION = 0.25
 CPU_INFLIGHT_BYTES = 2048e6
 _INFLIGHT_BACKOFF = 1.0
 
-# peak bytes per extension and row of the Myers band schedule's
-# temporaries while a group is extended (ops.myers._schedule's int32
-# target, envelopes and o with the int64 indices cummax/cummin return,
-# then _shift_bits' int32 shifts; the A/B copies the kernel pads).  The
-# INF-walled engine builds none: its kernels derive the band start from
-# the centres.
+# peak bytes per extension and row of the Myers band schedule while a
+# group is extended.  The plain chain (the CPU path): ops.myers._schedule's
+# int32 target, envelopes and o with the int64 indices cummax/cummin
+# return, then _shift_bits' int32 shifts; the A/B copies the plain loop
+# pads.  On the card kernel K10 holds its scratch, 8 bytes a 128 rows, and
+# the shift bits, 4 bytes a 32 rows (ops/kernels/myers_cuda.py
+# myers_prologue_cuda): 0.1875 bytes a row, counted as 1.  The INF-walled
+# engine builds none: its kernels derive the band start from the centres.
 SCHEDULE_BYTES_PER_ROW = 40
+KERNEL_SCHEDULE_BYTES_PER_ROW = 1
+
+# LAST_PROFILE's device seconds of the Myers extension on the card, by CUDA
+# events: before K1 (K10), K1, after K1 (K11)
+EXTEND_DEVICE_KEYS = ("extend_pre_device_s", "extend_k1_device_s", "extend_post_device_s")
 
 
-def _chunk_staging_bytes(chunk: int, n_rows: int, band: int) -> int:
+def _chunk_staging_bytes(chunk: int, n_rows: int, band: int, on_card: bool = False) -> int:
     """Device bytes held per staged chunk: 2*chunk extensions of A plane
     (uint8), B plane (uint8), int32 centres, the outputs and, on the
-    Myers engine (band 128), the band schedule's temporaries."""
-    per_row = 4 + (SCHEDULE_BYTES_PER_ROW if band == 128 else 0)
+    Myers engine (band 128), the band schedule's bytes (K10's on the card,
+    the plain chain's elsewhere)."""
+    sched = KERNEL_SCHEDULE_BYTES_PER_ROW if on_card else SCHEDULE_BYTES_PER_ROW
+    per_row = 4 + (sched if band == 128 else 0)
     return 2 * chunk * (n_rows + (n_rows + band) + per_row * (n_rows + 1) + 64)
 
 
@@ -493,12 +502,14 @@ def _verify_window(chunk: int, n_rows: int, band: int, device: torch.device) -> 
     memory budget: it holds n chunks' staging (1 to 128); a group takes at
     most half of them, so the next group is staged while one drains, and
     at most MYERS_GROUP."""
-    if device.type == "cuda":
+    on_card = device.type == "cuda"
+    if on_card:
         free, _total = torch.cuda.mem_get_info(device)
         budget = free * INFLIGHT_FREE_FRACTION
     else:
         budget = CPU_INFLIGHT_BYTES
-    n = int(budget * _INFLIGHT_BACKOFF // max(1, _chunk_staging_bytes(chunk, n_rows, band)))
+    n = int(budget * _INFLIGHT_BACKOFF
+            // max(1, _chunk_staging_bytes(chunk, n_rows, band, on_card)))
     n = max(1, min(128, n))
     return max(1, min(MYERS_GROUP, n // 2)), n
 
@@ -514,8 +525,9 @@ def _verify_grouped(index, a_all, b_all, fl_all, chunks, chunk: int, k: int, ban
     (`chunk` pairs each, padded); chunks: list of (sl, chunk_rows).  Adds
     the host seconds of each step to prof (pre_s, extend_s, post_s) and,
     on the card, appends the CUDA events around each _verify_pre to
-    prof["pre_events"]: K7 runs asynchronously, so pre_s holds its launch
-    and its device time shows in whichever later step waits for it.
+    prof["pre_events"] and the Myers extension's (around K10, K1 and K11)
+    to prof["extend_events"]: K7 runs asynchronously, so pre_s holds its
+    launch and its device time shows in whichever later step waits for it.
     Yields (sl, result tile) in order; a generator, so the caller's bounded
     drain caps how many chunks' inputs are staged at once.  (canu_tpu runs
     its remainder chunks singly, to reuse one compiled shape; extensions
@@ -540,7 +552,8 @@ def _verify_grouped(index, a_all, b_all, fl_all, chunks, chunk: int, k: int, ban
         if band == 128:
             rows = max(r for _sl, r in specs)
             res = banded_extend_myers(*wide, band, n_rows, max_rows=rows,
-                                      partial_cap_q=max(1, partial_cap_q))
+                                      partial_cap_q=max(1, partial_cap_q),
+                                      events=prof["extend_events"] if a_all.is_cuda else None)
         else:
             res = banded_extend(*wide, band, n_rows)
             res = res + res
@@ -674,7 +687,8 @@ def verify_overlaps(readset: ReadSet, cand, k: int = 16, band: int = 128,
     fetch_group = max(4, min(32, max_in_flight // 2))
     t_loop0 = time.monotonic()
     prof = {"device_wait_s": 0.0, "consume_s": 0.0, "pre_s": 0.0, "extend_s": 0.0,
-            "post_s": 0.0, "n_chunks": len(chunk_specs), "n_candidates": M, "pre_events": []}
+            "post_s": 0.0, "n_chunks": len(chunk_specs), "n_candidates": M, "pre_events": [],
+            "extend_events": []}
     pending: list = []
 
     def _drain(n: int) -> None:
@@ -706,6 +720,11 @@ def verify_overlaps(readset: ReadSet, cand, k: int = 16, band: int = 128,
     events = prof.pop("pre_events")
     prof["pre_device_s"] = (round(sum(e0.elapsed_time(e1) for e0, e1 in events) / 1e3, 4)
                             if dev.type == "cuda" else None)
+    # the Myers extension's device seconds: before K1 (K10), K1, after (K11)
+    ext_events = prof.pop("extend_events")
+    for q, name in enumerate(EXTEND_DEVICE_KEYS):
+        prof[name] = (round(sum(ev[q].elapsed_time(ev[q + 1]) for ev in ext_events) / 1e3, 4)
+                      if dev.type == "cuda" else None)
     LAST_PROFILE.clear()
     LAST_PROFILE.update(prof)
 
@@ -727,8 +746,9 @@ def verify_overlaps(readset: ReadSet, cand, k: int = 16, band: int = 128,
         for key in ("device_wait_s", "consume_s", "dispatch_s", "pre_s", "extend_s", "post_s",
                     "index_s"):
             prof[key] = round(prof[key] + LAST_PROFILE.get(key, 0.0), 3)
-        if prof["pre_device_s"] is not None:
-            prof["pre_device_s"] = round(prof["pre_device_s"] + LAST_PROFILE["pre_device_s"], 4)
+        for key in ("pre_device_s", *EXTEND_DEVICE_KEYS):
+            if prof[key] is not None:
+                prof[key] = round(prof[key] + LAST_PROFILE[key], 4)
         prof["n_chunks"] += LAST_PROFILE.get("n_chunks", 0)
         LAST_PROFILE.clear()
         LAST_PROFILE.update(prof)

@@ -1,11 +1,17 @@
-"""Kernel K1 on Hopper: build, bind and launch csrc/myers_tile.cu.
+"""Kernels K1, K10 and K11 on Hopper: build, bind and launch
+csrc/myers_tile.cu.
 
-The CUDA source is compiled with nvcc for sm_90a into a shared library
-with a plain C interface at first use (ops/kernels/_nvcc.py, into
-canu_tpu_torch/_build/), and loaded with ctypes.  Nothing here falls
-back to the plain PyTorch loop: a failed build, a tensor the kernel does
-not take, or a refused launch raises.  The plain version is
-ops.myers._myers_segment.
+K10 (``myers_prologue_cuda``) computes the band schedule's shift bits and
+the row-0 carry planes, K1 (``myers_rows_cuda``) the row loop and K11
+(``myers_epilogue_cuda``) the end pick: ops.myers._extend launches the
+three, once each, on CUDA tensors.  The CUDA source is compiled with nvcc
+for sm_90a into a shared library with a plain C interface at first use
+(ops/kernels/_nvcc.py, into canu_tpu_torch/_build/), and loaded with
+ctypes.  Nothing here falls back to the plain PyTorch versions: a failed
+build, a tensor the kernels do not take, or a refused launch raises.  The
+plain versions are ops.myers._schedule + _shift_bits and _myers_init +
+_carry_pack (K10), _myers_segment (K1) and _carry_unpack + _myers_finish
+(K11).
 """
 
 from __future__ import annotations
@@ -20,9 +26,10 @@ from . import _nvcc
 SOURCE = _nvcc.CSRC / "myers_tile.cu"
 
 WINDOW = 16  # bytes of a row the kernel loads at once (one uint4)
+PROLOGUE_STEP = 128  # rows a warp of K10 takes a step (csrc/myers_tile.cu PRO_STEP)
 
-# launches of the kernel since the last reset (read by chip_smoke.py)
-LAUNCHES = 0
+# launches since the last reset (read by chip_smoke.py): K1, K10, K11
+LAUNCHES = PROLOGUE_LAUNCHES = EPILOGUE_LAUNCHES = 0
 
 _lib = None
 
@@ -36,7 +43,11 @@ def _load():
         p = ctypes.c_void_p
         i = ctypes.c_int
         fn.argtypes = [p, p, p, i, p, p, i, i, p, p, i, i, i, p]
-        fn.restype = ctypes.c_int
+        ll = ctypes.c_longlong
+        lib.canu_myers_prologue.argtypes = [p, ll, i, p, ll, i, p, p, i, i, i, p, p, p, p]
+        lib.canu_myers_epilogue.argtypes = [p, p, p, i, p, p]
+        for f in (fn, lib.canu_myers_prologue, lib.canu_myers_epilogue):
+            f.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -94,3 +105,88 @@ def myers_rows_cuda(planes: torch.Tensor, a: torch.Tensor, s_bits: torch.Tensor,
         raise RuntimeError(f"myers_rows_kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
     return out
+
+
+def _rows_of(name: str, t: torch.Tensor, dtype: torch.dtype, B: int, dev) -> None:
+    """Raise unless t is a [B, >= 1] tensor of dtype on dev whose rows are
+    contiguous (any row stride)."""
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.dim() != 2 or t.shape[0] != B or t.shape[1] < 1:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected ({B}, >= 1)")
+    if t.stride(1) != 1 and t.shape[1] > 1:
+        raise ValueError(f"{name} must have contiguous rows")
+
+
+def myers_prologue_cuda(centers: torch.Tensor, b: torch.Tensor, a_len: torch.Tensor,
+                        b_len: torch.Tensor, n_rows: int, n_run: int):
+    """Kernel K10: the band schedule of rows 0..n_rows and the row-0 state.
+
+    centers int32[B, C] (row i's expected column; past column C - 1 the
+    last one), b uint8[B, LB], a_len/b_len int32[B]; 0 <= n_run <= n_rows.
+    Returns (planes int32[43, B], the row-0 carry in ops.myers._carry_pack's
+    order; s_bits int32[ceil(n_run / 32), B], the shifts of rows 1..n_run,
+    one bit a row as ops.myers._shift_bits packs them), bit for bit the
+    plain chain's.  One warp an extension; its scratch, 8 bytes a
+    PROLOGUE_STEP rows, is allocated here.
+    """
+    global PROLOGUE_LAUNCHES
+    dev = centers.device
+    if centers.dim() != 2:
+        raise ValueError("centers must be 2-D")
+    B = centers.shape[0]
+    _rows_of("centers", centers, torch.int32, B, dev)
+    _rows_of("b", b, torch.uint8, B, dev)
+    _nvcc.check_tensor("a_len", a_len, torch.int32, (B,), dev)
+    _nvcc.check_tensor("b_len", b_len, torch.int32, (B,), dev)
+    if not 0 <= n_run <= n_rows:
+        raise ValueError(f"need 0 <= n_run <= n_rows, got {n_run}, {n_rows}")
+    if dev.type != "cuda":
+        raise ValueError(f"myers_prologue_cuda needs CUDA tensors, got {dev}")
+    planes = torch.empty((NC, B), dtype=torch.int32, device=dev)
+    s_bits = torch.empty((-(-n_run // 32), B), dtype=torch.int32, device=dev)
+    scratch = torch.empty((B, -(-(n_rows + 1) // PROLOGUE_STEP), 2), dtype=torch.int32,
+                          device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.canu_myers_prologue(
+            centers.data_ptr(), int(centers.stride(0)), int(centers.shape[1]), b.data_ptr(),
+            int(b.stride(0)), int(b.shape[1]), a_len.data_ptr(), b_len.data_ptr(), int(B),
+            int(n_rows), int(n_run), s_bits.data_ptr(), planes.data_ptr(), scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"myers_prologue_kernel launch failed: "
+                           f"{'refused its arguments' if rc < 0 else f'cudaError {rc}'}")
+    PROLOGUE_LAUNCHES += 1
+    return planes, s_bits
+
+
+def myers_epilogue_cuda(planes: torch.Tensor, a_len: torch.Tensor, b_len: torch.Tensor):
+    """Kernel K11: the best end from K1's final carry planes int32[43, B].
+
+    Returns (edits, a_used, b_used, p_edits, p_a, p_b), int32[B] each, bit
+    for bit ops.myers._myers_finish(_carry_unpack(planes), ...).  A thread
+    an extension.
+    """
+    global EPILOGUE_LAUNCHES
+    dev = planes.device
+    if planes.dim() != 2:
+        raise ValueError("planes must be 2-D")
+    B = planes.shape[1]
+    _nvcc.check_tensor("planes", planes, torch.int32, (NC, B), dev)
+    _nvcc.check_tensor("a_len", a_len, torch.int32, (B,), dev)
+    _nvcc.check_tensor("b_len", b_len, torch.int32, (B,), dev)
+    if dev.type != "cuda":
+        raise ValueError(f"myers_epilogue_cuda needs CUDA tensors, got {dev}")
+    out = torch.empty((6, B), dtype=torch.int32, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.canu_myers_epilogue(planes.data_ptr(), a_len.data_ptr(), b_len.data_ptr(),
+                                     int(B), out.data_ptr(),
+                                     torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"myers_epilogue_kernel launch failed: cudaError {rc}")
+    EPILOGUE_LAUNCHES += 1
+    return tuple(out.unbind(0))

@@ -1,4 +1,4 @@
-"""Kernels K7 and K8 on Hopper: build, bind and launch csrc/verify.cu.
+"""Kernels K7, K8 and K12 on Hopper: build, bind and launch csrc/verify.cu.
 
 K7 (``verify_pre``) is verify's anchor-and-inputs step for a group of
 chunks in one launch, one block of 256 threads a pair: the syncmer join
@@ -21,6 +21,13 @@ bucket's width; ops.minimizers.build_read_index calls it on the card.
 ``syncmer`` runs one padded block (ops.minimizers._syncmer_kernel on CUDA
 tensors).  Both are held against ops.minimizers._syncmer_kernel_plain.
 
+K12 (``pair_stats``) is stage C's pair statistics for a chunk of read
+pairs in one launch, one block of 256 threads a pair: the join of the two
+reads' canonical k-mers through a hash table in a device scratch sized
+here, the strand vote, the two lower medians by radix selects, the
+inliers and their spans.  ops.minhash.place_candidates launches it on CUDA
+tensors; it is held against ops.minhash._pair_stats_kernel.
+
 The library is built by ops/kernels/_nvcc.py and loaded with ctypes;
 nothing here falls back to the plain versions: a failed build, a tensor
 the kernels do not take, or a refused launch raises.
@@ -36,8 +43,13 @@ from . import _nvcc
 
 SOURCE = _nvcc.CSRC / "verify.cu"
 
-# launches since the last reset (read by chip_smoke.py): K7, K8
-PRE_LAUNCHES = SYNCMER_LAUNCHES = 0
+# launches since the last reset (read by chip_smoke.py): K7, K8, K12
+PRE_LAUNCHES = SYNCMER_LAUNCHES = PAIR_STATS_LAUNCHES = 0
+
+# device bytes K12's scratch may take (a hash table and a hit list a
+# block); a chunk of longer reads gets fewer blocks, each striding over
+# the chunk's pairs
+PAIR_STATS_SCRATCH = 1 << 30
 
 # K7 keeps each hit's two slots in 11 bits each; K8 holds pm (key,
 # position) pairs in shared memory
@@ -57,7 +69,9 @@ def _load():
                                         p, p, p, p, p, p, p, p, p, p, p]
         lib.canu_syncmer.argtypes = [p, i, p, p, p, i, i, i, i, i, p, p, p, p, p]
         lib.canu_verify_resources.argtypes = [i, i, p]
-        for fn in (lib.canu_verify_pre, lib.canu_syncmer, lib.canu_verify_resources):
+        lib.canu_pair_stats.argtypes = [p, p, p, p, i, i, p, i, i, i, i, i, p, p, p, p, p, p]
+        for fn in (lib.canu_verify_pre, lib.canu_syncmer, lib.canu_verify_resources,
+                   lib.canu_pair_stats):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -209,6 +223,57 @@ def syncmer_index(words, lengths, rows, wbs, min_wb: int, k: int, s: int, t: int
     _on_card("K8", dev)
     if n:
         _syncmer_launch(words, lengths, rows, wbs, k, s, t, pm, mker, mpos, mstr, n_sel)
+
+
+def pair_stats_scratch(W: int, k: int, C: int) -> tuple[int, int, int]:
+    """(blocks, table slots a block, hits a block) of K12's scratch for a
+    chunk of C pairs padded to W words: a table of pow2(4 P) slots (load
+    at most one half) and P hits a block, as many blocks as
+    PAIR_STATS_SCRATCH holds, 1 to C."""
+    P = 16 * W - k + 1
+    S = 1 << max(0, (4 * P - 1).bit_length())
+    per_block = 12 * S + 8 * P
+    return max(1, min(C, PAIR_STATS_SCRATCH // per_block)), S, P
+
+
+def pair_stats(wordsA, lenA, wordsB, lenB, fk, k: int):
+    """Kernel K12: (flipped bool[C], the second median, n_inliers, a_lo,
+    a_hi, b_lo, b_hi int32[C]) of ops.minhash._pair_stats_kernel for the
+    chunk's pairs (wordsA/wordsB int64[C, W] of uint32 values, lenA/lenB
+    int32[C]; fk int64[F >= 1], the sorted frequent k-mers) on the card, in
+    one launch."""
+    global PAIR_STATS_LAUNCHES
+    if wordsA.dim() != 2:
+        raise ValueError("wordsA must be 2-D")
+    dev = wordsA.device
+    C, W = wordsA.shape
+    if not 2 <= k <= 32:
+        raise ValueError(f"kernel K12 takes k in 2..32, got {k}")
+    if W < 1 or 16 * W - k + 1 < 1:
+        raise ValueError(f"kernel K12: {W} words a read hold no {k}-mer window")
+    _nvcc.check_tensor("wordsA", wordsA, torch.int64, (C, W), dev)
+    _nvcc.check_tensor("wordsB", wordsB, torch.int64, (C, W), dev)
+    _nvcc.check_tensor("lenA", lenA, torch.int32, (C,), dev)
+    _nvcc.check_tensor("lenB", lenB, torch.int32, (C,), dev)
+    if fk.dim() != 1 or fk.shape[0] < 1:
+        raise ValueError("fk must be a 1-D table of at least one k-mer")
+    _nvcc.check_tensor("fk", fk, torch.int64, (fk.shape[0],), dev)
+    _on_card("K12", dev)
+    out = torch.empty((7, C), dtype=torch.int32, device=dev)
+    if C:
+        blocks, S, H = pair_stats_scratch(W, k, C)
+        keys = torch.empty((blocks, S), dtype=torch.int32, device=dev)
+        sides = torch.empty((2, blocks, S), dtype=torch.int32, device=dev)
+        hits = torch.empty((blocks, H, 2), dtype=torch.int32, device=dev)
+        fn = _load().canu_pair_stats
+        with torch.cuda.device(dev):
+            rc = fn(wordsA.data_ptr(), lenA.data_ptr(), wordsB.data_ptr(), lenB.data_ptr(),
+                    int(W), int(C), fk.data_ptr(), int(fk.shape[0]), int(k), int(blocks),
+                    int(S), int(H), keys.data_ptr(), sides[0].data_ptr(), sides[1].data_ptr(),
+                    hits.data_ptr(), out.data_ptr(), _stream(dev))
+        _raise_on(rc, "K12")
+        PAIR_STATS_LAUNCHES += 1
+    return (out[0] != 0, *out[1:].unbind(0))
 
 
 def resources(Pm: int, pm: int) -> dict:

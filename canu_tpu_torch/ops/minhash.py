@@ -15,8 +15,9 @@
            (ops.align), as canu_tpu's does; canu_tpu's tests call it.
 
 On the card stage A is kernel K5 and stage B's block matcher kernel K6
-(ops/kernels/minhash_cuda.py, csrc/minhash.cu); on the CPU their plain
-PyTorch versions, which the kernels are held to bit for bit.
+(ops/kernels/minhash_cuda.py, csrc/minhash.cu), stage C's pair statistics
+kernel K12 (ops/kernels/verify_cuda.py, csrc/verify.cu); on the CPU their
+plain PyTorch versions, which the kernels are held to bit for bit.
 """
 
 from __future__ import annotations
@@ -41,9 +42,10 @@ UINT32_MAX = 0xFFFFFFFF
 # temporary at SKETCH_ELEMS int64 elements
 SKETCH_ELEMS = 1 << 23
 
-# calls of the plain sketch and the plain slot count on a CUDA tensor
-# (chip_smoke.py requires 0 on the path: the card runs K5 and K6)
-PLAIN_CUDA_SKETCHES = PLAIN_CUDA_MATCHES = 0
+# calls of the plain sketch, the plain slot count and the plain pair
+# statistics on a CUDA tensor (chip_smoke.py requires 0 on the path: the
+# card runs K5, K6 and K12)
+PLAIN_CUDA_SKETCHES = PLAIN_CUDA_MATCHES = PLAIN_CUDA_PAIR_STATS = 0
 
 
 def _fk_array(frequent: "FrequentKmers | None") -> np.ndarray:
@@ -334,8 +336,12 @@ def _pair_stats_kernel(wordsA, lenA, wordsB, lenB, fk_kmers, k: int):
     bool[C], diag int32[C], n_inliers int32[C], a_lo, a_hi, b_lo, b_hi
     int32[C]) where the spans cover the inlier k-mer matches (the B span
     in forward-B coordinates).  Shared k-mers come from the one-sort
-    adjacency join (ops.kmerjoin).
+    adjacency join (ops.kmerjoin).  The plain version of kernel K12
+    (``_pair_stats``).
     """
+    global PLAIN_CUDA_PAIR_STATS
+    if wordsA.is_cuda:
+        PLAIN_CUDA_PAIR_STATS += 1
     canonA, strandA = extract_kmers_any(wordsA, lenA, k)  # [C, P]
     canonB, strandB = extract_kmers_any(wordsB, lenB, k)
     P = canonA.shape[1]
@@ -376,6 +382,16 @@ def _pair_stats_kernel(wordsA, lenA, wordsB, lenB, fk_kmers, k: int):
     return flipped, med2, n_inl, a_lo, a_hi, b_lo, b_hi
 
 
+def _pair_stats(wordsA, lenA, wordsB, lenB, fk_kmers, k: int):
+    """Stage C's statistics of a chunk of pairs: kernel K12 on CUDA
+    tensors (one launch), _pair_stats_kernel on CPU tensors."""
+    if wordsA.is_cuda:
+        from .kernels.verify_cuda import pair_stats
+
+        return pair_stats(wordsA, lenA, wordsB, lenB, fk_kmers, k)
+    return _pair_stats_kernel(wordsA, lenA, wordsB, lenB, fk_kmers, k)
+
+
 _PLACED = tuple(f.name for f in fields(OverlapCandidates))
 
 
@@ -383,8 +399,9 @@ def place_candidates(readset: ReadSet, pairs: np.ndarray, k: int = 16,
                      frequent: Optional[FrequentKmers] = None, min_shared: int = 4,
                      chunk: int = 256, device=None) -> OverlapCandidates:
     """Run stage C on candidate (a_id, b_id) pairs, `chunk` pairs a device
-    call (the last padded to it), and keep the pairs with at least
-    min_shared inlier shared k-mers (canu_tpu.ops.minhash.place_candidates)."""
+    call (the last padded to it; kernel K12 on the card), and keep the
+    pairs with at least min_shared inlier shared k-mers
+    (canu_tpu.ops.minhash.place_candidates)."""
     dev = resolve_device(device)
     fk = u32_tensor(_fk_array(frequent), dev)
     cols: dict[str, list[np.ndarray]] = {n: [] for n in _PLACED}
@@ -403,9 +420,10 @@ def place_candidates(readset: ReadSet, pairs: np.ndarray, k: int = 16,
             wa, la = np.vstack([wa, padw]), np.concatenate([la, padl])
             wb, lb = np.vstack([wb, padw]), np.concatenate([lb, padl])
         lens = [torch.from_numpy(x.astype(np.int32)).to(dev) for x in (la, lb)]
-        stats = _pair_stats_kernel(u32_tensor(wa, dev), lens[0], u32_tensor(wb, dev), lens[1],
-                                   fk, k)
-        fl, dg, ni, alo, ahi, blo, bhi = (t[:C].cpu().numpy() for t in stats)
+        stats = _pair_stats(u32_tensor(wa, dev), lens[0], u32_tensor(wb, dev), lens[1], fk, k)
+        fl, dg, ni, alo, ahi, blo, bhi = torch.stack(
+            [t[:C].to(torch.int32) for t in stats]).cpu().numpy()  # one copy a chunk
+        fl = fl != 0
         keep = ni >= min_shared
         for name, v in zip(_PLACED, (a_ids, b_ids, fl, dg, ni, alo, ahi, blo, bhi)):
             cols[name].append(v[keep])

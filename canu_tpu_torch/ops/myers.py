@@ -8,15 +8,18 @@ lane with the 128-column band held as 4 chained 32-bit words; the band
 follows the anchor chain at a slope of <= 1 column per row.
 
 Split as in canu_tpu: the band schedule and ``_myers_init`` (row-0
-state) in plain torch, then the row loop, then ``_myers_finish``.  The
-row loop is kernel K1: on a CUDA tensor ``banded_extend_myers`` launches
-the hand-written kernel (ops/kernels/myers_cuda.py, csrc/myers_tile.cu)
-on the schedule's shifts packed one bit a row (``_shift_bits``); on a CPU
-tensor it runs the plain PyTorch loop ``_myers_segment`` below, on
-``_myers_prep``'s per-row shift and entering-character streams, which is
-also the reference the kernel is checked against.  The schedule moves the
-band 0 or 1 column a row, so the shift is one bit and the entering index
-o(i) + band - 1 follows from the carried o.
+state), then the row loop, then ``_myers_finish``.  On a CUDA tensor
+``banded_extend_myers`` runs three hand-written kernels
+(ops/kernels/myers_cuda.py, csrc/myers_tile.cu), one launch each: K10 the
+schedule's shifts packed one bit a row and the row-0 carry planes, K1 the
+row loop, K11 the end pick.  On a CPU tensor it runs the plain PyTorch
+chain below, which is also the reference the kernels are held to:
+``_schedule`` and ``_shift_bits`` / ``_myers_prep``, ``_myers_init`` and
+``_carry_pack`` (K10), the row loop ``_myers_segment`` on ``_myers_prep``'s
+per-row shift and entering-character streams (K1), ``_carry_unpack`` and
+``_myers_finish`` (K11).  The schedule moves the band 0 or 1 column a
+row, so the shift is one bit and the entering index o(i) + band - 1
+follows from the carried o.
 
 Words are uint32 values held in int64 tensors and masked to 32 bits after
 every shift, complement and add, so the wrap-around arithmetic of the
@@ -38,6 +41,10 @@ SEGMENT = 512  # rows per plain-loop segment (canu_tpu's segment length)
 
 # plain-loop segments run on CUDA tensors; the pipeline must leave it 0
 PLAIN_CUDA_SEGMENTS = 0
+# plain band-schedule, row-0 state and end-pick calls (_schedule,
+# _myers_init, _myers_finish) on CUDA tensors, where K10 and K11 run; the
+# pipeline must leave it 0
+PLAIN_CUDA_SCHEDULES = 0
 
 
 class MyersCarry(NamedTuple):
@@ -141,9 +148,16 @@ def _shift_chain(X: torch.Tensor, ins: torch.Tensor) -> torch.Tensor:
     return (X >> 1) | ((hi << 31) & MASK32)
 
 
+def _count_plain(t: torch.Tensor) -> None:
+    global PLAIN_CUDA_SCHEDULES
+    if t.is_cuda:
+        PLAIN_CUDA_SCHEDULES += 1
+
+
 def _schedule(b_len, centers, band: int, n_rows: int) -> torch.Tensor:
     """o(i) int32[B, n_rows + 1] for rows 0..n_rows, the centres padded
     with their last value past their end."""
+    _count_plain(centers)
     pad = n_rows + 1 - centers.shape[1]
     if pad > 0:
         centers = torch.cat([centers, centers[:, -1:].expand(-1, pad)], dim=1)
@@ -179,6 +193,7 @@ def _shift_bits(o_all: torch.Tensor, n_run: int) -> torch.Tensor:
 
 def _myers_init(b, b_len, a_len, o0, band: int) -> MyersCarry:
     """Initial Myers state at row 0 (window at o0; D(0, j) = j)."""
+    _count_plain(b)
     B, LB = b.shape
     dev = b.device
     VP0 = torch.full((NW, B), MASK32, dtype=torch.int64, device=dev)
@@ -304,6 +319,7 @@ def _myers_finish(carry: MyersCarry, a_len, b_len, band: int):
     """Best extension end from the final carry: the A-exhausted row is
     unpacked once and its best in-window column compared with the best
     B-exhausted cost."""
+    _count_plain(carry.fVP)
     dv = _unpack_bits(carry.fVP) - _unpack_bits(carry.fVN)  # [B, 128]
     pref = torch.cumsum(dv, dim=1, dtype=torch.int32)
     w_ramp = torch.arange(band, dtype=torch.int32, device=dv.device)[None, :]
@@ -361,51 +377,68 @@ def _rows_plain(carry, a, b, s_rows, ent_rows, a_len, b_len, cap_q, band, seg, r
     return carry
 
 
-def _rows_kernel(carry, a, b, s_bits, a_len, b_len, cap_q, n_run):
-    """Rows 1..n_run of every lane in one launch of kernel K1."""
+def _rows_kernel(planes, a, b, s_bits, a_len, b_len, cap_q, n_run):
+    """Rows 1..n_run of every lane in one launch of kernel K1: carry planes
+    in, carry planes out."""
     from .kernels.myers_cuda import myers_rows_cuda
 
-    planes = myers_rows_cuda(_carry_pack(carry), a, s_bits, b, a_len.contiguous(),
-                             b_len.contiguous(), n_run, cap_q)
-    return _carry_unpack(planes)
+    return myers_rows_cuda(planes, a, s_bits, b, a_len, b_len, n_run, cap_q)
 
 
 def _extend(kernel: bool, a, a_len, b, b_len, centers, band, n_rows, segment, max_rows,
-            partial_cap_q):
+            partial_cap_q, events=None):
     if band != NW * WORD:
         raise ValueError(f"the Myers engine is specialised to band={NW * WORD}, got {band}")
     seg = min(segment, n_rows) if n_rows else segment
     n_seg = max(1, -(-n_rows // seg))
-    a_len = a_len.to(torch.int32)
-    b_len = b_len.to(torch.int32)
-    need = n_seg * seg
-    if a.shape[1] < need:
-        a = torch.nn.functional.pad(a, (0, need - a.shape[1]))
+    a_len = a_len.to(torch.int32).contiguous()
+    b_len = b_len.to(torch.int32).contiguous()
     run_segs = n_seg
     if max_rows is not None:
         run_segs = max(1, min(n_seg, -(-int(max_rows) // seg)))
+    # the rows run: the plain loop slices whole segments of a, K1 reads
+    # rows 1..n_run of it
+    need = (run_segs if kernel else n_seg) * seg
+    if a.shape[1] < need:
+        a = torch.nn.functional.pad(a, (0, need - a.shape[1]))
     # partial condition: edits*20000 <= cap_q*(a+b), i.e. edits within
     # cap_q (0.01% fixed point) of the mean span (a+b)/2
     cap_q = 0 if partial_cap_q is None else int(partial_cap_q)
     if kernel:
-        o_all = _schedule(b_len, centers, band, n_seg * seg)
-        carry = _myers_init(b, b_len, a_len, o_all[:, 0].contiguous(), band)
-        s_bits = _shift_bits(o_all, run_segs * seg)
-        del o_all
-        carry = _rows_kernel(carry, a.contiguous(), b.contiguous(), s_bits, a_len, b_len,
-                             cap_q, run_segs * seg)
+        from .kernels.myers_cuda import myers_epilogue_cuda, myers_prologue_cuda
+
+        # K10 -> K1 -> K11; with an events list, 4 CUDA events around them
+        # (pre, k1, post) are appended to it as one list
+        ev = None
+        if events is not None:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            events.append(ev)
+            ev[0].record()
+        if centers.dtype != torch.int32:
+            centers = centers.to(torch.int32)
+        planes, s_bits = myers_prologue_cuda(centers, b, a_len, b_len, n_seg * seg,
+                                             run_segs * seg)
+        if ev:
+            ev[1].record()
+        planes = _rows_kernel(planes, a.contiguous(), b.contiguous(), s_bits, a_len, b_len,
+                              cap_q, run_segs * seg)
+        if ev:
+            ev[2].record()
+        out = myers_epilogue_cuda(planes, a_len, b_len)
+        if ev:
+            ev[3].record()
     else:
         s_rows, ent_rows, o0 = _myers_prep(b_len, centers, band, n_seg * seg)
         carry = _myers_init(b, b_len, a_len, o0, band)
         carry = _rows_plain(carry, a, b, s_rows, ent_rows, a_len, b_len, cap_q, band, seg,
                             run_segs)
-    out = _myers_finish(carry, a_len, b_len, band)
+        out = _myers_finish(carry, a_len, b_len, band)
     return out if partial_cap_q is not None else out[:3]
 
 
 def banded_extend_myers(a, a_len, b, b_len, centers, band: int = 128, n_rows: int = 0,
                         segment: int = SEGMENT, max_rows: int | None = None,
-                        partial_cap_q: int | None = None):
+                        partial_cap_q: int | None = None, events: list | None = None):
     """Banded extension of B pairs from (0, 0) (band must be 128).
 
     a uint8[B, LA] (row 0 = first char to align), a_len int32[B],
@@ -415,18 +448,20 @@ def banded_extend_myers(a, a_len, b, b_len, centers, band: int = 128, n_rows: in
     partial_cap_q (erate in 0.01% fixed point) returns the 6-tuple
     (edits, a_used, b_used, p_edits, p_a, p_b), else the first three.
 
-    CUDA tensors run the row loop in kernel K1; CPU tensors run the plain
-    PyTorch loop.
+    CUDA tensors run kernels K10, K1 and K11, one launch each; with an
+    events list, the CUDA events before K10, after K10, after K1 and after
+    K11 are appended to it as one list.  CPU tensors run the plain PyTorch
+    chain.
     """
     return _extend(a.is_cuda, a, a_len, b, b_len, centers, band, n_rows, segment,
-                   max_rows, partial_cap_q)
+                   max_rows, partial_cap_q, events)
 
 
 def banded_extend_myers_plain(a, a_len, b, b_len, centers, band: int = 128,
                               n_rows: int = 0, segment: int = SEGMENT,
                               max_rows: int | None = None,
                               partial_cap_q: int | None = None):
-    """banded_extend_myers through the plain PyTorch row loop on any
-    device: the reference kernel K1 is compared with."""
+    """banded_extend_myers through the plain PyTorch chain on any device:
+    the reference kernels K10, K1 and K11 are compared with."""
     return _extend(False, a, a_len, b, b_len, centers, band, n_rows, segment,
                    max_rows, partial_cap_q)

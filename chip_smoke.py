@@ -6,9 +6,9 @@ at E. coli scale once on one NVIDIA GPU and check them.
 
 Phases (each prints its results; any failure exits non-zero):
   1 device    require CUDA; print the card's name and power limit
-  2 build     compile kernels K1 (csrc/myers_tile.cu), K2/K3
+  2 build     compile kernels K1, K10 and K11 (csrc/myers_tile.cu), K2/K3
               (csrc/banded_extend.cu), K4 (csrc/vote_dp.cu), K5/K6
-              (csrc/minhash.cu), K7/K8 (csrc/verify.cu) and K9
+              (csrc/minhash.cu), K7/K8 and K12 (csrc/verify.cu) and K9
               (csrc/vote_fold.cu) from this checkout, one nvcc each, in
               parallel
   3 kernel    each kernel against its plain PyTorch loop on the card, bit
@@ -72,6 +72,13 @@ Phases (each prints its results; any failure exits non-zero):
               holding votes; then on the groups the main path folded:
               the first DP group of phases 10 and 15, and
               phase 16's first RED and first polish group (held_fold)
+              3a also holds K10 (the band schedule's shift bits and the
+              row-0 planes) and K11 (the end pick) to the plain chain
+              (ops.myers _schedule, _shift_bits, _myers_init, _carry_pack;
+              _carry_unpack, _myers_finish) on each edge case, K10 alone
+              on tests/torch_cases.py myers_schedule_cases and K11 alone
+              on myers_finish_cases; then on phase 5's first group, phase
+              9's first group and the judge's launch of phase 16
   4 slice     meryl + overlap ("cor") stages on the bench.py read set
               (1,025 reads, 3.64 Mb) in a temporary directory; K1 must
               have launched and the plain loop must not have run on the
@@ -93,6 +100,15 @@ Phases (each prints its results; any failure exits non-zero):
               pair's repeated rows) equal the JAX package's
               (frequent_overlap_reference.json,
               scripts/torch_frequent_reference.py)
+  4d placed   stage C (place_candidates) on the bench read set's cor
+              candidates at k 16 with the frequent table and at k 22
+              without one, then verify_overlaps of each placed set: K12
+              once a chunk of 256 pairs and held bit for bit to the plain
+              statistics on every chunk, the verify's K7, K8, K10, K1 and
+              K11; the candidates, the placed candidates and the verified
+              rows against placed_overlap_reference.json
+              (scripts/torch_placed_reference.py); K12 timed on the first
+              chunk beside its bound and the plain version
   5 timing    warm passes of sketch, match and verify as bench.py times
               them, one more pass under torch.profiler (device busy share
               of each sub-stage; tables in chiprun_out/profile.txt); K1
@@ -106,7 +122,8 @@ Phases (each prints its results; any failure exits non-zero):
               of its match (CUDA events) beside their bounds and the plain
               versions' times; K7 on phase 4's first verify group and K8
               on every block of its index, beside their bounds and the
-              plain versions' times
+              plain versions' times; K10 and K11 on the first verify
+              group beside their bounds and the plain chain's times
   6 obt       meryl + overlap ("obt", k=22 two-lane k-mers, band 128:
               K1 with partial and palindromic pairs) on the corrected
               read set (1,004 reads, 3.61 Mb, 3% error)
@@ -353,12 +370,14 @@ Phases (each prints its results; any failure exits non-zero):
               bounds, RED's host enqueue of the votes, and each verify's
               profile (ops.align.LAST_PROFILE: pre_s, extend_s, post_s,
               index_s beside dispatch_s)
-Every main-path run of phases 4-16 (4, 4b, 4c, 6, 7, 9, 10, 11, 14a, 14b,
-15, 16) must launch K7 and K8 and run neither plain version on the card;
-drive_stage drops the read set's cached index first, so that each drive
-builds its own.  In each of them K9 launches once per DP group of the
-vote engine (none where it does not vote) and the plain fold never runs
-on the card.
+Every main-path run of phases 4-17 (4, 4b, 4c, 4d, 6, 7, 9, 10, 11, 14a,
+14b, 15, 16, 17) must launch K7 and K8 and run neither plain version on
+the card; drive_stage drops the read set's cached index first, so that
+each drive builds its own.  In each of them K9 launches once per DP group
+of the vote engine (none where it does not vote) and the plain fold never
+runs on the card, and K10 and K11 launch once beside each K1 launch
+(verify, the OEA adjust, align_links; the judge's and the tools' bogus
+too) with the plain Myers schedule and segments never on the card.
 
 Each kernel's bound is the larger of its operations over the card's
 32-bit integer rate and its bytes over the memory rate (INT32_OPS_S,
@@ -374,7 +393,9 @@ pairs a block pair needs, MATCH_*_OPS; pre_bound each pair's three sorts,
 n log2 n compares each, and the elements written, VERIFY_PRE_OPS;
 syncmer_bound the s-mers and positions on the reads, the selected keys
 and their sort, SYNCMER_OPS; fold_bound the live rows of the jobs that
-vote, FOLD_ROW_OPS).  The bytes are each input the kernel needs read once
+vote, FOLD_ROW_OPS; myers_ends_bound the scheduled rows and the columns of
+the end pick, K10_*_OPS and K11_*_OPS; pair_stats_bound the on-read k-mer
+positions and the chunk's hits, PAIR_*_OPS).  The bytes are each input the kernel needs read once
 and each output written once.  The plain loops' own per-row counts
 (plain_row_ops) are printed beside, as a second figure.
 
@@ -476,6 +497,23 @@ SYNCMER_OPS = 16  # each s-mer on the read: the rolling forward and reverse
 #   compare and the on-read test; each selected position its key
 #   (SKETCH_KEY_OPS, or SKETCH_KEY2_OPS at k > 16) and its mix32 8; the
 #   sort of the selected keys n log2 n compares; each element written 1
+# K10 (the Myers band schedule and row-0 state, ops.myers._schedule,
+# _shift_bits, _myers_init and _carry_pack):
+K10_ROW_OPS = 14  # each scheduled row: the target's clip 3, the running max 1,
+#   t - i 1, the running min 1, lo 1, the suffix max 1, hi 1, (lo + hi) >> 1 2,
+#   the cap at t0 + i 2, the shift bit's compare 1
+K10_EXT_OPS = 4 * 128 + 43  # each extension: a compare a (Peq base, char), a plane each
+# K11 (the end pick, ops.myers._carry_unpack and _myers_finish):
+K11_COL_OPS = 6  # each of the A-exhausted row's 128 columns: two bit extracts,
+#   the score's add, the column test, the minimum's compare and select
+K11_EXT_OPS = 12  # each extension: the pick (compare, 3 selects), two clamps, its sums
+# K12 (stage C's pair statistics, ops.minhash._pair_stats_kernel's work):
+PAIR_POS_OPS = 12  # each on-read k-mer position besides its key (SKETCH_KEY_OPS or
+#   SKETCH_KEY2_OPS): mix32 8, the slot's mask 1, its compare-and-swap 1, the side's
+#   max or min 1, 2 pos + strand 1
+PAIR_HIT_OPS = 40  # each hit: the vote 2, and in each of its passes (the count and
+#   range, up to 4 selects a median, the inliers' pass) the diagonal 3 and its
+#   tests 2; besides each hit's frequent-table probes (SKETCH_PROBE_OPS each)
 # K9 (the vote fold, ops.votepile._fold_chunk's work), for its bound:
 FOLD_ROW_OPS = 25  # each (job, row): the row's step, the live and active
 #   tests 4, three character gathers 3, four vote masks 8, the deletion run
@@ -657,11 +695,8 @@ def k1_call(call):
     each extension's live rows (one K1 launch of the stage)."""
     import torch
 
-    from canu_tpu_torch.ops import myers as MY
-
-    (carry, a, b, s_bits, a_len, b_len, cap_q, n_run), _ = call
-    planes = MY._carry_pack(carry)
-    args = (planes, a, s_bits, b, a_len.contiguous(), b_len.contiguous(), n_run, cap_q)
+    (planes, a, b, s_bits, a_len, b_len, cap_q, n_run), _ = call
+    args = (planes, a, s_bits, b, a_len, b_len, n_run, cap_q)
     live = torch.clamp(a_len.to(torch.int64), 0, n_run)
     return args, live
 
@@ -750,6 +785,129 @@ def k1_held_to_plain(name: str, args, seg: int = 4096):
         return MY._myers_finish(MY._carry_unpack(p), a_len, b_len, MY.NW * MY.WORD)
 
     return max(err, compare(name, finish(got[:, -1]), finish(ends[-1]))), plain_ms, T
+
+
+def myers_ends_inputs(args, n_rows: int, kw: dict):
+    """banded_extend_myers's arguments as _extend hands them to kernels K10,
+    K1 and K11: (a, a_len, b, b_len, centers, scheduled rows, n_run,
+    cap_q)."""
+    import torch
+
+    from canu_tpu_torch.ops import myers as MY
+
+    a, a_len, b, b_len, centers = args
+    segment = kw.get("segment", MY.SEGMENT)
+    seg = min(segment, n_rows) if n_rows else segment
+    n_seg = max(1, -(-n_rows // seg))
+    max_rows = kw.get("max_rows")
+    run_segs = n_seg if max_rows is None else max(1, min(n_seg, -(-int(max_rows) // seg)))
+    n_run = run_segs * seg
+    if a.shape[1] < n_run:
+        a = torch.nn.functional.pad(a, (0, n_run - a.shape[1]))
+    return (a.contiguous(), a_len.to(torch.int32).contiguous(), b.contiguous(),
+            b_len.to(torch.int32).contiguous(), centers.to(torch.int32), n_seg * seg, n_run,
+            int(kw.get("partial_cap_q") or 0))
+
+
+def myers_ends_bound(centers, n_rows: int, n_run: int) -> tuple[dict, dict]:
+    """K10's and K11's bounds on one call: K10 reads each extension's
+    centres of rows 0..n_rows, its 128 bases at o0, a_len and b_len and
+    writes the shift bits and 43 planes; K11 reads the 16 planes the pick
+    uses, a_len and b_len and writes 6 words.  Operations: K10_ROW_OPS a
+    scheduled row and K10_EXT_OPS an extension; K11_COL_OPS a column and
+    K11_EXT_OPS an extension."""
+    B = centers.shape[0]
+    cols = min(centers.shape[1], n_rows + 1)
+    k10 = bound(K10_ROW_OPS * B * (n_rows + 1) + K10_EXT_OPS * B,
+                B * (4 * cols + 128 + 8 + 4 * -(-n_run // 32) + 4 * 43))
+    k11 = bound((K11_COL_OPS * 128 + K11_EXT_OPS) * B, B * (16 * 4 + 8 + 6 * 4))
+    return k10, k11
+
+
+def held_myers_ends(name: str, args, n_rows: int, kw: dict, reps: int = 0) -> dict:
+    """Kernels K10 and K11 on one banded_extend_myers call's inputs, bit for
+    bit against their plain versions on the card: K10's shift bits and
+    row-0 planes against _schedule, _shift_bits, _myers_init and
+    _carry_pack; then K1 from K10's planes, and K11's six results against
+    _carry_unpack and _myers_finish of K1's final planes.  With reps, both
+    kernels timed by CUDA events (mean of reps) beside their bounds and
+    the plain versions' one run.  Returns {"err", and with reps "K10",
+    "K11": {ms, plain_ms, bound}}."""
+    import torch
+
+    from canu_tpu_torch.ops import myers as MY
+    from canu_tpu_torch.ops.kernels import myers_cuda as K1
+
+    a, a_len, b, b_len, centers, rows, n_run, cap_q = myers_ends_inputs(args, n_rows, kw)
+
+    def plain10():
+        o_all = MY._schedule(b_len, centers, 128, rows)
+        return (MY._carry_pack(MY._myers_init(b, b_len, a_len, o_all[:, 0].contiguous(), 128)),
+                MY._shift_bits(o_all, n_run))
+
+    (p_ref, s_ref), plain10_ms = once_ms(plain10)
+    planes, s_bits = K1.myers_prologue_cuda(centers, b, a_len, b_len, rows, n_run)
+    err = 0
+    for what, r, g in (("row-0 planes", p_ref, planes), ("shift bits", s_ref, s_bits)):
+        d = int((r.to(torch.int64) - g.to(torch.int64)).abs().max()) if r.numel() else 0
+        check(d == 0, f"{name}: K10's {what} differ from the plain chain's (max |diff| {d})")
+        err = max(err, d)
+    del p_ref, s_ref
+    fin = K1.myers_rows_cuda(planes, a, s_bits, b, a_len, b_len, n_run, cap_q)
+    ref11, plain11_ms = once_ms(lambda: MY._myers_finish(MY._carry_unpack(fin), a_len, b_len,
+                                                         128))
+    err = max(err, compare(f"{name} (K11)", ref11, K1.myers_epilogue_cuda(fin, a_len, b_len)))
+    out = {"err": err}
+    if reps:
+        b10, b11 = myers_ends_bound(centers, rows, n_run)
+        out["K10"] = {"ms": cuda_ms(lambda: K1.myers_prologue_cuda(centers, b, a_len, b_len, rows,
+                                                                   n_run), reps),
+                      "plain_ms": plain10_ms, "bound": b10}
+        out["K11"] = {"ms": cuda_ms(lambda: K1.myers_epilogue_cuda(fin, a_len, b_len), reps),
+                      "plain_ms": plain11_ms, "bound": b11}
+    return out
+
+
+def myers_ends_edge_checks(dev) -> int:
+    """Phase 3a: K10 and K11 bit for bit against their plain versions on
+    tests/torch_cases.py's cases: each of myers_edge_cases through
+    held_myers_ends (K10, K1, K11 as _extend runs them), K10 alone on
+    myers_schedule_cases (centres narrower and wider than the rows, a rise
+    after n_run, lengths 0 and negative, o0 at the end of B, int32 limits,
+    one row, 40,000 rows) and K11 alone on myers_finish_cases (ties, INF,
+    columns cut off at b_len).  Returns the max |difference| (0)."""
+    import numpy as np
+    import torch
+
+    from canu_tpu_torch.ops import myers as MY
+    from canu_tpu_torch.ops.kernels import myers_cuda as K1
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_cases import myers_finish_cases, myers_schedule_cases
+
+    err = 0
+    for name, (args, n_rows, kw) in kernel_cases(dev).items():
+        err = max(err, held_myers_ends(f"3a K10/K11 edge case {name}", args, n_rows, kw)["err"])
+    for name, case in myers_schedule_cases().items():
+        c, b, a_len, b_len = (torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in case[:4])
+        n_rows, n_run = case[4:]
+        planes, s_bits = K1.myers_prologue_cuda(c, b, a_len, b_len, n_rows, n_run)
+        o_all = MY._schedule(b_len, c, 128, n_rows)
+        ref = (MY._carry_pack(MY._myers_init(b, b_len, a_len, o_all[:, 0].contiguous(), 128)),
+               MY._shift_bits(o_all, n_run))
+        d = max(int((r.to(torch.int64) - g.to(torch.int64)).abs().max()) if r.numel() else 0
+                for r, g in zip(ref, (planes, s_bits)))
+        check(d == 0, f"3a: K10 differs from the plain chain on schedule case {name} (max |diff| "
+              f"{d})")
+        err = max(err, d)
+    planes, a_len, b_len = (torch.from_numpy(x).to(dev) for x in myers_finish_cases())
+    err = max(err, compare("3a K11 finish cases",
+                           MY._myers_finish(MY._carry_unpack(planes), a_len, b_len, 128),
+                           K1.myers_epilogue_cuda(planes, a_len, b_len)))
+    log(f"[3a kernel] K10 and K11 bit-equal to the plain chain on {len(kernel_cases(dev))} edge "
+        f"cases, K10 on {len(myers_schedule_cases())} schedule cases, K11 on "
+        f"{planes.shape[1]} end-pick cases")
+    return err
 
 
 def time_k1(launches, reps: int = 5):
@@ -988,10 +1146,12 @@ def reset_counts() -> None:
 
     K9.LAUNCHES = VP.PLAIN_CUDA_FOLDS = VP.GROUPS = 0
     K1.LAUNCHES = EX.WARP_LAUNCHES = EX.BLOCK_LAUNCHES = K4.LAUNCHES = K4.JOBS_LAUNCHED = 0
+    K1.PROLOGUE_LAUNCHES = K1.EPILOGUE_LAUNCHES = 0
     MK.SKETCH_LAUNCHES = MK.MATCH_LAUNCHES = MK.COMPACT_LAUNCHES = 0
-    VC.PRE_LAUNCHES = VC.SYNCMER_LAUNCHES = 0
-    MY.PLAIN_CUDA_SEGMENTS = AL.PLAIN_CUDA_ROWS = TT.PLAIN_CUDA_CALLS = 0
-    MH.PLAIN_CUDA_SKETCHES = MH.PLAIN_CUDA_MATCHES = 0
+    VC.PRE_LAUNCHES = VC.SYNCMER_LAUNCHES = VC.PAIR_STATS_LAUNCHES = 0
+    MY.PLAIN_CUDA_SEGMENTS = MY.PLAIN_CUDA_SCHEDULES = AL.PLAIN_CUDA_ROWS = 0
+    TT.PLAIN_CUDA_CALLS = 0
+    MH.PLAIN_CUDA_SKETCHES = MH.PLAIN_CUDA_MATCHES = MH.PLAIN_CUDA_PAIR_STATS = 0
     AL.PLAIN_CUDA_PRE = MZ.PLAIN_CUDA_SYNCMER = MZ.INDEX_BUILDS = 0
     KM.HOST_COUNTS = MH.JOIN_CALLS = OV.SPILL_BUILDS = 0
 
@@ -1012,11 +1172,14 @@ def read_counts() -> dict:
     from canu_tpu_torch.ops.kernels import votepile_cuda as K9
     from canu_tpu_torch.stores import overlaps as OV
 
-    return {"K1": K1.LAUNCHES, "K2": EX.WARP_LAUNCHES, "K3": EX.BLOCK_LAUNCHES,
+    return {"K1": K1.LAUNCHES, "K10": K1.PROLOGUE_LAUNCHES, "K11": K1.EPILOGUE_LAUNCHES,
+            "K12": VC.PAIR_STATS_LAUNCHES, "K2": EX.WARP_LAUNCHES, "K3": EX.BLOCK_LAUNCHES,
             "K4": K4.LAUNCHES, "K5": MK.SKETCH_LAUNCHES, "K6": MK.MATCH_LAUNCHES,
             "K6_compact": MK.COMPACT_LAUNCHES, "K7": VC.PRE_LAUNCHES,
             "K8": VC.SYNCMER_LAUNCHES, "K9": K9.LAUNCHES, "vote_groups": VP.GROUPS,
             "plain_fold": VP.PLAIN_CUDA_FOLDS, "plain_myers_segments": MY.PLAIN_CUDA_SEGMENTS,
+            "plain_schedule": MY.PLAIN_CUDA_SCHEDULES,
+            "plain_pair_stats": MH.PLAIN_CUDA_PAIR_STATS,
             "plain_extend_rows": AL.PLAIN_CUDA_ROWS, "plain_dp": TT.PLAIN_CUDA_CALLS,
             "plain_sketch": MH.PLAIN_CUDA_SKETCHES, "plain_match": MH.PLAIN_CUDA_MATCHES,
             "plain_pre": AL.PLAIN_CUDA_PRE, "plain_syncmer": MZ.PLAIN_CUDA_SYNCMER,
@@ -1026,11 +1189,14 @@ def read_counts() -> dict:
 
 
 def no_plain(counts: dict) -> bool:
-    """No plain loop (Myers segment, INF-walled row), no plain DP, no plain
-    sketch, match, anchor step, syncmer selection or fold ran on the card."""
-    return (counts["plain_myers_segments"] == counts["plain_extend_rows"] == counts["plain_dp"]
-            == counts["plain_sketch"] == counts["plain_match"] == counts["plain_pre"]
-            == counts["plain_syncmer"] == counts["plain_fold"] == 0)
+    """No plain loop (Myers segment, INF-walled row), no plain Myers
+    schedule, row-0 state or end pick, no plain DP, no plain sketch, match,
+    anchor step, syncmer selection, fold or pair statistics ran on the
+    card."""
+    return (counts["plain_myers_segments"] == counts["plain_schedule"]
+            == counts["plain_extend_rows"] == counts["plain_dp"] == counts["plain_sketch"]
+            == counts["plain_match"] == counts["plain_pre"] == counts["plain_syncmer"]
+            == counts["plain_fold"] == counts["plain_pair_stats"] == 0)
 
 
 def check_minhash(phase: str, counts: dict, match: bool) -> None:
@@ -2044,6 +2210,155 @@ def extend_drive(name: str, calls, card: str, reps: int = 3) -> dict:
             "first_bound_exit": first["bound_exit"]}
 
 
+PLACED_KS = ((16, True), (22, False))  # stage C's k, and whether it takes the frequent table
+
+
+def pair_stats_bound(args) -> dict:
+    """K12's bound on one chunk (ops.minhash._pair_stats's arguments):
+    bytes = the words each pair's reads need (ceil(len / 16) int64 words a
+    read, as stored), the lengths, the frequent table and the seven
+    outputs; operations = each on-read k-mer position's key
+    (SKETCH_KEY_OPS, or SKETCH_KEY2_OPS at k > 16) and PAIR_POS_OPS, each
+    hit PAIR_HIT_OPS and its frequent-table probes, the hits counted by
+    the plain join (ops.kmerjoin.pair_matches) on this chunk."""
+    import math
+
+    import torch
+
+    from canu_tpu_torch.ops import kmer as KM
+    from canu_tpu_torch.ops.kmerjoin import pair_matches
+
+    wA, lA, wB, lB, fk, k = args
+    canonA, strandA = KM.extract_kmers_any(wA, lA, k)
+    canonB, strandB = KM.extract_kmers_any(wB, lB, k)
+    idx = torch.clamp(torch.searchsorted(fk, canonB), max=fk.shape[0] - 1)
+    validB = (canonB != KM.INVALID_KMER) & (fk[idx] != canonB)
+    pos = torch.arange(canonA.shape[1], dtype=torch.int32, device=wA.device)
+    pos = pos[None, :].expand(canonA.shape)
+    hits = int(pair_matches(canonA, canonA != KM.INVALID_KMER, strandA, pos, canonB, validB,
+                            strandB, pos)[0].sum())
+    lens = torch.cat([lA, lB]).to(torch.int64)
+    positions = int(torch.clamp(lens - k + 1, min=0).sum())
+    words = int(((lens + 15) // 16).sum())
+    probe = SKETCH_PROBE_OPS * (math.ceil(math.log2(max(2, fk.shape[0]))) + 1)
+    key = SKETCH_KEY_OPS if k <= 16 else SKETCH_KEY2_OPS
+    C = wA.shape[0]
+    return {**bound((key + PAIR_POS_OPS) * positions + (PAIR_HIT_OPS + probe) * hits,
+                    8 * words + 8 * C + 8 * fk.shape[0] + 7 * 4 * C),
+            "positions": positions, "hits": hits}
+
+
+def placed_drive(dev, card: str, fk) -> dict:
+    """Phase 4d: stage C, place_candidates, on the bench read set's cor
+    candidates (the cor stage's sketch preset and block matcher on the
+    card, phase 4's frequent table), at k 16 with that table and at k 22
+    without one, each then verified (verify_overlaps, band 128), on a read
+    set of its own (so the verify builds its index), the counts set to 0
+    just before and read just after.  K12 must launch once a chunk of 256
+    pairs, the verify K7, K8, K10, K1 and K11, and no plain version on the
+    card.  Holds the candidates, the placed candidates and the verified
+    rows against placed_overlap_reference.json (canu_tpu on the CPU,
+    scripts/torch_placed_reference.py); K12 on every chunk bit for bit
+    against the plain statistics; K12 and the plain version timed on the
+    first chunk beside K12's bound."""
+    import torch
+
+    from canu_tpu_torch.config import Config
+    from canu_tpu_torch.ops import align as AL
+    from canu_tpu_torch.ops import minhash as MH
+    from canu_tpu_torch.ops.kernels import verify_cuda as VC
+    from canu_tpu_torch.stores.overlaps import store_digest
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_cases import candidates_digest, placed_digest, readset_digest
+
+    with open(os.path.join(ROOT, "canu_tpu_torch", "placed_overlap_reference.json")) as fh:
+        ref = json.load(fh)
+    t_phase = time.time()
+    rs = bench_reads()
+    check(readset_digest(rs) == ref["reads_sha256"], "4d placed: the read set differs")
+    cfg = Config()
+    cfg.set("genomeSize", BENCH_GENOME)
+    n_hashes, min_matches = cfg.sketch_preset("cor", rs.total_bases / BENCH_GENOME)
+    sk = MH.build_sketches(rs, k=int(cfg.get("corMerSize")), n_hashes=n_hashes, frequent=fk,
+                           block_size=int(cfg.get("mhapBlockSize")), device=dev)
+    pairs = MH.find_candidates(sk, min_matches=min_matches, block_size=1024, device=dev)
+    del sk
+    log(f"[4d placed] {len(pairs)} candidates (H {n_hashes}, min_matches {min_matches}; "
+        f"reference {ref['n_candidates']})")
+    check(len(pairs) == ref["n_candidates"] and candidates_digest(pairs) == ref[
+        "candidates_sha256"], "4d placed: the candidates differ from the JAX package's")
+    n_chunks = -(-len(pairs) // 256)
+    out: dict = {"n_candidates": len(pairs), "chunks": n_chunks, "runs": {}}
+    kept: dict = {}
+    real = MH._pair_stats
+    try:
+        reset_counts()
+        t = time.time()
+        for k, with_fk in PLACED_KS:
+            _, kept[k] = capture_calls(MH, "_pair_stats")
+            l0 = VC.PAIR_STATS_LAUNCHES
+            t0 = time.time()
+            placed = MH.place_candidates(rs, pairs[:, :2], k=k, frequent=fk if with_fk else None,
+                                         device=dev)
+            t_place = time.time() - t0
+            MH._pair_stats = real
+            table = AL.verify_overlaps(rs, placed, band=128, device=dev)
+            out["runs"][k] = {"placed": len(placed), "placed_sha256": placed_digest(placed),
+                              "rows": len(table.a_id), "rows_sha256": store_digest(table),
+                              "k12": VC.PAIR_STATS_LAUNCHES - l0, "place_s": t_place,
+                              "verify_s": time.time() - t0 - t_place}
+        torch.cuda.synchronize()
+        t_run = time.time() - t
+        counts = read_counts()
+    finally:
+        MH._pair_stats = real
+    log(f"[4d placed] {card}: place_candidates + verify_overlaps at k 16 and 22 in "
+        f"{t_run:.2f} s; launch counts {counts}")
+    for k, r in out["runs"].items():
+        want = ref[f"k{k}"]
+        log(f"[4d placed] k {k}: {r['placed']} placed (reference {want['placed']}) in "
+            f"{r['place_s']:.2f} s, {r['k12']} K12 launches; {r['rows']} verified rows (reference "
+            f"{want['rows']}) in {r['verify_s']:.2f} s")
+        check(r["k12"] == n_chunks == len(kept[k]),
+              f"4d placed: k {k}: {r['k12']} K12 launches for {n_chunks} chunks")
+        check(r["placed"] == want["placed"] and r["placed_sha256"] == want["placed_sha256"],
+              f"4d placed: k {k}: the placed candidates differ from the JAX package's")
+        check(r["rows"] == want["rows"] and r["rows_sha256"] == want["rows_sha256"],
+              f"4d placed: k {k}: the verified rows differ from the JAX package's")
+    check(counts["K12"] == 2 * n_chunks, f"4d placed: {counts['K12']} K12 launches")
+    check(counts["K10"] == counts["K11"] == counts["K1"] > 0,
+          f"4d placed: K10 {counts['K10']}, K11 {counts['K11']} for K1's {counts['K1']}")
+    check(counts["K2"] == counts["K3"] == counts["K4"] == 0 and no_plain(counts),
+          f"4d placed: another kernel or a plain version ran on the card: {counts}")
+
+    # K12 held to the plain statistics on every chunk; timed on the first
+    err = 0
+    for k, calls in kept.items():
+        for i, (args, _kw) in enumerate(calls):
+            got, ref_c = VC.pair_stats(*args), MH._pair_stats_kernel(*args)
+            d = max(int((r.to(torch.int64) - g.to(torch.int64)).abs().max())
+                    for r, g in zip(ref_c, got))
+            check(d == 0, f"4d placed: k {k} chunk {i}: K12 differs from the plain statistics "
+                  f"(max |diff| {d})")
+            err = max(err, d)
+    args = kept[16][0][0]
+    _, plain_ms = once_ms(lambda: MH._pair_stats_kernel(*args))
+    ms = cuda_ms(lambda: VC.pair_stats(*args), 10)
+    bd = pair_stats_bound(args)
+    log(f"[4d kernel] {card}: K12 bit-equal to the plain statistics on all {len(kept[16])} + "
+        f"{len(kept[22])} chunks; the first k 16 chunk ({args[0].shape[0]} pairs x "
+        f"{args[0].shape[1]} words, {bd['positions']} k-mer positions, {bd['hits']} hits): K12 "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms; bound {bd['bound_ms']:.4f} ms ({bd['ops']:.3e} "
+        f"operations, {bd['bytes']:.3e} bytes; bound by {bd['bound_by']}; "
+        f"{100 * bd['bound_ms'] / ms:.1f}% of it)")
+    del kept
+    out.update(err=err, ms=ms, plain_ms=plain_ms, bound=bd, launches=counts,
+               run_s=t_run, phase_s=time.time() - t_phase)
+    log(f"[4d placed] phase wall {out['phase_s']:.1f} s")
+    return out
+
+
 def ecoli_reads(error_rate: float = 0.03, genome: int = ECOLI_GENOME):
     """The E. coli-scale read set (the JAX package's config 2,
     scripts/scale_run.py: 4.6 Mb at 25x): corrected reads at 3% error
@@ -2157,6 +2472,7 @@ def ecoli_drive(dev, card: str) -> dict:
     from canu_tpu_torch.ops import align as AL
     from canu_tpu_torch.ops import kmer as KM
     from canu_tpu_torch.ops import minhash as MH
+    from canu_tpu_torch.ops import myers as MY
     from canu_tpu_torch.ops.kernels import myers_cuda as K1
     from canu_tpu_torch.pipeline import stages
     from canu_tpu_torch.pipeline.driver import make_ctx
@@ -2186,6 +2502,7 @@ def ecoli_drive(dev, card: str) -> dict:
     pairs_seen, spilled, host_s = [], [], []
     real = {"k1": K1.myers_rows_cuda, "verify": AL.verify_overlaps,
             "window": AL._verify_window, "join": MH.find_candidates_join,
+            "extend": MY.banded_extend_myers,
             "host": KM.count_readset_host, "append": OV.OverlapSpill.append}
 
     def window(*args):
@@ -2206,6 +2523,8 @@ def ecoli_drive(dev, card: str) -> dict:
     K1.myers_rows_cuda = k1_metered(real["k1"], k1, dev)
     AL.verify_overlaps = verify_metered(real["verify"], k1, mem, dev)
     AL._verify_window = window
+    # the first extension group's inputs: K10 and K11 held to the plain chain
+    _, ext9 = capture_calls(MY, "banded_extend_myers", first_only=True)
     MH.find_candidates_join = lambda *a, **kw: pairs_seen.append(real["join"](*a, **kw)) or \
         pairs_seen[-1]
     KM.count_readset_host, OV.OverlapSpill.append = host_timed, append
@@ -2224,6 +2543,7 @@ def ecoli_drive(dev, card: str) -> dict:
     finally:
         K1.myers_rows_cuda, AL.verify_overlaps = real["k1"], real["verify"]
         AL._verify_window, MH.find_candidates_join = real["window"], real["join"]
+        MY.banded_extend_myers = real["extend"]
         KM.count_readset_host, OV.OverlapSpill.append = real["host"], real["append"]
         AL._verify_pre = real_pre
         restore_syncmer(real_sy)
@@ -2283,19 +2603,31 @@ def ecoli_drive(dev, card: str) -> dict:
     # K1 on every launch of the drive, by CUDA events, beside its bound
     k1_ms, bd, tb = k1_drive_line("9", card, k1)
     (w_args, (group, n_window)), *rest = mem["windows"]
-    est = AL._chunk_staging_bytes(*w_args) * n_window
+    est = AL._chunk_staging_bytes(*w_args, True) * n_window
     log(f"[9 memory] {card}: verify device peak {mem['peak'] / 1e9:.3f} GB "
         f"(torch.cuda.max_memory_allocated; {(mem['peak'] - mem['start']) / 1e9:.3f} GB above "
         f"the {mem['start'] / 1e9:.3f} GB allocated at its start); _chunk_staging_bytes"
-        f"{tuple(w_args)} x the window of {n_window} chunks = {est / 1e9:.3f} GB (groups of "
-        f"{group}; {len(rest)} more window calls: {[w[1] for w in rest]})")
+        f"{tuple(w_args)} on the card x the window of {n_window} chunks = {est / 1e9:.3f} GB "
+        f"(the plain chain's estimate {AL._chunk_staging_bytes(*w_args) * n_window / 1e9:.3f} "
+        f"GB; groups of {group}; {len(rest)} more window calls: {[w[1] for w in rest]})")
+    check(counts["K10"] == counts["K11"] == counts["K1"],
+          f"9 ecoli: K10 {counts['K10']} and K11 {counts['K11']} launches for K1's {counts['K1']}")
+    check(len(ext9) == 1, "9 ecoli: the verify never called banded_extend_myers")
+    (e_args, e_kw), = ext9
+    ends9 = held_myers_ends("9 first group", e_args[:5], e_args[6], e_kw, reps=5)
+    del ext9
+    log(f"[9 kernel] {card}: K10 and K11 bit-equal to the plain chain on the first group "
+        f"({e_args[0].shape[0]} extensions x {e_args[6]} rows): K10 {ends9['K10']['ms']:.3f} ms "
+        f"(plain {ends9['K10']['plain_ms']:.3f} ms, bound {ends9['K10']['bound']['bound_ms']:.3f} "
+        f"ms), K11 {ends9['K11']['ms']:.4f} ms (plain {ends9['K11']['plain_ms']:.3f} ms, bound "
+        f"{ends9['K11']['bound']['bound_ms']:.4f} ms)")
     # K7 and K8 held to the plain versions on the kept groups and block
     verify_err = held_verify_calls("phase 9", pre_kept, sy_kept)
     vsplit = verify_kernel_split("9", card, pre_kept, sy_kept)
     del pre_kept, sy_kept
     log(f"[9 ecoli] phase wall {time.time() - t_phase:.1f} s")
     return {"verify_err": verify_err, "verify_split": vsplit, "meryl_s": t_meryl,
-            "host_count_s": sum(host_s),
+            "myers_ends": ends9, "host_count_s": sum(host_s),
             "stage_s": t_stage,
             "sub_walls_s": sub, "verify_profile": prof, "rows": len(st),
             "n_candidates": len(pairs), "launches": counts, "k1_ms": k1_ms,
@@ -3409,6 +3741,8 @@ def tools_drive(dev, card: str, run_b: dict) -> dict:
         f"package's; K1 launches by step {k1_steps}")
     check(k1_steps.get("bogus", 0) > 0 and set(k1_steps) == {"bogus"},
           "13: K1 did not launch in bogus, or launched in another step")
+    check(all(c["K10"] == c["K11"] == c["K1"] for c in per_step.values()),
+          "13: kernels K10 and K11 did not launch once beside each K1 launch")
     check(not others, f"13: another kernel or a plain loop ran on the card: {others}")
     log("[13 tools] bogus: " + outs["bogus"].splitlines()[0])
     k1_launches = [k1_call(c) for c in bogus_calls]
@@ -4297,6 +4631,7 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
     from canu_tpu_torch.ops import falcon as F
     from canu_tpu_torch.ops import kmer as KM
     from canu_tpu_torch.ops import minhash as MH
+    from canu_tpu_torch.ops import myers as MY
     from canu_tpu_torch.ops import oea as OEA
     from canu_tpu_torch.ops import votepile as VP
     from canu_tpu_torch.ops.kernels import myers_cuda as K1
@@ -4362,7 +4697,8 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
             "join": MH.find_candidates_join, "red": OEA.detect_read_errors,
             "adjust": OEA.adjust_overlap_erates, "polish": CNS.polish_tig,
             "links": GFA.align_links, "dp": VP.align_positions_lean,
-            "bogus": BG._segment_identity, "write": FX.write_fasta, "fold": VP._fold_group}
+            "bogus": BG._segment_identity, "write": FX.write_fasta, "fold": VP._fold_group,
+            "extend": MY.banded_extend_myers}
 
     def counted(key, fn):
         def call(*args, **kw):
@@ -4488,12 +4824,16 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
         contigs = [seq_to_codes(r[1]) for r in fasta_records(os.path.join(work,
                                                                           "ecoli.contigs.fasta"))]
         BG._segment_identity = counted("bogus", real["bogus"])
-        k0 = K1.LAUNCHES
+        # the judge's extension inputs: K10 and K11 held to the plain chain
+        _, judge_ext = capture_calls(MY, "banded_extend_myers")
+        k0 = (K1.LAUNCHES, K1.PROLOGUE_LAUNCHES, K1.EPILOGUE_LAUNCHES)
         t = time.time()
         ev = BG.evaluate_assembly(genome, contigs, k=21, circular=True, device=dev)
         t_judge = time.time() - t
-        judge_k1 = K1.LAUNCHES - k0
+        judge_k1, judge_k10, judge_k11 = (n - n0 for n, n0 in zip(
+            (K1.LAUNCHES, K1.PROLOGUE_LAUNCHES, K1.EPILOGUE_LAUNCHES), k0))
     finally:
+        MY.banded_extend_myers = real["extend"]
         logging.getLogger().removeHandler(lines_h)
         K1.myers_rows_cuda = real["k1"]
         AL._verify_pre, AL.verify_overlaps = real_pre, real_vo
@@ -4527,6 +4867,19 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
         check(k1_in.get("align_links", 0) > 0, "16 ecoliasm: align_links never launched K1")
     check(judge_k1 > 0 and k1_in.get("bogus", 0) == judge_k1,
           "16 ecoliasm: the judge never launched K1")
+    check(judge_k10 == judge_k11 == judge_k1 == len(judge_ext),
+          f"16 ecoliasm: the judge's {judge_k1} K1 launches came with {judge_k10} K10 and "
+          f"{judge_k11} K11 launches ({len(judge_ext)} extension calls)")
+    check(counts["K10"] == counts["K11"] == counts["K1"],
+          f"16 ecoliasm: K10 {counts['K10']} and K11 {counts['K11']} launches for K1's "
+          f"{counts['K1']}")
+    (j_args, j_kw), *_ = judge_ext
+    ends_judge = held_myers_ends("16 judge", j_args[:5], j_args[6], j_kw, reps=2)
+    del judge_ext
+    log(f"[16 kernel] {card}: K10 and K11 bit-equal to the plain chain on the judge's launch "
+        f"({j_args[0].shape[0]} extensions x {j_args[6]} rows): K10 "
+        f"{ends_judge['K10']['ms']:.3f} ms (plain {ends_judge['K10']['plain_ms']:.3f} ms, bound "
+        f"{ends_judge['K10']['bound']['bound_ms']:.4f} ms), K11 {ends_judge['K11']['ms']:.4f} ms")
     check(len(k1["events"]) == counts["K1"] + judge_k1,
           "16 ecoliasm: K1 launches and timed calls differ")
     check(len(pairs_seen) == 2 and counts["join_calls"] == 2,
@@ -4755,6 +5108,7 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
     return {"verify_err": verify_err, "verify_split": vsplit, "verify_profiles": vprofs,
             "run_s": t_run, "stage_walls_s": walls, "sub_walls_s": subs, "step_walls_s": step_wall,
             "meryl_routes": routes, "launches": counts, "k1_by_step": k1_in, "judge_k1": judge_k1,
+            "judge_k10": judge_k10, "judge_k11": judge_k11, "myers_ends_judge": ends_judge,
             "vote_chunks": chunks_in, "dp_calls": n_dp[0], "dp_s": dp_s, "dp_bound": dp_bound,
             "dp_err": dp_err, "held": held, "fold": fold, "k1_ms": k1_ms, "k1_where": k1["where"],
             "k1_drive": k1_drive, "k1_bound_s": k1["bound_s"], "step_peak_bytes": step_peak,
@@ -4867,6 +5221,7 @@ def main() -> int:
                                MY.banded_extend_myers(*args, 128, n_rows, **kw)))
         log(f"[3a kernel] K1 edge case {name}: {args[0].shape[0]} extensions x {n_rows} rows "
             f"bit-equal")
+    err_ends = myers_ends_edge_checks(dev)
     err_ext = 0
     for band in (128, 256, 640, 1024):
         e_args, e_rows = extend_edge_cases(band, dev)
@@ -4973,6 +5328,9 @@ def main() -> int:
 
     # ---- 4c: the cor and obt stages with frequent mers excluded, spilled ----
     record["frequent"] = freq = frequent_drive(dev, card)
+
+    # ---- 4d: stage C on the cor stage's candidates, then their verify ------
+    record["placed"] = placed = placed_drive(dev, card, fk)
     err_mh = max(err_mh, held_minhash_calls("phase 4", sk_calls, mt_calls),
                  held_minhash_calls("phase 4c", freq.pop("sketch_calls"),
                                     freq.pop("match_calls")))
@@ -4982,6 +5340,7 @@ def main() -> int:
     # ---- 3b: kernel vs plain on real extensions of the first group ----------
     check(len(groups) == 1, "the overlap stage never called banded_extend_myers")
     g_args, g_kw = groups[0]
+    g_kw = {n: v for n, v in g_kw.items() if n != "events"}  # verify's own event list
     ext, (band, n_rows) = g_args[:5], g_args[5:7]
     B, rows = ext[0].shape[0], g_kw["max_rows"]
     pick = torch.arange(0, B, max(1, B // 256), device=dev)
@@ -5074,6 +5433,16 @@ def main() -> int:
         f"{100 * bd1['bound_ms'] / ms:.1f}% of it) vs plain loop {plain_ms:.1f} ms for {B} "
         f"extensions x {rows} rows (the stage's first verify group), bit-equal")
     record.update(k1_ms=ms, plain_ms=plain_ms, group_B=B, group_rows=rows)
+    # K10 and K11 on the same group, held to the plain chain, then timed
+    ends = held_myers_ends("5 first group", g_args[:5], n_rows, g_kw, reps=10)
+    err_ends = max(err_ends, ends["err"])
+    for kn, what in (("K10", "the schedule and row-0 state"), ("K11", "the end pick")):
+        e = ends[kn]
+        log(f"[5 timing] {card}: {kn} ({what}) {e['ms']:.4f} ms on the first group (bound "
+            f"{e['bound']['bound_ms']:.4f} ms by {e['bound']['bound_by']}, "
+            f"{100 * e['bound']['bound_ms'] / e['ms']:.1f}% of it) vs the plain chain "
+            f"{e['plain_ms']:.3f} ms, bit-equal")
+    record["myers_ends"] = ends
 
     # ---- 4b: the cor stage at corOvlBandWidth=256 (K2, with partial overlaps,
     # on reads whose extensions really fail) -----------------------------------
@@ -5183,7 +5552,7 @@ def main() -> int:
              "9": ecoli["launches"], "10": correct["launches"], "11a": assemble["a"]["launches"],
              "11b": assemble["b"]["launches"], "14a": grid["a"]["launches"],
              "15": ecolicor["launches"], "16": ecoliasm["launches"],
-             "17": longread["launches"]}
+             "17": longread["launches"], "4d": placed["launches"]}
     named.update({f"drive {n}": d["launches"] for n, d in drives.items()})
     for r, x in enumerate(grid["b"]):
         named[f"14b rank {r}"] = x["launches"]
@@ -5200,6 +5569,11 @@ def main() -> int:
         check(c["K8"] == c["index_builds"],
               f"phase {name}: kernel K8 launched {c['K8']} times for {c['index_builds']} "
               "read index builds (one launch a build)")
+        check(c["K10"] == c["K11"] == c["K1"] and c["plain_schedule"] == 0
+              and c["plain_myers_segments"] == 0,
+              f"phase {name}: K10 {c['K10']} and K11 {c['K11']} launches for K1's {c['K1']}, "
+              f"or the plain schedule ({c['plain_schedule']}) or plain segments "
+              f"({c['plain_myers_segments']}) ran on the card")
     k5_launches = sum(c["K5"] for c in main_runs)
     k6_launches = sum(c["K6"] for c in main_runs)
     k7_launches = sum(c["K7"] for c in main_runs)
@@ -5210,6 +5584,13 @@ def main() -> int:
         f"{k8_launches} and K9 {k9_launches} on the main path's runs (phases 4-17; K7 and K8 "
         f"in each of its {len(named)} runs, K8 once per read index build ({builds} builds), K9 "
         "once per DP group in each run that votes)")
+    # K10 and K11 once beside each K1 launch of every run (and the judge's)
+    k10_launches = sum(c["K10"] for c in main_runs) + ecoliasm["judge_k10"]
+    k11_launches = sum(c["K11"] for c in main_runs) + ecoliasm["judge_k11"]
+    err_ends = max(err_ends, ecoli["myers_ends"]["err"], ecoliasm["myers_ends_judge"]["err"])
+    log(f"[kernels] K10 launched {k10_launches} times and K11 {k11_launches}, once beside each "
+        f"K1 launch of the main path's runs and the judge; K12 {placed['launches']['K12']} (one "
+        f"a chunk of phase 4d)")
     k9 = correct["fold"]["held"]
     err_fold = max(err_fold, k9["err"], ecolicor["fold"]["held"]["err"],
                    ecoliasm["fold"]["red"]["held"]["err"],
@@ -5225,7 +5606,8 @@ def main() -> int:
          + correct["launches"]["K1"] + assemble["a"]["launches"]["K1"]
          + assemble["b"]["launches"]["K1"] + record["dag"]["polish"]["launches"]["K1"]
          + tools["k1_launches"] + grid["k1_launches"] + ecolicor["launches"]["K1"]
-         + ecoliasm["launches"]["K1"] + ecoliasm["judge_k1"] + longread["launches"]["K1"],
+         + ecoliasm["launches"]["K1"] + ecoliasm["judge_k1"] + longread["launches"]["K1"]
+         + placed["launches"]["K1"],
          "max_abs_err": max(err, tools["k1_err"]),
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bd1["bound_ms"],
          "bound_by": bd1["bound_by"], "library_ms": None},
@@ -5273,6 +5655,22 @@ def main() -> int:
          "replaces": "canu_tpu/ops/votepile.py:125", "launches": k9_launches,
          "max_abs_err": err_fold, "ms": k9["ms"], "plain_ms": k9["plain_ms"],
          "bound_ms": k9["bound"]["bound_ms"], "bound_by": k9["bound"]["bound_by"],
+         "library_ms": None},
+        {"name": "myers_prologue (K10)", "route": "cuda",
+         "source": "canu_tpu_torch/csrc/myers_tile.cu",
+         "replaces": "canu_tpu/ops/myers.py:152 and :172", "launches": k10_launches,
+         "max_abs_err": err_ends, "ms": ends["K10"]["ms"], "plain_ms": ends["K10"]["plain_ms"],
+         "bound_ms": ends["K10"]["bound"]["bound_ms"],
+         "bound_by": ends["K10"]["bound"]["bound_by"], "library_ms": None},
+        {"name": "myers_epilogue (K11)", "route": "cuda",
+         "source": "canu_tpu_torch/csrc/myers_tile.cu", "replaces": "canu_tpu/ops/myers.py:336",
+         "launches": k11_launches, "max_abs_err": err_ends, "ms": ends["K11"]["ms"],
+         "plain_ms": ends["K11"]["plain_ms"], "bound_ms": ends["K11"]["bound"]["bound_ms"],
+         "bound_by": ends["K11"]["bound"]["bound_by"], "library_ms": None},
+        {"name": "pair_stats (K12)", "route": "cuda", "source": "canu_tpu_torch/csrc/verify.cu",
+         "replaces": "canu_tpu/ops/minhash.py:296", "launches": placed["launches"]["K12"],
+         "max_abs_err": placed["err"], "ms": placed["ms"], "plain_ms": placed["plain_ms"],
+         "bound_ms": placed["bound"]["bound_ms"], "bound_by": placed["bound"]["bound_by"],
          "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,8 +17,8 @@ from canu_tpu_torch.ops import align as TA
 from canu_tpu_torch.ops import hashing as TH
 from canu_tpu_torch.ops import minhash as TM
 from canu_tpu_torch.sim import simulate as torch_sim
-from torch_cases import (MATCH_EDGE_CASES, SKETCH_EDGE_CASES, match_edge_case,  # noqa: F401
-                         one_torch_thread, sketch_edge_case)
+from torch_cases import (MATCH_EDGE_CASES, PAIR_STATS_CASES, SKETCH_EDGE_CASES,  # noqa: F401
+                         match_edge_case, one_torch_thread, pair_stats_case, sketch_edge_case)
 
 
 @pytest.fixture(scope="module")
@@ -132,9 +132,10 @@ PLACED = ("a_id", "b_id", "flipped", "diag", "n_shared", "a_lo", "a_hi", "b_lo",
 STORE = ("a_id", "b_id", "flipped", "a_bgn", "a_end", "b_bgn", "b_end", "erate_q")
 
 
-@pytest.mark.parametrize("k,use_fk", [(16, False), (16, True), (22, False)],
-                         ids=["k16", "k16_fk", "k22"])
-def test_place_candidates(reads, k, use_fk):
+@pytest.mark.parametrize("k,use_fk,edges", [(16, False, False), (16, True, False),
+                                             (22, False, False), (16, True, True)],
+                         ids=["k16", "k16_fk", "k22", "k16_edges"])
+def test_place_candidates(reads, k, use_fk, edges):
     rs, trs, fk = reads
     fk = fk if use_fk else None
     sk = JM.build_sketches(rs, k=16, n_hashes=128, frequent=fk, block_size=64)
@@ -143,10 +144,24 @@ def test_place_candidates(reads, k, use_fk):
     extra = np.sort(rng.choice(np.arange(1, rs.n_reads + 1), (40, 2), replace=True), axis=1)
     pairs = np.concatenate([JM.find_candidates(sk, min_matches=2)[:, :2],
                             extra[extra[:, 0] < extra[:, 1]]])
-    ref = JM.place_candidates(rs, pairs, k=k, frequent=fk, min_shared=3, chunk=64)
-    got = TM.place_candidates(trs, pairs, k=k, frequent=fk, min_shared=3, chunk=64,
+    min_shared = 3
+    if edges:
+        # reads against themselves (a key repeated in a read: its last A
+        # entry meets its first B entry off the main diagonal) and, with
+        # min_shared 0, the unrelated pairs' empty inlier sets kept
+        pairs = np.concatenate([pairs, np.repeat(np.arange(1, rs.n_reads + 1, 7), 2)
+                                .reshape(-1, 2)])
+        min_shared = 0
+    ref = JM.place_candidates(rs, pairs, k=k, frequent=fk, min_shared=min_shared, chunk=64)
+    got = TM.place_candidates(trs, pairs, k=k, frequent=fk, min_shared=min_shared, chunk=64,
                               device="cpu")
-    assert 0 < len(got) < len(pairs) and got.flipped.any() and (~got.flipped).any()
+    if edges:
+        empty = got.n_shared == 0
+        assert len(got) == len(pairs) and empty.any() and (got.a_id == got.b_id).any()
+        assert (got.a_lo[empty] == 2**30).all() and (got.b_hi[empty] == -1).all()
+    else:
+        assert 0 < len(got) < len(pairs)
+    assert got.flipped.any() and (~got.flipped).any()
     for name in PLACED:
         r, g = getattr(ref, name), getattr(got, name)
         assert g.dtype == r.dtype, name
@@ -158,3 +173,19 @@ def test_place_candidates(reads, k, use_fk):
     for name in STORE:
         np.testing.assert_array_equal(np.asarray(getattr(ov_got, name)),
                                       np.asarray(getattr(ov_ref, name)), err_msg=name)
+
+
+@pytest.mark.parametrize("case", PAIR_STATS_CASES)
+def test_pair_stats_on_edge_chunks(case):
+    # stage C's statistics (kernel K12's plain version) on a chunk of tandem
+    # repeats, self pairs, a tied vote, empty and short reads, two far
+    # clusters of diagonals, a cluster at tol and random padding
+    wa, la, wb, lb, fk, k = pair_stats_case(case)
+    ref = JM._pair_stats_kernel(jnp.asarray(wa), jnp.asarray(la), jnp.asarray(wb), jnp.asarray(lb),
+                                jnp.zeros(1, jnp.uint32), jnp.asarray(fk), k)
+    got = TM._pair_stats_kernel(*(TH.u32_tensor(x, "cpu") if x.dtype == np.uint32
+                                  else torch.from_numpy(x) for x in (wa, la, wb, lb, fk)), k)
+    for name, r, g in zip(PLACED[2:], ref, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r), err_msg=name)
+    n_inl = got[2].numpy()
+    assert (n_inl == 0).any() and (n_inl > 0).any() and got[0].any()

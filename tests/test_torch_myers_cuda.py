@@ -1,5 +1,5 @@
-"""Kernel K1 against its plain PyTorch loop, its inputs, and the wrapper's
-device contract.  This file imports no jax, so it runs where jax is
+"""Kernels K1, K10 and K11 against their plain PyTorch versions, their
+inputs, and the wrappers' device contract.  This file imports no jax, so it runs where jax is
 absent:
 
     python -m pytest --noconftest tests/test_torch_myers_cuda.py
@@ -19,9 +19,15 @@ import torch
 from canu_tpu_torch.device import resolve_device
 from canu_tpu_torch.ops import myers as TM
 from canu_tpu_torch.ops.kernels import myers_cuda as K1
-from torch_cases import NAMES, k1_rows_plain, myers_cases, myers_edge_cases
+from torch_cases import (NAMES, k1_rows_plain, myers_cases, myers_edge_cases, myers_finish_cases,
+                         myers_schedule_cases)
 
 EDGE_CASES = tuple(myers_edge_cases())
+SCHEDULE_CASES = tuple(myers_schedule_cases())
+
+
+def _k10_k11_counts():
+    return K1.PROLOGUE_LAUNCHES, K1.EPILOGUE_LAUNCHES, TM.PLAIN_CUDA_SCHEDULES
 
 
 @pytest.fixture
@@ -189,3 +195,120 @@ def test_myers_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="boundary"):
         K1.myers_rows_cuda(planes, off, s_bits, b, lens, lens, n_run, 0)
     assert K1.LAUNCHES == launches
+
+
+def test_cpu_extension_launches_no_prologue_or_epilogue():
+    args = [torch.from_numpy(x) for x in myers_cases(9, 5, 96, er=0.1, drift=True)]
+    before = _k10_k11_counts()
+    TM.banded_extend_myers(*args, 128, 96, partial_cap_q=2400)
+    assert _k10_k11_counts() == before  # the plain chain on the CPU counts no CUDA call
+
+
+def _k10_args(dev="cpu"):
+    centers, b, a_len, b_len, n_rows, n_run = myers_schedule_cases()["narrow"]
+    t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (centers, b, a_len, b_len)]
+    return {"centers": t[0], "b": t[1], "a_len": t[2], "b_len": t[3], "n_rows": n_rows,
+            "n_run": n_run}
+
+
+# what K10's and K11's wrappers refuse, whatever the device
+PROLOGUE_REFUSALS = {
+    "centers int64": ({"centers": lambda a: a["centers"].to(torch.int64)}, TypeError, "dtype"),
+    "centers 1-D": ({"centers": lambda a: a["centers"][0]}, ValueError, "2-D"),
+    "centers column-strided": ({"centers": lambda a: a["centers"].T.contiguous().T},
+                               ValueError, "contiguous rows"),
+    "b int32": ({"b": lambda a: a["b"].to(torch.int32)}, TypeError, "dtype"),
+    "b fewer rows": ({"b": lambda a: a["b"][:3]}, ValueError, "shape"),
+    "a_len int64": ({"a_len": lambda a: a["a_len"].to(torch.int64)}, TypeError, "dtype"),
+    "b_len short": ({"b_len": lambda a: a["b_len"][:2]}, ValueError, "shape"),
+    "n_run past n_rows": ({"n_run": lambda a: a["n_rows"] + 1}, ValueError, "n_run"),
+    "host tensors": ({}, ValueError, "CUDA"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PROLOGUE_REFUSALS))
+def test_prologue_wrapper_refuses(case):
+    change, exc, msg = PROLOGUE_REFUSALS[case]
+    kw = _k10_args()
+    kw.update({k: v(kw) for k, v in change.items()})
+    before = (*_k10_k11_counts(), K1.LAUNCHES)
+    with pytest.raises(exc, match=msg):
+        K1.myers_prologue_cuda(**kw)
+    assert (*_k10_k11_counts(), K1.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("case", ["planes int64", "planes 42 rows", "a_len short", "host"])
+def test_epilogue_wrapper_refuses(case):
+    planes, a_len, b_len = (torch.from_numpy(x) for x in myers_finish_cases())
+    exc, msg = ValueError, "shape"
+    if case == "planes int64":
+        planes, exc, msg = planes.to(torch.int64), TypeError, "dtype"
+    elif case == "planes 42 rows":
+        planes = planes[:42].contiguous()
+    elif case == "a_len short":
+        a_len = a_len[:3]
+    else:
+        msg = "CUDA"
+    before = _k10_k11_counts()
+    with pytest.raises(exc, match=msg):
+        K1.myers_epilogue_cuda(planes, a_len, b_len)
+    assert _k10_k11_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SCHEDULE_CASES)
+def test_prologue_matches_plain_on_card(cuda_device, case):
+    kw = dict(zip(("centers", "b", "a_len", "b_len"),
+                  (torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)
+                   for x in myers_schedule_cases()[case][:4])))
+    n_rows, n_run = myers_schedule_cases()[case][4:]
+    before = _k10_k11_counts()
+    planes, s_bits = K1.myers_prologue_cuda(**kw, n_rows=n_rows, n_run=n_run)
+    torch.cuda.synchronize()
+    assert K1.PROLOGUE_LAUNCHES == before[0] + 1
+    o_all = TM._schedule(kw["b_len"], kw["centers"], 128, n_rows)
+    np.testing.assert_array_equal(s_bits.cpu().numpy(), TM._shift_bits(o_all, n_run).cpu().numpy())
+    ref = TM._carry_pack(TM._myers_init(kw["b"], kw["b_len"], kw["a_len"],
+                                        o_all[:, 0].contiguous(), 128))
+    np.testing.assert_array_equal(planes.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_epilogue_matches_plain_on_card(cuda_device):
+    planes, a_len, b_len = (torch.from_numpy(x).to(cuda_device) for x in myers_finish_cases())
+    got = K1.myers_epilogue_cuda(planes, a_len, b_len)
+    ref = TM._myers_finish(TM._carry_unpack(planes), a_len, b_len, 128)
+    for name, r, g in zip(NAMES, ref, got):
+        np.testing.assert_array_equal(r.cpu().numpy(), g.cpu().numpy(), err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_extension_is_k10_k1_k11_on_card(cuda_device, case):
+    args, n_rows, kw = myers_edge_cases()[case]
+    t = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device) for x in args]
+    ref = TM.banded_extend_myers_plain(*t, 128, n_rows, **kw)
+    before = (*_k10_k11_counts(), K1.LAUNCHES)
+    events: list = []
+    got = TM.banded_extend_myers(*t, 128, n_rows, events=events, **kw)
+    torch.cuda.synchronize()
+    p, e, plain, k1 = before
+    assert (*_k10_k11_counts(), K1.LAUNCHES) == (p + 1, e + 1, plain, k1 + 1)
+    assert len(events) == 1 and all(e0.elapsed_time(e1) >= 0 for e0, e1 in
+                                    zip(events[0], events[0][1:]))
+    for name, r, g in zip(NAMES, ref, got):
+        np.testing.assert_array_equal(r.cpu().numpy(), g.cpu().numpy(), err_msg=name)
+
+
+def test_card_staging_counts_k10_bytes_not_the_plain_schedule():
+    # the verify window on the card holds K10's scratch and shift bits in
+    # place of the plain chain's temporaries; the INF-walled engine neither
+    from canu_tpu_torch.ops import align as AL
+
+    chunk, n_rows = 512, 8192
+    plain = AL._chunk_staging_bytes(chunk, n_rows, 128)
+    card = AL._chunk_staging_bytes(chunk, n_rows, 128, on_card=True)
+    assert plain - card == 2 * chunk * (n_rows + 1) * (AL.SCHEDULE_BYTES_PER_ROW
+                                                       - AL.KERNEL_SCHEDULE_BYTES_PER_ROW)
+    assert (AL._chunk_staging_bytes(chunk, n_rows, 256, on_card=True)
+            == AL._chunk_staging_bytes(chunk, n_rows, 256))

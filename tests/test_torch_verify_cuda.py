@@ -1,6 +1,6 @@
-"""Kernels K7 (verify's anchor-and-inputs step) and K8 (the syncmer read
-index) against their plain PyTorch versions, and the wrappers' device
-contract.  This file imports no jax, so it runs where jax is absent:
+"""Kernels K7 (verify's anchor-and-inputs step), K8 (the syncmer read
+index) and K12 (stage C's pair statistics) against their plain PyTorch
+versions, and the wrappers' device contract.  This file imports no jax, so it runs where jax is absent:
 
     python -m pytest --noconftest tests/test_torch_verify_cuda.py
 
@@ -26,9 +26,10 @@ from canu_tpu_torch.sim.simulate import random_genome, simulate_reads
 from canu_tpu_torch.ops.kmer import bucket_widths
 from canu_tpu_torch.sim import simulate as SIM
 from canu_tpu_torch.stores.readset import ReadSet
-from torch_cases import (LONG_READ_W, SYNCMER_EDGE_CASES, VERIFY_PRE_CHUNK,  # noqa: F401
-                         VERIFY_PRE_EDGE_CASES, VERIFY_PRE_ODD_CASES, VERIFY_PRE_SIZE_CHUNK,
-                         bucket_reads,
+from canu_tpu_torch.ops import minhash as MH
+from torch_cases import (LONG_READ_W, PAIR_STATS_CASES, SYNCMER_EDGE_CASES,  # noqa: F401
+                         VERIFY_PRE_CHUNK, VERIFY_PRE_EDGE_CASES, VERIFY_PRE_ODD_CASES,
+                         VERIFY_PRE_SIZE_CHUNK, bucket_reads, pair_stats_case, placed_digest,
                          one_torch_thread, syncmer_cut_case, syncmer_edge_case,
                          verify_pre_edge_case, verify_pre_long_case, verify_pre_size_case)
 
@@ -331,3 +332,93 @@ def test_index_is_one_launch_equal_to_the_plain_blocks_on_card(cuda_device, k):
         words, lengths = MZ.block_tensors(rs, ids, Wb, "cpu")
         np.testing.assert_array_equal(n_sel[ids - 1].cpu().numpy(),
                                       MZ._syncmer_kernel_plain(words, lengths, k, ref.pm)[3].numpy())
+
+
+# ---- K12: stage C's pair statistics ------------------------------------------
+
+PAIR_NAMES = ("flipped", "diag", "n_inliers", "a_lo", "a_hi", "b_lo", "b_hi")
+
+
+def _pair_kwargs(case="k16_fk", dev="cpu"):
+    wa, la, wb, lb, fk, k = pair_stats_case(case)
+    return {"wordsA": u32_tensor(wa, dev), "lenA": torch.from_numpy(la).to(dev),
+            "wordsB": u32_tensor(wb, dev), "lenB": torch.from_numpy(lb).to(dev),
+            "fk": u32_tensor(fk, dev), "k": k}
+
+
+# what K12's wrapper refuses, whatever the device
+PAIR_REFUSALS = {
+    "words int32": ({"wordsA": lambda a: a["wordsA"].to(torch.int32)}, TypeError, "dtype"),
+    "wordsB narrower": ({"wordsB": lambda a: a["wordsB"][:, :32].contiguous()}, ValueError,
+                        "shape"),
+    "lenB int64": ({"lenB": lambda a: a["lenB"].to(torch.int64)}, TypeError, "dtype"),
+    "lenA short": ({"lenA": lambda a: a["lenA"][:5]}, ValueError, "shape"),
+    "fk empty": ({"fk": lambda a: a["fk"][:0]}, ValueError, "at least one"),
+    "k 33": ({"k": 33}, ValueError, "k in 2..32"),
+    "host tensors": ({}, ValueError, "CUDA"),
+}
+
+
+def _pair_counts():
+    return VC.PAIR_STATS_LAUNCHES, MH.PLAIN_CUDA_PAIR_STATS
+
+
+@pytest.mark.parametrize("case", sorted(PAIR_REFUSALS))
+def test_pair_stats_wrapper_refuses_what_the_kernel_does_not_take(case):
+    change, exc, msg = PAIR_REFUSALS[case]
+    kw = _pair_kwargs()
+    kw.update({k: v(kw) if callable(v) else v for k, v in change.items()})
+    before = _pair_counts()
+    with pytest.raises(exc, match=msg):
+        VC.pair_stats(**kw)
+    assert _pair_counts() == before
+
+
+@pytest.mark.parametrize("W,k,C", [(64, 16, 64), (1024, 22, 256), (16384, 16, 256)])
+def test_pair_stats_scratch_holds_the_table_and_the_hits(W, k, C):
+    blocks, S, H = VC.pair_stats_scratch(W, k, C)
+    P = 16 * W - k + 1
+    assert S >= 4 * P and S & (S - 1) == 0 and H == P
+    assert 1 <= blocks <= C and (blocks == 1 or blocks * (12 * S + 8 * H) <= VC.PAIR_STATS_SCRATCH)
+
+
+def test_place_candidates_on_the_cpu_launches_no_kernel():
+    genome = random_genome(20_000, seed=3)
+    rs, _ = simulate_reads(genome, coverage=4, mean_len=1500, min_len=800, max_len=2500,
+                           error_rate=0.05, seed=4)
+    pairs = np.stack([np.arange(1, rs.n_reads), np.arange(2, rs.n_reads + 1)], axis=1)
+    before = _pair_counts()
+    MH.place_candidates(rs, pairs, k=16, chunk=16, device="cpu")
+    assert _pair_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PAIR_STATS_CASES)
+@pytest.mark.parametrize("budget", ["whole", "two blocks"])
+def test_pair_stats_kernel_matches_plain_on_card(cuda_device, case, budget, monkeypatch):
+    kw = _pair_kwargs(case, cuda_device)
+    if budget == "two blocks":  # each block strides over the chunk's pairs
+        _b, S, H = VC.pair_stats_scratch(kw["wordsA"].shape[1], kw["k"], 1)
+        monkeypatch.setattr(VC, "PAIR_STATS_SCRATCH", 2 * (12 * S + 8 * H))
+    ref = MH._pair_stats_kernel(*(kw[n] for n in ("wordsA", "lenA", "wordsB", "lenB", "fk")),
+                                kw["k"])
+    launches = VC.PAIR_STATS_LAUNCHES
+    got = VC.pair_stats(**kw)
+    torch.cuda.synchronize()
+    assert VC.PAIR_STATS_LAUNCHES == launches + 1
+    _equal(ref, got, PAIR_NAMES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 22])
+def test_place_candidates_on_card_equals_the_cpu(cuda_device, k):
+    genome = random_genome(60_000, seed=5, repeat_spec=[(300, 8)])
+    rs, _ = simulate_reads(genome, coverage=6, mean_len=3000, min_len=1500, max_len=6000,
+                           error_rate=0.08, seed=6)
+    rng = np.random.default_rng(k)
+    pairs = np.sort(rng.choice(np.arange(1, rs.n_reads + 1), (700, 2)), axis=1)
+    ref = MH.place_candidates(rs, pairs, k=k, device="cpu")
+    before = _pair_counts()
+    got = MH.place_candidates(rs, pairs, k=k, device=cuda_device)
+    assert _pair_counts() == (before[0] + -(-len(pairs) // 256), before[1])
+    assert len(got) > 0 and placed_digest(got) == placed_digest(ref)

@@ -711,6 +711,262 @@ def myers_edge_cases():
     return cases
 
 
+def myers_schedule_cases():
+    """Kernel K10's cases: {name: (centers int32[B, C], b uint8[B, LB],
+    a_len, b_len int32[B], n_rows, n_run)}: the band schedule of rows
+    0..n_rows and the shift bits of rows 1..n_run.
+
+    The centres are narrower than n_rows + 1 (the last one repeats) or
+    wider; the schedule rises steeply after n_run, which only the backward
+    envelope sees; b_len and a_len are 0 or negative; o0 sits at or past
+    the end of B (the Peq index clamped, its bits cleared); centres near
+    the int32 limits wrap as int32 arithmetic does; n_rows + 1 and n_run
+    are off the 32-row words; one case runs tens of thousands of rows."""
+    rng = np.random.default_rng(19)
+    i32 = np.iinfo(np.int32)
+    cases = {}
+
+    def reads(B, LB):
+        return rng.integers(0, 5, (B, LB)).astype(np.uint8)  # 4 (N) matches no char
+
+    def drift(B, C, p=0.7, start=0):
+        c = np.cumsum(rng.random((B, C)) < p, axis=1).astype(np.int64)
+        return np.asarray(c - c[:, :1] + start, np.int32)  # row 0 at start
+
+    # centres narrower than the rows (300 of 701), and wider (900)
+    B, n_rows = 40, 700
+    b = reads(B, n_rows + 128)
+    a_len = rng.integers(1, n_rows + 1, B).astype(np.int32)
+    b_len = rng.integers(1, n_rows + 129, B).astype(np.int32)
+    cases["narrow"] = (drift(B, 300), b, a_len, b_len, n_rows, 512)
+    cases["wide"] = (drift(B, 900, 0.9, 40), b, a_len, b_len, n_rows, 700)
+    # flat until row 600, then a rise of 2 a row: the backward envelope
+    # lifts the schedule before row n_run = 512 already
+    B, n_rows = 33, 1024
+    c = np.zeros((B, n_rows + 1), np.int64)
+    c[:, 600:] = 2 * np.arange(n_rows + 1 - 600)[None, :] + rng.integers(0, 64, (B, 1))
+    c[::3, 300:] += 300  # a step, then the rise
+    b = reads(B, 3000)
+    cases["rise_after_run"] = (np.asarray(c + 64, np.int32), b,
+                               rng.integers(500, 1025, B).astype(np.int32),
+                               rng.integers(1500, 3001, B).astype(np.int32), n_rows, 512)
+    # lengths 0 and negative, o0 at, beside and past the end of B (LB 100,
+    # b_len up to 300: the Peq index clamped and its bits cleared), b_len -
+    # o0 at 127 and 128 (the window's last column and past it)
+    B, n_rows = 64, 256
+    b = reads(B, 100)
+    a_len = rng.integers(0, 3, B).astype(np.int32)
+    b_len = np.concatenate([[0, 0, -1, -5, 1, 2, 100, 100, 99, 101, 227, 228, 300, 300],
+                            rng.integers(0, 301, B - 14)]).astype(np.int32)
+    c0 = np.concatenate([[0, 500, 0, 70, 64, 65, 163, 164, 100, 36, 163, 165, 214, 364],
+                         rng.integers(0, 400, B - 14)])
+    c = c0[:, None] + drift(B, n_rows + 1, 0.5)
+    cases["lengths_and_o0"] = (np.asarray(c, np.int32), b, a_len, b_len, n_rows, 256)
+    # centres near the int32 limits (centre - 64 wraps), n_rows + 1 and
+    # n_run off the 32-row words
+    B, n_rows = 36, 333
+    c = drift(B, n_rows + 1).astype(np.int64)
+    c[0] = i32.min + np.arange(n_rows + 1)
+    c[1] = i32.max - np.arange(n_rows + 1)
+    c[2, ::2] = i32.min + 5
+    c[3, :] = i32.max
+    c[4, 100:] = -1000
+    cases["int32_limits"] = (np.asarray(c, np.int32), reads(B, 500),
+                             rng.integers(0, 400, B).astype(np.int32),
+                             rng.integers(0, 500, B).astype(np.int32), n_rows, 77)
+    # centres that fall and stay low after a run of high ones: the running
+    # max carries the earlier rows' target into every later row
+    B, n_rows = 8, 900
+    c = np.full((B, n_rows + 1), 500, np.int64)
+    c[:, :200] = 3000 + drift(B, 200, 0.5)
+    c[4:, 130:] = 100  # the fall inside a 128-row step
+    cases["fall"] = (np.asarray(c, np.int32), reads(B, 4200), np.full(B, n_rows, np.int32),
+                     np.full(B, 4000, np.int32), n_rows, 896)
+    # one row (n_rows 1, n_run 0 and 1) and a single centre column
+    B = 5
+    cases["one_row"] = (rng.integers(0, 200, (B, 1)).astype(np.int32), reads(B, 160),
+                        np.array([0, 1, 1, 2, 0], np.int32), np.array([0, 1, 150, 40, 3], np.int32),
+                        1, 1)
+    # tens of thousands of rows: many 32-row steps in both passes
+    B, n_rows = 3, 40_000
+    cases["long"] = (drift(B, n_rows + 1, 0.8), reads(B, n_rows + 128),
+                     np.full(B, n_rows, np.int32), np.full(B, n_rows - 5000, np.int32),
+                     n_rows, 38_912)
+    return cases
+
+
+def myers_finish_cases(seed: int = 23):
+    """Kernel K11's cases: (planes int32[43, B], a_len, b_len int32[B]) of
+    final carries: random A-exhausted rows, fin_o beside b_len (columns cut
+    off, and every column off: all INF), rows of equal scores (the first
+    minimum), the best B-exhausted cost equal to the A end's (ties go to
+    the A end), INF costs, and partial endpoints past the reads."""
+    from canu_tpu_torch.ops import myers as MY
+
+    rng = np.random.default_rng(seed)
+    NW = MY.NW
+    B = 256
+
+    def u32(n):
+        return rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+
+    fvp = np.stack([u32(B) for _ in range(NW)])
+    fvn = np.stack([u32(B) & ~fvp[k] for k in range(NW)])  # Myers' VP and VN are disjoint
+    fvp[:, :16] = 0  # equal scores: every column fin_sf
+    fvn[:, :16] = 0
+    fvn[:, 16:32] = np.uint32(0xFFFFFFFF)  # falling scores, VP 0
+    fvp[:, 16:32] = 0
+    fin_sf = rng.integers(0, 5000, B).astype(np.int64)
+    fin_o = rng.integers(0, 3000, B).astype(np.int64)
+    b_len = fin_o + rng.integers(-40, 200, B)
+    edge = np.array([-1, 0, 1, 31, 32, 127, 128, -100])
+    b_len[:8] = fin_o[:8] + edge  # on equal scores
+    b_len[16:24] = fin_o[16:24] + edge  # on falling ones: the last column counted is the least
+    a_len = rng.integers(0, 4000, B)
+    # the best B-exhausted cost: random, INF, or the A end's minimum (a tie)
+    best = fin_sf + rng.integers(-100, 100, B)
+    best[32:64] = MY.INF
+    scores = fin_sf[:, None] + np.concatenate(
+        [np.zeros((B, 1), np.int64),
+         np.cumsum(np.stack([((fvp[k][:, None] >> np.arange(32, dtype=np.uint32)) & 1)
+                             .astype(np.int64) - ((fvn[k][:, None] >> np.arange(32, dtype=np.uint32))
+                                                  & 1).astype(np.int64)
+                             for k in range(NW)], axis=1).reshape(B, NW * 32), axis=1)[:, :-1]],
+        axis=1)
+    cols = fin_o[:, None] + np.arange(NW * 32)[None, :]
+    amin = np.where(cols <= b_len[:, None], scores, MY.INF).min(axis=1)
+    best[64:128] = amin[64:128]
+    planes = np.zeros((MY.NC, B), np.int64)
+    p = 0
+    planes[p:p + NW] = rng.integers(0, 1 << 32, (NW, B))  # VP, VN, Peq: not read
+    p += 2 * NW + 4 * NW
+    planes[p:p + 5] = np.stack([fin_sf + 7, fin_o + 3, best, rng.integers(0, 4000, B),
+                                rng.integers(0, 4000, B)])
+    p += 5
+    planes[p:p + NW], planes[p + NW:p + 2 * NW] = fvp, fvn
+    p += 2 * NW
+    p_a = a_len + rng.integers(-50, 50, B)
+    p_b = b_len + rng.integers(-50, 50, B)
+    planes[p:p + 6] = np.stack([fin_sf, fin_o, rng.integers(0, 9000, B),
+                                rng.integers(0, 900, B), p_a, p_b])
+    planes = (planes & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    return planes, a_len.astype(np.int32), b_len.astype(np.int32)
+
+
+PAIR_STATS_CASES = ("k16", "k16_fk", "k22", "k22_fk")
+
+
+def pair_stats_case(name: str, seed: int = 29):
+    """Kernel K12's chunk of C = 64 pairs for a case of PAIR_STATS_CASES:
+    (wordsA uint32[C, W], lenA int32[C], wordsB, lenB, fk uint32[F >= 1]
+    sorted, k), W 64 words (1,024 bases).
+
+    Pairs that overlap forward and reverse-complemented, a read against
+    itself, unrelated reads, reads of tandem repeats (one key at many
+    positions: A's last and B's first entry are the hit), a tied strand
+    vote (A = Y + rc(Z), B = Y + Z), empty reads, reads of k - 1, k and
+    k + 1 bases and lengths on word edges; two clusters of diagonals of
+    equal size far apart (the lower median differs from the upper), a
+    cluster exactly tol from the median, and A one base short of B, its
+    zero padding the base B has there (a window past A's end would hit);
+    random bases in the padding past the other reads (which no valid
+    window reads).  With _fk a frequent table of
+    some keys of the B reads (the repeats' among them) and keys >= 2^31;
+    without, the one-sentinel table place_candidates passes."""
+    from canu_tpu_torch.ops import kmer as KM
+    from canu_tpu_torch.utils.bitpack import pack_codes
+
+    k = 16 if name.startswith("k16") else 22
+    rng = np.random.default_rng(seed + k + len(name))
+    C, W = 64, 64
+    L = 16 * W
+    genome = rng.integers(0, 4, 6000).astype(np.uint8)
+
+    def mut(x, er=0.05):
+        return mutate(rng, x, er)[:L].astype(np.uint8)
+
+    def rc(x):
+        return (3 - x[::-1]).astype(np.uint8)
+
+    pairs = []
+    kinds = 11
+    for q in range(C):
+        kind = q % kinds
+        la = int(rng.integers(300, L + 1))
+        s0 = int(rng.integers(0, len(genome) - 2 * L))
+        A = genome[s0:s0 + la]
+        if kind == 0:  # forward overlap, B shifted
+            sh = int(rng.integers(0, la // 2))
+            B = mut(genome[s0 + sh:s0 + sh + int(rng.integers(200, L))])
+        elif kind == 1:  # reverse-complemented overlap
+            B = rc(mut(genome[s0 + 50:s0 + 50 + int(rng.integers(200, L - 50))]))
+        elif kind == 2:  # itself
+            B = A.copy()
+        elif kind == 3:  # unrelated
+            B = rng.integers(0, 4, int(rng.integers(0, L + 1))).astype(np.uint8)
+        elif kind == 4:  # tandem repeats: one key at many positions
+            unit = rng.integers(0, 4, int(rng.integers(20, 60))).astype(np.uint8)
+            A = np.tile(unit, L)[: int(rng.integers(k, L + 1))]
+            B = mut(np.tile(unit, L)[: int(rng.integers(k, L + 1))], 0.02)
+        elif kind == 5:  # a tied vote: Y agrees, Z is reversed
+            y = genome[s0:s0 + 200]
+            z = genome[s0 + 3000:s0 + 3200]
+            A = np.concatenate([y, rc(z), rng.integers(0, 4, 100).astype(np.uint8)])
+            B = np.concatenate([y, z])
+        elif kind == 6:  # short reads: empty, k - 1, k, k + 1, word edges
+            short = [0, k - 1, k, k + 1, 16, 32, 33, 47]
+            la, lb = short[(q // kinds) % 8], short[(q // kinds + 3) % 8]
+            A = genome[s0:s0 + la]
+            B = genome[s0:s0 + lb] if lb > 8 else genome[s0 + 1:s0 + 1 + lb]
+        elif kind == 7:  # overlapping at the far end: B's start against A's end
+            B = mut(np.concatenate([genome[s0 + la - 300:s0 + la],
+                                    rng.integers(0, 4, 400).astype(np.uint8)]))
+        elif kind == 8:  # diagonals 0 and 600, equal clusters
+            x, g, y = genome[s0:s0 + 200], genome[s0 + 2000:s0 + 2600], genome[s0 + 4000:s0 + 4200]
+            A, B = np.concatenate([x, g, y]), np.concatenate([x, y])
+        elif kind == 9:  # diagonals 0 (120 bases) and 100 = tol (100 bases)
+            x, g, y = genome[s0:s0 + 120], genome[s0 + 2000:s0 + 2100], genome[s0 + 4000:s0 + 4100]
+            A, B = np.concatenate([x, g, y]), np.concatenate([x, y])
+        else:  # A is B less its last base, an A (0) as the zero padding
+            B = np.concatenate([genome[s0:s0 + int(rng.integers(100, 500))], [0]]).astype(np.uint8)
+            A = B[:-1]
+        pairs.append((np.asarray(A[:L], np.uint8), np.asarray(B[:L], np.uint8)))
+
+    def block(reads):
+        words = np.zeros((C, W), np.uint32)
+        lens = np.zeros(C, np.int32)
+        for i, r in enumerate(reads):
+            pk = pack_codes(r)
+            words[i, : len(pk)] = pk
+            lens[i] = len(r)
+            if i % 3 == 0 and i % kinds != 10 and len(r) < L - 16:  # random bases past it
+                tail = pack_codes(rng.integers(0, 4, L - len(r)).astype(np.uint8))
+                base = len(r) // 16
+                keep = len(r) % 16
+                if keep:
+                    mask = np.uint32((1 << (2 * keep)) - 1)
+                    words[i, base] = (words[i, base] & mask) | (np.uint32(tail[0]) << np.uint32(2 * keep))
+                    base += 1
+                words[i, base:] = rng.integers(0, 1 << 32, W - base, dtype=np.uint64).astype(np.uint32)
+        return words, lens
+
+    wa, la_ = block([a for a, _ in pairs])
+    wb, lb_ = block([b for _, b in pairs])
+    fk = np.full(1, 0xFFFFFFFF, np.uint32)
+    if name.endswith("_fk"):
+        import torch
+
+        canon, _ = KM.extract_kmers_any(torch.from_numpy(wb.astype(np.int64)),
+                                        torch.from_numpy(lb_), k)
+        keys = np.unique(canon.numpy()[canon.numpy() != KM.INVALID_KMER])
+        pick = keys[rng.random(len(keys)) < 0.05]
+        rep = canon.numpy()[4::8]  # every key of the repeat pairs' B reads
+        rep = np.unique(rep[rep != KM.INVALID_KMER])
+        big = rng.integers(1 << 31, 1 << 32, 50, dtype=np.uint64)
+        fk = np.unique(np.concatenate([pick, rep[::2], big]).astype(np.uint32))
+    return wa, la_, wb, lb_, fk, k
+
+
 # an overlap store's columns, in store_digest's order
 STORE_COLS = ("a_id", "b_id", "flipped", "a_bgn", "a_end", "b_bgn", "b_end", "erate_q")
 
@@ -1810,6 +2066,19 @@ def longread_reads(sim):
     length, seed = LONGREAD_GENOME
     rs, _ = sim.simulate_reads(sim.random_genome(length, seed=seed), **LONGREAD_SIM)
     return rs
+
+
+PLACED_COLS = ("a_id", "b_id", "flipped", "diag", "n_shared", "a_lo", "a_hi", "b_lo", "b_hi")
+
+
+def placed_digest(placed) -> str:
+    """sha256 of placed candidates' nine columns (int64 little-endian, the
+    flags as 0/1), rows in their order: equal digests mean equal
+    place_candidates results, whichever package made them."""
+    h = hashlib.sha256()
+    for c in PLACED_COLS:
+        h.update(np.ascontiguousarray(np.asarray(getattr(placed, c)).astype("<i8")).tobytes())
+    return h.hexdigest()
 
 
 def readset_digest(rs) -> str:
