@@ -50,40 +50,65 @@
 // (the band schedule and its shift stream), :172 _myers_init (the row-0
 // state) and :403 _carry_pack, and computes exactly what the plain chain
 // canu_tpu_torch/ops/myers.py:_schedule -> _shift_bits and _myers_init ->
-// _carry_pack computes: per extension, over rows i = 0..n_rows (the
-// centres' last column repeated past their width),
+// _carry_pack computes: per extension, over rows i = 0..n_rows,
 //   t(i)  = cummax(clip(centre(i) - 64, 0, max(b_len, 0))),
 //   lo(i) = min_{j <= i}(t(j) - j) + i,  hi(i) = max_{j >= i}(t(j) - j) + i,
 //   o(i)  = min((lo(i) + hi(i)) >> 1, t(0) + i),
 // the shift bit of row i = o(i) - o(i-1) (0 or 1) for rows 1..n_run, and
-// the row-0 carry planes at o(0).  One warp an extension, 128 rows a step,
-// four consecutive rows a lane (the centres read coalesced and transposed
-// through shared memory): each lane scans its four rows, warp-shuffle
-// scans carry the running max and min across the lanes, and 8 lanes' 4-bit
-// nibbles make a 32-row shift word.  hi needs every later row, so there
-// are two passes: the forward pass keeps only each step's entering running
-// max and min in a device scratch the wrapper allocates (8 bytes a 128
-// rows, int2[B, ceil((n_rows + 1) / 128)]), and the backward pass reads the
-// centres again, recomputes t and lo from those and carries the suffix
-// max down.  Storing t (4 bytes a row) instead would read 12 bytes a row
-// in all against this design's 8.  The first design (a row a lane, 32
-// rows a step) spent its time in the warp scans' shuffles (1.05 ms on a
-// group of 16,384 x 8,193 rows on an H100, against 0.53 ms; PERF.md).  Row
-// counts run from 512 to millions (the judge's pieces), so nothing of an
-// extension's rows is held on chip.  What bounds K10: the bytes, the
-// centres read twice; no PyTorch op runs over [B, n_rows + 1].
+// the row-0 carry planes at o(0).  The centres come as rows (stride 1:
+// row i's centre is centers[min(i, C - 1)]) or, on the main path, on the
+// 16-row grid verify interpolates them on (stride 16: centers[min(i, C -
+// 1) >> 4]), 16x fewer bytes; they are never expanded.  A run of rows
+// sharing one centre (a unit: 16 rows, or 1) has one t, T, so inside it
+// t - i falls by one a row: the unit's min of t - i is T - its last row,
+// its max T - its first, and a row's o is d + i with d = min((min(M, T -
+// i) + max(H, T - i)) >> 1, t(0)), M the min of t - j before the unit and
+// H the max after the row's unit, so a row costs a handful of operations
+// and no scan.
+//
+// A lane owns a chunk of 32 rows, the rows of one shift word (word c:
+// rows 32c + 1 .. 32c + 32, from o at rows 32c .. 32c + 32); a warp takes
+// 32 chunks a step.  What a chunk needs of the rest of the extension is
+// three numbers: the running max R entering it, the min M of t - j before
+// it and the max H of t - j after it.  R is a prefix max of the chunks'
+// own maxima; once R is known, a chunk's min and max of t - j are known,
+// and M and H are a prefix min and a suffix max of those.  So K10 makes
+// three passes over the extension's centres, each followed by its scans:
+// (A) each chunk's max; the prefix max; (B) each chunk's min and max of t -
+// j under its R; the prefix min and the suffix max; (C) the chunk's rows,
+// its word.  Each pass combines lanes by warp shuffles, steps by one
+// warp's scan of the steps' values in shared memory, and blocks through
+// distributed shared memory: an extension is owned by one block or, where
+// the launch has fewer extensions than the card has SMs (the judge: 3
+// extensions x 3.4 M rows), by a thread-block cluster of up to 8 blocks,
+// each over a contiguous range of chunks, which publish their range's
+// three values and meet at cluster barriers.  Clusters, not a decoupled
+// look-back: the suffix max H needs the later blocks, which a look-back
+// cannot wait for without all blocks resident, and a cluster's blocks are
+// resident together; three barriers, no device scratch, one launch.  The
+// block's centres (its units and the next chunk's first) are staged once
+// in shared memory by cp.async, padded one word in 32 so that the lanes'
+// reads are free of bank conflicts, and the three passes read them there;
+// a range too long for shared memory is read from the device each pass.
+// What bounds K10 on the main path: the operations (about 7 a row and 8 a
+// 16-row unit) once the centres are read on their grid (0.25 bytes a row).
 //
 // K11 (canu_myers_epilogue) replaces :418 _carry_unpack and :336
 // _myers_finish: from K1's final planes, the A-exhausted row's 128 scores
 // (fin_sf plus the exclusive prefix of fVP - fVN, a column counting only
 // while fin_o + w <= b_len), its first minimum, the pick against the
 // B-exhausted cost (ties to the A end) and the partial endpoints clamped
-// to the reads; the six int32[B] results of the plain _myers_finish.  A
-// thread an extension; it reads 43 planes and writes 6 words.
+// to the reads; the six int32[B] results of the plain _myers_finish.  The
+// pick is one __device__ function, end_pick: on the main path K1 runs it
+// after its last row on the state it holds in registers and writes the six
+// words instead of the 43 planes (canu_myers_rows with pick_out), so the
+// extension is two launches, K10 and K1; canu_myers_epilogue is a thread an
+// extension over the same function, from planes.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC; bound through ctypes (plain C interface).
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -93,6 +118,7 @@ constexpr int NW = 4;        // uint32 words per 128-column band
 constexpr int BAND = 128;
 constexpr int WIN = 16;      // bytes per register window (one uint4)
 constexpr int BLOCK = 32;    // threads per block: 4,096 extensions fill 128 SMs
+constexpr int INF = 1 << 28;  // an unreachable cost
 
 // carry plane indices (canu_tpu's Pallas order), 43 planes of uint32[B]
 constexpr int P_VP = 0;
@@ -218,8 +244,49 @@ __device__ __forceinline__ void myers_row(Lane& L, int i, uint32_t ach, uint32_t
   }
 }
 
+// Kernel K11's end pick (ops.myers._myers_finish) of extension x from its
+// state at A exhaustion (fVP, fVN, fin_sf, fin_o), its best B-exhausted
+// capture and its partial capture: out int32[6, B] = edits, a_used,
+// b_used, p_edits, p_a, p_b.  The A-exhausted row's score at window column
+// w is fin_sf plus the exclusive prefix of fVP - fVN, INF where fin_o + w >
+// b_len; its first minimum is picked against the B-exhausted cost, ties to
+// the A end.  Inlined into K1 it takes K1 from 89 to 91 registers, the
+// same 3,072 registers a warp; every form that keeps it out of K1's
+// registers (a call, a loop indexing fVP) puts fVP and fVN on the stack
+// and made K1 8-9% slower on an H100 (ptxas -v and CUDA events, PERF.md).
+__device__ __forceinline__ void end_pick(const uint32_t (&fVP)[NW], const uint32_t (&fVN)[NW],
+                                         int fin_sf, int fin_o, int best_bx, int aend_bx,
+                                         int bend_bx, int p_ed, int p_a, int p_b, int alen,
+                                         int blen, int B, int x, int32_t* __restrict__ out) {
+  int acc = fin_sf, cost = 0, wbest = 0;
+  for (int w = 0; w < BAND; ++w) {
+    const int k = w >> 5, u = w & 31;
+    const uint32_t vp = k < 2 ? (k == 0 ? fVP[0] : fVP[1]) : (k == 2 ? fVP[2] : fVP[3]);
+    const uint32_t vn = k < 2 ? (k == 0 ? fVN[0] : fVN[1]) : (k == 2 ? fVN[2] : fVN[3]);
+    const int sc = fin_o + w <= blen ? acc : INF;
+    if (w == 0 || sc < cost) {
+      cost = sc;
+      wbest = w;
+    }
+    acc += static_cast<int>((vp >> u) & 1u) - static_cast<int>((vn >> u) & 1u);
+  }
+  const bool use_ax = cost <= best_bx;
+  out[x] = use_ax ? cost : best_bx;
+  out[B + x] = use_ax ? alen : aend_bx;
+  out[2 * B + x] = use_ax ? fin_o + wbest : bend_bx;
+  out[3 * B + x] = p_ed;
+  out[4 * B + x] = p_a < alen ? p_a : alen;
+  out[5 * B + x] = p_b < blen ? p_b : blen;
+}
+
+// PICK: after the last row, run the end pick on the state in registers and
+// write its six words to pick_out, not the 43 carry planes (the main path);
+// else write the planes to carry_out (a segment that more rows continue,
+// and the checks that hold K1 row by row).
+template <bool PICK>
 __global__ void __launch_bounds__(BLOCK) myers_rows_kernel(
     const uint32_t* __restrict__ carry0, uint32_t* __restrict__ carry_out,
+    int32_t* __restrict__ pick_out,
     const uint8_t* __restrict__ a, int a_stride, const uint32_t* __restrict__ s_bits,
     const uint8_t* __restrict__ b, int b_stride, int LB, const int32_t* __restrict__ a_len,
     const int32_t* __restrict__ b_len, int B, int n_run, int cap_q) {
@@ -319,50 +386,58 @@ __global__ void __launch_bounds__(BLOCK) myers_rows_kernel(
     }
   }
 
+  if constexpr (PICK) {
+    end_pick(fVP, fVN, fin_sf, fin_o, L.best_bx, L.aend_bx, L.bend_bx, L.p_ed, L.p_a, L.p_b,
+             alen, blen, B, x, pick_out);
+  } else {
 #pragma unroll
-  for (int k = 0; k < NW; ++k) {
-    carry_out[(size_t)(P_VP + k) * B + x] = L.VP[k];
-    carry_out[(size_t)(P_VN + k) * B + x] = L.VN[k];
-    carry_out[(size_t)(P_FVP + k) * B + x] = fVP[k];
-    carry_out[(size_t)(P_FVN + k) * B + x] = fVN[k];
+    for (int k = 0; k < NW; ++k) {
+      carry_out[(size_t)(P_VP + k) * B + x] = L.VP[k];
+      carry_out[(size_t)(P_VN + k) * B + x] = L.VN[k];
+      carry_out[(size_t)(P_FVP + k) * B + x] = fVP[k];
+      carry_out[(size_t)(P_FVN + k) * B + x] = fVN[k];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) carry_out[(size_t)(P_PEQ + NW * c + k) * B + x] = L.Peq[c][k];
+      for (int c = 0; c < 4; ++c) carry_out[(size_t)(P_PEQ + NW * c + k) * B + x] = L.Peq[c][k];
+    }
+    carry_out[(size_t)P_SF * B + x] = static_cast<uint32_t>(L.sf);
+    carry_out[(size_t)P_O * B + x] = static_cast<uint32_t>(L.o);
+    carry_out[(size_t)P_BEST * B + x] = static_cast<uint32_t>(L.best_bx);
+    carry_out[(size_t)P_AEND * B + x] = static_cast<uint32_t>(L.aend_bx);
+    carry_out[(size_t)P_BEND * B + x] = static_cast<uint32_t>(L.bend_bx);
+    carry_out[(size_t)P_FSF * B + x] = static_cast<uint32_t>(fin_sf);
+    carry_out[(size_t)P_FO * B + x] = static_cast<uint32_t>(fin_o);
+    carry_out[(size_t)P_PEXT * B + x] = static_cast<uint32_t>(L.p_ext);
+    carry_out[(size_t)P_PED * B + x] = static_cast<uint32_t>(L.p_ed);
+    carry_out[(size_t)P_PA * B + x] = static_cast<uint32_t>(L.p_a);
+    carry_out[(size_t)P_PB * B + x] = static_cast<uint32_t>(L.p_b);
   }
-  carry_out[(size_t)P_SF * B + x] = static_cast<uint32_t>(L.sf);
-  carry_out[(size_t)P_O * B + x] = static_cast<uint32_t>(L.o);
-  carry_out[(size_t)P_BEST * B + x] = static_cast<uint32_t>(L.best_bx);
-  carry_out[(size_t)P_AEND * B + x] = static_cast<uint32_t>(L.aend_bx);
-  carry_out[(size_t)P_BEND * B + x] = static_cast<uint32_t>(L.bend_bx);
-  carry_out[(size_t)P_FSF * B + x] = static_cast<uint32_t>(fin_sf);
-  carry_out[(size_t)P_FO * B + x] = static_cast<uint32_t>(fin_o);
-  carry_out[(size_t)P_PEXT * B + x] = static_cast<uint32_t>(L.p_ext);
-  carry_out[(size_t)P_PED * B + x] = static_cast<uint32_t>(L.p_ed);
-  carry_out[(size_t)P_PA * B + x] = static_cast<uint32_t>(L.p_a);
-  carry_out[(size_t)P_PB * B + x] = static_cast<uint32_t>(L.p_b);
 }
 
 }  // namespace
 
-// carry0/carry_out: uint32[43, B]; a: uint8[B, a_stride] (row i reads
-// a[x, i-1], a_stride >= n_run); s_bits: uint32[ceil(n_run/32), B], bit
-// (i-1) % 32 of word (i-1) / 32 = the shift of row i; b: uint8[B,
-// b_stride], LB <= b_stride its logical width; a_len, b_len: int32[B].
-// a_stride and b_stride are multiples of 16 and a, b 16-byte aligned.
-// Launches on `stream`; returns cudaGetLastError() of the launch, or -1
-// for arguments it does not take.
-extern "C" int canu_myers_rows(const void* carry0, void* carry_out, const void* a,
-                               int a_stride, const void* s_bits, const void* b, int b_stride,
-                               int LB, const void* a_len, const void* b_len, int B, int n_run,
-                               int cap_q, void* stream) {
+// carry0: uint32[43, B]; exactly one of carry_out (uint32[43, B], the
+// final carry) and pick_out (int32[6, B], the end pick of the final carry);
+// a: uint8[B, a_stride] (row i reads a[x, i-1], a_stride >= n_run);
+// s_bits: uint32[ceil(n_run/32), B], bit (i-1) % 32 of word (i-1) / 32 =
+// the shift of row i; b: uint8[B, b_stride], LB <= b_stride its logical
+// width; a_len, b_len: int32[B].  a_stride and b_stride are multiples of
+// 16 and a, b 16-byte aligned.  Launches on `stream`; returns
+// cudaGetLastError() of the launch, or -1 for arguments it does not take.
+extern "C" int canu_myers_rows(const void* carry0, void* carry_out, void* pick_out,
+                               const void* a, int a_stride, const void* s_bits, const void* b,
+                               int b_stride, int LB, const void* a_len, const void* b_len, int B,
+                               int n_run, int cap_q, void* stream) {
   if (B <= 0) return 0;
-  if (a_stride % WIN || b_stride % WIN || a_stride < n_run || LB < 1 || LB > b_stride)
+  if (a_stride % WIN || b_stride % WIN || a_stride < n_run || LB < 1 || LB > b_stride ||
+      (carry_out == nullptr) == (pick_out == nullptr))
     return -1;
   const int blocks = (B + BLOCK - 1) / BLOCK;
-  myers_rows_kernel<<<blocks, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = pick_out ? myers_rows_kernel<true> : myers_rows_kernel<false>;
+  kernel<<<blocks, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(carry0), static_cast<uint32_t*>(carry_out),
-      static_cast<const uint8_t*>(a), a_stride, static_cast<const uint32_t*>(s_bits),
-      static_cast<const uint8_t*>(b), b_stride, LB, static_cast<const int32_t*>(a_len),
-      static_cast<const int32_t*>(b_len), B, n_run, cap_q);
+      static_cast<int32_t*>(pick_out), static_cast<const uint8_t*>(a), a_stride,
+      static_cast<const uint32_t*>(s_bits), static_cast<const uint8_t*>(b), b_stride, LB,
+      static_cast<const int32_t*>(a_len), static_cast<const int32_t*>(b_len), B, n_run, cap_q);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -370,12 +445,17 @@ extern "C" int canu_myers_rows(const void* carry0, void* carry_out, const void* 
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr unsigned FULL = 0xFFFFFFFFu;
-constexpr int INF = 1 << 28;
-constexpr int PRO_WARPS = 8;      // extensions (warps) a block of K10
-constexpr int EPI_BLOCK = 128;    // threads a block of K11
-constexpr int PRO_ROWS = 4;       // consecutive rows a lane of K10 holds
-constexpr int PRO_STEP = 32 * PRO_ROWS;  // rows a warp of K10 takes a step
+constexpr int IMAX = 0x7FFFFFFF;
+constexpr int IMIN = -0x7FFFFFFF - 1;
+constexpr int PRO_WARPS = 8;                    // warps a block of K10
+constexpr int PRO_THREADS = 32 * PRO_WARPS;
+constexpr int PRO_MAX_BLOCKS = 8;               // blocks an extension: a portable cluster
+constexpr int PRO_TILE_MAX = 40 * 1024;         // staged centres a block at most (160 KB)
+constexpr int PRO_SMEM_MAX = 227 * 1024;        // dynamic shared bytes a block may have
+constexpr int EPI_BLOCK = 128;                  // threads a block of K11
 
 // int32 arithmetic that wraps, as torch's int32 tensors do
 __device__ __forceinline__ int wsub(int a, int b) {
@@ -422,180 +502,329 @@ __device__ __forceinline__ int target(int centre, int bcl) {
   return t < bcl ? t : bcl;
 }
 
-// Step s of a warp holds rows s * PRO_STEP .. + PRO_STEP - 1, lane l rows
-// s * PRO_STEP + PRO_ROWS l + q (q < PRO_ROWS): a lane scans its own rows,
-// the warp scans the lanes' results, so a step pays three 5-shuffle warp
-// scans for 128 rows.  The centres arrive coalesced (row r + 32 j at lane
-// r of load j) and are transposed through the warp's tile in shared memory.
-struct ProStep {
-  int c[PRO_ROWS];
+// the staged centre of unit e of a block's range: one padding word in 32,
+// so that lanes reading units 32 apart (stride 1) or 2 apart (stride 16)
+// meet no bank conflict
+__host__ __device__ __forceinline__ int tile_at(int e) { return e + (e >> 5); }
+
+__device__ __forceinline__ void cp_async4(int* dst, const int32_t* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// One warp's in-place exclusive scans of a block's per-step values a[0..n)
+// in shared memory: a[k] <- the max (min) of init and a[0..k-1], or the max
+// of init and a[k+1..n-1]
+__device__ void steps_excl_max(int* a, int n, int init, int lane) {
+  int carry = init;
+  for (int base = 0; base < n; base += 32) {
+    const int i = base + lane;
+    const int x = i < n ? a[i] : IMIN;
+    const int e = warp_excl_max(x, lane, IMIN);
+    if (i < n) a[i] = carry > e ? carry : e;
+    const int r = __reduce_max_sync(FULL, x);
+    carry = carry > r ? carry : r;
+  }
+}
+
+__device__ void steps_excl_min(int* a, int n, int init, int lane) {
+  int carry = init;
+  for (int base = 0; base < n; base += 32) {
+    const int i = base + lane;
+    const int x = i < n ? a[i] : IMAX;
+    const int e = warp_excl_min(x, lane, IMAX);
+    if (i < n) a[i] = carry < e ? carry : e;
+    const int r = __reduce_min_sync(FULL, x);
+    carry = carry < r ? carry : r;
+  }
+}
+
+__device__ void steps_excl_suffix_max(int* a, int n, int init, int lane) {
+  int carry = init;
+  for (int base = ((n - 1) >> 5) << 5; base >= 0; base -= 32) {
+    const int i = base + lane;
+    const int x = i < n ? a[i] : IMIN;
+    const int e = warp_excl_suffix_max(x, lane, IMIN);
+    if (i < n) a[i] = carry > e ? carry : e;
+    const int r = __reduce_max_sync(FULL, x);
+    carry = carry > r ? carry : r;
+  }
+}
+
+// the max (min) of a[0..n) by one warp, id for n == 0
+__device__ int steps_max(const int* a, int n, int lane) {
+  int r = IMIN;
+  for (int i = lane; i < n; i += 32) r = a[i] > r ? a[i] : r;
+  return __reduce_max_sync(FULL, r);
+}
+
+__device__ int steps_min(const int* a, int n, int lane) {
+  int r = IMAX;
+  for (int i = lane; i < n; i += 32) r = a[i] < r ? a[i] : r;
+  return __reduce_min_sync(FULL, r);
+}
+
+// A lane's chunk c: rows 32c .. 32c + 31 in CU = 32 >> L units of S = 1 <<
+// L rows (unit u: rows S u .. S u + S - 1, centre index min(u, uLast)),
+// and v[CU], the first unit of the next chunk; v the clipped targets.
+template <int L>
+struct Chunk {
+  static constexpr int S = 1 << L, CU = 32 >> L;
+  int v[CU + 1];
+  int c;
+  bool on;  // the chunk is one of the block's
+
+  __device__ __forceinline__ void load(int c_, bool on_, const int* tile, int U0,
+                                       const int32_t* crow, int uLast, bool staged, int bcl) {
+    c = c_;
+    on = on_;
+#pragma unroll
+    for (int k = 0; k <= CU; ++k) {
+      const int u = c * CU + k;
+      int raw = 0;
+      if (on) raw = staged ? tile[tile_at(u - U0)] : __ldg(crow + (u < uLast ? u : uLast));
+      v[k] = target(raw, bcl);
+    }
+  }
+
+  // pass A: the chunk's max of the clipped targets (t >= 0: 0 is the empty max)
+  __device__ __forceinline__ int max_target(int N) const {
+    int lt = 0;
+#pragma unroll
+    for (int k = 0; k < CU; ++k)
+      if (on && (c << 5) + k * S <= N) lt = v[k] > lt ? v[k] : lt;
+    return lt;
+  }
+
+  // T[k], t of unit k under the entering running max R (k = CU: the next
+  // chunk's first row), and the chunk's min m and max H of t - i
+  __device__ __forceinline__ void envelope(int R, int N, int* T, int& m, int& H) const {
+    int run = R;
+#pragma unroll
+    for (int k = 0; k <= CU; ++k) {
+      run = v[k] > run ? v[k] : run;
+      T[k] = run;
+    }
+    m = IMAX;
+    H = IMIN;
+#pragma unroll
+    for (int k = 0; k < CU; ++k) {
+      const int r0 = (c << 5) + k * S;
+      if (on && r0 <= N) {
+        const int rl = r0 + S - 1 < N ? r0 + S - 1 : N;
+        m = T[k] - rl < m ? T[k] - rl : m;
+        H = T[k] - r0 > H ? T[k] - r0 : H;
+      }
+    }
+  }
+
+  // pass C: the shift word of rows 32c + 1 .. 32c + 32 from o at rows 32c ..
+  // 32c + 32, given the min M of t - j before the chunk and the max Hs of t
+  // - j after it; bits past n_run 0.  d0 gets d at row 32c (o = d + i).
+  __device__ __forceinline__ uint32_t word(const int* T, int N, int n_run, int M, int Hs, int t0,
+                                           int& d0) const {
+    int sfu[CU];  // max of t - j over the rows after unit k
+    sfu[CU - 1] = Hs;
+#pragma unroll
+    for (int k = CU - 2; k >= 0; --k) {
+      const int r0n = (c << 5) + (k + 1) * S;
+      sfu[k] = r0n <= N && T[k + 1] - r0n > sfu[k + 1] ? T[k + 1] - r0n : sfu[k + 1];
+    }
+    uint32_t w = 0u;
+    int mb = M, dprev = 0;
+#pragma unroll
+    for (int k = 0; k <= CU; ++k) {
+      const int r0 = (c << 5) + k * S;
+      const int hk = k < CU ? sfu[k] : Hs;
+#pragma unroll
+      for (int r = 0; r < (k < CU ? S : 1); ++r) {
+        const int q = k * S + r;  // row 32c + q
+        const int x = T[k] - (r0 + r);
+        const int a = (mb < x ? mb : x) + (hk > x ? hk : x);
+        const int d = (a >> 1) < t0 ? (a >> 1) : t0;
+        if (q == 0)
+          d0 = d;
+        else
+          w |= static_cast<uint32_t>(d != dprev - 1) << (q - 1);  // o(i) != o(i - 1)
+        dprev = d;
+      }
+      if (k < CU && r0 <= N) {
+        const int rl = r0 + S - 1 < N ? r0 + S - 1 : N;
+        mb = T[k] - rl < mb ? T[k] - rl : mb;
+      }
+    }
+    const int lim = n_run - (c << 5);  // rows 32c + 1 .. n_run have bits
+    return lim >= 32 ? w : (lim > 0 ? w & ((1u << lim) - 1u) : 0u);
+  }
 };
 
-__device__ __forceinline__ ProStep load_step(const int32_t* __restrict__ crow, int C, int s,
-                                             int lane) {
-  ProStep v;
-#pragma unroll
-  for (int j = 0; j < PRO_ROWS; ++j) {
-    const int r = s * PRO_STEP + 32 * j + lane;
-    v.c[j] = __ldg(crow + (r < C ? r : C - 1));
-  }
-  return v;
-}
-
-// the lane's PRO_ROWS consecutive centres of a loaded step
-__device__ __forceinline__ void lane_rows(const ProStep& v, int* tile, int lane, int* c) {
-  __syncwarp();  // the previous step's readers
-#pragma unroll
-  for (int j = 0; j < PRO_ROWS; ++j) tile[32 * j + lane] = v.c[j];
-  __syncwarp();
-#pragma unroll
-  for (int q = 0; q < PRO_ROWS; ++q) c[q] = tile[PRO_ROWS * lane + q];
-}
-
-// t and the running min of t - i of the lane's rows i0 + q, from the
-// step's entering running max tin and min min_in; returns in out the
-// step's leaving pair
-__device__ __forceinline__ void forward_rows(const int* c, int bcl, int i0, int lane, int tin,
-                                             int min_in, int* t, int* m, int2& out) {
-#pragma unroll
-  for (int q = 0; q < PRO_ROWS; ++q) {
-    t[q] = target(c[q], bcl);
-    if (q) t[q] = t[q] > t[q - 1] ? t[q] : t[q - 1];
-  }
-  int before = warp_excl_max(t[PRO_ROWS - 1], lane, tin);
-  before = before > tin ? before : tin;
-#pragma unroll
-  for (int q = 0; q < PRO_ROWS; ++q) {
-    t[q] = t[q] > before ? t[q] : before;
-    m[q] = t[q] - (i0 + q);
-    if (q) m[q] = m[q] < m[q - 1] ? m[q] : m[q - 1];
-  }
-  int mb = warp_excl_min(m[PRO_ROWS - 1], lane, min_in);
-  mb = mb < min_in ? mb : min_in;
-#pragma unroll
-  for (int q = 0; q < PRO_ROWS; ++q) m[q] = m[q] < mb ? m[q] : mb;
-  out = make_int2(__shfl_sync(FULL, t[PRO_ROWS - 1], 31), __shfl_sync(FULL, m[PRO_ROWS - 1], 31));
-}
-
-__global__ void __launch_bounds__(PRO_WARPS * 32) myers_prologue_kernel(
-    const int32_t* __restrict__ centers, long long c_stride, int C,
+// One extension a block, or a cluster of nb blocks (nb <= PRO_MAX_BLOCKS),
+// block r of it over chunks [r q, (r + 1) q) of the extension's NCH =
+// n_rows / 32 + 1; a warp takes 32 of its chunks a step.  Dynamic shared
+// memory: the staged centres (tile_n words, 0 for none), then three words
+// a step.
+template <int L>
+__global__ void __launch_bounds__(PRO_THREADS) myers_prologue_kernel(
+    const int32_t* __restrict__ centers, long long c_stride, int uLast,
     const uint8_t* __restrict__ b, long long b_stride, int LB, const int32_t* __restrict__ a_len,
-    const int32_t* __restrict__ b_len, int B, int n_rows, int n_run,
-    uint32_t* __restrict__ s_bits, uint32_t* __restrict__ planes, int2* __restrict__ scratch) {
-  __shared__ int s_tile[PRO_WARPS][PRO_STEP];
-  const int lane = threadIdx.x & 31;
-  const int x = blockIdx.x * PRO_WARPS + (threadIdx.x >> 5);
-  if (x >= B) return;  // a whole warp leaves together
-  int* tile = s_tile[threadIdx.x >> 5];
+    const int32_t* __restrict__ b_len, int B, int n_rows, int n_run, int nb, int tile_n,
+    uint32_t* __restrict__ s_bits, uint32_t* __restrict__ planes) {
+  constexpr int CU = Chunk<L>::CU;
+  extern __shared__ __align__(16) int pro_smem[];
+  __shared__ int s_pub[3];  // the block's max target, min and max of t - j
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int x = blockIdx.x / nb, rank = blockIdx.x - x * nb;
+  const int N = n_rows;
+  const int NCH = (N >> 5) + 1;
+  const int q = (NCH + nb - 1) / nb;
+  const int c0 = rank * q, c1 = c0 + q < NCH ? c0 + q : NCH;
+  const int nst = c1 > c0 ? (c1 - c0 + 31) >> 5 : 0;  // steps of the block
+  const int nstq = (q + 31) >> 5;
+  int* tile = pro_smem;
+  int* s_r = pro_smem + tile_n;  // pass A's maxima, then the entering R
+  int* s_m = s_r + nstq;         // pass B's minima, then the entering M
+  int* s_h = s_m + nstq;         // pass B's maxima, then the max after the step
 
   const int32_t* crow = centers + static_cast<long long>(x) * c_stride;
   const int blen = b_len[x];
   const int bcl = blen > 0 ? blen : 0;
-  const int nst = (n_rows + 1 + PRO_STEP - 1) / PRO_STEP;  // steps over rows 0..n_rows
-  const int nw = (n_run + 31) >> 5;                         // shift words
-  int2* carry = scratch + static_cast<long long>(x) * nst;
   const int t0 = target(__ldg(crow), bcl);
-  int c[PRO_ROWS], t[PRO_ROWS], m[PRO_ROWS];
-
-  // forward: each step's entering running max of t and min of t - i (t >= 0,
-  // so 0 is the empty max)
-  int2 run = make_int2(0, 0x7FFFFFFF);
-  ProStep nxt = load_step(crow, C, 0, lane);
-  for (int s = 0; s < nst; ++s) {
-    const ProStep cur = nxt;
-    if (s + 1 < nst) nxt = load_step(crow, C, s + 1, lane);  // one step ahead
-    if (lane == 0) carry[s] = run;
-    lane_rows(cur, tile, lane, c);
-    forward_rows(c, bcl, s * PRO_STEP + PRO_ROWS * lane, lane, run.x, run.y, t, m, run);
-  }
-  __syncwarp();  // lane 0's carries, read back by every lane
-
-  // backward: the suffix max of t - i from the last row down, o and the
-  // shift words (word w = rows 32 w + 1 .. 32 w + 32: bit r the shift of row
-  // 32 w + r + 1, o(i + 1) - o(i); the o of the row after a lane's last from
-  // the next lane, or for lane 31 the first row of step s + 1)
-  int mcarry = -0x7FFFFFFF - 1;
-  int o_next = 0;
-  nxt = load_step(crow, C, nst - 1, lane);
-  for (int s = nst - 1; s >= 0; --s) {
-    const ProStep cur = nxt;
-    if (s > 0) nxt = load_step(crow, C, s - 1, lane);
-    const int i0 = s * PRO_STEP + PRO_ROWS * lane;
-    int2 leave;
-    lane_rows(cur, tile, lane, c);
-    forward_rows(c, bcl, i0, lane, carry[s].x, carry[s].y, t, m, leave);
-    int hm[PRO_ROWS];
-#pragma unroll
-    for (int q = PRO_ROWS - 1; q >= 0; --q) {
-      hm[q] = i0 + q <= n_rows ? t[q] - (i0 + q) : -0x7FFFFFFF - 1;
-      if (q + 1 < PRO_ROWS) hm[q] = hm[q] > hm[q + 1] ? hm[q] : hm[q + 1];
+  const int U0 = c0 * CU;
+  const bool staged = tile_n > 0;
+  if (staged && nst) {
+    const int nU = (c1 - c0) * CU + 1;  // and the next chunk's first unit
+    for (int e = tid; e < nU; e += PRO_THREADS) {
+      const int u = U0 + e;
+      cp_async4(tile + tile_at(e), crow + (u < uLast ? u : uLast));
     }
-    int after = warp_excl_suffix_max(hm[0], lane, mcarry);
-    after = after > mcarry ? after : mcarry;
-    int o[PRO_ROWS];
-#pragma unroll
-    for (int q = 0; q < PRO_ROWS; ++q) {
-      const int i = i0 + q;
-      hm[q] = hm[q] > after ? hm[q] : after;
-      const int lo = m[q] + i, hi = hm[q] + i;
-      o[q] = (lo + hi) >> 1;
-      o[q] = o[q] < t0 + i ? o[q] : t0 + i;
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // pass A: each step's max target
+  Chunk<L> ch;
+  for (int k = warp; k < nst; k += PRO_WARPS) {
+    const int c = c0 + 32 * k + lane;
+    ch.load(c, c < c1, tile, U0, crow, uLast, staged, bcl);
+    const int r = __reduce_max_sync(FULL, ch.max_target(N));
+    if (lane == 0) s_r[k] = r;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int r = steps_max(s_r, nst, lane);
+    if (lane == 0) s_pub[0] = r > 0 ? r : 0;
+  }
+  cg::cluster_group cl = cg::this_cluster();
+  if (nb > 1)
+    cl.sync();
+  else
+    __syncthreads();
+  if (warp == 0) {
+    int rin = 0;  // the running max entering the block: the earlier blocks' maxima
+    if (nb > 1) {
+      const int v = lane < rank ? *cl.map_shared_rank(&s_pub[0], lane) : 0;
+      rin = __reduce_max_sync(FULL, v);
     }
-    int on = __shfl_down_sync(FULL, o[0], 1);
-    if (lane == 31) on = o_next;
-    uint32_t nib = 0u;
-#pragma unroll
-    for (int q = 0; q < PRO_ROWS; ++q) {
-      const int o1 = q + 1 < PRO_ROWS ? o[q + 1] : on;
-      nib |= static_cast<uint32_t>(i0 + q + 1 <= n_run && o1 != o[q]) << q;
+    steps_excl_max(s_r, nst, rin, lane);
+  }
+  __syncthreads();
+
+  // pass B: each step's min and max of t - i under its R
+  int T[CU + 1], m, H;
+  for (int k = warp; k < nst; k += PRO_WARPS) {
+    const int c = c0 + 32 * k + lane;
+    ch.load(c, c < c1, tile, U0, crow, uLast, staged, bcl);
+    const int e = warp_excl_max(ch.max_target(N), lane, 0);
+    ch.envelope(s_r[k] > e ? s_r[k] : e, N, T, m, H);
+    m = __reduce_min_sync(FULL, m);
+    H = __reduce_max_sync(FULL, H);
+    if (lane == 0) {
+      s_m[k] = m;
+      s_h[k] = H;
     }
-    // 8 lanes a 32-row word: lane 8 w + v holds bits 4 v .. 4 v + 3 of word w
-    uint32_t word = nib << (PRO_ROWS * (lane & 7));
-    word |= __shfl_xor_sync(FULL, word, 1);
-    word |= __shfl_xor_sync(FULL, word, 2);
-    word |= __shfl_xor_sync(FULL, word, 4);
-    const int wi = s * (PRO_STEP / 32) + (lane >> 3);
-    if ((lane & 7) == 0 && wi < nw) s_bits[static_cast<long long>(wi) * B + x] = word;
-    mcarry = __shfl_sync(FULL, hm[0], 0);
-    o_next = __shfl_sync(FULL, o[0], 0);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int r = steps_min(s_m, nst, lane);
+    if (lane == 0) s_pub[1] = r;
+  } else if (warp == 1) {
+    const int r = steps_max(s_h, nst, lane);
+    if (lane == 0) s_pub[2] = r;
+  }
+  if (nb > 1)
+    cl.sync();
+  else
+    __syncthreads();
+  if (warp == 0) {
+    int min_in = IMAX;  // the earlier blocks' min of t - j
+    if (nb > 1) min_in = __reduce_min_sync(
+        FULL, lane < rank ? *cl.map_shared_rank(&s_pub[1], lane) : IMAX);
+    steps_excl_min(s_m, nst, min_in, lane);
+  } else if (warp == 1) {
+    int max_after = IMIN;  // the later blocks' max of t - j
+    if (nb > 1) max_after = __reduce_max_sync(
+        FULL, lane > rank && lane < nb ? *cl.map_shared_rank(&s_pub[2], lane) : IMIN);
+    steps_excl_suffix_max(s_h, nst, max_after, lane);
+  }
+  __syncthreads();
+
+  // pass C: each chunk's shift word; o(0) for the row-0 planes
+  const int nw = (n_run + 31) >> 5;
+  int o0 = 0;
+  for (int k = warp; k < nst; k += PRO_WARPS) {
+    const int c = c0 + 32 * k + lane;
+    ch.load(c, c < c1, tile, U0, crow, uLast, staged, bcl);
+    const int e = warp_excl_max(ch.max_target(N), lane, 0);
+    ch.envelope(s_r[k] > e ? s_r[k] : e, N, T, m, H);
+    const int me = warp_excl_min(m, lane, IMAX), he = warp_excl_suffix_max(H, lane, IMIN);
+    int d0 = 0;
+    const uint32_t w = ch.word(T, N, n_run, s_m[k] < me ? s_m[k] : me,
+                               s_h[k] > he ? s_h[k] : he, t0, d0);
+    if (ch.on && c < nw) s_bits[static_cast<long long>(c) * B + x] = w;
+    if (k == 0) o0 = __shfl_sync(FULL, d0, 0);  // chunk c0's row: row 0 in block 0
   }
 
-  // the row-0 carry at o0 = o(0): Peq bit u of word k for char c is b[o0 +
-  // 32 k + u] == c with o0 + 32 k + u < LB (the index clamped into b)
-  const int o0 = o_next;
-  uint32_t peq[4][NW];
+  // the row-0 carry at o0 = o(0), by block 0's warp 0: Peq bit u of word k
+  // for char c is b[o0 + 32 k + u] == c with o0 + 32 k + u < LB (the index
+  // clamped into b)
+  if (rank == 0 && warp == 0) {
+    uint32_t peq[4][NW];
 #pragma unroll
-  for (int k = 0; k < NW; ++k) {
-    const long long pos = static_cast<long long>(o0) + 32 * k + lane;
-    const long long idx = pos < 0 ? 0 : (pos > LB - 1 ? LB - 1 : pos);
-    const uint32_t ch = b[static_cast<long long>(x) * b_stride + idx];
-    const bool inb = pos < LB;
+    for (int k = 0; k < NW; ++k) {
+      const long long pos = static_cast<long long>(o0) + 32 * k + lane;
+      const long long idx = pos < 0 ? 0 : (pos > LB - 1 ? LB - 1 : pos);
+      const uint32_t chr = b[static_cast<long long>(x) * b_stride + idx];
+      const bool inb = pos < LB;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) peq[c][k] = __ballot_sync(FULL, inb && ch == static_cast<uint32_t>(c));
+      for (int c = 0; c < 4; ++c)
+        peq[c][k] = __ballot_sync(FULL, inb && chr == static_cast<uint32_t>(c));
+    }
+    const int wb0 = blen - o0;
+    const bool in0 = wb0 >= 0 && wb0 < BAND;
+    const bool fin0 = a_len[x] == 0;
+    // planes 0..31 by lane, 32..42 by lanes 0..10; the Peq planes are
+    // warp-uniform ballots, written by lane 0
+    for (int p = lane; p < P_PB + 1; p += 32) {
+      uint32_t v = 0u;
+      if (p < P_VN) v = FULL;                         // VP: D(0, j) = j
+      else if (p >= P_PEQ && p < P_SF) continue;      // Peq below
+      else if (p == P_SF || p == P_O) v = static_cast<uint32_t>(o0);
+      else if (p == P_BEST) v = static_cast<uint32_t>(in0 ? blen : INF);  // sf + wb0 = b_len
+      else if (p == P_BEND) v = static_cast<uint32_t>(in0 ? blen : 0);
+      else if (p >= P_FVP && p < P_FVN) v = fin0 ? FULL : 0u;
+      else if (p == P_FSF || p == P_FO) v = fin0 ? static_cast<uint32_t>(o0) : 0u;
+      planes[static_cast<long long>(p) * B + x] = v;
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int k = 0; k < NW; ++k)
+          planes[static_cast<long long>(P_PEQ + NW * c + k) * B + x] = peq[c][k];
+    }
   }
-  const int wb0 = blen - o0;
-  const bool in0 = wb0 >= 0 && wb0 < BAND;
-  const bool fin0 = a_len[x] == 0;
-  // planes 0..31 by lane, 32..42 by lanes 0..10; the Peq planes are
-  // warp-uniform ballots, written by lane 0
-  for (int p = lane; p < P_PB + 1; p += 32) {
-    uint32_t v = 0u;
-    if (p < P_VN) v = FULL;                         // VP: D(0, j) = j
-    else if (p >= P_PEQ && p < P_SF) continue;      // Peq below
-    else if (p == P_SF || p == P_O) v = static_cast<uint32_t>(o0);
-    else if (p == P_BEST) v = static_cast<uint32_t>(in0 ? blen : INF);  // sf + wb0 = b_len
-    else if (p == P_BEND) v = static_cast<uint32_t>(in0 ? blen : 0);
-    else if (p >= P_FVP && p < P_FVN) v = fin0 ? FULL : 0u;
-    else if (p == P_FSF || p == P_FO) v = fin0 ? static_cast<uint32_t>(o0) : 0u;
-    planes[static_cast<long long>(p) * B + x] = v;
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int k = 0; k < NW; ++k)
-        planes[static_cast<long long>(P_PEQ + NW * c + k) * B + x] = peq[c][k];
-  }
+  if (nb > 1) cl.sync();  // no block leaves while a peer may still read its s_pub
 }
 
 __global__ void __launch_bounds__(EPI_BLOCK) myers_epilogue_kernel(
@@ -604,57 +833,86 @@ __global__ void __launch_bounds__(EPI_BLOCK) myers_epilogue_kernel(
   const int x = blockIdx.x * EPI_BLOCK + threadIdx.x;
   if (x >= B) return;
   const auto P = [&](int p) { return planes[static_cast<long long>(p) * B + x]; };
-  const int blen = b_len[x], alen = a_len[x];
-  const int fin_sf = static_cast<int>(P(P_FSF)), fin_o = static_cast<int>(P(P_FO));
-  const int best_bx = static_cast<int>(P(P_BEST));
-  // the A-exhausted row: score(w) = fin_sf + sum_{v < w} (fVP_v - fVN_v),
-  // INF where fin_o + w > b_len; the first minimum
-  int acc = fin_sf, cost = 0, wbest = 0;
+  uint32_t fVP[NW], fVN[NW];
 #pragma unroll
   for (int k = 0; k < NW; ++k) {
-    const uint32_t vp = P(P_FVP + k), vn = P(P_FVN + k);
-    for (int u = 0; u < 32; ++u) {
-      const int w = 32 * k + u;
-      const int sc = fin_o + w <= blen ? acc : INF;
-      if (w == 0 || sc < cost) {
-        cost = sc;
-        wbest = w;
-      }
-      acc += static_cast<int>((vp >> u) & 1u) - static_cast<int>((vn >> u) & 1u);
-    }
+    fVP[k] = P(P_FVP + k);
+    fVN[k] = P(P_FVN + k);
   }
-  const bool use_ax = cost <= best_bx;
-  const int p_a = static_cast<int>(P(P_PA)), p_b = static_cast<int>(P(P_PB));
-  out[x] = use_ax ? cost : best_bx;
-  out[B + x] = use_ax ? alen : static_cast<int>(P(P_AEND));
-  out[2 * B + x] = use_ax ? fin_o + wbest : static_cast<int>(P(P_BEND));
-  out[3 * B + x] = static_cast<int>(P(P_PED));
-  out[4 * B + x] = p_a < alen ? p_a : alen;
-  out[5 * B + x] = p_b < blen ? p_b : blen;
+  end_pick(fVP, fVN, static_cast<int>(P(P_FSF)), static_cast<int>(P(P_FO)),
+           static_cast<int>(P(P_BEST)), static_cast<int>(P(P_AEND)),
+           static_cast<int>(P(P_BEND)), static_cast<int>(P(P_PED)), static_cast<int>(P(P_PA)),
+           static_cast<int>(P(P_PB)), a_len[x], b_len[x], B, x, out);
+}
+
+template <int L>
+int launch_prologue(const void* centers, long long c_stride, int uLast, const void* b,
+                    long long b_stride, int LB, const void* a_len, const void* b_len, int B,
+                    int n_rows, int n_run, int nb, void* s_bits, void* planes,
+                    cudaStream_t stream) {
+  constexpr int CU = Chunk<L>::CU;
+  const int NCH = (n_rows >> 5) + 1;
+  const int q = (NCH + nb - 1) / nb;
+  const int nstq = (q + 31) >> 5;
+  const int nU = q * CU + 1;
+  int tile_n = tile_at(nU - 1) + 1;
+  if (tile_n > PRO_TILE_MAX) tile_n = 0;  // read from the device each pass
+  const long long smem = 4LL * (tile_n + 3LL * nstq);
+  if (smem > PRO_SMEM_MAX) return -2;
+  auto kernel = myers_prologue_kernel<L>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(B) * nb);
+  cfg.blockDim = dim3(PRO_THREADS);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(nb);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = nb > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const int32_t*>(centers), c_stride, uLast,
+      static_cast<const uint8_t*>(b), b_stride, LB, static_cast<const int32_t*>(a_len),
+      static_cast<const int32_t*>(b_len), B, n_rows, n_run, nb, tile_n,
+      static_cast<uint32_t*>(s_bits), static_cast<uint32_t*>(planes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// centers: int32 rows of C >= 1 columns, row x at centers + x c_stride; b:
-// uint8 rows of LB >= 1 bytes, row x at b + x b_stride; a_len, b_len:
-// int32[B]; rows 0..n_rows are scheduled and the shifts of rows 1..n_run
-// (n_run <= n_rows) written.  s_bits: uint32[ceil(n_run / 32), B]; planes:
-// uint32[43, B] in K1's order; scratch: int2[B, ceil((n_rows + 1) / 128)].
-// Launches on `stream`; returns cudaGetLastError() of the launch, or -1
-// for arguments it does not take.
-extern "C" int canu_myers_prologue(const void* centers, long long c_stride, int C,
-                                   const void* b, long long b_stride, int LB, const void* a_len,
-                                   const void* b_len, int B, int n_rows, int n_run, void* s_bits,
-                                   void* planes, void* scratch, void* stream) {
+// centers: int32 rows, row x at centers + x c_stride, of ns >= 1 columns:
+// with stride 1 row i's centre is column min(i, C - 1), with stride 16 (the
+// 16-row grid) column min(i, C - 1) >> 4; b: uint8 rows of LB >= 1 bytes,
+// row x at b + x b_stride; a_len, b_len: int32[B]; rows 0..n_rows are
+// scheduled and the shifts of rows 1..n_run (n_run <= n_rows) written.
+// nb: blocks an extension, 1..8 (a thread-block cluster above 1).  s_bits:
+// uint32[ceil(n_run / 32), B]; planes: uint32[43, B] in K1's order.
+// Launches on `stream`; returns the launch's cudaError, -1 for arguments it
+// does not take, -2 for a block range too long for shared memory.
+extern "C" int canu_myers_prologue(const void* centers, long long c_stride, int ns, int C,
+                                   int stride, const void* b, long long b_stride, int LB,
+                                   const void* a_len, const void* b_len, int B, int n_rows,
+                                   int n_run, int nb, void* s_bits, void* planes,
+                                   void* stream) {
   if (B <= 0) return 0;
-  if (C < 1 || LB < 1 || n_rows < 0 || n_run < 0 || n_run > n_rows) return -1;
-  const int blocks = (B + PRO_WARPS - 1) / PRO_WARPS;
-  myers_prologue_kernel<<<blocks, PRO_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(centers), c_stride, C, static_cast<const uint8_t*>(b),
-      b_stride, LB, static_cast<const int32_t*>(a_len), static_cast<const int32_t*>(b_len), B,
-      n_rows, n_run, static_cast<uint32_t*>(s_bits), static_cast<uint32_t*>(planes),
-      static_cast<int2*>(scratch));
-  return static_cast<int>(cudaGetLastError());
+  if (C < 1 || ns < 1 || LB < 1 || n_rows < 0 || n_run < 0 || n_run > n_rows || nb < 1 ||
+      nb > PRO_MAX_BLOCKS || (stride != 1 && stride != 16))
+    return -1;
+  const int uLast = stride == 16 ? (C - 1) >> 4 : C - 1;
+  if (uLast >= ns) return -1;
+  const auto s = static_cast<cudaStream_t>(stream);
+  return stride == 16 ? launch_prologue<4>(centers, c_stride, uLast, b, b_stride, LB, a_len,
+                                            b_len, B, n_rows, n_run, nb, s_bits, planes, s)
+                      : launch_prologue<0>(centers, c_stride, uLast, b, b_stride, LB, a_len,
+                                            b_len, B, n_rows, n_run, nb, s_bits, planes, s);
 }
 
 // planes: uint32[43, B] (K1's output); a_len, b_len: int32[B]; out:

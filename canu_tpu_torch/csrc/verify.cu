@@ -29,8 +29,10 @@
 //   6. the band centres: the float32 piecewise-linear interpolation of
 //      each list at every 16th row (jnp.interp's operations, one rounding
 //      each, the last, fp[i-1] + (delta / dx) * df, a fused multiply-add
-//      as XLA's CPU backend compiles it), rounded half to even and
-//      repeated to n_rows + 1 columns;
+//      as XLA's CPU backend compiles it), rounded half to even, stored as
+//      that grid of n_rows / 16 + 1 columns (the Myers engine reads it so,
+//      ops/align.py _interp_grid) or repeated to n_rows + 1 columns (the
+//      INF-walled engine's rows, _interp_centers);
 //   7. the four base rows: A from the seed (a_f), A reversed up to the
 //      seed (a_b), the oriented B likewise (b_f, b_b, n_rows + band wide),
 //      each a shift of t mod 2^ceil(log2 max(L, width)) with zeros past the
@@ -39,8 +41,9 @@
 // backward rows 2 g C + C + p: the layout the group's extension takes.
 //
 // What bounds K7 on an H100: the bytes.  A pair writes 2 n_rows + 2 (n_rows
-// + band) bytes of bases and 8 (n_rows + 1) of centres (about 100 KB at
-// n_rows 8,192).  The design, one block of 256 threads a pair:
+// + band) bytes of bases and 8 (n_rows + 1) of centres as rows, 8 (n_rows /
+// 16 + 1) on the grid (about 34 KB at n_rows 8,192 on the grid, 100 KB as
+// rows).  The design, one block of 256 threads a pair:
 //   - the join without a sort of the concatenation.  Since the join only
 //     groups equal keys, it may order them by mix32(key), which is a
 //     bijection of uint32: K8 writes each index row in (mix32(key),
@@ -474,7 +477,8 @@ verify_pre_kernel(const int64_t* __restrict__ words, int W, const int32_t* __res
                   const int64_t* __restrict__ mker, const int32_t* __restrict__ mpos,
                   const int32_t* __restrict__ mstr, int Pm, const int64_t* __restrict__ a_idx,
                   const int64_t* __restrict__ b_idx, const uint8_t* __restrict__ flipped_in,
-                  int C, int k, int band, int n_rows, int orient, uint8_t* __restrict__ out_a,
+                  int C, int k, int band, int n_rows, int orient, int grid_centres,
+                  uint8_t* __restrict__ out_a,
                   int32_t* __restrict__ out_alen, uint8_t* __restrict__ out_b,
                   int32_t* __restrict__ out_blen, int32_t* __restrict__ out_cen,
                   int32_t* __restrict__ out_nanchor, uint8_t* __restrict__ out_flipped,
@@ -817,8 +821,8 @@ verify_pre_kernel(const int64_t* __restrict__ words, int W, const int32_t* __res
   // (threads 0-127 the forward list, 128-255 the backward one, each a run
   // of consecutive groups, walking the anchors forward), then the rows
   const int64_t row_f = 2 * static_cast<int64_t>(g) * C + p, row_b = row_f + C;
-  const int wc = n_rows + 1;
   const int ns = (n_rows >> 4) + 1;
+  const int wc = grid_centres ? ns : n_rows + 1;
   int32_t* cf = out_cen + row_f * wc;
   int32_t* cb = out_cen + row_b * wc;
   for (int j0 = 0; j0 < ns; j0 += tile_half) {
@@ -837,9 +841,16 @@ verify_pre_kernel(const int64_t* __restrict__ words, int W, const int32_t* __res
       }
     }
     __syncthreads();
-    const int c0 = 16 * j0, c1 = 16 * (j0 + nt) < wc ? 16 * (j0 + nt) : wc;
-    store_centres(cf, c0, c1, tile, j0);
-    store_centres(cb, c0, c1, tile + tile_half, j0);
+    if (grid_centres) {
+      for (int j = tid; j < nt; j += THREADS) {
+        cf[j0 + j] = tile[j];
+        cb[j0 + j] = tile[tile_half + j];
+      }
+    } else {
+      const int c0 = 16 * j0, c1 = 16 * (j0 + nt) < wc ? 16 * (j0 + nt) : wc;
+      store_centres(cf, c0, c1, tile, j0);
+      store_centres(cb, c0, c1, tile + tile_half, j0);
+    }
     if (j0 + tile_half < ns) __syncthreads();  // the next tile overwrites this one
   }
 
@@ -1402,18 +1413,20 @@ __global__ void __launch_bounds__(THREADS) pair_stats_kernel(
 // words int64[Npad, W] (uint32 values), length int32[Npad], mker int64[Npad,
 // Pm] (uint32 values), mpos and mstr int32[Npad, Pm]: the ReadIndex; a_idx,
 // b_idx int64[n_pairs] (rows of it), flipped uint8[n_pairs]; C pairs a
-// chunk (n_pairs a multiple of C), k, band, n_rows, orient.  Outputs: a
-// uint8[2 n_pairs, n_rows], a_len int32[2 n_pairs], b uint8[2 n_pairs,
-// n_rows + band], b_len int32[2 n_pairs], centers int32[2 n_pairs, n_rows +
-// 1], n_anchor, seedA, seedB, n_minor int32[n_pairs], flipped_out
-// uint8[n_pairs].  Returns cudaGetLastError() of the launch (or of the
+// chunk (n_pairs a multiple of C), k, band, n_rows, orient, grid_centres.
+// Outputs: a uint8[2 n_pairs, n_rows], a_len int32[2 n_pairs], b
+// uint8[2 n_pairs, n_rows + band], b_len int32[2 n_pairs], centers
+// int32[2 n_pairs, n_rows + 1] (grid_centres: int32[2 n_pairs, n_rows / 16
+// + 1], the 16-row grid), n_anchor, seedA, seedB, n_minor int32[n_pairs],
+// flipped_out uint8[n_pairs].  Returns cudaGetLastError() of the launch (or of the
 // shared-memory attribute), -1 for Pm outside 1..2048, -3 for a negative or
 // empty size, -4 for n_pairs not a multiple of C.
 extern "C" int canu_verify_pre(const void* words, int W, const void* length, const void* mker,
                                const void* mpos, const void* mstr, int Pm, const void* a_idx,
                                const void* b_idx, const void* flipped, int n_pairs, int C, int k,
-                               int band, int n_rows, int orient, void* a, void* a_len, void* b,
-                               void* b_len, void* centers, void* n_anchor, void* flipped_out,
+                               int band, int n_rows, int orient, int grid_centres, void* a,
+                               void* a_len, void* b, void* b_len, void* centers,
+                               void* n_anchor, void* flipped_out,
                                void* seedA, void* seedB, void* n_minor, void* stream) {
   if (Pm < 1 || Pm > MAX_PM) return -1;
   if (W < 1 || n_pairs < 0 || C < 1 || band < 0 || n_rows < 1) return -3;
@@ -1430,7 +1443,7 @@ extern "C" int canu_verify_pre(const void* words, int W, const void* length, con
       static_cast<const int64_t*>(mker), static_cast<const int32_t*>(mpos),
       static_cast<const int32_t*>(mstr), Pm, static_cast<const int64_t*>(a_idx),
       static_cast<const int64_t*>(b_idx), static_cast<const uint8_t*>(flipped), C, k, band,
-      n_rows, orient, static_cast<uint8_t*>(a), static_cast<int32_t*>(a_len),
+      n_rows, orient, grid_centres, static_cast<uint8_t*>(a), static_cast<int32_t*>(a_len),
       static_cast<uint8_t*>(b), static_cast<int32_t*>(b_len), static_cast<int32_t*>(centers),
       static_cast<int32_t*>(n_anchor), static_cast<uint8_t*>(flipped_out),
       static_cast<int32_t*>(seedA), static_cast<int32_t*>(seedB),

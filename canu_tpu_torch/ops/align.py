@@ -37,6 +37,7 @@ from ..stores.readset import ReadSet
 from .kmer import INVALID_KMER, unpack_bases
 from .kmerjoin import masked_median, pair_matches
 from .minhash import OverlapCandidates
+from .myers import CENTER_STRIDE, expand_centers
 
 INF = 1 << 28
 SMAX = 4  # band-start slope clamp of the INF-walled engine (columns per row)
@@ -56,7 +57,6 @@ PLAIN_CUDA_PRE = 0
 # where pre is the whole step).  Read by the overlap stage.
 LAST_PROFILE: dict = {}
 MAX_ANCHORS = 64
-CENTER_STRIDE = 16  # rows per interpolated band-centre sample
 
 
 def _shift_rows(x: torch.Tensor, t: torch.Tensor, out_len: int) -> torch.Tensor:
@@ -154,21 +154,23 @@ def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.where((err != 0) & even, torch.nextafter(s, s + err), s).float()
 
 
-def _interp_centers(sub_xa, sub_xb, n_rows: int) -> torch.Tensor:
-    """Piecewise-linear band centres c(i) for rows 0..n_rows from anchor
-    points (sub_xa -> sub_xb); the caller pads past the last anchor with
-    slope-1 points, so the centre line continues at slope 1.
+def _interp_grid(sub_xa, sub_xb, n_rows: int) -> torch.Tensor:
+    """Piecewise-linear band centres from anchor points (sub_xa -> sub_xb)
+    on the CENTER_STRIDE-row grid: int32[B, n_rows // CENTER_STRIDE + 1],
+    value j the centre of rows CENTER_STRIDE j .. CENTER_STRIDE j +
+    CENTER_STRIDE - 1 (expand_centers gives the rows 0..n_rows).  The
+    caller pads past the last anchor with slope-1 points, so the centre
+    line continues at slope 1.
 
-    Interpolated on a CENTER_STRIDE-coarse row grid and expanded by
-    repetition.  float32 with jnp.interp's operation order, one rounding
-    a step, the last step fp[i-1] + (delta / dx) * df a fused
-    multiply-add as XLA's CPU backend compiles it, then round-half-to-even,
-    so the integer centres equal canu_tpu's (with a separate product and
-    sum some centres of long reads differ by 1).
+    float32 with jnp.interp's operation order, one rounding a step, the
+    last step fp[i-1] + (delta / dx) * df a fused multiply-add as XLA's CPU
+    backend compiles it, then round-half-to-even, so the integer centres
+    equal canu_tpu's (with a separate product and sum some centres of long
+    reads differ by 1).
     """
     B, M = sub_xa.shape
     dev = sub_xa.device
-    nc = -(-n_rows // CENTER_STRIDE) + 1
+    nc = n_rows // CENTER_STRIDE + 1
     x = (torch.arange(nc, dtype=torch.int32, device=dev) * CENTER_STRIDE)
     x = x.to(torch.float32)[None, :].expand(B, nc).contiguous()
     xp = sub_xa.to(torch.float32).contiguous()
@@ -184,8 +186,13 @@ def _interp_centers(sub_xa, sub_xb, n_rows: int) -> torch.Tensor:
     f = torch.where(dx0, fp_im1, _fma32(delta / torch.where(dx0, 1.0, dx), df, fp_im1))
     f = torch.where(x < xp[:, :1], fp[:, :1], f)
     f = torch.where(x > xp[:, -1:], fp[:, -1:], f)
-    c = torch.round(f).to(torch.int32)
-    return torch.repeat_interleave(c, CENTER_STRIDE, dim=1)[:, : n_rows + 1]
+    return torch.round(f).to(torch.int32)
+
+
+def _interp_centers(sub_xa, sub_xb, n_rows: int) -> torch.Tensor:
+    """The band centres of rows 0..n_rows, int32[B, n_rows + 1]: the grid
+    of _interp_grid expanded by repetition."""
+    return expand_centers(_interp_grid(sub_xa, sub_xb, n_rows), n_rows)
 
 
 # ---- INF-walled banded extension (bands other than 128) -----------------------
@@ -342,7 +349,7 @@ class OverlapTable:
 
 
 def _verify_pre_plain(index, a_idx, b_idx, flipped, k: int, band: int, n_rows: int,
-                      orient: bool = False, chunk: int | None = None):
+                      orient: bool = False, chunk: int | None = None, center_stride: int = 1):
     """Anchors + seeds + fused fwd/bwd extension inputs, plain PyTorch ops,
     chunk by chunk: the port of canu_tpu.ops.align._verify_pre, and the
     reference kernel K7 is held to.
@@ -353,13 +360,19 @@ def _verify_pre_plain(index, a_idx, b_idx, flipped, k: int, band: int, n_rows: i
     is ignored.  Returns (ext_in, n_anchor, flipped, seedA, seedB,
     n_minor) with ext_in = (a, a_len, b, b_len, centers) for 2 extensions
     a pair: chunk 0's forward rows, its backward rows, chunk 1's forward
-    rows, and so on; the per-pair outputs in pair order.
+    rows, and so on; the per-pair outputs in pair order.  The centres are
+    rows int32[., n_rows + 1], or with center_stride=CENTER_STRIDE their
+    grid int32[., n_rows // CENTER_STRIDE + 1] (_interp_grid), which the
+    Myers engine takes as it is.
     """
     global PLAIN_CUDA_PRE
     chunk = chunk or a_idx.shape[0]
+    if center_stride not in (1, CENTER_STRIDE):
+        raise ValueError(f"center_stride must be 1 or {CENTER_STRIDE}, got {center_stride}")
     if a_idx.shape[0] > chunk:
         parts = [_verify_pre_plain(index, a_idx[s:s + chunk], b_idx[s:s + chunk],
-                                   flipped[s:s + chunk], k, band, n_rows, orient)
+                                   flipped[s:s + chunk], k, band, n_rows, orient,
+                                   center_stride=center_stride)
                  for s in range(0, a_idx.shape[0], chunk)]
         ext_in = tuple(torch.cat(xs) for xs in zip(*(p[0] for p in parts)))
         return (ext_in, *(torch.cat(xs) for xs in zip(*(p[1:] for p in parts))))
@@ -393,7 +406,8 @@ def _verify_pre_plain(index, a_idx, b_idx, flipped, k: int, band: int, n_rows: i
     valid_f = (seed_m[:, None] + m_ramp < n_anchor[:, None]) & (fa >= 0)
     fa = torch.where(valid_f, fa, BIGF + m_ramp)  # slope-1 continuation
     fb = torch.where(valid_f, fb, BIGF + m_ramp)
-    cen_f = _interp_centers(fa, fb, n_rows)
+    interp = _interp_grid if center_stride > 1 else _interp_centers
+    cen_f = interp(fa, fb, n_rows)
     a_f = _shift_rows(basesA, seedA, n_rows)
     b_f = _shift_rows(basesB, seedB, n_rows + band)
 
@@ -405,7 +419,7 @@ def _verify_pre_plain(index, a_idx, b_idx, flipped, k: int, band: int, n_rows: i
     valid_b = (m_ramp <= seed_m[:, None]) & (aA_b >= 0)
     ba = torch.where(valid_b, ba, BIGF + m_ramp)
     bb = torch.where(valid_b, bb, BIGF + m_ramp)
-    cen_b = _interp_centers(ba, bb, n_rows)
+    cen_b = interp(ba, bb, n_rows)
     La = basesA.shape[1]
     a_b = _shift_rows(torch.flip(basesA, dims=[1]), La - seedA, n_rows)
     b_b = _shift_rows(torch.flip(basesB, dims=[1]), L - seedB, n_rows + band)
@@ -421,17 +435,19 @@ def _verify_pre_plain(index, a_idx, b_idx, flipped, k: int, band: int, n_rows: i
 
 
 def _verify_pre(index, a_idx, b_idx, flipped, k: int, band: int, n_rows: int,
-                orient: bool = False, chunk: int | None = None):
+                orient: bool = False, chunk: int | None = None, center_stride: int = 1):
     """_verify_pre_plain's outputs for G chunks of `chunk` pairs at once
     (a_idx, b_idx, flipped [G * chunk]; chunk None: one chunk of them all),
-    in its layout.  On CUDA tensors kernel K7, one launch (no fallback); on
+    in its layout, the centres as rows or (center_stride=CENTER_STRIDE) on
+    their grid.  On CUDA tensors kernel K7, one launch (no fallback); on
     CPU tensors the plain version."""
     if a_idx.is_cuda:
         from .kernels import verify_cuda as K7
 
         return K7.verify_pre(index, a_idx, b_idx, flipped, k, band, n_rows, orient,
-                             chunk or a_idx.shape[0])
-    return _verify_pre_plain(index, a_idx, b_idx, flipped, k, band, n_rows, orient, chunk)
+                             chunk or a_idx.shape[0], center_stride)
+    return _verify_pre_plain(index, a_idx, b_idx, flipped, k, band, n_rows, orient, chunk,
+                             center_stride)
 
 
 def _verify_post(n_anchor, flipped, seedA, seedB, n_minor, e, au, bu, pe, pa, pb,
@@ -475,26 +491,40 @@ _INFLIGHT_BACKOFF = 1.0
 # group is extended.  The plain chain (the CPU path): ops.myers._schedule's
 # int32 target, envelopes and o with the int64 indices cummax/cummin
 # return, then _shift_bits' int32 shifts; the A/B copies the plain loop
-# pads.  On the card kernel K10 holds its scratch, 8 bytes a 128 rows, and
-# the shift bits, 4 bytes a 32 rows (ops/kernels/myers_cuda.py
-# myers_prologue_cuda): 0.1875 bytes a row, counted as 1.  The INF-walled
-# engine builds none: its kernels derive the band start from the centres.
+# pads.  On the card kernel K10 holds no scratch, only what it writes for
+# K1: the shift bits, 4 bytes a 32 rows, and the 43 row-0 carry planes
+# (ops/kernels/myers_cuda.py myers_prologue_cuda).
+# The INF-walled engine builds none: its kernels derive the band start
+# from the centres.
 SCHEDULE_BYTES_PER_ROW = 40
-KERNEL_SCHEDULE_BYTES_PER_ROW = 1
 
 # LAST_PROFILE's device seconds of the Myers extension on the card, by CUDA
-# events: before K1 (K10), K1, after K1 (K11)
+# events: before K1 (K10), K1 with the end pick, after K1 (nothing since
+# the pick moved into K1: the events meet)
 EXTEND_DEVICE_KEYS = ("extend_pre_device_s", "extend_k1_device_s", "extend_post_device_s")
+
+
+def _center_stride(band: int) -> int:
+    """Rows a band centre of the extension inputs holds: the Myers engine
+    (band 128) takes the CENTER_STRIDE-row grid, the INF-walled kernels
+    rows."""
+    return CENTER_STRIDE if band == 128 else 1
 
 
 def _chunk_staging_bytes(chunk: int, n_rows: int, band: int, on_card: bool = False) -> int:
     """Device bytes held per staged chunk: 2*chunk extensions of A plane
-    (uint8), B plane (uint8), int32 centres, the outputs and, on the
-    Myers engine (band 128), the band schedule's bytes (K10's on the card,
-    the plain chain's elsewhere)."""
-    sched = KERNEL_SCHEDULE_BYTES_PER_ROW if on_card else SCHEDULE_BYTES_PER_ROW
-    per_row = 4 + (sched if band == 128 else 0)
-    return 2 * chunk * (n_rows + (n_rows + band) + per_row * (n_rows + 1) + 64)
+    (uint8), B plane (uint8), int32 centres, the outputs and, on the Myers
+    engine (band 128), the band schedule's bytes.  On the card the Myers
+    engine holds the centres' grid, 4 bytes a CENTER_STRIDE rows (K7 writes
+    it, K10 reads it), and K10's bytes; elsewhere the centres are rows (the
+    plain chain expands the grid) and the schedule the plain chain's."""
+    centres, sched = 4 * (n_rows + 1), 0
+    if band == 128 and on_card:
+        centres = 4 * (n_rows // CENTER_STRIDE + 1)
+        sched = 4 * (n_rows // 32 + 1) + 4 * 43  # K10's shift words and row-0 planes
+    elif band == 128:
+        sched = SCHEDULE_BYTES_PER_ROW * (n_rows + 1)
+    return 2 * chunk * (n_rows + (n_rows + band) + centres + sched + 64)
 
 
 def _verify_window(chunk: int, n_rows: int, band: int, device: torch.device) -> tuple[int, int]:
@@ -525,8 +555,8 @@ def _verify_grouped(index, a_all, b_all, fl_all, chunks, chunk: int, k: int, ban
     (`chunk` pairs each, padded); chunks: list of (sl, chunk_rows).  Adds
     the host seconds of each step to prof (pre_s, extend_s, post_s) and,
     on the card, appends the CUDA events around each _verify_pre to
-    prof["pre_events"] and the Myers extension's (around K10, K1 and K11)
-    to prof["extend_events"]: K7 runs asynchronously, so pre_s holds its
+    prof["pre_events"] and the Myers extension's (around K10 and K1 with
+    the end pick) to prof["extend_events"]: K7 runs asynchronously, so pre_s holds its
     launch and its device time shows in whichever later step waits for it.
     Yields (sl, result tile) in order; a generator, so the caller's bounded
     drain caps how many chunks' inputs are staged at once.  (canu_tpu runs
@@ -544,7 +574,7 @@ def _verify_grouped(index, a_all, b_all, fl_all, chunks, chunk: int, k: int, ban
             ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
             ev[0].record()
         wide, *pre = _verify_pre(index, a_all[rows_g], b_all[rows_g], fl_all[rows_g], k, band,
-                                 n_rows, orient, chunk)
+                                 n_rows, orient, chunk, center_stride=_center_stride(band))
         if a_all.is_cuda:
             ev[1].record()
             prof["pre_events"].append(ev)
@@ -553,7 +583,8 @@ def _verify_grouped(index, a_all, b_all, fl_all, chunks, chunk: int, k: int, ban
             rows = max(r for _sl, r in specs)
             res = banded_extend_myers(*wide, band, n_rows, max_rows=rows,
                                       partial_cap_q=max(1, partial_cap_q),
-                                      events=prof["extend_events"] if a_all.is_cuda else None)
+                                      events=prof["extend_events"] if a_all.is_cuda else None,
+                                      center_stride=CENTER_STRIDE)
         else:
             res = banded_extend(*wide, band, n_rows)
             res = res + res
@@ -720,7 +751,8 @@ def verify_overlaps(readset: ReadSet, cand, k: int = 16, band: int = 128,
     events = prof.pop("pre_events")
     prof["pre_device_s"] = (round(sum(e0.elapsed_time(e1) for e0, e1 in events) / 1e3, 4)
                             if dev.type == "cuda" else None)
-    # the Myers extension's device seconds: before K1 (K10), K1, after (K11)
+    # the Myers extension's device seconds: before K1 (K10), K1 with the end
+    # pick, after it (0: the pick has no launch of its own)
     ext_events = prof.pop("extend_events")
     for q, name in enumerate(EXTEND_DEVICE_KEYS):
         prof[name] = (round(sum(ev[q].elapsed_time(ev[q + 1]) for ev in ext_events) / 1e3, 4)

@@ -7,7 +7,9 @@ key in A's row, both rows in mix32 order as K8 writes them, a row out of
 that order sorted first), the strand vote, the median diagonal by a radix
 select and its inliers, their (posA, key) sort, the running-max chain
 and the MAX_ANCHORS picks, the seed, the band centres interpolated once a
-16-row group and the four shifted, oriented base rows 16 bases a thread,
+16-row group (stored as that grid for the Myers engine, expanded to rows
+for the INF-walled one) and the four shifted, oriented base rows 16 bases
+a thread,
 written straight into the group's wide extension inputs (chunk g's
 forward rows, then its backward rows, then chunk g + 1's).
 ops.align._verify_pre launches it on CUDA tensors; it is held against
@@ -65,7 +67,7 @@ def _load():
         lib = ctypes.CDLL(str(path))
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.canu_verify_pre.argtypes = [p, i, p, p, p, p, i, p, p, p, i, i, i, i, i, i,
+        lib.canu_verify_pre.argtypes = [p, i, p, p, p, p, i, p, p, p, i, i, i, i, i, i, i,
                                         p, p, p, p, p, p, p, p, p, p, p]
         lib.canu_syncmer.argtypes = [p, i, p, p, p, i, i, i, i, i, p, p, p, p, p]
         lib.canu_verify_resources.argtypes = [i, i, p]
@@ -93,14 +95,15 @@ def _on_card(name: str, dev) -> None:
 
 
 def verify_pre(index, a_idx, b_idx, flipped, k: int, band: int, n_rows: int, orient: bool,
-               chunk: int):
+               chunk: int, center_stride: int = 1):
     """Kernel K7: (ext_in, n_anchor, flipped, seedA, seedB, n_minor) of
     ops.align._verify_pre for the pairs (a_idx[q], b_idx[q]) (int64 rows of
     the ReadIndex `index`, flipped bool, all [G * chunk]) on the card:
     ext_in = (a uint8[2 G chunk, n_rows], a_len int32, b uint8[2 G chunk,
-    n_rows + band], b_len int32, centers int32[2 G chunk, n_rows + 1]) with
-    chunk g's forward rows at 2 g chunk + p and its backward rows at 2 g
-    chunk + chunk + p; the per-pair outputs int32[G chunk] (flipped
+    n_rows + band], b_len int32, centers int32[2 G chunk, n_rows + 1], or
+    with center_stride 16 their grid int32[2 G chunk, n_rows // 16 + 1])
+    with chunk g's forward rows at 2 g chunk + p and its backward rows at 2
+    g chunk + chunk + p; the per-pair outputs int32[G chunk] (flipped
     bool)."""
     global PRE_LAUNCHES
     if a_idx.dim() != 1:
@@ -111,6 +114,8 @@ def verify_pre(index, a_idx, b_idx, flipped, k: int, band: int, n_rows: int, ori
         raise ValueError(f"kernel K7 takes whole chunks: {n} pairs, chunk {chunk}")
     if band < 0 or n_rows < 1:
         raise ValueError(f"kernel K7 needs band >= 0 and n_rows >= 1, got {band}, {n_rows}")
+    if center_stride not in (1, 16):
+        raise ValueError(f"kernel K7 stores centres at stride 1 or 16, got {center_stride}")
     words, length = index.words, index.length
     if words.dim() != 2 or index.mker.dim() != 2:
         raise ValueError("the index planes must be 2-D")
@@ -131,7 +136,8 @@ def verify_pre(index, a_idx, b_idx, flipped, k: int, band: int, n_rows: int, ori
     a = torch.empty((2 * n, n_rows), dtype=torch.uint8, device=dev)
     b = torch.empty((2 * n, n_rows + band), dtype=torch.uint8, device=dev)
     a_len, b_len = torch.empty(2 * n, **i32), torch.empty(2 * n, **i32)
-    centers = torch.empty((2 * n, n_rows + 1), **i32)
+    centers = torch.empty((2 * n, n_rows // 16 + 1 if center_stride == 16 else n_rows + 1),
+                          **i32)
     n_anchor, seedA, seedB, n_minor = (torch.empty(n, **i32) for _ in range(4))
     fl_out = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
@@ -140,7 +146,8 @@ def verify_pre(index, a_idx, b_idx, flipped, k: int, band: int, n_rows: int, ori
             rc = fn(words.data_ptr(), int(W), length.data_ptr(), index.mker.data_ptr(),
                     index.mpos.data_ptr(), index.mstr.data_ptr(), int(Pm), a_idx.data_ptr(),
                     b_idx.data_ptr(), flipped.data_ptr(), int(n), int(chunk), int(k), int(band),
-                    int(n_rows), int(bool(orient)), a.data_ptr(), a_len.data_ptr(),
+                    int(n_rows), int(bool(orient)), int(center_stride == 16), a.data_ptr(),
+                    a_len.data_ptr(),
                     b.data_ptr(), b_len.data_ptr(), centers.data_ptr(), n_anchor.data_ptr(),
                     fl_out.data_ptr(), seedA.data_ptr(), seedB.data_ptr(), n_minor.data_ptr(),
                     _stream(dev))

@@ -9,10 +9,13 @@ follows the anchor chain at a slope of <= 1 column per row.
 
 Split as in canu_tpu: the band schedule and ``_myers_init`` (row-0
 state), then the row loop, then ``_myers_finish``.  On a CUDA tensor
-``banded_extend_myers`` runs three hand-written kernels
+``banded_extend_myers`` runs two hand-written kernels
 (ops/kernels/myers_cuda.py, csrc/myers_tile.cu), one launch each: K10 the
-schedule's shifts packed one bit a row and the row-0 carry planes, K1 the
-row loop, K11 the end pick.  On a CPU tensor it runs the plain PyTorch
+schedule's shifts packed one bit a row and the row-0 carry planes, then
+K1 the row loop with K11's end pick after its last row.  The centres may
+come on the 16-row grid verify interpolates them on (``center_stride=16``):
+K10 reads the grid, and the plain chain expands it to rows first
+(``expand_centers``).  On a CPU tensor it runs the plain PyTorch
 chain below, which is also the reference the kernels are held to:
 ``_schedule`` and ``_shift_bits`` / ``_myers_prep``, ``_myers_init`` and
 ``_carry_pack`` (K10), the row loop ``_myers_segment`` on ``_myers_prep``'s
@@ -38,6 +41,7 @@ WORD = 32
 NW = 4  # words per band: band == 128
 MASK32 = 0xFFFFFFFF
 SEGMENT = 512  # rows per plain-loop segment (canu_tpu's segment length)
+CENTER_STRIDE = 16  # rows per interpolated band-centre sample (the grid's stride)
 
 # plain-loop segments run on CUDA tensors; the pipeline must leave it 0
 PLAIN_CUDA_SEGMENTS = 0
@@ -146,6 +150,16 @@ def _shift_chain(X: torch.Tensor, ins: torch.Tensor) -> torch.Tensor:
     ``ins`` (0/1 per lane) enters bit 127."""
     hi = torch.cat([X[..., 1:, :], ins.unsqueeze(-2)], dim=-2)
     return (X >> 1) | ((hi << 31) & MASK32)
+
+
+def expand_centers(grid: torch.Tensor, n_rows: int, stride: int = CENTER_STRIDE) -> torch.Tensor:
+    """Band centres of rows 0..n_rows, int32[B, n_rows + 1], from their
+    grid: row i's centre is grid[:, i // stride].  Raises where the grid
+    holds fewer than n_rows // stride + 1 values a row."""
+    if grid.shape[1] < n_rows // stride + 1:
+        raise ValueError(f"a grid of {grid.shape[1]} centres at stride {stride} covers rows "
+                         f"0..{grid.shape[1] * stride - 1}, not 0..{n_rows}")
+    return torch.repeat_interleave(grid, stride, dim=1)[:, : n_rows + 1]
 
 
 def _count_plain(t: torch.Tensor) -> None:
@@ -378,17 +392,19 @@ def _rows_plain(carry, a, b, s_rows, ent_rows, a_len, b_len, cap_q, band, seg, r
 
 
 def _rows_kernel(planes, a, b, s_bits, a_len, b_len, cap_q, n_run):
-    """Rows 1..n_run of every lane in one launch of kernel K1: carry planes
-    in, carry planes out."""
+    """Rows 1..n_run of every lane in one launch of kernel K1 with K11's end
+    pick after the last row: carry planes in, the six results out."""
     from .kernels.myers_cuda import myers_rows_cuda
 
-    return myers_rows_cuda(planes, a, s_bits, b, a_len, b_len, n_run, cap_q)
+    return myers_rows_cuda(planes, a, s_bits, b, a_len, b_len, n_run, cap_q, pick=True)
 
 
 def _extend(kernel: bool, a, a_len, b, b_len, centers, band, n_rows, segment, max_rows,
-            partial_cap_q, events=None):
+            partial_cap_q, events=None, center_stride: int = 1):
     if band != NW * WORD:
         raise ValueError(f"the Myers engine is specialised to band={NW * WORD}, got {band}")
+    if center_stride not in (1, CENTER_STRIDE):
+        raise ValueError(f"center_stride must be 1 or {CENTER_STRIDE}, got {center_stride}")
     seg = min(segment, n_rows) if n_rows else segment
     n_seg = max(1, -(-n_rows // seg))
     a_len = a_len.to(torch.int32).contiguous()
@@ -405,10 +421,11 @@ def _extend(kernel: bool, a, a_len, b, b_len, centers, band, n_rows, segment, ma
     # cap_q (0.01% fixed point) of the mean span (a+b)/2
     cap_q = 0 if partial_cap_q is None else int(partial_cap_q)
     if kernel:
-        from .kernels.myers_cuda import myers_epilogue_cuda, myers_prologue_cuda
+        from .kernels.myers_cuda import myers_prologue_cuda
 
-        # K10 -> K1 -> K11; with an events list, 4 CUDA events around them
-        # (pre, k1, post) are appended to it as one list
+        # K10 -> K1 with the end pick; with an events list, 4 CUDA events
+        # (before K10, after K10, after K1, and after K1 again: the pick has
+        # no launch of its own) are appended to it as one list
         ev = None
         if events is not None:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -416,18 +433,19 @@ def _extend(kernel: bool, a, a_len, b, b_len, centers, band, n_rows, segment, ma
             ev[0].record()
         if centers.dtype != torch.int32:
             centers = centers.to(torch.int32)
-        planes, s_bits = myers_prologue_cuda(centers, b, a_len, b_len, n_seg * seg,
-                                             run_segs * seg)
+        planes, s_bits = myers_prologue_cuda(
+            centers, b, a_len, b_len, n_seg * seg, run_segs * seg, center_stride=center_stride,
+            center_rows=n_rows + 1 if center_stride > 1 else None)
         if ev:
             ev[1].record()
-        planes = _rows_kernel(planes, a.contiguous(), b.contiguous(), s_bits, a_len, b_len,
-                              cap_q, run_segs * seg)
+        out = _rows_kernel(planes, a.contiguous(), b.contiguous(), s_bits, a_len, b_len, cap_q,
+                           run_segs * seg)
         if ev:
             ev[2].record()
-        out = myers_epilogue_cuda(planes, a_len, b_len)
-        if ev:
             ev[3].record()
     else:
+        if center_stride > 1:
+            centers = expand_centers(centers, n_rows, center_stride)
         s_rows, ent_rows, o0 = _myers_prep(b_len, centers, band, n_seg * seg)
         carry = _myers_init(b, b_len, a_len, o0, band)
         carry = _rows_plain(carry, a, b, s_rows, ent_rows, a_len, b_len, cap_q, band, seg,
@@ -438,30 +456,34 @@ def _extend(kernel: bool, a, a_len, b, b_len, centers, band, n_rows, segment, ma
 
 def banded_extend_myers(a, a_len, b, b_len, centers, band: int = 128, n_rows: int = 0,
                         segment: int = SEGMENT, max_rows: int | None = None,
-                        partial_cap_q: int | None = None, events: list | None = None):
+                        partial_cap_q: int | None = None, events: list | None = None,
+                        center_stride: int = 1):
     """Banded extension of B pairs from (0, 0) (band must be 128).
 
     a uint8[B, LA] (row 0 = first char to align), a_len int32[B],
     b uint8[B, LB], b_len int32[B], centers int32[B, n_rows+1] (expected
-    column of each row).  max_rows (host int, e.g. the longest read of
-    the batch) skips row segments past every pair's end.  With
-    partial_cap_q (erate in 0.01% fixed point) returns the 6-tuple
-    (edits, a_used, b_used, p_edits, p_a, p_b), else the first three.
+    column of each row) or, with center_stride=16, their grid int32[B, >=
+    n_rows // 16 + 1] (row i's centre at column i // 16).  max_rows (host
+    int, e.g. the longest read of the batch) skips row segments past every
+    pair's end.  With partial_cap_q (erate in 0.01% fixed point) returns
+    the 6-tuple (edits, a_used, b_used, p_edits, p_a, p_b), else the first
+    three.
 
-    CUDA tensors run kernels K10, K1 and K11, one launch each; with an
-    events list, the CUDA events before K10, after K10, after K1 and after
-    K11 are appended to it as one list.  CPU tensors run the plain PyTorch
-    chain.
+    CUDA tensors run kernels K10 and K1 with K11's end pick, one launch
+    each; with an events list, the CUDA events before K10, after K10, after
+    K1 and after the pick (K1's end: the same point) are appended to it as
+    one list.  CPU tensors run the plain PyTorch chain, the grid expanded
+    to rows first.
     """
     return _extend(a.is_cuda, a, a_len, b, b_len, centers, band, n_rows, segment,
-                   max_rows, partial_cap_q, events)
+                   max_rows, partial_cap_q, events, center_stride)
 
 
 def banded_extend_myers_plain(a, a_len, b, b_len, centers, band: int = 128,
                               n_rows: int = 0, segment: int = SEGMENT,
                               max_rows: int | None = None,
-                              partial_cap_q: int | None = None):
+                              partial_cap_q: int | None = None, center_stride: int = 1):
     """banded_extend_myers through the plain PyTorch chain on any device:
     the reference kernels K10, K1 and K11 are compared with."""
     return _extend(False, a, a_len, b, b_len, centers, band, n_rows, segment,
-                   max_rows, partial_cap_q)
+                   max_rows, partial_cap_q, center_stride=center_stride)

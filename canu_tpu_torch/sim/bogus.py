@@ -337,7 +337,7 @@ def _segment_identity(
     import torch
 
     from ..device import resolve_device
-    from ..ops.align import _interp_centers
+    from ..ops.align import CENTER_STRIDE, _interp_grid
     from ..ops.myers import banded_extend_myers
 
     dev = resolve_device(device)
@@ -442,10 +442,11 @@ def _segment_identity(
         xb[j, :m] = pts_b
         xa[j, m:] = pts_a[-1] + 1 + ramp[: M - m]
         xb[j, m:] = pts_b[-1] + 1 + ramp[: M - m]
-    cen = _interp_centers(torch.from_numpy(xa).to(dev), torch.from_numpy(xb).to(dev), n_rows)
+    # the centres on their 16-row grid, which the extension reads as it is
+    cen = _interp_grid(torch.from_numpy(xa).to(dev), torch.from_numpy(xb).to(dev), n_rows)
     e, au, _bu = banded_extend_myers(
         *(torch.from_numpy(x).to(dev) for x in (a, a_len, b, b_len)),
-        cen, band, n_rows, max_rows=int(a_len.max()),
+        cen, band, n_rows, max_rows=int(a_len.max()), center_stride=CENTER_STRIDE,
     )
     e = e.cpu().numpy()
     au = au.cpu().numpy()

@@ -73,12 +73,17 @@ Phases (each prints its results; any failure exits non-zero):
               the first DP group of phases 10 and 15, and
               phase 16's first RED and first polish group (held_fold)
               3a also holds K10 (the band schedule's shift bits and the
-              row-0 planes) and K11 (the end pick) to the plain chain
-              (ops.myers _schedule, _shift_bits, _myers_init, _carry_pack;
-              _carry_unpack, _myers_finish) on each edge case, K10 alone
-              on tests/torch_cases.py myers_schedule_cases and K11 alone
-              on myers_finish_cases; then on phase 5's first group, phase
-              9's first group and the judge's launch of phase 16
+              row-0 planes, from the centres as rows and on their 16-row
+              grid, one block or a cluster of blocks an extension) and
+              K11 (the end pick, run by K1 after its last row and alone)
+              to the plain chain (ops.myers _schedule, _shift_bits,
+              _myers_init, _carry_pack; _carry_unpack, _myers_finish) on
+              each edge case, K10 alone on tests/torch_cases.py
+              myers_schedule_cases (rows, grid, split over 2 and 8
+              blocks) and myers_split_case (3 x 200,003 rows) and K11
+              alone on myers_finish_cases; then on phase 5's first
+              group, phase 9's first group and the judge's launch of
+              phase 16
   4 slice     meryl + overlap ("cor") stages on the bench.py read set
               (1,025 reads, 3.64 Mb) in a temporary directory; K1 must
               have launched and the plain loop must not have run on the
@@ -104,9 +109,9 @@ Phases (each prints its results; any failure exits non-zero):
               candidates at k 16 with the frequent table and at k 22
               without one, then verify_overlaps of each placed set: K12
               once a chunk of 256 pairs and held bit for bit to the plain
-              statistics on every chunk, the verify's K7, K8, K10, K1 and
-              K11; the candidates, the placed candidates and the verified
-              rows against placed_overlap_reference.json
+              statistics on every chunk, the verify's K7, K8, K10 and K1
+              with the end pick; the candidates, the placed candidates
+              and the verified rows against placed_overlap_reference.json
               (scripts/torch_placed_reference.py); K12 timed on the first
               chunk beside its bound and the plain version
   5 timing    warm passes of sketch, match and verify as bench.py times
@@ -123,7 +128,9 @@ Phases (each prints its results; any failure exits non-zero):
               versions' times; K7 on phase 4's first verify group and K8
               on every block of its index, beside their bounds and the
               plain versions' times; K10 and K11 on the first verify
-              group beside their bounds and the plain chain's times
+              group beside their bounds (K10's on the grid beside the
+              row-centre bound) and the plain chain's times, K1 with the
+              pick beside K1 and K11 alone
   6 obt       meryl + overlap ("obt", k=22 two-lane k-mers, band 128:
               K1 with partial and palindromic pairs) on the corrected
               read set (1,004 reads, 3.61 Mb, 3% error)
@@ -267,7 +274,9 @@ Phases (each prints its results; any failure exits non-zero):
               nowhere else; each launch by CUDA events beside its bound,
               and held bit for bit to the plain loop on every one of its
               rows (k1_held_to_plain: K1's carry at every 4,096th row, the
-              plain rows of all segments at once from those carries).
+              plain rows of all segments at once from those carries), its
+              end pick too; K10 and K1 with the pick held to the plain
+              chain on bogus's extension call (held_myers_ends).
               tig-dump, tig-display and tig-coverage on 11b's tig store,
               and bogus on 11b's contigs, are printed, not gated
   14 grid     the sharded path (canu_tpu_torch.parallel) on the bench read
@@ -375,9 +384,10 @@ Every main-path run of phases 4-17 (4, 4b, 4c, 4d, 6, 7, 9, 10, 11, 14a,
 the card; drive_stage drops the read set's cached index first, so that
 each drive builds its own.  In each of them K9 launches once per DP group
 of the vote engine (none where it does not vote) and the plain fold never
-runs on the card, and K10 and K11 launch once beside each K1 launch
-(verify, the OEA adjust, align_links; the judge's and the tools' bogus
-too) with the plain Myers schedule and segments never on the card.
+runs on the card, and K10 launches once beside each K1 launch, which runs
+K11's end pick after its last row (verify, the OEA adjust, align_links;
+the judge's and the tools' bogus too): K11 never launches alone there,
+and the plain Myers schedule and segments never run on the card.
 
 Each kernel's bound is the larger of its operations over the card's
 32-bit integer rate and its bytes over the memory rate (INT32_OPS_S,
@@ -393,8 +403,9 @@ pairs a block pair needs, MATCH_*_OPS; pre_bound each pair's three sorts,
 n log2 n compares each, and the elements written, VERIFY_PRE_OPS;
 syncmer_bound the s-mers and positions on the reads, the selected keys
 and their sort, SYNCMER_OPS; fold_bound the live rows of the jobs that
-vote, FOLD_ROW_OPS; myers_ends_bound the scheduled rows and the columns of
-the end pick, K10_*_OPS and K11_*_OPS; pair_stats_bound the on-read k-mer
+vote, FOLD_ROW_OPS; myers_ends_bound the scheduled rows (and the 16-row
+grid's units where the centres come on it) and the columns of the end
+pick, K10_*_OPS and K11_*_OPS; pair_stats_bound the on-read k-mer
 positions and the chunk's hits, PAIR_*_OPS).  The bytes are each input the kernel needs read once
 and each output written once.  The plain loops' own per-row counts
 (plain_row_ops) are printed beside, as a second figure.
@@ -499,9 +510,15 @@ SYNCMER_OPS = 16  # each s-mer on the read: the rolling forward and reverse
 #   sort of the selected keys n log2 n compares; each element written 1
 # K10 (the Myers band schedule and row-0 state, ops.myers._schedule,
 # _shift_bits, _myers_init and _carry_pack):
-K10_ROW_OPS = 14  # each scheduled row: the target's clip 3, the running max 1,
-#   t - i 1, the running min 1, lo 1, the suffix max 1, hi 1, (lo + hi) >> 1 2,
-#   the cap at t0 + i 2, the shift bit's compare 1
+K10_ROW_OPS = 14  # each scheduled row, its centre read as a row: the target's
+#   clip 3, the running max 1, t - i 1, the running min 1, lo 1, the suffix max
+#   1, hi 1, (lo + hi) >> 1 2, the cap at t0 + i 2, the shift bit's compare 1
+K10_GRID_ROW_OPS = 7  # each scheduled row, its centre on the 16-row grid (its
+#   unit's t is one): t - i 1, the min with the unit's entering min 1, the max
+#   with the max after it 1, their sum 1 and halving 1 (o = d + i), the cap at
+#   t0 1, the shift bit's compare 1
+K10_GRID_UNIT_OPS = 8  # each 16-row unit of the grid: the target's clip 3, the
+#   running max 1, the unit's min and max of t - i (its last and first row) 4
 K10_EXT_OPS = 4 * 128 + 43  # each extension: a compare a (Peq base, char), a plane each
 # K11 (the end pick, ops.myers._carry_unpack and _myers_finish):
 K11_COL_OPS = 6  # each of the A-exhausted row's 128 columns: two bit extracts,
@@ -737,17 +754,21 @@ def k1_work(args, live) -> dict:
     return {"live_rows": int(live.sum()), "shift_rows": shifts, "bx_rows": bx}
 
 
-def k1_bound(args, live) -> dict:
+def k1_bound(args, live, pick: bool = True) -> dict:
     """K1's bound on one launch: K1_ROW_OPS a live row, K1_SHIFT_OPS a
-    shifted row, K1_BX_OPS a row with b_len in the window; bytes = the
-    carry in and out, a_len and b_len, each live row's A char and shift
-    bit (whole 32-bit words), and each shift's entering B char."""
+    shifted row, K1_BX_OPS a row with b_len in the window and, with the end
+    pick (the main path's launch), K11's operations an extension; bytes =
+    the carry in, the carry or (pick) the six results out, a_len and
+    b_len, each live row's A char and shift bit (whole 32-bit words), and
+    each shift's entering B char."""
     wk = k1_work(args, live)
     planes = args[0]
-    nbytes = planes.shape[1] * (2 * 4 * planes.shape[0] + 8) + wk["live_rows"] \
+    B = planes.shape[1]
+    out_bytes = 6 * 4 if pick else 4 * planes.shape[0]
+    nbytes = B * (4 * planes.shape[0] + out_bytes + 8) + wk["live_rows"] \
         + 4 * int(((live + 31) // 32).sum()) + wk["shift_rows"]
     ops = (K1_ROW_OPS * wk["live_rows"] + K1_SHIFT_OPS * wk["shift_rows"]
-           + K1_BX_OPS * wk["bx_rows"])
+           + K1_BX_OPS * wk["bx_rows"] + (K11_COL_OPS * 128 + K11_EXT_OPS) * B * pick)
     return {**bound(ops, nbytes), **wk}
 
 
@@ -757,8 +778,10 @@ def k1_held_to_plain(name: str, args, seg: int = 4096):
     plain rows of every segment run at once from K1's carry at its start
     (torch_cases.k1_rows_plain), and each segment's end must equal K1's
     carry at the next start, the last the launch's own output; then the
-    two finishes (edits, a_used, b_used, the partial captures).  Returns
-    (max |diff| (0), the plain rows' ms by CUDA events, the segments)."""
+    two finishes (edits, a_used, b_used, the partial captures), and K1's
+    own end pick (the launch as the main path makes it) against them.
+    Returns (max |diff| (0), the plain rows' ms by CUDA events, the
+    segments)."""
     import torch
 
     from canu_tpu_torch.ops import myers as MY
@@ -784,13 +807,17 @@ def k1_held_to_plain(name: str, args, seg: int = 4096):
     def finish(p):
         return MY._myers_finish(MY._carry_unpack(p), a_len, b_len, MY.NW * MY.WORD)
 
-    return max(err, compare(name, finish(got[:, -1]), finish(ends[-1]))), plain_ms, T
+    ref = finish(got[:, -1])
+    err = max(err, compare(name, ref, finish(ends[-1])),
+              compare(f"{name} (K1 with the end pick)", ref,
+                      K1.myers_rows_cuda(*args, pick=True)))
+    return err, plain_ms, T
 
 
 def myers_ends_inputs(args, n_rows: int, kw: dict):
-    """banded_extend_myers's arguments as _extend hands them to kernels K10,
-    K1 and K11: (a, a_len, b, b_len, centers, scheduled rows, n_run,
-    cap_q)."""
+    """banded_extend_myers's arguments as _extend hands them to kernels K10
+    and K1: (a, a_len, b, b_len, centers, scheduled rows, n_run, cap_q,
+    the centres' stride, the rows they cover)."""
     import torch
 
     from canu_tpu_torch.ops import myers as MY
@@ -804,49 +831,71 @@ def myers_ends_inputs(args, n_rows: int, kw: dict):
     n_run = run_segs * seg
     if a.shape[1] < n_run:
         a = torch.nn.functional.pad(a, (0, n_run - a.shape[1]))
+    stride = kw.get("center_stride", 1)
     return (a.contiguous(), a_len.to(torch.int32).contiguous(), b.contiguous(),
             b_len.to(torch.int32).contiguous(), centers.to(torch.int32), n_seg * seg, n_run,
-            int(kw.get("partial_cap_q") or 0))
+            int(kw.get("partial_cap_q") or 0), stride,
+            n_rows + 1 if stride > 1 else centers.shape[1])
 
 
-def myers_ends_bound(centers, n_rows: int, n_run: int) -> tuple[dict, dict]:
-    """K10's and K11's bounds on one call: K10 reads each extension's
-    centres of rows 0..n_rows, its 128 bases at o0, a_len and b_len and
-    writes the shift bits and 43 planes; K11 reads the 16 planes the pick
-    uses, a_len and b_len and writes 6 words.  Operations: K10_ROW_OPS a
-    scheduled row and K10_EXT_OPS an extension; K11_COL_OPS a column and
-    K11_EXT_OPS an extension."""
+def myers_ends_bound(centers, n_rows: int, n_run: int, stride: int = 1,
+                     C: int | None = None) -> tuple[dict, dict, dict]:
+    """K10's and K11's bounds on one call, and K10's bound had it read the
+    centres as rows.  K10 reads each extension's centres once (the grid's
+    values of rows 0..n_rows at stride 16, the rows at stride 1), its 128
+    bases at o0, a_len and b_len, and writes the shift bits and 43 planes;
+    operations K10_GRID_ROW_OPS a scheduled row and K10_GRID_UNIT_OPS a
+    16-row unit on the grid, K10_ROW_OPS a row as rows, K10_EXT_OPS an
+    extension.  K11 reads the 16 planes the pick uses, a_len and b_len and
+    writes 6 words; K11_COL_OPS a column and K11_EXT_OPS an extension."""
     B = centers.shape[0]
-    cols = min(centers.shape[1], n_rows + 1)
-    k10 = bound(K10_ROW_OPS * B * (n_rows + 1) + K10_EXT_OPS * B,
-                B * (4 * cols + 128 + 8 + 4 * -(-n_run // 32) + 4 * 43))
+    C = centers.shape[1] * stride if C is None else C
+    rest = 128 + 8 + 4 * -(-n_run // 32) + 4 * 43
+    rows_read = min(C, n_rows + 1)
+    k10_rows = bound(K10_ROW_OPS * B * (n_rows + 1) + K10_EXT_OPS * B, B * (4 * rows_read + rest))
+    k10 = k10_rows
+    if stride > 1:
+        units = min((C - 1) // stride, n_rows // stride) + 1
+        k10 = bound((K10_GRID_ROW_OPS * (n_rows + 1) + K10_GRID_UNIT_OPS * (n_rows // stride + 1)
+                     + K10_EXT_OPS) * B, B * (4 * units + rest))
     k11 = bound((K11_COL_OPS * 128 + K11_EXT_OPS) * B, B * (16 * 4 + 8 + 6 * 4))
-    return k10, k11
+    return k10, k11, k10_rows
 
 
-def held_myers_ends(name: str, args, n_rows: int, kw: dict, reps: int = 0) -> dict:
+def held_myers_ends(name: str, args, n_rows: int, kw: dict, reps: int = 0,
+                    k1_reps: int = 0) -> dict:
     """Kernels K10 and K11 on one banded_extend_myers call's inputs, bit for
     bit against their plain versions on the card: K10's shift bits and
     row-0 planes against _schedule, _shift_bits, _myers_init and
-    _carry_pack; then K1 from K10's planes, and K11's six results against
-    _carry_unpack and _myers_finish of K1's final planes.  With reps, both
-    kernels timed by CUDA events (mean of reps) beside their bounds and
-    the plain versions' one run.  Returns {"err", and with reps "K10",
-    "K11": {ms, plain_ms, bound}}."""
+    _carry_pack on the centres as rows (expanded from their grid where the
+    call hands the grid over); then K1 from K10's planes, and its end pick
+    (K1 with the pick, as the main path runs it) and K11 alone on K1's
+    planes against _carry_unpack and _myers_finish.  With reps, K10 and K11
+    alone timed by CUDA events (mean of reps) beside their bounds (K10's
+    also beside its bound had it read rows) and the plain versions' one
+    run; with k1_reps, K1 with the pick against K1 then K11, by CUDA events
+    (mean of k1_reps).  Returns {"err", and with reps "K10", "K11": {ms,
+    plain_ms, bound, ...}}."""
     import torch
 
     from canu_tpu_torch.ops import myers as MY
     from canu_tpu_torch.ops.kernels import myers_cuda as K1
 
-    a, a_len, b, b_len, centers, rows, n_run, cap_q = myers_ends_inputs(args, n_rows, kw)
+    a, a_len, b, b_len, centers, rows, n_run, cap_q, stride, C = myers_ends_inputs(
+        args, n_rows, kw)
+    rows_c = MY.expand_centers(centers, n_rows, stride) if stride > 1 else centers
 
     def plain10():
-        o_all = MY._schedule(b_len, centers, 128, rows)
+        o_all = MY._schedule(b_len, rows_c, 128, rows)
         return (MY._carry_pack(MY._myers_init(b, b_len, a_len, o_all[:, 0].contiguous(), 128)),
                 MY._shift_bits(o_all, n_run))
 
+    def k10():
+        return K1.myers_prologue_cuda(centers, b, a_len, b_len, rows, n_run,
+                                      center_stride=stride, center_rows=C)
+
     (p_ref, s_ref), plain10_ms = once_ms(plain10)
-    planes, s_bits = K1.myers_prologue_cuda(centers, b, a_len, b_len, rows, n_run)
+    planes, s_bits = k10()
     err = 0
     for what, r, g in (("row-0 planes", p_ref, planes), ("shift bits", s_ref, s_bits)):
         d = int((r.to(torch.int64) - g.to(torch.int64)).abs().max()) if r.numel() else 0
@@ -856,26 +905,39 @@ def held_myers_ends(name: str, args, n_rows: int, kw: dict, reps: int = 0) -> di
     fin = K1.myers_rows_cuda(planes, a, s_bits, b, a_len, b_len, n_run, cap_q)
     ref11, plain11_ms = once_ms(lambda: MY._myers_finish(MY._carry_unpack(fin), a_len, b_len,
                                                          128))
-    err = max(err, compare(f"{name} (K11)", ref11, K1.myers_epilogue_cuda(fin, a_len, b_len)))
+    err = max(err, compare(f"{name} (K1 with the end pick)", ref11,
+                           K1.myers_rows_cuda(planes, a, s_bits, b, a_len, b_len, n_run, cap_q,
+                                              pick=True)),
+              compare(f"{name} (K11 alone)", ref11, K1.myers_epilogue_cuda(fin, a_len, b_len)))
     out = {"err": err}
     if reps:
-        b10, b11 = myers_ends_bound(centers, rows, n_run)
-        out["K10"] = {"ms": cuda_ms(lambda: K1.myers_prologue_cuda(centers, b, a_len, b_len, rows,
-                                                                   n_run), reps),
-                      "plain_ms": plain10_ms, "bound": b10}
+        b10, b11, b10_rows = myers_ends_bound(centers, rows, n_run, stride, C)
+        out["K10"] = {"ms": cuda_ms(k10, reps), "plain_ms": plain10_ms, "bound": b10,
+                      "bound_rows": b10_rows, "stride": stride}
         out["K11"] = {"ms": cuda_ms(lambda: K1.myers_epilogue_cuda(fin, a_len, b_len), reps),
                       "plain_ms": plain11_ms, "bound": b11}
+    if k1_reps:
+        out.setdefault("K11", {})
+        k1_args = (planes, a, s_bits, b, a_len, b_len, n_run, cap_q)
+        out["K11"]["k1_pick_ms"] = cuda_ms(lambda: K1.myers_rows_cuda(*k1_args, pick=True),
+                                           k1_reps)
+        out["K11"]["k1_then_k11_ms"] = cuda_ms(
+            lambda: K1.myers_epilogue_cuda(K1.myers_rows_cuda(*k1_args), a_len, b_len), k1_reps)
     return out
 
 
 def myers_ends_edge_checks(dev) -> int:
     """Phase 3a: K10 and K11 bit for bit against their plain versions on
     tests/torch_cases.py's cases: each of myers_edge_cases through
-    held_myers_ends (K10, K1, K11 as _extend runs them), K10 alone on
-    myers_schedule_cases (centres narrower and wider than the rows, a rise
-    after n_run, lengths 0 and negative, o0 at the end of B, int32 limits,
-    one row, 40,000 rows) and K11 alone on myers_finish_cases (ties, INF,
-    columns cut off at b_len).  Returns the max |difference| (0)."""
+    held_myers_ends (K10, then K1 with the end pick, as _extend runs them,
+    and K11 alone), with its centres as rows and on their 16-row grid; K10
+    alone on myers_schedule_cases (centres narrower and wider than the
+    rows, a rise after n_run, lengths 0 and negative, o0 at the end of B,
+    int32 limits, one row, 40,000 rows) as rows, on the grid and split
+    over clusters of 2 and 8 blocks, and on myers_split_case (3 x 200,003
+    rows) as the launch splits it and on one block; K11 alone on
+    myers_finish_cases (ties, INF, columns cut off at b_len).  Returns the
+    max |difference| (0)."""
     import numpy as np
     import torch
 
@@ -883,41 +945,69 @@ def myers_ends_edge_checks(dev) -> int:
     from canu_tpu_torch.ops.kernels import myers_cuda as K1
 
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from torch_cases import myers_finish_cases, myers_schedule_cases
+    from torch_cases import myers_finish_cases, myers_schedule_cases, myers_split_case
 
     err = 0
     for name, (args, n_rows, kw) in kernel_cases(dev).items():
         err = max(err, held_myers_ends(f"3a K10/K11 edge case {name}", args, n_rows, kw)["err"])
-    for name, case in myers_schedule_cases().items():
-        c, b, a_len, b_len = (torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in case[:4])
-        n_rows, n_run = case[4:]
-        planes, s_bits = K1.myers_prologue_cuda(c, b, a_len, b_len, n_rows, n_run)
-        o_all = MY._schedule(b_len, c, 128, n_rows)
+        grid = args[4][:, ::16].contiguous()
+        err = max(err, held_myers_ends(f"3a K10/K11 edge case {name} on the grid",
+                                       [*args[:4], grid], n_rows,
+                                       {**kw, "center_stride": 16})["err"])
+
+    def held10(label, c, b, a_len, b_len, n_rows, n_run, **opts):
+        rows_c = c
+        if opts.get("center_stride", 1) > 1:
+            rows_c = MY.expand_centers(c, opts["center_rows"] - 1)
+        planes, s_bits = K1.myers_prologue_cuda(c, b, a_len, b_len, n_rows, n_run, **opts)
+        o_all = MY._schedule(b_len, rows_c, 128, n_rows)
         ref = (MY._carry_pack(MY._myers_init(b, b_len, a_len, o_all[:, 0].contiguous(), 128)),
                MY._shift_bits(o_all, n_run))
         d = max(int((r.to(torch.int64) - g.to(torch.int64)).abs().max()) if r.numel() else 0
                 for r, g in zip(ref, (planes, s_bits)))
-        check(d == 0, f"3a: K10 differs from the plain chain on schedule case {name} (max |diff| "
-              f"{d})")
-        err = max(err, d)
+        check(d == 0, f"3a: K10 differs from the plain chain on {label} (max |diff| {d})")
+        return d
+
+    for name, case in myers_schedule_cases().items():
+        c, b, a_len, b_len = (torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in case[:4])
+        n_rows, n_run = case[4:]
+        for split in (None, 2, 8):
+            err = max(err, held10(f"schedule case {name}, split {split}", c, b, a_len, b_len,
+                                  n_rows, n_run, split=split))
+        if c.shape[1] < n_rows + 1:  # the last centre repeats up to row n_rows
+            c = torch.cat([c, c[:, -1:].expand(-1, n_rows + 1 - c.shape[1])], dim=1)
+        grid = c[:, : n_rows + 1 : 16].contiguous()
+        err = max(err, held10(f"schedule case {name} on the grid", grid, b, a_len, b_len,
+                              n_rows, n_run, center_stride=16, center_rows=n_rows + 1))
+    c, b, a_len, b_len, n_rows, n_run = myers_split_case()
+    c, b, a_len, b_len = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                          for x in (c, b, a_len, b_len))
+    for split in (None, 1):
+        err = max(err, held10(f"the split case, split {split}", c, b, a_len, b_len, n_rows,
+                              n_run, split=split),
+                  held10(f"the split case on the grid, split {split}",
+                         c[:, ::16].contiguous(), b, a_len, b_len, n_rows, n_run, split=split,
+                         center_stride=16, center_rows=n_rows + 1))
     planes, a_len, b_len = (torch.from_numpy(x).to(dev) for x in myers_finish_cases())
     err = max(err, compare("3a K11 finish cases",
                            MY._myers_finish(MY._carry_unpack(planes), a_len, b_len, 128),
                            K1.myers_epilogue_cuda(planes, a_len, b_len)))
-    log(f"[3a kernel] K10 and K11 bit-equal to the plain chain on {len(kernel_cases(dev))} edge "
-        f"cases, K10 on {len(myers_schedule_cases())} schedule cases, K11 on "
-        f"{planes.shape[1]} end-pick cases")
+    log(f"[3a kernel] K10 and K1 with the end pick bit-equal to the plain chain on "
+        f"{len(kernel_cases(dev))} edge cases, their centres as rows and on the 16-row grid; "
+        f"K10 on {len(myers_schedule_cases())} schedule cases (rows, grid, split over 2 and 8 "
+        f"blocks) and on 3 x {n_rows + 1:,} rows (split as launched and on one block, rows and "
+        f"grid); K11 alone on {planes.shape[1]} end-pick cases")
     return err
 
 
 def time_k1(launches, reps: int = 5):
-    """K1 with CUDA events on each (inputs, live rows) launch: ([ms],
-    [bound])."""
+    """K1 with CUDA events on each (inputs, live rows) launch, with the end
+    pick as the main path launches it: ([ms], [bound])."""
     from canu_tpu_torch.ops.kernels import myers_cuda as K1
 
     ms, bounds = [], []
     for args, live in launches:
-        ms.append(cuda_ms(lambda: K1.myers_rows_cuda(*args), reps))
+        ms.append(cuda_ms(lambda: K1.myers_rows_cuda(*args, pick=True), reps))
         bounds.append(k1_bound(args, live))
     return ms, bounds
 
@@ -1146,7 +1236,7 @@ def reset_counts() -> None:
 
     K9.LAUNCHES = VP.PLAIN_CUDA_FOLDS = VP.GROUPS = 0
     K1.LAUNCHES = EX.WARP_LAUNCHES = EX.BLOCK_LAUNCHES = K4.LAUNCHES = K4.JOBS_LAUNCHED = 0
-    K1.PROLOGUE_LAUNCHES = K1.EPILOGUE_LAUNCHES = 0
+    K1.PROLOGUE_LAUNCHES = K1.EPILOGUE_LAUNCHES = K1.PICK_LAUNCHES = 0
     MK.SKETCH_LAUNCHES = MK.MATCH_LAUNCHES = MK.COMPACT_LAUNCHES = 0
     VC.PRE_LAUNCHES = VC.SYNCMER_LAUNCHES = VC.PAIR_STATS_LAUNCHES = 0
     MY.PLAIN_CUDA_SEGMENTS = MY.PLAIN_CUDA_SCHEDULES = AL.PLAIN_CUDA_ROWS = 0
@@ -1173,6 +1263,7 @@ def read_counts() -> dict:
     from canu_tpu_torch.stores import overlaps as OV
 
     return {"K1": K1.LAUNCHES, "K10": K1.PROLOGUE_LAUNCHES, "K11": K1.EPILOGUE_LAUNCHES,
+            "K11_pick": K1.PICK_LAUNCHES,
             "K12": VC.PAIR_STATS_LAUNCHES, "K2": EX.WARP_LAUNCHES, "K3": EX.BLOCK_LAUNCHES,
             "K4": K4.LAUNCHES, "K5": MK.SKETCH_LAUNCHES, "K6": MK.MATCH_LAUNCHES,
             "K6_compact": MK.COMPACT_LAUNCHES, "K7": VC.PRE_LAUNCHES,
@@ -1780,13 +1871,14 @@ def pre_bound(d: dict, flipped) -> dict:
     def nlogn(x):
         return float((x * torch.log2(torch.clamp(x, min=1))).sum())
 
-    written = 2 * n * (n_rows + (n_rows + band) + (n_rows + 1) + 2) + 5 * n
+    cw = n_rows // 16 + 1 if d.get("center_stride", 1) == 16 else n_rows + 1  # centres a row
+    written = 2 * n * (n_rows + (n_rows + band) + cw + 2) + 5 * n
     ops = VERIFY_PRE_OPS * (nlogn((vA.sum(1) + vB.sum(1)).double()) + nlogn(h2.sum(1).double())
                             + nlogn(n_in) + written)
     rows = int(torch.unique(torch.cat([a, b])).numel())
     W, Pm = index.words.shape[1], index.mker.shape[1]
     nbytes = (rows * (8 * W + 4 + 16 * Pm) + 17 * n
-              + 2 * n * (n_rows + (n_rows + band) + 4 * (n_rows + 1) + 8) + 17 * n)
+              + 2 * n * (n_rows + (n_rows + band) + 4 * cw + 8) + 17 * n)
     out = bound(ops, nbytes)
     out.update(pairs=n, distinct_rows=rows)
     return out
@@ -1852,6 +1944,7 @@ def verify_timing(pre_call: dict, sync_kept, card: str) -> dict:
     ms = cuda_ms(lambda: AL._verify_pre(**d), 10)
     got = AL._verify_pre(**d)
     bd = pre_bound(d, got[2])
+    bd_rows = pre_bound({**d, "center_stride": 1}, got[2])
     del got
     _, plain_ms = once_ms(lambda: AL._verify_pre_plain(**d))
     n = d["a_idx"].shape[0]
@@ -1859,7 +1952,11 @@ def verify_timing(pre_call: dict, sync_kept, card: str) -> dict:
         f"{n // (d['chunk'] or n)} chunks, {d['n_rows']} rows, band {d['band']}): {ms:.3f} ms "
         f"(mean of 10); bound {bd['bound_ms']:.3f} ms ({bd['ops']:.3e} operations, "
         f"{bd['bytes']:.3e} bytes, {bd['distinct_rows']} index rows; bound by {bd['bound_by']}; "
-        f"{100 * bd['bound_ms'] / ms:.1f}% of it); the plain step chunk by chunk {plain_ms:.1f} ms")
+        f"{100 * bd['bound_ms'] / ms:.1f}% of it); the plain step chunk by chunk "
+        f"{plain_ms:.1f} ms; "
+        f"centres at stride {d.get('center_stride', 1)}: as rows the bound would be "
+        f"{bd_rows['bound_ms']:.3f} ms ({bd_rows['bytes']:.3e} bytes, "
+        f"{100 * bd_rows['bound_ms'] / ms:.1f}% of this K7's time)")
     (b,) = sync_kept.builds
     args = b["args"]
     planes = [x.clone() for x in args[8:11]]
@@ -1875,7 +1972,7 @@ def verify_timing(pre_call: dict, sync_kept, card: str) -> dict:
     res = VC.resources(d["index"].mker.shape[1], b["pm"])
     log(f"[5 timing] {card}: resources at Pm {d['index'].mker.shape[1]}: K7 {res['K7']}, K8 "
         f"{res['K8']} (cudaOccupancyMaxActiveBlocksPerMultiprocessor, cudaFuncGetAttributes)")
-    return {"K7": {"ms": ms, "plain_ms": plain_ms, "bound": bd},
+    return {"K7": {"ms": ms, "plain_ms": plain_ms, "bound": bd, "bound_rows": bd_rows},
             "K8": {"ms": k8_ms, "launch_ms": b["events"][0].elapsed_time(b["events"][1]),
                    "plain_ms": k8_plain, "bound": k8b, "reads": b["n"],
                    "buckets": len(sync_kept)},
@@ -2255,17 +2352,19 @@ def placed_drive(dev, card: str, fk) -> dict:
     without one, each then verified (verify_overlaps, band 128), on a read
     set of its own (so the verify builds its index), the counts set to 0
     just before and read just after.  K12 must launch once a chunk of 256
-    pairs, the verify K7, K8, K10, K1 and K11, and no plain version on the
-    card.  Holds the candidates, the placed candidates and the verified
-    rows against placed_overlap_reference.json (canu_tpu on the CPU,
-    scripts/torch_placed_reference.py); K12 on every chunk bit for bit
-    against the plain statistics; K12 and the plain version timed on the
-    first chunk beside K12's bound."""
+    pairs, the verify K7, K8, K10 and K1 with the end pick, and no plain
+    version on the card.  Holds the candidates, the placed candidates and
+    the verified rows against placed_overlap_reference.json (canu_tpu on
+    the CPU, scripts/torch_placed_reference.py); K12 on every chunk bit for
+    bit against the plain statistics; K10 and K1 with the pick on the
+    verify's first extension group (held_myers_ends); K12 and the plain
+    version timed on the first chunk beside K12's bound."""
     import torch
 
     from canu_tpu_torch.config import Config
     from canu_tpu_torch.ops import align as AL
     from canu_tpu_torch.ops import minhash as MH
+    from canu_tpu_torch.ops import myers as MY
     from canu_tpu_torch.ops.kernels import verify_cuda as VC
     from canu_tpu_torch.stores.overlaps import store_digest
 
@@ -2292,6 +2391,7 @@ def placed_drive(dev, card: str, fk) -> dict:
     out: dict = {"n_candidates": len(pairs), "chunks": n_chunks, "runs": {}}
     kept: dict = {}
     real = MH._pair_stats
+    real_ext, ext4d = capture_calls(MY, "banded_extend_myers", first_only=True)
     try:
         reset_counts()
         t = time.time()
@@ -2312,7 +2412,7 @@ def placed_drive(dev, card: str, fk) -> dict:
         t_run = time.time() - t
         counts = read_counts()
     finally:
-        MH._pair_stats = real
+        MH._pair_stats, MY.banded_extend_myers = real, real_ext
     log(f"[4d placed] {card}: place_candidates + verify_overlaps at k 16 and 22 in "
         f"{t_run:.2f} s; launch counts {counts}")
     for k, r in out["runs"].items():
@@ -2327,10 +2427,18 @@ def placed_drive(dev, card: str, fk) -> dict:
         check(r["rows"] == want["rows"] and r["rows_sha256"] == want["rows_sha256"],
               f"4d placed: k {k}: the verified rows differ from the JAX package's")
     check(counts["K12"] == 2 * n_chunks, f"4d placed: {counts['K12']} K12 launches")
-    check(counts["K10"] == counts["K11"] == counts["K1"] > 0,
-          f"4d placed: K10 {counts['K10']}, K11 {counts['K11']} for K1's {counts['K1']}")
+    check(counts["K10"] == counts["K11_pick"] == counts["K1"] > 0 and counts["K11"] == 0,
+          f"4d placed: K10 {counts['K10']}, K1 {counts['K1']} ({counts['K11_pick']} with the "
+          f"end pick), K11 alone {counts['K11']}")
     check(counts["K2"] == counts["K3"] == counts["K4"] == 0 and no_plain(counts),
           f"4d placed: another kernel or a plain version ran on the card: {counts}")
+    check(len(ext4d) == 1, "4d placed: the verify never called banded_extend_myers")
+    (e_args, e_kw), = ext4d
+    err_ends = held_myers_ends("4d first group", e_args[:5], e_args[6], e_kw)["err"]
+    del ext4d
+    log(f"[4d kernel] K10 and K1 with the end pick bit-equal to the plain chain on the placed "
+        f"verify's first group ({e_args[0].shape[0]} extensions x {e_args[6]} rows, centres at "
+        f"stride {e_kw.get('center_stride', 1)})")
 
     # K12 held to the plain statistics on every chunk; timed on the first
     err = 0
@@ -2353,8 +2461,8 @@ def placed_drive(dev, card: str, fk) -> dict:
         f"operations, {bd['bytes']:.3e} bytes; bound by {bd['bound_by']}; "
         f"{100 * bd['bound_ms'] / ms:.1f}% of it)")
     del kept
-    out.update(err=err, ms=ms, plain_ms=plain_ms, bound=bd, launches=counts,
-               run_s=t_run, phase_s=time.time() - t_phase)
+    out.update(err=err, myers_ends_err=err_ends, ms=ms, plain_ms=plain_ms, bound=bd,
+               launches=counts, run_s=t_run, phase_s=time.time() - t_phase)
     log(f"[4d placed] phase wall {out['phase_s']:.1f} s")
     return out
 
@@ -2396,16 +2504,17 @@ def k1_metered(real, k1: dict, dev):
     k1["peak"] and the device's peak count is reset after the bound."""
     import torch
 
-    def call(*args):
+    def call(*args, **kw):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        out = real(*args)
+        out = real(*args, **kw)
         e1.record()
         k1["events"].append((e0, e1))
         k1["peak"] = max(k1["peak"], torch.cuda.max_memory_allocated(dev))
         t0 = time.time()
-        k1["bounds"].append(k1_bound(args, torch.clamp(args[4].to(torch.int64), 0, args[6])))
+        k1["bounds"].append(k1_bound(args, torch.clamp(args[4].to(torch.int64), 0, args[6]),
+                                     kw.get("pick", False)))
         k1["bound_s"] += time.time() - t0
         torch.cuda.reset_peak_memory_stats(dev)
         return out
@@ -2610,16 +2719,20 @@ def ecoli_drive(dev, card: str) -> dict:
         f"{tuple(w_args)} on the card x the window of {n_window} chunks = {est / 1e9:.3f} GB "
         f"(the plain chain's estimate {AL._chunk_staging_bytes(*w_args) * n_window / 1e9:.3f} "
         f"GB; groups of {group}; {len(rest)} more window calls: {[w[1] for w in rest]})")
-    check(counts["K10"] == counts["K11"] == counts["K1"],
-          f"9 ecoli: K10 {counts['K10']} and K11 {counts['K11']} launches for K1's {counts['K1']}")
+    check(counts["K10"] == counts["K11_pick"] == counts["K1"] and counts["K11"] == 0,
+          f"9 ecoli: K10 {counts['K10']} launches for K1's {counts['K1']} ("
+          f"{counts['K11_pick']} with the end pick), K11 alone {counts['K11']}")
     check(len(ext9) == 1, "9 ecoli: the verify never called banded_extend_myers")
     (e_args, e_kw), = ext9
     ends9 = held_myers_ends("9 first group", e_args[:5], e_args[6], e_kw, reps=5)
     del ext9
-    log(f"[9 kernel] {card}: K10 and K11 bit-equal to the plain chain on the first group "
-        f"({e_args[0].shape[0]} extensions x {e_args[6]} rows): K10 {ends9['K10']['ms']:.3f} ms "
-        f"(plain {ends9['K10']['plain_ms']:.3f} ms, bound {ends9['K10']['bound']['bound_ms']:.3f} "
-        f"ms), K11 {ends9['K11']['ms']:.4f} ms (plain {ends9['K11']['plain_ms']:.3f} ms, bound "
+    log(f"[9 kernel] {card}: K10 and K1 with the end pick bit-equal to the plain chain on the "
+        f"first group ({e_args[0].shape[0]} extensions x {e_args[6]} rows, centres at stride "
+        f"{ends9['K10']['stride']}): K10 {ends9['K10']['ms']:.3f} ms (plain "
+        f"{ends9['K10']['plain_ms']:.3f} ms, bound {ends9['K10']['bound']['bound_ms']:.4f} ms "
+        f"by {ends9['K10']['bound']['bound_by']}; as rows it would be "
+        f"{ends9['K10']['bound_rows']['bound_ms']:.4f} ms), K11 alone "
+        f"{ends9['K11']['ms']:.4f} ms (plain {ends9['K11']['plain_ms']:.3f} ms, bound "
         f"{ends9['K11']['bound']['bound_ms']:.4f} ms)")
     # K7 and K8 held to the plain versions on the kept groups and block
     verify_err = held_verify_calls("phase 9", pre_kept, sy_kept)
@@ -3702,21 +3815,28 @@ def tools_drive(dev, card: str, run_b: dict) -> dict:
     work = tempfile.mkdtemp(prefix="chip_smoke_tools_")
     per_step: dict = {}
     bogus_calls: list = []
-    real_rows = MY._rows_kernel
+    bogus_ext: list = []  # bogus's first extension call, for K10 and K1 with the pick
+    real_rows, real_ext = MY._rows_kernel, MY.banded_extend_myers
 
     def rows(*args, **kw):
         bogus_calls.append((args, kw))
         return real_rows(*args, **kw)
 
+    def ext(*args, **kw):
+        if not bogus_ext:
+            bogus_ext.append((args, kw))
+        return real_ext(*args, **kw)
+
     @contextlib.contextmanager
     def counted(name):
         reset_counts()
         MY._rows_kernel = rows if name == "bogus" else real_rows
+        MY.banded_extend_myers = ext if name == "bogus" else real_ext
         try:
             yield
         finally:
             torch.cuda.synchronize()
-            MY._rows_kernel = real_rows
+            MY._rows_kernel, MY.banded_extend_myers = real_rows, real_ext
             per_step[name] = read_counts()
 
     t = time.time()
@@ -3741,10 +3861,18 @@ def tools_drive(dev, card: str, run_b: dict) -> dict:
         f"package's; K1 launches by step {k1_steps}")
     check(k1_steps.get("bogus", 0) > 0 and set(k1_steps) == {"bogus"},
           "13: K1 did not launch in bogus, or launched in another step")
-    check(all(c["K10"] == c["K11"] == c["K1"] for c in per_step.values()),
-          "13: kernels K10 and K11 did not launch once beside each K1 launch")
+    check(all(c["K10"] == c["K11_pick"] == c["K1"] and c["K11"] == 0
+              for c in per_step.values()),
+          "13: K10 did not launch once beside each K1 launch with the end pick, or K11 alone")
     check(not others, f"13: another kernel or a plain loop ran on the card: {others}")
     log("[13 tools] bogus: " + outs["bogus"].splitlines()[0])
+    check(len(bogus_ext) == 1, "13: bogus never called banded_extend_myers")
+    (j_args, j_kw), = bogus_ext
+    err_ends = held_myers_ends("13 bogus", j_args[:5], j_args[6], j_kw)["err"]
+    del bogus_ext
+    log(f"[13 kernel] K10 and K1 with the end pick bit-equal to the plain chain on bogus's "
+        f"launch ({j_args[0].shape[0]} pieces x {j_args[6]} rows, centres at stride "
+        f"{j_kw.get('center_stride', 1)})")
     k1_launches = [k1_call(c) for c in bogus_calls]
     del bogus_calls
     k1_ms, k1_bounds = time_k1(k1_launches)
@@ -3785,7 +3913,8 @@ def tools_drive(dev, card: str, run_b: dict) -> dict:
     log(f"[13 tools] bogus on 11b's contigs against the bench genome (not gated): rc {rc} in "
         f"{time.time() - t:.1f} s, K1 {k1_11b} launches; {out.strip()[:800]}")
     return {"run_s": t_run, "step_s": secs, "k1_by_step": k1_steps, "k1_ms": k1_ms,
-            "k1_bounds": k1_bounds, "k1_err": k1_err, "k1_plain_ms": k1_plain_ms,
+            "k1_bounds": k1_bounds, "k1_err": k1_err, "myers_ends_err": err_ends,
+            "k1_plain_ms": k1_plain_ms,
             "bogus": outs["bogus"], "bogus_11b": out,
             "k1_launches": sum(k1_steps.values()) + k1_11b, "phase_s": time.time() - t_phase}
 
@@ -4722,17 +4851,18 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
                 hosts_in[key] = hosts_in.get(key, 0) + KM.HOST_COUNTS - h0
         return call
 
-    def k1_call(*args):
+    def k1_call(*args, **kw):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        out = real["k1"](*args)
+        out = real["k1"](*args, **kw)
         e1.record()
         k1["events"].append((e0, e1))
         k1["where"].append(where[0])
         k1["peak"] = max(k1["peak"], torch.cuda.max_memory_allocated(dev))
         t0 = time.time()
-        k1["bounds"].append(k1_bound(args, torch.clamp(args[4].to(torch.int64), 0, args[6])))
+        k1["bounds"].append(k1_bound(args, torch.clamp(args[4].to(torch.int64), 0, args[6]),
+                                     kw.get("pick", False)))
         k1["bound_s"] += time.time() - t0
         torch.cuda.reset_peak_memory_stats(dev)
         return out
@@ -4826,12 +4956,12 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
         BG._segment_identity = counted("bogus", real["bogus"])
         # the judge's extension inputs: K10 and K11 held to the plain chain
         _, judge_ext = capture_calls(MY, "banded_extend_myers")
-        k0 = (K1.LAUNCHES, K1.PROLOGUE_LAUNCHES, K1.EPILOGUE_LAUNCHES)
+        k0 = (K1.LAUNCHES, K1.PROLOGUE_LAUNCHES, K1.PICK_LAUNCHES, K1.EPILOGUE_LAUNCHES)
         t = time.time()
         ev = BG.evaluate_assembly(genome, contigs, k=21, circular=True, device=dev)
         t_judge = time.time() - t
-        judge_k1, judge_k10, judge_k11 = (n - n0 for n, n0 in zip(
-            (K1.LAUNCHES, K1.PROLOGUE_LAUNCHES, K1.EPILOGUE_LAUNCHES), k0))
+        judge_k1, judge_k10, judge_k11, judge_k11_alone = (n - n0 for n, n0 in zip(
+            (K1.LAUNCHES, K1.PROLOGUE_LAUNCHES, K1.PICK_LAUNCHES, K1.EPILOGUE_LAUNCHES), k0))
     finally:
         MY.banded_extend_myers = real["extend"]
         logging.getLogger().removeHandler(lines_h)
@@ -4867,19 +4997,23 @@ def ecoliasm_drive(dev, card: str, cor: dict) -> dict:
         check(k1_in.get("align_links", 0) > 0, "16 ecoliasm: align_links never launched K1")
     check(judge_k1 > 0 and k1_in.get("bogus", 0) == judge_k1,
           "16 ecoliasm: the judge never launched K1")
-    check(judge_k10 == judge_k11 == judge_k1 == len(judge_ext),
-          f"16 ecoliasm: the judge's {judge_k1} K1 launches came with {judge_k10} K10 and "
-          f"{judge_k11} K11 launches ({len(judge_ext)} extension calls)")
-    check(counts["K10"] == counts["K11"] == counts["K1"],
-          f"16 ecoliasm: K10 {counts['K10']} and K11 {counts['K11']} launches for K1's "
-          f"{counts['K1']}")
+    check(judge_k10 == judge_k11 == judge_k1 == len(judge_ext) and judge_k11_alone == 0,
+          f"16 ecoliasm: the judge's {judge_k1} K1 launches ({judge_k11} with the end pick) came "
+          f"with {judge_k10} K10 launches and {judge_k11_alone} of K11 alone "
+          f"({len(judge_ext)} extension calls)")
+    check(counts["K10"] == counts["K11_pick"] == counts["K1"] and counts["K11"] == 0,
+          f"16 ecoliasm: K10 {counts['K10']} launches for K1's {counts['K1']} "
+          f"({counts['K11_pick']} with the end pick), K11 alone {counts['K11']}")
     (j_args, j_kw), *_ = judge_ext
     ends_judge = held_myers_ends("16 judge", j_args[:5], j_args[6], j_kw, reps=2)
     del judge_ext
-    log(f"[16 kernel] {card}: K10 and K11 bit-equal to the plain chain on the judge's launch "
-        f"({j_args[0].shape[0]} extensions x {j_args[6]} rows): K10 "
-        f"{ends_judge['K10']['ms']:.3f} ms (plain {ends_judge['K10']['plain_ms']:.3f} ms, bound "
-        f"{ends_judge['K10']['bound']['bound_ms']:.4f} ms), K11 {ends_judge['K11']['ms']:.4f} ms")
+    log(f"[16 kernel] {card}: K10 and K1 with the end pick bit-equal to the plain chain on the "
+        f"judge's launch ({j_args[0].shape[0]} extensions x {j_args[6]} rows, centres at stride "
+        f"{ends_judge['K10']['stride']}): K10 {ends_judge['K10']['ms']:.4f} ms (plain "
+        f"{ends_judge['K10']['plain_ms']:.3f} ms, bound "
+        f"{ends_judge['K10']['bound']['bound_ms']:.4f} ms; as rows it would be "
+        f"{ends_judge['K10']['bound_rows']['bound_ms']:.4f} ms), K11 alone "
+        f"{ends_judge['K11']['ms']:.4f} ms")
     check(len(k1["events"]) == counts["K1"] + judge_k1,
           "16 ecoliasm: K1 launches and timed calls differ")
     check(len(pairs_seen) == 2 and counts["join_calls"] == 2,
@@ -5433,15 +5567,23 @@ def main() -> int:
         f"{100 * bd1['bound_ms'] / ms:.1f}% of it) vs plain loop {plain_ms:.1f} ms for {B} "
         f"extensions x {rows} rows (the stage's first verify group), bit-equal")
     record.update(k1_ms=ms, plain_ms=plain_ms, group_B=B, group_rows=rows)
-    # K10 and K11 on the same group, held to the plain chain, then timed
-    ends = held_myers_ends("5 first group", g_args[:5], n_rows, g_kw, reps=10)
+    # K10 and K11 on the same group, held to the plain chain, then timed; K1
+    # with the end pick against K1 and K11 alone
+    ends = held_myers_ends("5 first group", g_args[:5], n_rows, g_kw, reps=10, k1_reps=5)
     err_ends = max(err_ends, ends["err"])
-    for kn, what in (("K10", "the schedule and row-0 state"), ("K11", "the end pick")):
+    for kn, what in (("K10", "the schedule and row-0 state"), ("K11", "the end pick, alone")):
         e = ends[kn]
         log(f"[5 timing] {card}: {kn} ({what}) {e['ms']:.4f} ms on the first group (bound "
             f"{e['bound']['bound_ms']:.4f} ms by {e['bound']['bound_by']}, "
             f"{100 * e['bound']['bound_ms'] / e['ms']:.1f}% of it) vs the plain chain "
             f"{e['plain_ms']:.3f} ms, bit-equal")
+    e10, e11 = ends["K10"], ends["K11"]
+    log(f"[5 timing] {card}: K10 read the centres at stride {e10['stride']}; had it read rows "
+        f"its bound would be {e10['bound_rows']['bound_ms']:.4f} ms by "
+        f"{e10['bound_rows']['bound_by']} ({e10['bound_rows']['bytes']:.3e} bytes, "
+        f"{100 * e10['bound_rows']['bound_ms'] / e10['ms']:.1f}% of this K10's time); K1 with "
+        f"the end pick {e11['k1_pick_ms']:.3f} ms against K1 then K11 alone "
+        f"{e11['k1_then_k11_ms']:.3f} ms")
     record["myers_ends"] = ends
 
     # ---- 4b: the cor stage at corOvlBandWidth=256 (K2, with partial overlaps,
@@ -5569,11 +5711,12 @@ def main() -> int:
         check(c["K8"] == c["index_builds"],
               f"phase {name}: kernel K8 launched {c['K8']} times for {c['index_builds']} "
               "read index builds (one launch a build)")
-        check(c["K10"] == c["K11"] == c["K1"] and c["plain_schedule"] == 0
-              and c["plain_myers_segments"] == 0,
-              f"phase {name}: K10 {c['K10']} and K11 {c['K11']} launches for K1's {c['K1']}, "
-              f"or the plain schedule ({c['plain_schedule']}) or plain segments "
-              f"({c['plain_myers_segments']}) ran on the card")
+        check(c["K10"] == c["K11_pick"] == c["K1"] and c["K11"] == 0
+              and c["plain_schedule"] == 0 and c["plain_myers_segments"] == 0,
+              f"phase {name}: K10 {c['K10']} launches for K1's {c['K1']} ({c['K11_pick']} with "
+              f"the end pick), K11 alone {c['K11']}, or the plain schedule "
+              f"({c['plain_schedule']}) or plain segments ({c['plain_myers_segments']}) ran on "
+              "the card")
     k5_launches = sum(c["K5"] for c in main_runs)
     k6_launches = sum(c["K6"] for c in main_runs)
     k7_launches = sum(c["K7"] for c in main_runs)
@@ -5584,13 +5727,15 @@ def main() -> int:
         f"{k8_launches} and K9 {k9_launches} on the main path's runs (phases 4-17; K7 and K8 "
         f"in each of its {len(named)} runs, K8 once per read index build ({builds} builds), K9 "
         "once per DP group in each run that votes)")
-    # K10 and K11 once beside each K1 launch of every run (and the judge's)
+    # K10 once beside each K1 launch of every run (and the judge's), K11's end
+    # pick inside each of those K1 launches, and K11 alone never
     k10_launches = sum(c["K10"] for c in main_runs) + ecoliasm["judge_k10"]
-    k11_launches = sum(c["K11"] for c in main_runs) + ecoliasm["judge_k11"]
-    err_ends = max(err_ends, ecoli["myers_ends"]["err"], ecoliasm["myers_ends_judge"]["err"])
-    log(f"[kernels] K10 launched {k10_launches} times and K11 {k11_launches}, once beside each "
-        f"K1 launch of the main path's runs and the judge; K12 {placed['launches']['K12']} (one "
-        f"a chunk of phase 4d)")
+    k11_launches = sum(c["K11_pick"] for c in main_runs) + ecoliasm["judge_k11"]
+    err_ends = max(err_ends, ecoli["myers_ends"]["err"], ecoliasm["myers_ends_judge"]["err"],
+                   placed["myers_ends_err"], tools["myers_ends_err"])
+    log(f"[kernels] K10 launched {k10_launches} times, once beside each K1 launch of the main "
+        f"path's runs and the judge, and K11's end pick ran inside {k11_launches} of those K1 "
+        f"launches (K11 alone: 0); K12 {placed['launches']['K12']} (one a chunk of phase 4d)")
     k9 = correct["fold"]["held"]
     err_fold = max(err_fold, k9["err"], ecolicor["fold"]["held"]["err"],
                    ecoliasm["fold"]["red"]["held"]["err"],
@@ -5662,7 +5807,7 @@ def main() -> int:
          "max_abs_err": err_ends, "ms": ends["K10"]["ms"], "plain_ms": ends["K10"]["plain_ms"],
          "bound_ms": ends["K10"]["bound"]["bound_ms"],
          "bound_by": ends["K10"]["bound"]["bound_by"], "library_ms": None},
-        {"name": "myers_epilogue (K11)", "route": "cuda",
+        {"name": "end_pick (K11, inside K1; alone as myers_epilogue)", "route": "cuda",
          "source": "canu_tpu_torch/csrc/myers_tile.cu", "replaces": "canu_tpu/ops/myers.py:336",
          "launches": k11_launches, "max_abs_err": err_ends, "ms": ends["K11"]["ms"],
          "plain_ms": ends["K11"]["plain_ms"], "bound_ms": ends["K11"]["bound"]["bound_ms"],

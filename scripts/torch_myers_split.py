@@ -7,12 +7,15 @@ banded_extend_myers call of chip_smoke.py's phases 9, 15 and 16.
 --design picks the extension step measured:
 
   eager  the step as the port ran it before kernels K10 and K11: the band
-         schedule (ops.myers._schedule), the shift bits (_shift_bits), the
-         row-0 state and its planes (_myers_init, _carry_pack), K1, then
-         _carry_unpack and the end pick (_myers_finish), each a run of
-         PyTorch ops on the card, with a CUDA event between the parts;
+         schedule (ops.myers._schedule) on the centres as rows (expanded
+         from their 16-row grid where the caller hands the grid over), the
+         shift bits (_shift_bits), the row-0 state and its planes
+         (_myers_init, _carry_pack), K1, then _carry_unpack and the end
+         pick (_myers_finish), each a run of PyTorch ops on the card, with
+         a CUDA event between the parts;
   tree   the tree's own ops.myers._extend, timed by the events it records
-         when given an events list: K10, K1 and K11 (pre, k1, post).
+         when given an events list: K10, K1 with the end pick, and after
+         it (pre, k1, post; post is empty where the pick runs inside K1).
 
 The eager design's parts are also summed as the tree's three: pre (the
 schedule, the shift bits and the row-0 planes), k1 and post.
@@ -44,7 +47,7 @@ sys.modules["canu_tpu"] = None
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 EAGER_PARTS = ("schedule", "shift_bits", "init_pack", "k1", "unpack_finish")
-TREE_PARTS = ("pre", "k1", "post")  # K10, K1, K11
+TREE_PARTS = ("pre", "k1", "post")  # K10, K1 (with the end pick), after K1
 
 
 def main() -> int:
@@ -95,10 +98,12 @@ def main() -> int:
     syncs = {"n": 0}
 
     def eager_extend(kernel, a, a_len, b, b_len, centers, band, n_rows, segment, max_rows,
-                     partial_cap_q, *rest, **kw):
+                     partial_cap_q, events=None, center_stride=1):
         if not kernel:
             return real_extend(kernel, a, a_len, b, b_len, centers, band, n_rows, segment,
-                               max_rows, partial_cap_q, *rest, **kw)
+                               max_rows, partial_cap_q, events, center_stride)
+        if center_stride > 1:
+            centers = MY.expand_centers(centers, n_rows, center_stride)
         seg = min(segment, n_rows) if n_rows else segment
         n_seg = max(1, -(-n_rows // seg))
         a_len = a_len.to(torch.int32)
@@ -142,7 +147,7 @@ def main() -> int:
 
     def tree_extend(kernel, *a):
         if kernel:  # a: a, a_len, b, b_len, centers, band, n_rows, segment, max_rows,
-            a = (*a[:10], eager_events)  # partial_cap_q, events
+            a = (*a[:10], eager_events, *a[11:])  # partial_cap_q, events, center_stride
         return real_extend(kernel, *a)
 
     MY._extend = eager_extend if args.design == "eager" else tree_extend

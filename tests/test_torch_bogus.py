@@ -115,13 +115,13 @@ def test_ruler_big_padding_through_float32(monkeypatch):
     import jax.numpy as jnp
 
     seen = []
-    interp = TAL._interp_centers
+    interp = TAL._interp_grid  # the ruler hands the extension the centres' grid
 
     def spy(xa, xb, n_rows):
         seen.append((xa.clone(), xb.clone(), n_rows))
         return interp(xa, xb, n_rows)
 
-    monkeypatch.setattr(TAL, "_interp_centers", spy)
+    monkeypatch.setattr(TAL, "_interp_grid", spy)
     ctg = [G[4_000:6_500], revcomp_codes(G[10_000:14_000])]
     segs = []
     for imp in (TB, JB):
@@ -141,6 +141,6 @@ def test_ruler_big_padding_through_float32(monkeypatch):
     np.testing.assert_array_equal(f_t, f_j)
     assert len(np.unique(f_t[0, 1:])) < 2047  # BIG + odd ramps round to even
     np.testing.assert_array_equal(
-        interp(xa, xb, n_rows).numpy(),
+        TAL.expand_centers(interp(xa, xb, n_rows), n_rows).numpy(),
         np.asarray(JAL._interp_centers(jnp.asarray(xa.numpy()), jnp.asarray(xb.numpy()), None,
                                        n_rows)))

@@ -1,4 +1,6 @@
-"""Kernels K1, K10 and K11 against their plain PyTorch versions, their
+"""Kernels K1 (alone and with K11's end pick after its last row), K10
+(the centres as rows and on the 16-row grid, one block or a cluster of
+blocks an extension) and K11 against their plain PyTorch versions, their
 inputs, and the wrappers' device contract.  This file imports no jax, so it runs where jax is
 absent:
 
@@ -20,7 +22,7 @@ from canu_tpu_torch.device import resolve_device
 from canu_tpu_torch.ops import myers as TM
 from canu_tpu_torch.ops.kernels import myers_cuda as K1
 from torch_cases import (NAMES, k1_rows_plain, myers_cases, myers_edge_cases, myers_finish_cases,
-                         myers_schedule_cases)
+                         myers_schedule_cases, myers_split_case)
 
 EDGE_CASES = tuple(myers_edge_cases())
 SCHEDULE_CASES = tuple(myers_schedule_cases())
@@ -222,6 +224,15 @@ PROLOGUE_REFUSALS = {
     "a_len int64": ({"a_len": lambda a: a["a_len"].to(torch.int64)}, TypeError, "dtype"),
     "b_len short": ({"b_len": lambda a: a["b_len"][:2]}, ValueError, "shape"),
     "n_run past n_rows": ({"n_run": lambda a: a["n_rows"] + 1}, ValueError, "n_run"),
+    "center_stride 8": ({"center_stride": lambda a: 8}, ValueError, "center_stride"),
+    "center_rows past the rows": ({"center_rows": lambda a: a["centers"].shape[1] + 1},
+                                  ValueError, "centre columns"),
+    "center_rows past the grid": ({"center_stride": lambda a: 16,
+                                   "center_rows": lambda a: 16 * a["centers"].shape[1] + 1},
+                                  ValueError, "centre columns"),
+    "center_rows 0": ({"center_rows": lambda a: 0}, ValueError, "centre columns"),
+    "split 0": ({"split": lambda a: 0}, ValueError, "split"),
+    "split 9": ({"split": lambda a: K1.PROLOGUE_MAX_BLOCKS + 1}, ValueError, "split"),
     "host tensors": ({}, ValueError, "CUDA"),
 }
 
@@ -235,6 +246,29 @@ def test_prologue_wrapper_refuses(case):
     with pytest.raises(exc, match=msg):
         K1.myers_prologue_cuda(**kw)
     assert (*_k10_k11_counts(), K1.LAUNCHES) == before
+
+
+def test_rows_wrapper_with_the_pick_refuses_host_tensors():
+    # the end pick inside K1 has no CPU route either: the plain chain's
+    # _myers_finish is ops.myers._extend's, on CPU tensors
+    args = [torch.from_numpy(x) for x in myers_cases(8, 6, 128, er=0.1)]
+    planes = torch.zeros((TM.NC, 6), dtype=torch.int32)
+    s_bits = torch.zeros((4, 6), dtype=torch.int32)
+    before = (*_k10_k11_counts(), K1.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        K1.myers_rows_cuda(planes, args[0], s_bits, args[2], args[1], args[3], 128, 2400,
+                           pick=True)
+    assert (*_k10_k11_counts(), K1.LAUNCHES) == before
+
+
+def test_prologue_blocks_split_only_few_extensions():
+    sms = 132
+    assert K1.prologue_blocks(16_384, 8_192, sms) == 1  # a verify group fills the card
+    assert K1.prologue_blocks(3, 3_430_380, sms) == K1.PROLOGUE_MAX_BLOCKS  # the judge
+    assert K1.prologue_blocks(3, 1_000, sms) == 1  # one 1,024-row step a block at least
+    assert K1.prologue_blocks(3, 2_048, sms) == 2
+    assert K1.prologue_blocks(200, 100_000, sms) == 2
+    assert K1.prologue_blocks(264, 100_000, sms) == 1
 
 
 @pytest.mark.parametrize("case", ["planes int64", "planes 42 rows", "a_len short", "host"])
@@ -285,6 +319,7 @@ def test_epilogue_matches_plain_on_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", EDGE_CASES)
 def test_extension_is_k10_k1_k11_on_card(cuda_device, case):
+    # two launches: K10, then K1 with K11's end pick; no K11 launch of its own
     args, n_rows, kw = myers_edge_cases()[case]
     t = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device) for x in args]
     ref = TM.banded_extend_myers_plain(*t, 128, n_rows, **kw)
@@ -293,22 +328,127 @@ def test_extension_is_k10_k1_k11_on_card(cuda_device, case):
     got = TM.banded_extend_myers(*t, 128, n_rows, events=events, **kw)
     torch.cuda.synchronize()
     p, e, plain, k1 = before
-    assert (*_k10_k11_counts(), K1.LAUNCHES) == (p + 1, e + 1, plain, k1 + 1)
+    assert (*_k10_k11_counts(), K1.LAUNCHES) == (p + 1, e, plain, k1 + 1)
     assert len(events) == 1 and all(e0.elapsed_time(e1) >= 0 for e0, e1 in
                                     zip(events[0], events[0][1:]))
     for name, r, g in zip(NAMES, ref, got):
         np.testing.assert_array_equal(r.cpu().numpy(), g.cpu().numpy(), err_msg=name)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_extension_on_the_grid_on_card(cuda_device, case):
+    # the centres handed over on their 16-row grid: K10 reads the grid, the
+    # plain chain expands it; both equal the extension given those rows
+    args, n_rows, kw = myers_edge_cases()[case]
+    grid = torch.from_numpy(np.ascontiguousarray(args[4][:, ::16])).to(cuda_device)
+    t = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device) for x in args[:4]]
+    rows = TM.expand_centers(grid, n_rows)
+    ref = TM.banded_extend_myers_plain(*t, rows, 128, n_rows, **kw)
+    plain = TM.banded_extend_myers_plain(*t, grid, 128, n_rows, center_stride=16, **kw)
+    got = TM.banded_extend_myers(*t, grid, 128, n_rows, center_stride=16, **kw)
+    for name, r, p_, g in zip(NAMES, ref, plain, got):
+        np.testing.assert_array_equal(r.cpu().numpy(), p_.cpu().numpy(), err_msg=name)
+        np.testing.assert_array_equal(r.cpu().numpy(), g.cpu().numpy(), err_msg=name)
+
+
+def _prologue_held(kw, n_rows, n_run, **opts):
+    """K10 on kw's tensors with opts, against the plain chain on the
+    centres as rows (expanded from the grid at stride 16)."""
+    rows = kw["centers"]
+    if opts.get("center_stride", 1) > 1:
+        rows = TM.expand_centers(rows, opts["center_rows"] - 1)
+    before = _k10_k11_counts()
+    planes, s_bits = K1.myers_prologue_cuda(**kw, n_rows=n_rows, n_run=n_run, **opts)
+    torch.cuda.synchronize()
+    assert K1.PROLOGUE_LAUNCHES == before[0] + 1
+    o_all = TM._schedule(kw["b_len"], rows, 128, n_rows)
+    np.testing.assert_array_equal(s_bits.cpu().numpy(), TM._shift_bits(o_all, n_run).cpu().numpy())
+    ref = TM._carry_pack(TM._myers_init(kw["b"], kw["b_len"], kw["a_len"],
+                                        o_all[:, 0].contiguous(), 128))
+    np.testing.assert_array_equal(planes.cpu().numpy(), ref.cpu().numpy())
+
+
+def _schedule_kw(case, dev):
+    return dict(zip(("centers", "b", "a_len", "b_len"),
+                    (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                     for x in myers_schedule_cases()[case][:4])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SCHEDULE_CASES)
+def test_prologue_on_the_grid_matches_plain_on_card(cuda_device, case):
+    kw = _schedule_kw(case, cuda_device)
+    n_rows, n_run = myers_schedule_cases()[case][4:]
+    c = kw["centers"]
+    if c.shape[1] < n_rows + 1:  # the last centre repeats up to row n_rows
+        c = torch.cat([c, c[:, -1:].expand(-1, n_rows + 1 - c.shape[1])], dim=1)
+    kw["centers"] = c[:, : n_rows + 1 : 16].contiguous()
+    for C in (n_rows + 1, 16 * kw["centers"].shape[1]):  # rows past C - 1 take its centre
+        _prologue_held(kw, n_rows, n_run, center_stride=16, center_rows=C)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [2, 8])
+@pytest.mark.parametrize("case", SCHEDULE_CASES)
+def test_prologue_split_matches_plain_on_card(cuda_device, case, split):
+    # an extension's rows over a cluster of blocks, even where some blocks
+    # get no rows (few rows, many blocks)
+    kw = _schedule_kw(case, cuda_device)
+    n_rows, n_run = myers_schedule_cases()[case][4:]
+    _prologue_held(kw, n_rows, n_run, split=split)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 16])
+@pytest.mark.parametrize("split", [None, 1, 4, 8])
+def test_prologue_long_split_case_on_card(cuda_device, split, stride):
+    centers, b, a_len, b_len, n_rows, n_run = myers_split_case()
+    if stride == 16:
+        centers = centers[:, ::16]
+    kw = dict(zip(("centers", "b", "a_len", "b_len"),
+                  (torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)
+                   for x in (centers, b, a_len, b_len))))
+    opts = {"split": split}
+    if stride == 16:
+        opts.update(center_stride=16, center_rows=n_rows + 1)
+    _prologue_held(kw, n_rows, n_run, **opts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_rows_kernel_with_the_pick_matches_plain_on_card(cuda_device, case):
+    # K1 with the pick equals K1's planes through K11 and through the plain
+    # _myers_finish
+    args, n_rows, kw = myers_edge_cases()[case]
+    a, a_len, b, b_len, centers = (torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)
+                                   for x in args)
+    n_run = -(-n_rows // 32) * 32
+    a = torch.nn.functional.pad(a, (0, max(0, n_run - a.shape[1])))
+    planes, s_bits = K1.myers_prologue_cuda(centers, b, a_len, b_len, n_run, n_run)
+    before = (*_k10_k11_counts(), K1.LAUNCHES)
+    fin = K1.myers_rows_cuda(planes, a, s_bits, b, a_len, b_len, n_run, 2400)
+    got = K1.myers_rows_cuda(planes, a, s_bits, b, a_len, b_len, n_run, 2400, pick=True)
+    torch.cuda.synchronize()
+    assert (*_k10_k11_counts(), K1.LAUNCHES) == (*before[:3], before[3] + 2)
+    ref = TM._myers_finish(TM._carry_unpack(fin), a_len, b_len, 128)
+    alone = K1.myers_epilogue_cuda(fin, a_len, b_len)
+    for name, r, g, e in zip(NAMES, ref, got, alone):
+        np.testing.assert_array_equal(r.cpu().numpy(), g.cpu().numpy(), err_msg=name)
+        np.testing.assert_array_equal(r.cpu().numpy(), e.cpu().numpy(), err_msg=name)
+
+
 def test_card_staging_counts_k10_bytes_not_the_plain_schedule():
-    # the verify window on the card holds K10's scratch and shift bits in
-    # place of the plain chain's temporaries; the INF-walled engine neither
+    # the verify window on the card holds the centres' grid and K10's
+    # shift words and row-0 planes in place of the centre rows and the
+    # plain chain's temporaries; the INF-walled engine neither
     from canu_tpu_torch.ops import align as AL
 
     chunk, n_rows = 512, 8192
     plain = AL._chunk_staging_bytes(chunk, n_rows, 128)
     card = AL._chunk_staging_bytes(chunk, n_rows, 128, on_card=True)
-    assert plain - card == 2 * chunk * (n_rows + 1) * (AL.SCHEDULE_BYTES_PER_ROW
-                                                       - AL.KERNEL_SCHEDULE_BYTES_PER_ROW)
+    rows = 4 * (n_rows + 1) + AL.SCHEDULE_BYTES_PER_ROW * (n_rows + 1)
+    grid = 4 * (n_rows // 16 + 1) + 4 * (n_rows // 32 + 1) + 4 * TM.NC
+    assert plain - card == 2 * chunk * (rows - grid)
     assert (AL._chunk_staging_bytes(chunk, n_rows, 256, on_card=True)
             == AL._chunk_staging_bytes(chunk, n_rows, 256))

@@ -112,6 +112,7 @@ PRE_REFUSALS = {
     "mpos not contiguous": (_index_with("mpos", lambda x: x.t().contiguous().t()), ValueError,
                             "contiguous"),
     "Pm above 2048": (_index_with("mker", lambda x: x.repeat(1, 17)), ValueError, "1..2048"),
+    "center_stride 8": ({"center_stride": 8}, ValueError, "stride 1 or 16"),
 }
 
 SYNC_REFUSALS = {
@@ -217,6 +218,23 @@ def test_pre_kernel_matches_plain_on_card(cuda_device, case, chunk):
     torch.cuda.synchronize()
     _equal(ref[0], got[0], PRE_NAMES)
     _equal(ref[1:], got[1:], PER_PAIR)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,chunk", [c for c in PRE_CASES if c[0][2] == 128], ids=str)
+def test_pre_kernel_on_the_grid_matches_plain_on_card(cuda_device, case, chunk):
+    # the centres stored on their 16-row grid (the Myers engine's input):
+    # the plain step's grid, and the rows of the same call expanded from it
+    args = _pre_args(case, cuda_device)
+    got = AL._verify_pre(*args, chunk=chunk, center_stride=16)
+    ref = AL._verify_pre_plain(*args, chunk=chunk, center_stride=16)
+    rows = AL._verify_pre(*args, chunk=chunk)[0][4]
+    torch.cuda.synchronize()
+    _equal(ref[0], got[0], PRE_NAMES)
+    _equal(ref[1:], got[1:], PER_PAIR)
+    n_rows = rows.shape[1] - 1
+    assert tuple(got[0][4].shape) == (rows.shape[0], n_rows // 16 + 1)
+    assert torch.equal(AL.expand_centers(got[0][4], n_rows), rows)
 
 
 def _long_sync_args(dev):

@@ -795,6 +795,29 @@ def myers_schedule_cases():
     return cases
 
 
+def myers_split_case(seed: int = 29):
+    """K10's case for an extension split across blocks: (centers int32[3,
+    n_rows + 1], b uint8[3, LB], a_len, b_len int32[3], n_rows, n_run), 3
+    extensions x 200,003 rows, so that the few extensions spread over many
+    blocks and each crosses many 1,024-row steps: one drifts at ~0.9 a row,
+    one steps up by 2,000 after a long flat run (only the backward envelope
+    sees the step before it), one falls back after a run of high centres
+    (the running max carries it); n_rows + 1 and n_run off the 32-row
+    words."""
+    rng = np.random.default_rng(seed)
+    B, n_rows = 3, 200_003
+    c = np.zeros((B, n_rows + 1), np.int64)
+    c[0] = np.cumsum(rng.random(n_rows + 1) < 0.9) + 64
+    c[1] = np.arange(n_rows + 1) // 2 + 64
+    c[1, 150_000:] += 2_000
+    c[2] = np.cumsum(rng.random(n_rows + 1) < 0.8) + 64
+    c[2, 40_000:41_000] += 5_000
+    b = rng.integers(0, 4, (B, 2_048)).astype(np.uint8)
+    a_len = np.array([n_rows, 120_000, 0], np.int32)
+    b_len = np.array([n_rows - 4_000, 200_000, 190_000], np.int32)
+    return np.asarray(c, np.int32), b, a_len, b_len, n_rows, n_rows - 37
+
+
 def myers_finish_cases(seed: int = 23):
     """Kernel K11's cases: (planes int32[43, B], a_len, b_len int32[B]) of
     final carries: random A-exhausted rows, fin_o beside b_len (columns cut
