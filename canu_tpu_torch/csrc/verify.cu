@@ -127,8 +127,9 @@
 // K12 (canu_pair_stats) replaces canu_tpu/ops/minhash.py:296
 // _pair_stats_kernel, a jax.jit XLA program with no pl.pallas_call (stage
 // C of the MinHash path: place_candidates), and computes exactly what
-// canu_tpu_torch/ops/minhash.py:_pair_stats_kernel computes for a chunk of
-// C pairs of reads padded to W words (P = 16 W - k + 1 positions):
+// canu_tpu_torch/ops/minhash.py:_pair_stats_kernel computes for a pair of
+// reads (its P = 16 W - k + 1 positions only pad past the reads, so the
+// result does not depend on the chunk's W):
 //   1. the join of both reads' canonical k-mers (ops/kmer.py
 //      extract_kmers_any; positions p <= len - k): the stable sort of the
 //      concatenation gives one hit a key present in both reads, A's last
@@ -141,25 +142,52 @@
 //      int(float32(min(lenA, lenB)) * 0.3f)), their count, the lower median
 //      of their diagonals and their spans (posA, and posB in forward-B
 //      coordinates; + k at the high ends; 2^30 / -1 when empty).
-// A pair's 2 P keys do not fit in shared memory at long reads (W 16,384:
-// 524,288 keys), so the join runs through a hash table in a device
-// scratch the wrapper sizes: one block of 256 threads a pair (a block
-// strides over the chunk's pairs where the scratch allows fewer blocks),
-// the table pow2(2 (nA + nB)) slots of (key, A's max of 2 pos + strand,
-// B's min), filled by atomicCAS / atomicMax / atomicMin (a result that is
-// the same in any order), then scanned: a slot with both sides is a hit,
-// unless its key is frequent (a binary search of the table, which equals
-// dropping B's entries: frequency is a property of the key).  The hits are
-// compacted into the scratch; the medians are radix selects over the
-// bits in which the least and greatest diagonal differ (8 bits a pass,
-// shared histograms), not sorts.  What bounds K12: the bytes of the two
-// reads' words a pair against the k-mers built, hashed and probed.
+// One launch takes a whole place_candidates call: pair q is row a_idx[q]
+// of a word plane against its row b_idx[q] (the read set's plane, or a
+// chunk's two blocks stacked), each read at its own length.
+// What bounds K12: the k-mers built, hashed and joined a position against
+// 8 bytes of read a 16 positions (operations).  The design, one block of
+// NT threads a pair, everything in shared memory:
+//   - a table of A's keys only, S slots of (key, A's max of 2 pos + strand,
+//     B's min), S = min(T, max(64, pow2(2 nA))) at a load of at most one
+//     half: the key and A's value share a 64-bit word, so A inserts by one
+//     shared-memory 64-bit atomicCAS (and a 64-bit atomicMax where the key
+//     is already there with a smaller value); UINT32_MAX marks an empty
+//     slot (no canonical key takes it); B only probes (a B key that A lacks
+//     is no hit) and takes a 32-bit atomicMin beside the word;
+//   - rounds where A has more positions than S / 2: round r takes the keys
+//     whose mix32 falls in the r-th of ceil(nA / (S / 2)) equal ranges,
+//     rebuilding both reads' k-mers from their words each round (an even
+//     segment of at most 16 positions a thread, rolled 2 bits a step; the
+//     words through L1).  Each thread counts the slots it claims (no shared
+//     counter); a round whose distinct keys pass 3 S / 4, or whose probe
+//     walks the whole table, is dropped and taken again over half the
+//     range;
+//   - no scan of the table: the B entry whose atomicMin finds a slot's B
+//     side empty lists that slot as a hit unless its key is frequent (a
+//     binary search of the table, the same as dropping B's entries, since
+//     frequency is a property of the key); after B's probes each listed
+//     slot becomes its hit, and the table is cleared only where another
+//     round follows.  The hits stay in shared memory (HS of them) and only
+//     a pair with more than HS possible hits, min(nA, nB), spills the rest
+//     to its room in a device list the wrapper sizes from the lengths;
+//   - the strand vote and counts by warp reductions, the two medians by
+//     radix selects over the bits in which the least and greatest diagonal
+//     differ (8 bits a pass, a shared histogram), over that copy.
+// No device-memory table and no global atomic; the slots T and the shared
+// hits HS are the wrapper's constants (verify_cuda.K12_SLOTS, K12_HITS),
+// NT is K12_NT (verify_cuda.K12_THREADS; scripts/torch_pair_stats_variants.py
+// builds other counts with -DK12_NT=...).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC; bound through ctypes (plain C interface).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#ifndef K12_NT
+#define K12_NT 512
+#endif
 
 namespace {
 
@@ -1145,30 +1173,52 @@ syncmer_kernel(const int64_t* __restrict__ words, int W, const int32_t* __restri
 
 // ---- K12 -----------------------------------------------------------------------
 
-constexpr int EMPTY_A = -1;          // a table slot's A side before any entry
-constexpr int EMPTY_B = 0x7FFFFFFF;  // and its B side
+constexpr unsigned long long EMPTY_SLOT = ~0ull;  // a table slot before A's key (UINT32_MAX)
+constexpr int EMPTY_B = 0x7FFFFFFF;                // and its B side before B's
+constexpr int K12_MIN_SLOTS = 64;
 
-// the canonical key and strand of the k-mer at position pos of a read
-__device__ __forceinline__ uint32_t kmer_at(const int64_t* __restrict__ w, int W, int pos, int k,
-                                            bool& strand) {
-  const int j = pos >> 4, off = pos & 15;
-  const uint64_t lo = word_at(w, W, j) | (word_at(w, W, j + 1) << 32);
-  const uint64_t hi = word_at(w, W, j + 2);
-  const uint64_t v = off ? (lo >> (2 * off)) | (hi << (64 - 2 * off)) : lo;
-  uint64_t fw, rc;
-  nmer_of(v, k, fw, rc);
-  strand = rc < fw;
-  return canonical_key(fw, rc, k);
+// A pair's table: S slots (a power of two, 64..T, at least 2 nA where T
+// allows) and the rounds that take A's nA positions through it
+// (ceil(nA / (S / 2)); none without a position in either read).
+// verify_cuda.pair_stats_plan is its copy.
+__device__ __forceinline__ void k12_plan(int nA, int nB, int T, int& S, int& rounds) {
+  S = pow2_at_least(2 * nA);
+  S = S < K12_MIN_SLOTS ? K12_MIN_SLOTS : (S > T ? T : S);
+  rounds = nA > 0 && nB > 0 ? (nA + S / 2 - 1) / (S / 2) : 0;
 }
 
-// the table slot of key (inserted where absent); S a power of two
-__device__ __forceinline__ int table_slot(uint32_t* keys, int S, uint32_t key) {
-  int h = static_cast<int>(mix32(key) & static_cast<uint32_t>(S - 1));
-  while (true) {
-    const uint32_t prev = atomicCAS(keys + h, UMAX, key);
-    if (prev == UMAX || prev == key) return h;
-    h = (h + 1) & (S - 1);
+// f(p, key, strand) for the k-mers at positions p0 .. p0 + L - 1 below n
+// (L <= 16) of a read of Wr words, rolling forward and reverse complement
+// 2 bits a step from the four words the segment reads
+template <typename Fn>
+__device__ __forceinline__ void kmer_seg(const int64_t* __restrict__ w, int Wr, int p0, int L,
+                                         int n, int k, Fn f) {
+  const int j = p0 >> 4, off = p0 & 15;
+  uint64_t lo = word_at(w, Wr, j) | (word_at(w, Wr, j + 1) << 32);
+  uint64_t hi = word_at(w, Wr, j + 2) | (word_at(w, Wr, j + 3) << 32);
+  if (off) {  // base p0 + i at bits 2 i of (hi:lo), i < 64 - off
+    lo = (lo >> (2 * off)) | (hi << (64 - 2 * off));
+    hi >>= 2 * off;
   }
+  const uint64_t mk = field_mask(k);
+  uint64_t fw, rc;
+  nmer_of(lo, k, fw, rc);
+  const int e_end = n - p0 < L ? n - p0 : L;
+  for (int e = 0; e < e_end; ++e) {
+    f(p0 + e, canonical_key(fw, rc, k), rc < fw);
+    const int nb = e + k;  // the base entering the next k-mer: <= 47
+    const uint64_t b = (nb < 32 ? lo >> (2 * nb) : hi >> (2 * (nb - 32))) & 3u;
+    fw = ((fw << 2) | b) & mk;
+    rc = (rc >> 2) | ((3u - b) << (2 * k - 2));
+  }
+}
+
+// positions a thread's segment takes so that n positions fill NT threads,
+// at most 16
+template <int NT>
+__device__ __forceinline__ int seg_len(int n) {
+  const int L = (n + NT - 1) / NT;
+  return L < 1 ? 1 : (L > 16 ? 16 : L);
 }
 
 // torch.searchsorted(fk, key) (left) clamped to F - 1, then fk[idx] == key
@@ -1199,21 +1249,37 @@ struct PairCtx {
   }
 };
 
+// A pair's hits: the first HS in shared memory, the rest in its room of
+// the device list
+struct HitList {
+  int2* s;
+  int2* d;
+  int HS;
+  __device__ __forceinline__ int2 get(int h) const { return h < HS ? s[h] : __ldcg(d + (h - HS)); }
+  __device__ __forceinline__ void put(int h, int2 v) const {
+    if (h < HS)
+      s[h] = v;
+    else
+      __stcg(d + (h - HS), v);
+  }
+};
+
 // The r-th smallest diagonal (r < n) of the hits ctx.take(h, mode) keeps,
 // their least and greatest as ordered unsigned umn, umx: a radix select
 // over the bits below the highest in which umn and umx differ, 8 a pass.
 // Every thread returns it; hist holds 256 ints, s_sel 2.
-__device__ int select_diag(const int2* __restrict__ hits, int nh, const PairCtx& ctx, int mode,
-                           int r, uint32_t umn, uint32_t umx, int* hist, int* s_sel) {
+template <int NT>
+__device__ int select_diag(const HitList& hits, int nh, const PairCtx& ctx, int mode, int r,
+                           uint32_t umn, uint32_t umx, int* hist, int* s_sel) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int hb = umn == umx ? -1 : 31 - __clz(umn ^ umx);
   uint32_t prefix = hb >= 31 ? 0u : (umn >> (hb + 1)) << (hb + 1);
   for (int shift = hb < 0 ? -8 : 8 * (hb >> 3); shift >= 0; shift -= 8) {
-    for (int i = tid; i < 256; i += THREADS) hist[i] = 0;
+    for (int i = tid; i < 256; i += NT) hist[i] = 0;
     __syncthreads();
-    for (int h = tid; h < nh; h += THREADS) {
+    for (int h = tid; h < nh; h += NT) {
       int d;
-      if (!ctx.take(__ldcg(hits + h), mode, d)) continue;
+      if (!ctx.take(hits.get(h), mode, d)) continue;
       const uint32_t u = static_cast<uint32_t>(d) ^ 0x80000000u;
       if (shift == 24 || ((u ^ prefix) >> (shift + 8)) == 0u) atomicAdd(&hist[(u >> shift) & 255u], 1);
     }
@@ -1251,160 +1317,239 @@ __device__ int select_diag(const int2* __restrict__ hits, int nh, const PairCtx&
   return static_cast<int>(prefix ^ 0x80000000u);
 }
 
-__global__ void __launch_bounds__(THREADS) pair_stats_kernel(
-    const int64_t* __restrict__ wordsA, const int32_t* __restrict__ lenA,
-    const int64_t* __restrict__ wordsB, const int32_t* __restrict__ lenB, int W, int C,
-    const int64_t* __restrict__ fk, int F, int k, int S_max, int H_max,
-    uint32_t* __restrict__ tkey, int* __restrict__ tA, int* __restrict__ tB,
-    int2* __restrict__ hits_all, int32_t* __restrict__ out) {
+// One block of NT threads a pair q = blockIdx.x: A = row a_idx[q] and B =
+// row b_idx[q] of (words, lens), W words wide.  Dynamic shared memory: HS
+// hits (int2), then the table's T keys, A sides and B sides.  out
+// int32[7, M]; rounds_out[q] (unless null) the rounds the pair took,
+// retries included.
+template <int NT>
+__global__ void __launch_bounds__(NT, 1024 / NT) pair_stats_kernel(
+    const int64_t* __restrict__ words, const int32_t* __restrict__ lens, int W,
+    const int32_t* __restrict__ a_idx, const int32_t* __restrict__ b_idx, int M,
+    const int64_t* __restrict__ fk, int F, int k, int T, int HS,
+    const int64_t* __restrict__ hit_off, int2* __restrict__ dhits,
+    int32_t* __restrict__ out, int32_t* __restrict__ rounds_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_hist[256];
   __shared__ int s_sel[2];
   // hits, same, opp, the agreeing hits and their least and greatest
-  // diagonal (ordered unsigned), then the inliers' count, spans and least
-  // and greatest diagonal
-  __shared__ int s_c[13];
-  enum { NH, SAME, OPP, N2, UMN, UMX, NI, ALO, AHI, BLO, BHI, UMN2, UMX2 };
+  // diagonal (ordered unsigned), the inliers' count, spans and least and
+  // greatest diagonal; the round's claimed slots and its full-table flag
+  __shared__ int s_c[16];
+  enum { NH, SAME, OPP, N2, UMN, UMX, NI, ALO, AHI, BLO, BHI, UMN2, UMX2, CLAIM, OVER };
+
+  int2* s_hits = reinterpret_cast<int2*>(smem);
+  // a slot: A's key in the high word, A's largest 2 pos + strand in the low
+  // one (one 64-bit max keeps both), and B's smallest beside it
+  unsigned long long* slotA = reinterpret_cast<unsigned long long*>(s_hits + HS);
+  int* sideB = reinterpret_cast<int*>(slotA + T);
+  volatile int* v_over = s_c + OVER;
 
   const int tid = threadIdx.x, lane = tid & 31;
+  const int q = blockIdx.x;
   const int P = 16 * W - k + 1;
-  uint32_t* keys = tkey + static_cast<long long>(blockIdx.x) * S_max;
-  int* sideA = tA + static_cast<long long>(blockIdx.x) * S_max;
-  int* sideB = tB + static_cast<long long>(blockIdx.x) * S_max;
-  int2* hits = hits_all + static_cast<long long>(blockIdx.x) * H_max;
+  const int ra = a_idx[q], rb = b_idx[q];
+  const int la = lens[ra], lb = lens[rb];
+  const int64_t* wA = words + static_cast<long long>(ra) * W;
+  const int64_t* wB = words + static_cast<long long>(rb) * W;
+  int nA = la - k + 1, nB = lb - k + 1;
+  nA = nA < 0 ? 0 : (nA > P ? P : nA);
+  nB = nB < 0 ? 0 : (nB > P ? P : nB);
+  int WA = (la + 15) >> 4, WB = (lb + 15) >> 4;  // each read at its own length
+  WA = WA > W ? W : WA;
+  WB = WB > W ? W : WB;
+  const HitList hits{s_hits, hit_off != nullptr ? dhits + hit_off[q] : nullptr, HS};
+  int S, rounds;
+  k12_plan(nA, nB, T, S, rounds);
+  const uint32_t smask = static_cast<uint32_t>(S - 1);
+  const int limit = 3 * (S >> 2);
+  const int LA = seg_len<NT>(nA), LB = seg_len<NT>(nB);
 
-  for (int q = blockIdx.x; q < C; q += gridDim.x) {
-    const int la = lenA[q], lb = lenB[q];
-    const int64_t* wA = wordsA + static_cast<long long>(q) * W;
-    const int64_t* wB = wordsB + static_cast<long long>(q) * W;
-    int nA = la - k + 1, nB = lb - k + 1;
-    nA = nA < 0 ? 0 : (nA > P ? P : nA);
-    nB = nB < 0 ? 0 : (nB > P ? P : nB);
-    int S = pow2_at_least(2 * (nA + nB));
-    S = S < 32 ? 32 : S;
-    for (int i = tid; i < S; i += THREADS) {
-      __stcg(keys + i, UMAX);
-      __stcg(sideA + i, EMPTY_A);
-      __stcg(sideB + i, EMPTY_B);
+  if (tid < 16)  // counts 0; least UINT32_MAX (unsigned) or 2^30; greatest 0 or -1
+    s_c[tid] = tid == UMN || tid == UMN2 || tid == AHI || tid == BHI ? -1
+               : (tid == ALO || tid == BLO ? BIG : 0);
+  for (int i = tid; i < S; i += NT) {
+    slotA[i] = EMPTY_SLOT;
+    sideB[i] = EMPTY_B;
+  }
+  __syncthreads();
+
+  int taken = 0, same = 0, opp = 0, nh0 = 0;  // nh0: the hits before this round
+  const uint64_t span = 1ull << 32;
+  uint64_t width = rounds ? (span + rounds - 1) / rounds : span, lo = rounds ? 0 : span;
+  while (lo < span) {
+    const uint64_t hi = lo + width < span ? lo + width : span;
+    ++taken;
+    // A's keys of the range: A's largest 2 pos + strand a key.  A thread
+    // counts the slots it claims; a probe that walks the whole table
+    // flags it full
+    int claims = 0;
+    for (int p0 = tid * LA; p0 < nA && !*v_over; p0 += NT * LA) {
+      kmer_seg(wA, WA, p0, LA, nA, k, [&](int p, uint32_t key, bool strand) {
+        const uint32_t h = mix32(key);
+        if (h < lo || h >= hi) return;
+        const unsigned long long v = (static_cast<unsigned long long>(key) << 32) |
+                                     static_cast<uint32_t>(2 * p + static_cast<int>(strand));
+        uint32_t slot = h & smask;
+        for (int step = 0; step < S; ++step) {
+          const unsigned long long prev = atomicCAS(slotA + slot, EMPTY_SLOT, v);
+          if (prev == EMPTY_SLOT) {
+            ++claims;
+            return;
+          }
+          if (static_cast<uint32_t>(prev >> 32) == key) {
+            if (prev < v) atomicMax(slotA + slot, v);
+            return;
+          }
+          slot = (slot + 1) & smask;
+        }
+        *v_over = 1;
+      });
     }
-    if (tid < 13)  // counts 0; least UINT32_MAX (unsigned) or 2^30; greatest 0 or -1
-      s_c[tid] = tid == UMN || tid == UMN2 || tid == AHI || tid == BHI ? -1
-                 : (tid == ALO || tid == BLO ? BIG : 0);
+    claims = warp_sum(claims);
+    if (lane == 0 && claims) atomicAdd(&s_c[CLAIM], claims);
     __syncthreads();
-    // the join: A's largest and B's smallest 2 pos + strand of each key
-    for (int p = tid; p < nA + nB; p += THREADS) {
-      const bool isA = p < nA;
-      const int pos = isA ? p : p - nA;
-      bool strand;
-      const uint32_t key = kmer_at(isA ? wA : wB, W, pos, k, strand);
-      const int h = table_slot(keys, S, key);
-      const int v = 2 * pos + strand;
-      if (isA)
-        atomicMax(sideA + h, v);
-      else
-        atomicMin(sideB + h, v);
+    if (s_c[OVER] || s_c[CLAIM] > limit) {  // more keys than 3 S / 4: half the range again
+      for (int i = tid; i < S; i += NT) slotA[i] = EMPTY_SLOT;
+      __syncthreads();  // every thread has read OVER and CLAIM
+      if (tid == 0) s_c[OVER] = s_c[CLAIM] = 0;
+      __syncthreads();
+      width = (width + 1) >> 1;
+      continue;
+    }
+    // B's keys of the range probe it: B's smallest 2 pos + strand a key A
+    // has; the first B entry of a key that is not frequent lists its slot
+    for (int p0 = tid * LB; p0 < nB; p0 += NT * LB) {
+      kmer_seg(wB, WB, p0, LB, nB, k, [&](int p, uint32_t key, bool strand) {
+        const uint32_t h = mix32(key);
+        if (h < lo || h >= hi) return;
+        uint32_t slot = h & smask;
+        while (true) {
+          const uint32_t kk = static_cast<uint32_t>(slotA[slot] >> 32);
+          if (kk == key) {
+            if (atomicMin(sideB + slot, 2 * p + static_cast<int>(strand)) == EMPTY_B &&
+                !is_frequent(fk, F, key))
+              hits.put(atomicAdd(&s_c[NH], 1), make_int2(static_cast<int>(slot), 0));
+            return;
+          }
+          if (kk == UMAX) return;
+          slot = (slot + 1) & smask;
+        }
+      });
     }
     __syncthreads();
-    // the hits, compacted into the scratch, and the strand vote
-    int same = 0, opp = 0;
-    for (int i = tid; i < S; i += THREADS) {
-      const int va = __ldcg(sideA + i), vb = __ldcg(sideB + i);
-      if (va == EMPTY_A || vb == EMPTY_B) continue;
-      if (is_frequent(fk, F, __ldcg(keys + i))) continue;
+    // the round's hits from their slots, the vote; the table cleared where
+    // another round follows
+    if (tid == 0) s_c[CLAIM] = 0;
+    const int nh1 = s_c[NH];
+    for (int h = nh0 + tid; h < nh1; h += NT) {
+      const int slot = hits.get(h).x;
+      const int va = static_cast<int>(static_cast<uint32_t>(slotA[slot])), vb = sideB[slot];
       const int agree = (va & 1) == (vb & 1);
       same += agree;
       opp += !agree;
-      const int slot = atomicAdd(&s_c[NH], 1);
-      __stcg(hits + slot, make_int2(va >> 1, ((vb >> 1) << 1) | agree));
+      hits.put(h, make_int2(va >> 1, ((vb >> 1) << 1) | agree));
     }
-    same = warp_sum(same);
-    opp = warp_sum(opp);
+    nh0 = nh1;
+    if (hi < span) {
+      __syncthreads();  // every listed slot read
+      for (int i = tid; i < S; i += NT) {
+        slotA[i] = EMPTY_SLOT;
+        sideB[i] = EMPTY_B;
+      }
+    }
+    __syncthreads();
+    lo = hi;
+  }
+  same = warp_sum(same);
+  opp = warp_sum(opp);
+  if (lane == 0) {
+    atomicAdd(&s_c[SAME], same);
+    atomicAdd(&s_c[OPP], opp);
+  }
+  __syncthreads();
+  const int nh = s_c[NH];
+  PairCtx ctx{lb, k, s_c[OPP] > s_c[SAME] ? 1 : 0, 0, 0};
+  // the agreeing hits' count and diagonal range
+  {
+    int n2 = 0;
+    uint32_t umn = UMAX, umx = 0u;
+    for (int h = tid; h < nh; h += NT) {
+      int d;
+      if (!ctx.take(hits.get(h), 0, d)) continue;
+      const uint32_t u = static_cast<uint32_t>(d) ^ 0x80000000u;
+      umn = u < umn ? u : umn;
+      umx = u > umx ? u : umx;
+      ++n2;
+    }
+    n2 = warp_sum(n2);
+    umn = warp_umin(umn);
+    umx = warp_umax(umx);
     if (lane == 0) {
-      atomicAdd(&s_c[SAME], same);
-      atomicAdd(&s_c[OPP], opp);
+      atomicAdd(&s_c[N2], n2);
+      atomicMin(reinterpret_cast<unsigned int*>(&s_c[UMN]), umn);
+      atomicMax(reinterpret_cast<unsigned int*>(&s_c[UMX]), umx);
     }
-    __syncthreads();
-    const int nh = s_c[NH];
-    PairCtx ctx{lb, k, s_c[OPP] > s_c[SAME] ? 1 : 0, 0, 0};
-    // the agreeing hits' count and diagonal range
-    {
-      int n2 = 0;
-      uint32_t umn = UMAX, umx = 0u;
-      for (int h = tid; h < nh; h += THREADS) {
-        int d;
-        if (!ctx.take(__ldcg(hits + h), 0, d)) continue;
-        const uint32_t u = static_cast<uint32_t>(d) ^ 0x80000000u;
-        umn = u < umn ? u : umn;
-        umx = u > umx ? u : umx;
-        ++n2;
-      }
-      n2 = warp_sum(n2);
-      umn = warp_umin(umn);
-      umx = warp_umax(umx);
-      if (lane == 0) {
-        atomicAdd(&s_c[N2], n2);
-        atomicMin(reinterpret_cast<unsigned int*>(&s_c[UMN]), umn);
-        atomicMax(reinterpret_cast<unsigned int*>(&s_c[UMX]), umx);
-      }
+  }
+  __syncthreads();
+  const int n2 = s_c[N2];
+  ctx.med = n2 > 0 ? select_diag<NT>(hits, nh, ctx, 0, (n2 - 1) / 2,
+                                     static_cast<uint32_t>(s_c[UMN]),
+                                     static_cast<uint32_t>(s_c[UMX]), s_hist, s_sel)
+                   : BIG;
+  const int min_len = la < lb ? la : lb;
+  const int tol_f = static_cast<int>(__fmul_rn(__int2float_rn(min_len), 0.3f));
+  ctx.tol = tol_f > 100 ? tol_f : 100;
+  // the inliers: count, spans, diagonal range
+  {
+    int ni = 0, alo = BIG, ahi = -1, blo = BIG, bhi = -1;
+    uint32_t umn = UMAX, umx = 0u;
+    for (int h = tid; h < nh; h += NT) {
+      const int2 hv = hits.get(h);
+      int d;
+      if (!ctx.take(hv, 1, d)) continue;
+      const uint32_t u = static_cast<uint32_t>(d) ^ 0x80000000u;
+      umn = u < umn ? u : umn;
+      umx = u > umx ? u : umx;
+      const int pa = hv.x, pb = hv.y >> 1;
+      alo = pa < alo ? pa : alo;
+      ahi = pa + k > ahi ? pa + k : ahi;
+      blo = pb < blo ? pb : blo;
+      bhi = pb + k > bhi ? pb + k : bhi;
+      ++ni;
     }
-    __syncthreads();
-    const int n2 = s_c[N2];
-    ctx.med = n2 > 0 ? select_diag(hits, nh, ctx, 0, (n2 - 1) / 2, static_cast<uint32_t>(s_c[UMN]),
-                                   static_cast<uint32_t>(s_c[UMX]), s_hist, s_sel)
-                     : BIG;
-    const int min_len = la < lb ? la : lb;
-    const int tol_f = static_cast<int>(__fmul_rn(__int2float_rn(min_len), 0.3f));
-    ctx.tol = tol_f > 100 ? tol_f : 100;
-    // the inliers: count, spans, diagonal range
-    {
-      int ni = 0, alo = BIG, ahi = -1, blo = BIG, bhi = -1;
-      uint32_t umn = UMAX, umx = 0u;
-      for (int h = tid; h < nh; h += THREADS) {
-        const int2 hv = __ldcg(hits + h);
-        int d;
-        if (!ctx.take(hv, 1, d)) continue;
-        const uint32_t u = static_cast<uint32_t>(d) ^ 0x80000000u;
-        umn = u < umn ? u : umn;
-        umx = u > umx ? u : umx;
-        const int pa = hv.x, pb = hv.y >> 1;
-        alo = pa < alo ? pa : alo;
-        ahi = pa + k > ahi ? pa + k : ahi;
-        blo = pb < blo ? pb : blo;
-        bhi = pb + k > bhi ? pb + k : bhi;
-        ++ni;
-      }
-      ni = warp_sum(ni);
-      alo = warp_min(alo);
-      blo = warp_min(blo);
-      ahi = -warp_min(-ahi);
-      bhi = -warp_min(-bhi);
-      umn = warp_umin(umn);
-      umx = warp_umax(umx);
-      if (lane == 0) {
-        atomicAdd(&s_c[NI], ni);
-        atomicMin(&s_c[ALO], alo);
-        atomicMax(&s_c[AHI], ahi);
-        atomicMin(&s_c[BLO], blo);
-        atomicMax(&s_c[BHI], bhi);
-        atomicMin(reinterpret_cast<unsigned int*>(&s_c[UMN2]), umn);
-        atomicMax(reinterpret_cast<unsigned int*>(&s_c[UMX2]), umx);
-      }
+    ni = warp_sum(ni);
+    alo = warp_min(alo);
+    blo = warp_min(blo);
+    ahi = -warp_min(-ahi);
+    bhi = -warp_min(-bhi);
+    umn = warp_umin(umn);
+    umx = warp_umax(umx);
+    if (lane == 0) {
+      atomicAdd(&s_c[NI], ni);
+      atomicMin(&s_c[ALO], alo);
+      atomicMax(&s_c[AHI], ahi);
+      atomicMin(&s_c[BLO], blo);
+      atomicMax(&s_c[BHI], bhi);
+      atomicMin(reinterpret_cast<unsigned int*>(&s_c[UMN2]), umn);
+      atomicMax(reinterpret_cast<unsigned int*>(&s_c[UMX2]), umx);
     }
-    __syncthreads();
-    const int ni = s_c[NI];
-    const int med2 = ni > 0 ? select_diag(hits, nh, ctx, 1, (ni - 1) / 2,
-                                          static_cast<uint32_t>(s_c[UMN2]),
-                                          static_cast<uint32_t>(s_c[UMX2]), s_hist, s_sel)
-                            : BIG;
-    if (tid == 0) {
-      out[q] = ctx.flipped;
-      out[C + q] = med2;
-      out[2 * C + q] = ni;
-      out[3 * C + q] = s_c[ALO];
-      out[4 * C + q] = s_c[AHI];
-      out[5 * C + q] = s_c[BLO];
-      out[6 * C + q] = s_c[BHI];
-    }
-    __syncthreads();  // the counters and the table are the next pair's
+  }
+  __syncthreads();
+  const int ni = s_c[NI];
+  const int med2 = ni > 0 ? select_diag<NT>(hits, nh, ctx, 1, (ni - 1) / 2,
+                                            static_cast<uint32_t>(s_c[UMN2]),
+                                            static_cast<uint32_t>(s_c[UMX2]), s_hist, s_sel)
+                          : BIG;
+  if (tid == 0) {
+    out[q] = ctx.flipped;
+    out[M + q] = med2;
+    out[2 * M + q] = ni;
+    out[3 * M + q] = s_c[ALO];
+    out[4 * M + q] = s_c[AHI];
+    out[5 * M + q] = s_c[BLO];
+    out[6 * M + q] = s_c[BHI];
+    if (rounds_out != nullptr) rounds_out[q] = taken;
   }
 }
 
@@ -1474,30 +1619,72 @@ extern "C" int canu_syncmer(const void* words, int W, const void* lengths, const
   return static_cast<int>(cudaGetLastError());
 }
 
-// wordsA, wordsB int64[C, W] (uint32 values, 16 bases a word), lenA, lenB
-// int32[C]: the chunk's pairs; fk int64[F >= 1] (uint32 values, sorted): the
-// frequent k-mers; k in 2..32.  The scratch for `blocks` blocks: keys
-// uint32, sides int32 x 2, each [blocks, S_max] with S_max >= pow2(4 P),
-// and hits int2[blocks, H_max >= P] (P = 16 W - k + 1).  out int32[7, C]:
-// flipped, the second median, n_inliers, a_lo, a_hi, b_lo, b_hi.  Returns
-// cudaGetLastError() of the launch, -1 for k out of range, -3 for a bad
-// size.
-extern "C" int canu_pair_stats(const void* wordsA, const void* lenA, const void* wordsB,
-                               const void* lenB, int W, int C, const void* fk, int F, int k,
-                               int blocks, int S_max, int H_max, void* keys, void* sideA,
-                               void* sideB, void* hits, void* out, void* stream) {
+// K12's shared bytes at (slots, hits), set as the kernel's limit: slots a
+// power of two of at least 64 and hits at least 32, within 227 KB.
+// Returns -2 for a plan the kernel does not take, else the CUDA error of
+// the shared-memory attributes.
+static int k12_setup(int slots, int hits, size_t* smem) {
+  if (slots < K12_MIN_SLOTS || (slots & (slots - 1)) || hits < 32 ||
+      8 * static_cast<long long>(hits) + 12 * static_cast<long long>(slots) > 227 * 1024)
+    return -2;
+  *smem = 8 * static_cast<size_t>(hits) + 12 * static_cast<size_t>(slots);
+  cudaError_t err = cudaFuncSetAttribute(pair_stats_kernel<K12_NT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(*smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(pair_stats_kernel<K12_NT>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return static_cast<int>(err);
+}
+
+// words int64[N, W] (uint32 values, 16 bases a word) and lens int32[N]:
+// the word plane (the read set's for a place_candidates call); pair q is
+// row a_idx[q] against row b_idx[q] (int32[M]); fk int64[F >= 1] (uint32
+// values, sorted): the frequent k-mers; k in 2..32.  slots, hits: the
+// launch plan (k12_setup) at K12_NT threads a block.  hit_off int64[M]
+// (or null when no pair has more than `hits` possible hits) is each
+// pair's room in dhits (int2), at least min(nA, nB) - hits entries.  out
+// int32[7, M]: flipped, the second median, n_inliers, a_lo, a_hi, b_lo,
+// b_hi; rounds int32[M] (or null) each pair's rounds.  Returns
+// cudaGetLastError() of the launch, -1 for k out of range, -2 for a plan
+// the kernel does not take, -3 for a bad size.
+extern "C" int canu_pair_stats(const void* words, const void* lens, int W, const void* a_idx,
+                               const void* b_idx, int M, const void* fk, int F, int k, int slots,
+                               int hits, const void* hit_off, void* dhits, void* out,
+                               void* rounds, void* stream) {
   if (k < 2 || k > 32) return -1;
-  if (W < 1 || C < 0 || F < 1 || blocks < 1) return -3;
-  const int P = 16 * W - k + 1;
-  if (P < 1 || H_max < P || S_max < pow2_at_least(4 * P)) return -3;
-  if (C == 0) return 0;
-  pair_stats_kernel<<<blocks < C ? blocks : C, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(wordsA), static_cast<const int32_t*>(lenA),
-      static_cast<const int64_t*>(wordsB), static_cast<const int32_t*>(lenB), W, C,
-      static_cast<const int64_t*>(fk), F, k, S_max, H_max, static_cast<uint32_t*>(keys),
-      static_cast<int*>(sideA), static_cast<int*>(sideB), static_cast<int2*>(hits),
-      static_cast<int32_t*>(out));
+  if (W < 1 || M < 0 || F < 1 || 16 * W - k + 1 < 1) return -3;
+  size_t smem;
+  const int rc = k12_setup(slots, hits, &smem);
+  if (rc != 0) return rc;
+  if (M == 0) return 0;
+  pair_stats_kernel<K12_NT><<<M, K12_NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(words), static_cast<const int32_t*>(lens), W,
+      static_cast<const int32_t*>(a_idx), static_cast<const int32_t*>(b_idx), M,
+      static_cast<const int64_t*>(fk), F, k, slots, hits, static_cast<const int64_t*>(hit_off),
+      static_cast<int2*>(dhits), static_cast<int32_t*>(out), static_cast<int32_t*>(rounds));
   return static_cast<int>(cudaGetLastError());
+}
+
+// What the card gives K12 at a launch plan: out[0..4] resident blocks an
+// SM, registers a thread, dynamic and static shared bytes a block, and
+// threads a block (K12_NT).  Returns -2 for a plan the kernel does not
+// take, else the first CUDA error or 0.
+extern "C" int canu_pair_stats_resources(int slots, int hits, int* out) {
+  size_t smem;
+  const int rc = k12_setup(slots, hits, &smem);
+  if (rc != 0) return rc;
+  const void* kern = reinterpret_cast<const void*>(pair_stats_kernel<K12_NT>);
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kern, K12_NT, smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kern);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[1] = fa.numRegs;
+  out[2] = static_cast<int>(smem);
+  out[3] = static_cast<int>(fa.sharedSizeBytes);
+  out[4] = K12_NT;
+  return 0;
 }
 
 // What the card gives each kernel at index rows of Pm (K7) and pm (K8)

@@ -23,12 +23,18 @@ bucket's width; ops.minimizers.build_read_index calls it on the card.
 ``syncmer`` runs one padded block (ops.minimizers._syncmer_kernel on CUDA
 tensors).  Both are held against ops.minimizers._syncmer_kernel_plain.
 
-K12 (``pair_stats``) is stage C's pair statistics for a chunk of read
-pairs in one launch, one block of 256 threads a pair: the join of the two
-reads' canonical k-mers through a hash table in a device scratch sized
-here, the strand vote, the two lower medians by radix selects, the
-inliers and their spans.  ops.minhash.place_candidates launches it on CUDA
-tensors; it is held against ops.minhash._pair_stats_kernel.
+K12 is stage C's pair statistics, one block a pair, the join of the two
+reads' canonical k-mers in shared memory (a table of A's keys that B
+probes, in rounds where A has more positions than the table holds at half
+load; the hits in shared memory, a pair with more possible hits than that
+spilling to its room in a device list), the strand vote, the two lower
+medians by radix selects, the inliers and their spans.
+``pair_stats_rows`` takes a whole place_candidates call in one launch
+(pairs as rows of the read set's word plane; a call whose device hit list
+would pass K12_HIT_LIST is split into launches that stay within it);
+``pair_stats`` a chunk of padded pairs, its two blocks stacked into one
+plane, through the same kernel.  Both are held against
+ops.minhash._pair_stats_kernel.
 
 The library is built by ops/kernels/_nvcc.py and loaded with ctypes;
 nothing here falls back to the plain versions: a failed build, a tensor
@@ -39,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _nvcc
@@ -48,10 +55,18 @@ SOURCE = _nvcc.CSRC / "verify.cu"
 # launches since the last reset (read by chip_smoke.py): K7, K8, K12
 PRE_LAUNCHES = SYNCMER_LAUNCHES = PAIR_STATS_LAUNCHES = 0
 
-# device bytes K12's scratch may take (a hash table and a hit list a
-# block); a chunk of longer reads gets fewer blocks, each striding over
-# the chunk's pairs
-PAIR_STATS_SCRATCH = 1 << 30
+# K12's launch plan: threads a block (csrc/verify.cu K12_NT, fixed when
+# the library is built), table slots a block (a pair with more than
+# K12_SLOTS / 2 positions in A takes rounds) and hits kept in shared memory
+# (a pair with more possible hits spills the rest to a device list):
+# 106,496 B of dynamic shared memory, 2 blocks an SM.  The fastest of the
+# plans scripts/torch_pair_stats_variants.py sweeps on phase 4d.
+K12_THREADS = 512
+K12_SLOTS = 8192
+K12_HITS = 1024
+K12_MIN_SLOTS = 64
+# the device hit list one K12 launch may take, in int2 entries (1 GiB)
+K12_HIT_LIST = 1 << 27
 
 # K7 keeps each hit's two slots in 11 bits each; K8 holds pm (key,
 # position) pairs in shared memory
@@ -60,22 +75,27 @@ MAX_PM = 2048
 _lib = None
 
 
+def bind(path) -> ctypes.CDLL:
+    """The library built from SOURCE at path, its functions typed."""
+    lib = ctypes.CDLL(str(path))
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    lib.canu_verify_pre.argtypes = [p, i, p, p, p, p, i, p, p, p, i, i, i, i, i, i, i,
+                                    p, p, p, p, p, p, p, p, p, p, p]
+    lib.canu_syncmer.argtypes = [p, i, p, p, p, i, i, i, i, i, p, p, p, p, p]
+    lib.canu_verify_resources.argtypes = [i, i, p]
+    lib.canu_pair_stats.argtypes = [p, p, i, p, p, i, p, i, i, i, i, p, p, p, p, p]
+    lib.canu_pair_stats_resources.argtypes = [i, i, p]
+    for fn in (lib.canu_verify_pre, lib.canu_syncmer, lib.canu_verify_resources,
+               lib.canu_pair_stats, lib.canu_pair_stats_resources):
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        path, _, _ = _nvcc.build(SOURCE)[0]
-        lib = ctypes.CDLL(str(path))
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        lib.canu_verify_pre.argtypes = [p, i, p, p, p, p, i, p, p, p, i, i, i, i, i, i, i,
-                                        p, p, p, p, p, p, p, p, p, p, p]
-        lib.canu_syncmer.argtypes = [p, i, p, p, p, i, i, i, i, i, p, p, p, p, p]
-        lib.canu_verify_resources.argtypes = [i, i, p]
-        lib.canu_pair_stats.argtypes = [p, p, p, p, i, i, p, i, i, i, i, i, p, p, p, p, p, p]
-        for fn in (lib.canu_verify_pre, lib.canu_syncmer, lib.canu_verify_resources,
-                   lib.canu_pair_stats):
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(_nvcc.build(SOURCE)[0][0])
     return _lib
 
 
@@ -232,55 +252,184 @@ def syncmer_index(words, lengths, rows, wbs, min_wb: int, k: int, s: int, t: int
         _syncmer_launch(words, lengths, rows, wbs, k, s, t, pm, mker, mpos, mstr, n_sel)
 
 
-def pair_stats_scratch(W: int, k: int, C: int) -> tuple[int, int, int]:
-    """(blocks, table slots a block, hits a block) of K12's scratch for a
-    chunk of C pairs padded to W words: a table of pow2(4 P) slots (load
-    at most one half) and P hits a block, as many blocks as
-    PAIR_STATS_SCRATCH holds, 1 to C."""
-    P = 16 * W - k + 1
-    S = 1 << max(0, (4 * P - 1).bit_length())
-    per_block = 12 * S + 8 * P
-    return max(1, min(C, PAIR_STATS_SCRATCH // per_block)), S, P
+def pair_stats_plan(lenA, lenB, k: int) -> dict:
+    """K12's plan for pairs of reads of lengths lenA, lenB (numpy): each
+    pair's table slots (a power of two, K12_MIN_SLOTS..K12_SLOTS, at least
+    twice A's on-read positions where K12_SLOTS allows), rounds (A's
+    positions over half the table; 0 without a position in either read)
+    and room in the device hit list (its possible hits, min(nA, nB), past
+    the K12_HITS kept in shared memory).  csrc/verify.cu k12_plan computes
+    the same slots and rounds on the card."""
+    T, HS = K12_SLOTS, K12_HITS
+    nA = np.maximum(np.asarray(lenA, np.int64) - k + 1, 0)
+    nB = np.maximum(np.asarray(lenB, np.int64) - k + 1, 0)
+    S = np.ones_like(nA)
+    for _ in range(31):  # pow2 at least 2 nA
+        S = np.where(S < 2 * nA, 2 * S, S)
+    S = np.clip(S, K12_MIN_SLOTS, T)
+    rounds = np.where((nA > 0) & (nB > 0), -(-nA // (S // 2)), 0)
+    return {"slots": S, "rounds": rounds, "room": np.maximum(np.minimum(nA, nB) - HS, 0),
+            "nA": nA, "nB": nB}
 
 
-def pair_stats(wordsA, lenA, wordsB, lenB, fk, k: int):
-    """Kernel K12: (flipped bool[C], the second median, n_inliers, a_lo,
-    a_hi, b_lo, b_hi int32[C]) of ops.minhash._pair_stats_kernel for the
-    chunk's pairs (wordsA/wordsB int64[C, W] of uint32 values, lenA/lenB
-    int32[C]; fk int64[F >= 1], the sorted frequent k-mers) on the card, in
-    one launch."""
+def _pair_stats_launch(words, lengths, a_idx, b_idx, fk, k: int, hit_off, dhits, rounds=None):
+    """Launch K12 on pairs (row a_idx[q], row b_idx[q]) of the word plane,
+    checked by the callers, at the K12_* plan; returns out int32[7, M]."""
     global PAIR_STATS_LAUNCHES
-    if wordsA.dim() != 2:
-        raise ValueError("wordsA must be 2-D")
-    dev = wordsA.device
-    C, W = wordsA.shape
+    dev = words.device
+    M = a_idx.shape[0]
+    out = torch.empty((7, M), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _load().canu_pair_stats(
+            words.data_ptr(), lengths.data_ptr(), int(words.shape[1]), a_idx.data_ptr(),
+            b_idx.data_ptr(), int(M), fk.data_ptr(), int(fk.shape[0]), int(k), int(K12_SLOTS),
+            int(K12_HITS), hit_off.data_ptr() if hit_off is not None else None,
+            dhits.data_ptr() if dhits is not None else None, out.data_ptr(),
+            rounds.data_ptr() if rounds is not None else None, _stream(dev))
+    _raise_on(rc, "K12")
+    if M:
+        PAIR_STATS_LAUNCHES += 1
+    return out
+
+
+def launch_rows(words, lengths, a_idx, b_idx, fk, k: int, lists, rounds=None):
+    """K12 on the pairs (a_idx, b_idx) of the word plane, one launch for
+    each (q0, q1, hit_off, dhits) of lists (rows_hit_lists), checked by the
+    callers: int32[7, M]."""
+    outs = [_pair_stats_launch(words, lengths, a_idx[q0:q1], b_idx[q0:q1], fk, k, off, dh,
+                               rounds[q0:q1] if rounds is not None else None)
+            for q0, q1, off, dh in lists]
+    if not outs:
+        return torch.empty((7, 0), dtype=torch.int32, device=words.device)
+    return outs[0] if len(outs) == 1 else torch.cat(outs, 1)
+
+
+def hit_list_groups(need, budget: int) -> list:
+    """Consecutive pair ranges (q0, q1, room) of a call whose summed room in
+    the device hit list (need int64[M], numpy: each pair's entries) stays
+    within budget entries: one range where the whole call fits, and a pair
+    past the budget alone in its range."""
+    c = np.concatenate([[0], np.cumsum(need, dtype=np.int64)])
+    out, q0 = [], 0
+    while q0 < len(need):
+        q1 = max(q0 + 1, int(np.searchsorted(c, c[q0] + budget, side="right")) - 1)
+        out.append((q0, q1, int(c[q1] - c[q0])))
+        q0 = q1
+    return out
+
+
+def _hit_lists(need, groups) -> list:
+    """(q0, q1, hit_off, dhits) for each group of hit_list_groups: the
+    pairs' offsets in the group's list (need int64[M] on the card), or
+    None where no pair of the group has any room."""
+    out = []
+    for q0, q1, room in groups:
+        if not room:
+            out.append((q0, q1, None, None))
+            continue
+        n = need[q0:q1]
+        out.append((q0, q1, torch.cumsum(n, 0) - n,
+                    torch.empty((room, 2), dtype=torch.int32, device=need.device)))
+    return out
+
+
+def _check_pair_inputs(k: int, W: int, fk, dev) -> None:
     if not 2 <= k <= 32:
         raise ValueError(f"kernel K12 takes k in 2..32, got {k}")
     if W < 1 or 16 * W - k + 1 < 1:
         raise ValueError(f"kernel K12: {W} words a read hold no {k}-mer window")
+    if fk.dim() != 1 or fk.shape[0] < 1:
+        raise ValueError("fk must be a 1-D table of at least one k-mer")
+    _nvcc.check_tensor("fk", fk, torch.int64, (fk.shape[0],), dev)
+
+
+def pair_stats(wordsA, lenA, wordsB, lenB, fk, k: int, rounds=None):
+    """Kernel K12 on a chunk: (flipped bool[C], the second median,
+    n_inliers, a_lo, a_hi, b_lo, b_hi int32[C]) of
+    ops.minhash._pair_stats_kernel for the chunk's pairs (wordsA/wordsB
+    int64[C, W] of uint32 values, lenA/lenB int32[C]; fk int64[F >= 1], the
+    sorted frequent k-mers) on the card: the two blocks stacked into one
+    plane, pair i its row i against its row C + i, in one launch (more
+    where the chunk's hit list would pass K12_HIT_LIST).  Each pair's room
+    in the device hit list is sized from W (no fetch).  rounds (int32[C],
+    optional) gets each pair's rounds."""
+    if wordsA.dim() != 2:
+        raise ValueError("wordsA must be 2-D")
+    dev = wordsA.device
+    C, W = wordsA.shape
+    _check_pair_inputs(k, W, fk, dev)
     _nvcc.check_tensor("wordsA", wordsA, torch.int64, (C, W), dev)
     _nvcc.check_tensor("wordsB", wordsB, torch.int64, (C, W), dev)
     _nvcc.check_tensor("lenA", lenA, torch.int32, (C,), dev)
     _nvcc.check_tensor("lenB", lenB, torch.int32, (C,), dev)
-    if fk.dim() != 1 or fk.shape[0] < 1:
-        raise ValueError("fk must be a 1-D table of at least one k-mer")
-    _nvcc.check_tensor("fk", fk, torch.int64, (fk.shape[0],), dev)
+    if rounds is not None:
+        _nvcc.check_tensor("rounds", rounds, torch.int32, (C,), dev)
     _on_card("K12", dev)
-    out = torch.empty((7, C), dtype=torch.int32, device=dev)
-    if C:
-        blocks, S, H = pair_stats_scratch(W, k, C)
-        keys = torch.empty((blocks, S), dtype=torch.int32, device=dev)
-        sides = torch.empty((2, blocks, S), dtype=torch.int32, device=dev)
-        hits = torch.empty((blocks, H, 2), dtype=torch.int32, device=dev)
-        fn = _load().canu_pair_stats
-        with torch.cuda.device(dev):
-            rc = fn(wordsA.data_ptr(), lenA.data_ptr(), wordsB.data_ptr(), lenB.data_ptr(),
-                    int(W), int(C), fk.data_ptr(), int(fk.shape[0]), int(k), int(blocks),
-                    int(S), int(H), keys.data_ptr(), sides[0].data_ptr(), sides[1].data_ptr(),
-                    hits.data_ptr(), out.data_ptr(), _stream(dev))
-        _raise_on(rc, "K12")
-        PAIR_STATS_LAUNCHES += 1
+    room = max(0, 16 * W - k + 1 - K12_HITS)  # a pair's possible hits past the shared list
+    idx = torch.arange(C, dtype=torch.int32, device=dev)
+    need = torch.full((C,), room, dtype=torch.int64, device=dev)
+    lists = _hit_lists(need, hit_list_groups(np.full(C, room, np.int64), K12_HIT_LIST))
+    out = launch_rows(torch.cat([wordsA, wordsB]), torch.cat([lenA, lenB]), idx, idx + C, fk, k,
+                      lists, rounds)
     return (out[0] != 0, *out[1:].unbind(0))
+
+
+def pair_stats_rows(words, lengths, a_idx, b_idx, fk, k: int, rounds=None):
+    """Kernel K12 on a whole call: int32[7, M] (flipped, the second median,
+    n_inliers, a_lo, a_hi, b_lo, b_hi) of ops.minhash._pair_stats_kernel
+    for the pairs (row a_idx[q], row b_idx[q]) (int32[M]) of the word plane
+    words int64[N, W] (uint32 values) with lengths int32[N], on the card in
+    one launch, each read at its own length (in launches of consecutive
+    pairs where their device hit list would pass K12_HIT_LIST).  One fetch
+    checks the rows and sizes the hit list (rows_hit_lists).  rounds as for
+    pair_stats."""
+    if words.dim() != 2 or a_idx.dim() != 1:
+        raise ValueError("words must be 2-D and a_idx 1-D")
+    dev = words.device
+    N, W = words.shape
+    M = a_idx.shape[0]
+    _check_pair_inputs(k, W, fk, dev)
+    _nvcc.check_tensor("lengths", lengths, torch.int32, (N,), dev)
+    _nvcc.check_tensor("a_idx", a_idx, torch.int32, (M,), dev)
+    _nvcc.check_tensor("b_idx", b_idx, torch.int32, (M,), dev)
+    if rounds is not None:
+        _nvcc.check_tensor("rounds", rounds, torch.int32, (M,), dev)
+    if M == 0:
+        _on_card("K12", dev)
+        return torch.empty((7, 0), dtype=torch.int32, device=dev)
+    lists = rows_hit_lists(lengths, a_idx, b_idx, k)
+    _on_card("K12", dev)
+    return launch_rows(words, lengths, a_idx, b_idx, fk, k, lists, rounds)
+
+
+def rows_hit_lists(lengths, a_idx, b_idx, k: int) -> list:
+    """A call's launches as (q0, q1, hit_off, dhits) (launch_rows): each
+    pair's room past the K12_HITS kept in shared memory, min(nA, nB) -
+    K12_HITS where positive, packed in pair order, the pairs split where
+    their summed room passes K12_HIT_LIST (hit_list_groups), after one
+    fetch that also checks every row lies in the plane (a second, of each
+    pair's room, only where the call is split)."""
+    N = lengths.shape[0]
+    ab = torch.stack([a_idx, b_idx]).to(torch.int64)
+    n = torch.clamp(lengths.to(torch.int64)[ab.clamp(0, N - 1)] - k + 1, min=0)
+    need = torch.clamp(torch.minimum(n[0], n[1]) - K12_HITS, min=0)
+    lo, hi, total = torch.stack([ab.min(), ab.max(), need.sum()]).tolist()
+    if lo < 0 or hi >= N:
+        raise ValueError(f"kernel K12: pair rows {lo}..{hi} outside the plane's {N} rows")
+    M = a_idx.shape[0]
+    groups = ([(0, M, total)] if total <= K12_HIT_LIST
+              else hit_list_groups(need.cpu().numpy(), K12_HIT_LIST))
+    return _hit_lists(need, groups)
+
+
+def pair_stats_resources() -> dict:
+    """What the card gives K12 at the K12_* plan: resident blocks an SM,
+    registers a thread, dynamic and static shared bytes a block, threads a
+    block (the library's K12_NT)."""
+    out = (ctypes.c_int * 5)()
+    _raise_on(_load().canu_pair_stats_resources(K12_SLOTS, K12_HITS, out), "K12 resources")
+    return dict(zip(("blocks_per_sm", "registers", "dynamic_smem", "static_smem", "threads"),
+                    out[:5]))
 
 
 def resources(Pm: int, pm: int) -> dict:

@@ -337,7 +337,7 @@ def _pair_stats_kernel(wordsA, lenA, wordsB, lenB, fk_kmers, k: int):
     int32[C]) where the spans cover the inlier k-mer matches (the B span
     in forward-B coordinates).  Shared k-mers come from the one-sort
     adjacency join (ops.kmerjoin).  The plain version of kernel K12
-    (``_pair_stats``).
+    (``_pair_stats_rows``); place_candidates runs it on the CPU.
     """
     global PLAIN_CUDA_PAIR_STATS
     if wordsA.is_cuda:
@@ -382,14 +382,31 @@ def _pair_stats_kernel(wordsA, lenA, wordsB, lenB, fk_kmers, k: int):
     return flipped, med2, n_inl, a_lo, a_hi, b_lo, b_hi
 
 
-def _pair_stats(wordsA, lenA, wordsB, lenB, fk_kmers, k: int):
-    """Stage C's statistics of a chunk of pairs: kernel K12 on CUDA
-    tensors (one launch), _pair_stats_kernel on CPU tensors."""
-    if wordsA.is_cuda:
-        from .kernels.verify_cuda import pair_stats
+def _pair_stats_rows(words, lengths, a_idx, b_idx, fk_kmers, k: int):
+    """Stage C's statistics of every pair of a call on the card: kernel K12
+    in one launch over the read set's word plane (int32[7, M])."""
+    from .kernels.verify_cuda import pair_stats_rows
 
-        return pair_stats(wordsA, lenA, wordsB, lenB, fk_kmers, k)
-    return _pair_stats_kernel(wordsA, lenA, wordsB, lenB, fk_kmers, k)
+    return pair_stats_rows(words, lengths, a_idx, b_idx, fk_kmers, k)
+
+
+def chunk_block(readset: ReadSet, chunk_pairs: np.ndarray, chunk: int):
+    """A chunk's padded arrays as the CPU path builds them: (wordsA, lenA,
+    wordsB, lenB) numpy, W the power of two of the chunk's longest read's
+    words, the rows past the chunk's pairs empty up to `chunk`."""
+    a_ids = chunk_pairs[:, 0].astype(np.int64)
+    b_ids = chunk_pairs[:, 1].astype(np.int64)
+    wmax = n_words(int(max(readset.length[a_ids - 1].max(), readset.length[b_ids - 1].max())))
+    W = 1 << max(0, int(wmax - 1).bit_length())
+    wa, la = readset.block_words(a_ids, W)
+    wb, lb = readset.block_words(b_ids, W)
+    C = len(chunk_pairs)
+    if C < chunk:
+        padw = np.zeros((chunk - C, W), np.uint32)
+        padl = np.zeros(chunk - C, np.int32)
+        wa, la = np.vstack([wa, padw]), np.concatenate([la, padl])
+        wb, lb = np.vstack([wb, padw]), np.concatenate([lb, padl])
+    return wa, la.astype(np.int32), wb, lb.astype(np.int32)
 
 
 _PLACED = tuple(f.name for f in fields(OverlapCandidates))
@@ -398,35 +415,41 @@ _PLACED = tuple(f.name for f in fields(OverlapCandidates))
 def place_candidates(readset: ReadSet, pairs: np.ndarray, k: int = 16,
                      frequent: Optional[FrequentKmers] = None, min_shared: int = 4,
                      chunk: int = 256, device=None) -> OverlapCandidates:
-    """Run stage C on candidate (a_id, b_id) pairs, `chunk` pairs a device
-    call (the last padded to it; kernel K12 on the card), and keep the
-    pairs with at least min_shared inlier shared k-mers
-    (canu_tpu.ops.minhash.place_candidates)."""
+    """Run stage C on candidate (a_id, b_id) pairs and keep the pairs with
+    at least min_shared inlier shared k-mers
+    (canu_tpu.ops.minhash.place_candidates).  On the card every pair goes
+    through kernel K12 in one launch over the read set's word plane, each
+    read at its own length, and one fetch; on the CPU `chunk` pairs a call
+    of the plain statistics (the last padded to it), as canu_tpu runs it.
+    A pair's statistics do not depend on its chunk: the padding lies past
+    both reads."""
     dev = resolve_device(device)
     fk = u32_tensor(_fk_array(frequent), dev)
-    cols: dict[str, list[np.ndarray]] = {n: [] for n in _PLACED}
-    for s in range(0, len(pairs), chunk):
-        chunk_pairs = pairs[s : s + chunk]
-        a_ids = chunk_pairs[:, 0].astype(np.int64)
-        b_ids = chunk_pairs[:, 1].astype(np.int64)
-        wmax = n_words(int(max(readset.length[a_ids - 1].max(), readset.length[b_ids - 1].max())))
-        W = 1 << max(0, int(wmax - 1).bit_length())
-        wa, la = readset.block_words(a_ids, W)
-        wb, lb = readset.block_words(b_ids, W)
-        C = len(chunk_pairs)
-        if C < chunk:
-            padw = np.zeros((chunk - C, W), np.uint32)
-            padl = np.zeros(chunk - C, np.int32)
-            wa, la = np.vstack([wa, padw]), np.concatenate([la, padl])
-            wb, lb = np.vstack([wb, padw]), np.concatenate([lb, padl])
-        lens = [torch.from_numpy(x.astype(np.int32)).to(dev) for x in (la, lb)]
-        stats = _pair_stats(u32_tensor(wa, dev), lens[0], u32_tensor(wb, dev), lens[1], fk, k)
-        fl, dg, ni, alo, ahi, blo, bhi = torch.stack(
-            [t[:C].to(torch.int32) for t in stats]).cpu().numpy()  # one copy a chunk
-        fl = fl != 0
+    a_ids = pairs[:, 0].astype(np.int64)
+    b_ids = pairs[:, 1].astype(np.int64)
+    if dev.type == "cuda":
+        from .votepile import device_words
+
+        words, lengths = device_words(readset, dev)
+        rows = torch.from_numpy(np.stack([a_ids - 1, b_ids - 1]).astype(np.int32)).to(dev)
+        fl, dg, ni, alo, ahi, blo, bhi = _pair_stats_rows(words, lengths, rows[0], rows[1],
+                                                          fk, k).cpu().numpy()  # one fetch
         keep = ni >= min_shared
-        for name, v in zip(_PLACED, (a_ids, b_ids, fl, dg, ni, alo, ahi, blo, bhi)):
-            cols[name].append(v[keep])
+        vals = (a_ids, b_ids, fl != 0, dg, ni, alo, ahi, blo, bhi)
+        cols = {name: [v[keep]] for name, v in zip(_PLACED, vals)}
+    else:
+        cols = {n: [] for n in _PLACED}
+        for s in range(0, len(pairs), chunk):
+            wa, la, wb, lb = chunk_block(readset, pairs[s : s + chunk], chunk)
+            C = min(chunk, len(pairs) - s)
+            stats = _pair_stats_kernel(u32_tensor(wa, dev), torch.from_numpy(la),
+                                       u32_tensor(wb, dev), torch.from_numpy(lb), fk, k)
+            fl, dg, ni, alo, ahi, blo, bhi = torch.stack(
+                [t[:C].to(torch.int32) for t in stats]).numpy()
+            keep = ni >= min_shared
+            vals = (a_ids[s : s + C], b_ids[s : s + C], fl != 0, dg, ni, alo, ahi, blo, bhi)
+            for name, v in zip(_PLACED, vals):
+                cols[name].append(v[keep])
     dtypes = {"flipped": bool}
     return OverlapCandidates(**{
         n: (np.concatenate(cols[n]) if cols[n] else np.zeros(0)).astype(dtypes.get(n, np.int32))

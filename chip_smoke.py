@@ -108,12 +108,15 @@ Phases (each prints its results; any failure exits non-zero):
   4d placed   stage C (place_candidates) on the bench read set's cor
               candidates at k 16 with the frequent table and at k 22
               without one, then verify_overlaps of each placed set: K12
-              once a chunk of 256 pairs and held bit for bit to the plain
-              statistics on every chunk, the verify's K7, K8, K10 and K1
-              with the end pick; the candidates, the placed candidates
-              and the verified rows against placed_overlap_reference.json
+              once a place_candidates call, its rows held bit for bit to
+              the plain statistics chunk by chunk (the CPU path's padded
+              chunks of 256 pairs), the verify's K7, K8, K10 and K1 with
+              the end pick; the candidates, the placed candidates and the
+              verified rows against placed_overlap_reference.json
               (scripts/torch_placed_reference.py); K12 timed on the first
-              chunk beside its bound and the plain version
+              chunk through the chunk entry beside its bound and the plain
+              version, and on each whole call beside the chunks' summed
+              bound and its own count (pair_stats_design)
   5 timing    warm passes of sketch, match and verify as bench.py times
               them, one more pass under torch.profiler (device busy share
               of each sub-stage; tables in chiprun_out/profile.txt); K1
@@ -2311,7 +2314,7 @@ PLACED_KS = ((16, True), (22, False))  # stage C's k, and whether it takes the f
 
 
 def pair_stats_bound(args) -> dict:
-    """K12's bound on one chunk (ops.minhash._pair_stats's arguments):
+    """K12's bound on one chunk (ops.minhash._pair_stats_kernel's arguments):
     bytes = the words each pair's reads need (ceil(len / 16) int64 words a
     read, as stored), the lengths, the frequent table and the seven
     outputs; operations = each on-read k-mer position's key
@@ -2345,35 +2348,54 @@ def pair_stats_bound(args) -> dict:
             "positions": positions, "hits": hits}
 
 
-def placed_drive(dev, card: str, fk) -> dict:
-    """Phase 4d: stage C, place_candidates, on the bench read set's cor
-    candidates (the cor stage's sketch preset and block matcher on the
-    card, phase 4's frequent table), at k 16 with that table and at k 22
-    without one, each then verified (verify_overlaps, band 128), on a read
-    set of its own (so the verify builds its index), the counts set to 0
-    just before and read just after.  K12 must launch once a chunk of 256
-    pairs, the verify K7, K8, K10 and K1 with the end pick, and no plain
-    version on the card.  Holds the candidates, the placed candidates and
-    the verified rows against placed_overlap_reference.json (canu_tpu on
-    the CPU, scripts/torch_placed_reference.py); K12 on every chunk bit for
-    bit against the plain statistics; K10 and K1 with the pick on the
-    verify's first extension group (held_myers_ends); K12 and the plain
-    version timed on the first chunk beside K12's bound."""
-    import torch
+def pair_stats_design(lenA, lenB, k: int, hits: int, n_fk: int) -> dict:
+    """K12's own count of its work on pairs of reads of lengths lenA, lenB
+    (numpy) with `hits` hits in all, from its plan (verify_cuda
+    .pair_stats_plan): rounds a pair; k-mers built (both reads' every round);
+    table inserts (A's positions) and probes (B's), each in one round;
+    slots cleared (every slot once, then each round's scan clears what it
+    reads); shared-memory bytes (12 a slot cleared or scanned, 8 an insert's
+    compare-and-swap and max, 8 a probe's read and min, 8 a hit written and
+    read in each of its 6 passes); its operations (the key and PAIR_POS_OPS
+    a k-mer built, 3 a slot scanned, each hit's PAIR_HIT_OPS and probes) and
+    the bound they set."""
+    import math
 
-    from canu_tpu_torch.config import Config
-    from canu_tpu_torch.ops import align as AL
-    from canu_tpu_torch.ops import minhash as MH
-    from canu_tpu_torch.ops import myers as MY
+    import numpy as np
+
     from canu_tpu_torch.ops.kernels import verify_cuda as VC
-    from canu_tpu_torch.stores.overlaps import store_digest
+
+    pl = VC.pair_stats_plan(lenA, lenB, k)
+    R, S, nA, nB = pl["rounds"], pl["slots"], pl["nA"], pl["nB"]
+    kmers = int((R * (nA + nB)).sum())
+    slots = int((S * (1 + R)).sum())
+    inserts, probes = int(nA[R > 0].sum()), int(nB[R > 0].sum())
+    smem = 12 * slots + 8 * (inserts + probes) + 8 * 7 * hits
+    key = SKETCH_KEY_OPS if k <= 16 else SKETCH_KEY2_OPS
+    probe = SKETCH_PROBE_OPS * (math.ceil(math.log2(max(2, n_fk))) + 1)
+    ops = (key + PAIR_POS_OPS) * kmers + 3 * slots + (PAIR_HIT_OPS + probe) * hits
+    n = int((R > 0).sum())
+    return {"pairs": len(R), "pairs_with_rounds": n, "rounds": int(R.sum()),
+            "rounds_max": int(R.max()) if len(R) else 0,
+            "inserts_a_round": inserts / max(1, int(R.sum())),
+            "probes_a_round": probes / max(1, int(R.sum())), "kmers": kmers,
+            "inserts": inserts, "probes": probes, "slots": slots, "smem_bytes": smem,
+            "room": int(pl["room"].sum()), **{f"design_{n_}": v for n_, v in bound(
+                ops, smem).items()}}
+
+
+def placed_pairs(dev, fk):
+    """Phase 4d's inputs: the bench read set and its cor candidates (the
+    cor stage's sketch preset and block matcher on the card, phase 4's
+    frequent table), held to placed_overlap_reference.json's."""
+    from canu_tpu_torch.config import Config
+    from canu_tpu_torch.ops import minhash as MH
 
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from torch_cases import candidates_digest, placed_digest, readset_digest
+    from torch_cases import candidates_digest, readset_digest
 
     with open(os.path.join(ROOT, "canu_tpu_torch", "placed_overlap_reference.json")) as fh:
         ref = json.load(fh)
-    t_phase = time.time()
     rs = bench_reads()
     check(readset_digest(rs) == ref["reads_sha256"], "4d placed: the read set differs")
     cfg = Config()
@@ -2387,22 +2409,83 @@ def placed_drive(dev, card: str, fk) -> dict:
         f"reference {ref['n_candidates']})")
     check(len(pairs) == ref["n_candidates"] and candidates_digest(pairs) == ref[
         "candidates_sha256"], "4d placed: the candidates differ from the JAX package's")
+    return rs, pairs[:, :2], ref
+
+
+def placed_chunks(rs, pairs, fk, k: int, dev, chunk: int = 256) -> list:
+    """Each chunk of the CPU path's place_candidates as _pair_stats_kernel's
+    arguments on dev (ops.minhash.chunk_block: W the chunk's own, padded to
+    `chunk` pairs)."""
+    import torch
+
+    from canu_tpu_torch.ops import minhash as MH
+    from canu_tpu_torch.ops.hashing import u32_tensor
+
+    out = []
+    for s in range(0, len(pairs), chunk):
+        wa, la, wb, lb = MH.chunk_block(rs, pairs[s : s + chunk], chunk)
+        out.append((u32_tensor(wa, dev), torch.from_numpy(la).to(dev), u32_tensor(wb, dev),
+                    torch.from_numpy(lb).to(dev), fk, k))
+    return out
+
+
+def time_pair_stats_call(call, reps: int = 5) -> float:
+    """K12's device milliseconds on a captured call of
+    ops.minhash._pair_stats_rows (its arguments), the kernel alone: the
+    device hit list sized once, then CUDA events over reps launches."""
+    from canu_tpu_torch.ops.kernels import verify_cuda as VC
+
+    words, lengths, a_idx, b_idx, fk, k = call
+    lists = VC.rows_hit_lists(lengths, a_idx, b_idx, k)
+    return cuda_ms(lambda: VC.launch_rows(words, lengths, a_idx, b_idx, fk, k, lists), reps)
+
+
+def placed_drive(dev, card: str, fk) -> dict:
+    """Phase 4d: stage C, place_candidates, on the bench read set's cor
+    candidates (placed_pairs), at k 16 with phase 4's frequent table and at
+    k 22 without one, each then verified (verify_overlaps, band 128), on a
+    read set of its own (so the verify builds its index), the counts set to
+    0 just before and read just after.  K12 must launch once a
+    place_candidates call, the verify K7, K8, K10 and K1 with the end pick,
+    and no plain version on the card.  Holds the candidates, the placed
+    candidates and the verified rows against placed_overlap_reference.json
+    (canu_tpu on the CPU, scripts/torch_placed_reference.py); each call's
+    rows, chunk by chunk, bit for bit against the plain statistics on the
+    chunk's padded arrays (the CPU path's); K10 and K1 with the pick on the
+    verify's first extension group (held_myers_ends).  Times K12 through
+    the chunk entry on the first k 16 chunk beside its bound and the plain
+    version, and each whole call by CUDA events beside the chunks' summed
+    bound and K12's own count (pair_stats_design)."""
+    import numpy as np
+    import torch
+
+    from canu_tpu_torch.ops import align as AL
+    from canu_tpu_torch.ops import minhash as MH
+    from canu_tpu_torch.ops import myers as MY
+    from canu_tpu_torch.ops.kernels import verify_cuda as VC
+    from canu_tpu_torch.stores.overlaps import store_digest
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_cases import placed_digest
+
+    t_phase = time.time()
+    rs, pairs, ref = placed_pairs(dev, fk)
     n_chunks = -(-len(pairs) // 256)
     out: dict = {"n_candidates": len(pairs), "chunks": n_chunks, "runs": {}}
     kept: dict = {}
-    real = MH._pair_stats
+    real = MH._pair_stats_rows
     real_ext, ext4d = capture_calls(MY, "banded_extend_myers", first_only=True)
     try:
         reset_counts()
         t = time.time()
         for k, with_fk in PLACED_KS:
-            _, kept[k] = capture_calls(MH, "_pair_stats")
+            _, kept[k] = capture_calls(MH, "_pair_stats_rows")
             l0 = VC.PAIR_STATS_LAUNCHES
             t0 = time.time()
-            placed = MH.place_candidates(rs, pairs[:, :2], k=k, frequent=fk if with_fk else None,
+            placed = MH.place_candidates(rs, pairs, k=k, frequent=fk if with_fk else None,
                                          device=dev)
             t_place = time.time() - t0
-            MH._pair_stats = real
+            MH._pair_stats_rows = real
             table = AL.verify_overlaps(rs, placed, band=128, device=dev)
             out["runs"][k] = {"placed": len(placed), "placed_sha256": placed_digest(placed),
                               "rows": len(table.a_id), "rows_sha256": store_digest(table),
@@ -2412,21 +2495,21 @@ def placed_drive(dev, card: str, fk) -> dict:
         t_run = time.time() - t
         counts = read_counts()
     finally:
-        MH._pair_stats, MY.banded_extend_myers = real, real_ext
+        MH._pair_stats_rows, MY.banded_extend_myers = real, real_ext
     log(f"[4d placed] {card}: place_candidates + verify_overlaps at k 16 and 22 in "
         f"{t_run:.2f} s; launch counts {counts}")
     for k, r in out["runs"].items():
         want = ref[f"k{k}"]
         log(f"[4d placed] k {k}: {r['placed']} placed (reference {want['placed']}) in "
-            f"{r['place_s']:.2f} s, {r['k12']} K12 launches; {r['rows']} verified rows (reference "
-            f"{want['rows']}) in {r['verify_s']:.2f} s")
-        check(r["k12"] == n_chunks == len(kept[k]),
-              f"4d placed: k {k}: {r['k12']} K12 launches for {n_chunks} chunks")
+            f"{r['place_s']:.3f} s (place_s), {r['k12']} K12 launch; {r['rows']} verified rows "
+            f"(reference {want['rows']}) in {r['verify_s']:.2f} s")
+        check(r["k12"] == 1 == len(kept[k]),
+              f"4d placed: k {k}: {r['k12']} K12 launches for one place_candidates call")
         check(r["placed"] == want["placed"] and r["placed_sha256"] == want["placed_sha256"],
               f"4d placed: k {k}: the placed candidates differ from the JAX package's")
         check(r["rows"] == want["rows"] and r["rows_sha256"] == want["rows_sha256"],
               f"4d placed: k {k}: the verified rows differ from the JAX package's")
-    check(counts["K12"] == 2 * n_chunks, f"4d placed: {counts['K12']} K12 launches")
+    check(counts["K12"] == 2, f"4d placed: {counts['K12']} K12 launches, not one a call")
     check(counts["K10"] == counts["K11_pick"] == counts["K1"] > 0 and counts["K11"] == 0,
           f"4d placed: K10 {counts['K10']}, K1 {counts['K1']} ({counts['K11_pick']} with the "
           f"end pick), K11 alone {counts['K11']}")
@@ -2440,29 +2523,76 @@ def placed_drive(dev, card: str, fk) -> dict:
         f"verify's first group ({e_args[0].shape[0]} extensions x {e_args[6]} rows, centres at "
         f"stride {e_kw.get('center_stride', 1)})")
 
-    # K12 held to the plain statistics on every chunk; timed on the first
+    # each call's rows held to the plain statistics chunk by chunk; the
+    # chunk entry on every chunk; the rounds each pair took against the plan
     err = 0
-    for k, calls in kept.items():
-        for i, (args, _kw) in enumerate(calls):
-            got, ref_c = VC.pair_stats(*args), MH._pair_stats_kernel(*args)
-            d = max(int((r.to(torch.int64) - g.to(torch.int64)).abs().max())
-                    for r, g in zip(ref_c, got))
+    calls: dict = {}
+    for k, ((call, _kw),) in kept.items():
+        rows = real(*call)
+        chunks = placed_chunks(rs, pairs, call[4], k, dev)
+        parts = []
+        for i, args in enumerate(chunks):
+            C = min(256, len(pairs) - 256 * i)
+            ref_c = MH._pair_stats_kernel(*args)
+            got = VC.pair_stats(*args)
+            d = 0
+            for r, g_call, g_chunk in zip(ref_c, rows[:, 256 * i : 256 * i + C], got):
+                r = r.to(torch.int64)
+                d = max(d, int((r[:C] - g_call.to(torch.int64)).abs().max()),
+                        int((r - g_chunk.to(torch.int64)).abs().max()))
             check(d == 0, f"4d placed: k {k} chunk {i}: K12 differs from the plain statistics "
                   f"(max |diff| {d})")
             err = max(err, d)
-    args = kept[16][0][0]
+            parts.append(pair_stats_bound(args))
+        rounds = torch.full((len(pairs),), -1, dtype=torch.int32, device=dev)
+        VC.pair_stats_rows(*call, rounds=rounds)
+        la, lb = (rs.length[pairs[:, j] - 1] for j in (0, 1))
+        plan_rounds = VC.pair_stats_plan(la, lb, k)["rounds"]
+        took = rounds.cpu().numpy()
+        # a round with more keys than 3/4 of the table is taken again over
+        # half its range (retries: rounds past the plan, not a fault)
+        check(bool((took >= plan_rounds).all()) and np.array_equal(took == 0, plan_rounds == 0),
+              f"4d placed: k {k}: K12 took fewer rounds than its plan, or rounds a pair "
+              f"without a position")
+        retried = {"pairs": int((took > plan_rounds).sum()),
+                   "rounds": int((took - plan_rounds).sum())}
+        bd = {**sum_bounds(parts),
+              **{n: sum(p[n] for p in parts) for n in ("positions", "hits")}}
+        design = pair_stats_design(la, lb, k, bd["hits"], call[4].shape[0])
+        ms_call = time_pair_stats_call(call)
+        calls[k] = {"ms": ms_call, "bound": bd, "design": design, "chunks": len(chunks),
+                    "retried": retried, "first_chunk": chunks[0] if k == 16 else None}
+        log(f"[4d kernel] {card}: k {k}: the call's {len(pairs)} pairs in one K12 launch: "
+            f"{ms_call:.3f} ms (CUDA events, mean of 5); the {len(chunks)} chunks' summed "
+            f"bound {bd['bound_ms']:.4f} ms ({bd['ops']:.3e} operations, {bd['bytes']:.3e} "
+            f"bytes, {bd['positions']} k-mer positions, {bd['hits']} hits; bound by "
+            f"{bd['bound_by']}; {100 * bd['bound_ms'] / ms_call:.1f}% of it); K12's own count: "
+            f"{design['rounds']} rounds over {design['pairs_with_rounds']} pairs (at most "
+            f"{design['rounds_max']}), {design['inserts_a_round']:.0f} inserts and "
+            f"{design['probes_a_round']:.0f} probes a round, {design['kmers']} k-mers built, "
+            f"{design['slots']} slots, {design['smem_bytes']:.3e} shared bytes, "
+            f"{design['room']} hit-list entries in device memory, {retried['rounds']} rounds "
+            f"retried in {retried['pairs']} pairs; its bound "
+            f"{design['design_bound_ms']:.4f} ms ({100 * design['design_bound_ms'] / ms_call:.1f}"
+            f"% of it)")
+    args = calls[16].pop("first_chunk")
+    calls[22].pop("first_chunk")
     _, plain_ms = once_ms(lambda: MH._pair_stats_kernel(*args))
     ms = cuda_ms(lambda: VC.pair_stats(*args), 10)
     bd = pair_stats_bound(args)
-    log(f"[4d kernel] {card}: K12 bit-equal to the plain statistics on all {len(kept[16])} + "
-        f"{len(kept[22])} chunks; the first k 16 chunk ({args[0].shape[0]} pairs x "
-        f"{args[0].shape[1]} words, {bd['positions']} k-mer positions, {bd['hits']} hits): K12 "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms; bound {bd['bound_ms']:.4f} ms ({bd['ops']:.3e} "
-        f"operations, {bd['bytes']:.3e} bytes; bound by {bd['bound_by']}; "
-        f"{100 * bd['bound_ms'] / ms:.1f}% of it)")
+    res = VC.pair_stats_resources()
+    log(f"[4d kernel] {card}: K12 bit-equal to the plain statistics on all {n_chunks} + "
+        f"{n_chunks} chunks, through the call and the chunk entry; the first k 16 chunk "
+        f"({args[0].shape[0]} pairs x {args[0].shape[1]} words, {bd['positions']} k-mer "
+        f"positions, {bd['hits']} hits) through the chunk entry: K12 {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms; bound {bd['bound_ms']:.4f} ms ({bd['ops']:.3e} operations, "
+        f"{bd['bytes']:.3e} bytes; bound by {bd['bound_by']}; {100 * bd['bound_ms'] / ms:.1f}% "
+        f"of it); plan {VC.K12_THREADS} threads, {VC.K12_SLOTS} slots, {VC.K12_HITS} shared "
+        f"hits: {res}")
     del kept
     out.update(err=err, myers_ends_err=err_ends, ms=ms, plain_ms=plain_ms, bound=bd,
-               launches=counts, run_s=t_run, phase_s=time.time() - t_phase)
+               calls=calls, resources=res, launches=counts, run_s=t_run,
+               phase_s=time.time() - t_phase)
     log(f"[4d placed] phase wall {out['phase_s']:.1f} s")
     return out
 
@@ -5735,7 +5865,8 @@ def main() -> int:
                    placed["myers_ends_err"], tools["myers_ends_err"])
     log(f"[kernels] K10 launched {k10_launches} times, once beside each K1 launch of the main "
         f"path's runs and the judge, and K11's end pick ran inside {k11_launches} of those K1 "
-        f"launches (K11 alone: 0); K12 {placed['launches']['K12']} (one a chunk of phase 4d)")
+        f"launches (K11 alone: 0); K12 {placed['launches']['K12']} (one a place_candidates call "
+        "of phase 4d)")
     k9 = correct["fold"]["held"]
     err_fold = max(err_fold, k9["err"], ecolicor["fold"]["held"]["err"],
                    ecoliasm["fold"]["red"]["held"]["err"],

@@ -175,6 +175,33 @@ def test_place_candidates(reads, k, use_fk, edges):
                                       np.asarray(getattr(ov_ref, name)), err_msg=name)
 
 
+@pytest.fixture(scope="module")
+def chunked_ref(reads):
+    # neighbours, every fifth read against itself and random pairs, all
+    # kept (min_shared 0), placed by canu_tpu in chunks of 64
+    rs, _trs, fk = reads
+    ids = np.arange(1, rs.n_reads + 1)
+    rng = np.random.default_rng(21)
+    pairs = np.concatenate([np.stack([ids[:-1], ids[1:]], 1), np.stack([ids, ids], 1)[::5],
+                            np.sort(rng.choice(ids, (60, 2)), axis=1)])
+    return pairs, JM.place_candidates(rs, pairs, k=16, frequent=fk, min_shared=0, chunk=64)
+
+
+@pytest.mark.parametrize("chunk", [16, 64, 256])
+def test_place_candidates_does_not_depend_on_the_chunk(reads, chunked_ref, chunk):
+    # the premise of one K12 launch a call on the card: a pair's statistics
+    # do not depend on the chunk it is padded in (W only pads past its reads)
+    _rs, trs, fk = reads
+    pairs, ref = chunked_ref
+    got = TM.place_candidates(trs, pairs, k=16, frequent=fk, min_shared=0, chunk=chunk,
+                              device="cpu")
+    assert len(got) == len(pairs) > 64 and (got.n_shared > 0).any()
+    for name in PLACED:
+        r, g = getattr(ref, name), getattr(got, name)
+        assert g.dtype == r.dtype, name
+        np.testing.assert_array_equal(g, r, err_msg=name)
+
+
 @pytest.mark.parametrize("case", PAIR_STATS_CASES)
 def test_pair_stats_on_edge_chunks(case):
     # stage C's statistics (kernel K12's plain version) on a chunk of tandem

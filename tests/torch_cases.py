@@ -990,6 +990,85 @@ def pair_stats_case(name: str, seed: int = 29):
     return wa, la_, wb, lb_, fk, k
 
 
+def _mix32(x: int) -> int:
+    x ^= x >> 16
+    x = (x * 0x85EBCA6B) & 0xFFFFFFFF
+    x ^= x >> 13
+    x = (x * 0xC2B2AE35) & 0xFFFFFFFF
+    return x ^ (x >> 16)
+
+
+def skewed_read(rng, n_pos: int, below: int, k: int = 16) -> np.ndarray:
+    """A read (codes uint8) of n_pos + k - 1 bases whose n_pos canonical
+    k-mer keys (k <= 16: min of the forward and reverse-complement 2-bit
+    codes) are distinct and all have mix32(key) < below: each next base is
+    one whose k-mer keeps that, the last base taken back where none does,
+    and a new first k-mer where every path from it ends (below should
+    leave a base more than one choice in four)."""
+    mask, top = (1 << (2 * k)) - 1, 2 * k - 2
+    opts: list = []
+    while len(opts) < n_pos:
+        if not opts:  # a new first k-mer
+            first = rng.integers(0, 4, k)
+            fw = rc = 0
+            for i, b in enumerate(first):
+                fw |= int(b) << (2 * (k - 1 - i))
+                rc |= (3 - int(b)) << (2 * i)
+            if _mix32(min(fw, rc)) >= below:
+                continue
+            bases, fws, rcs, keys = list(first), [fw], [rc], [min(fw, rc)]
+            seen, opts = set(keys), [rng.permutation(4).tolist()]
+            continue
+        if not opts[-1]:  # no base extends the read: take its last one back
+            opts.pop()
+            if opts:
+                seen.discard(keys.pop())
+                bases.pop(), fws.pop(), rcs.pop()
+            continue
+        b = opts[-1].pop()
+        fw, rc = ((fws[-1] << 2) | b) & mask, (rcs[-1] >> 2) | ((3 - b) << top)
+        key = min(fw, rc)
+        if key in seen or _mix32(key) >= below:
+            continue
+        bases.append(b), fws.append(fw), rcs.append(rc), keys.append(key)
+        seen.add(key)
+        opts.append(rng.permutation(4).tolist())
+    return np.asarray(bases, np.uint8)
+
+
+def pair_stats_retry_case(n_pos: int, below: int, W: int, seed: int = 31):
+    """Kernel K12's chunk (as pair_stats_case, k 16, no frequent key) whose
+    A reads have n_pos k-mers, each key's mix32 below `below`: so one of
+    K12's equal mix32 ranges holds more of A's keys than its plan gives a
+    round, and the kernel takes rounds again over narrower ranges.  Pairs:
+    A against itself, its reverse complement, itself less its first 40
+    bases and a random tail, a random read; a second skewed A against
+    itself; an empty pair."""
+    from canu_tpu_torch.utils.bitpack import pack_codes
+
+    k = 16
+    rng = np.random.default_rng(seed + n_pos)
+    A1, A2 = skewed_read(rng, n_pos, below, k), skewed_read(rng, n_pos, below, k)
+    assert len(A1) <= 16 * W
+    rand = rng.integers(0, 4, len(A1)).astype(np.uint8)
+    pairs = [(A1, A1), (A1, (3 - A1[::-1]).astype(np.uint8)),
+             (A1, np.concatenate([A1[40:], rand[:40]])), (A1, rand), (A2, A2),
+             (np.zeros(0, np.uint8), np.zeros(0, np.uint8))]
+
+    def block(reads):
+        words = np.zeros((len(reads), W), np.uint32)
+        lens = np.zeros(len(reads), np.int32)
+        for i, r in enumerate(reads):
+            pk = pack_codes(r)
+            words[i, : len(pk)] = pk
+            lens[i] = len(r)
+        return words, lens
+
+    wa, la = block([a for a, _ in pairs])
+    wb, lb = block([b for _, b in pairs])
+    return wa, la, wb, lb, np.full(1, 0xFFFFFFFF, np.uint32), k
+
+
 # an overlap store's columns, in store_digest's order
 STORE_COLS = ("a_id", "b_id", "flipped", "a_bgn", "a_end", "b_bgn", "b_end", "erate_q")
 
